@@ -8,8 +8,14 @@ Phases, each of which raises on failure (exit code 1):
 1. The card's name and power limit (nvidia-smi), and the build of every CUDA
    kernel from ``metrics_tpu_torch/csrc`` with nvcc.
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it and at edge shapes; then kernel, plain version and
-   the one-call library yardstick timed with CUDA events at the main-path shape.
+   the main path gives it and at edge shapes: the bincount on its dispatched
+   path and on each of its two paths (shared-memory, global), at the
+   shared-memory threshold and one bin above it, with hot bins, on memory
+   full of junk, at N=0 and N=1. Then a sweep of five shapes the port gives
+   the bincount (main, large-L, multilabel, binary, one-bin), both paths:
+   device time and device operations per call (torch.profiler), wrapper time
+   (CUDA events) and host time per call, beside the plain version,
+   ``torch.bincount`` and the bound. One JSON line ``{"bincount_sweep": ...}``.
 3. The main path: the headline suite of ``bench.py`` (Accuracy, F1Score,
    ConfusionMatrix, Precision; macro, C=128) on batches of B=8192 softmax
    rows, 5 warm-up and 50 timed ``update`` steps, then ``compute()``, in
@@ -19,6 +25,9 @@ Phases, each of which raises on failure (exit code 1):
    must share a compute group.
 4. The large-L path: the same suite at C=1000 (L = 10**6 bins), B=4096, 10 steps,
    checked against the CPU the same way.
+5. The multilabel path: ConfusionMatrix(multilabel=True) at B=8192, C=128
+   (2**20 ids into 512 bins a step), 10 steps, its state equal to the CPU's
+   and one kernel launch per update.
 
 Output: labelled lines, then a JSON line ``{"kernels": [...]}``, then the
 nvidia-smi line, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -81,79 +90,175 @@ def build_kernels(native, histogram) -> float:
 
 
 # ------------------------------------------------------------------ phase 2
-def check_bincount(histogram) -> tuple:
-    """Hold the kernel against its plain version at every shape, then time it at the
-    main-path shape. Returns (timing details, the kernel's entry of the kernels line)."""
+def multilabel_ids(g, batch: int, num_classes: int):
+    """The multilabel ConfusionMatrix's ids: ``(2*target + preds) + 4*class``, N = B*C into L = 4C."""
+    dev = torch.device("cuda")
+    target = torch.randint(0, 2, (batch, num_classes), generator=g, device=dev)
+    preds = torch.randint(0, 2, (batch, num_classes), generator=g, device=dev)
+    return ((2 * target + preds) + 4 * torch.arange(num_classes, device=dev)).reshape(-1)
+
+
+def dirty_call(histogram, x, length, weights):
+    """``fused_bincount`` on memory full of junk: a same-size block is filled,
+    freed and handed back by the allocator as the counts."""
+    dtype = torch.int32 if weights is None else torch.float32
+    junk = torch.full((length,), -12345, dtype=dtype, device=x.device)
+    ptr = junk.data_ptr()
+    del junk
+    got = histogram.fused_bincount(x, length, weights=weights)
+    assert got.data_ptr() == ptr, "dirty memory: the allocator did not hand back the junk block"
+    return got
+
+
+def check_bincount(histogram) -> float:
+    """Hold the kernel against its plain version on both paths at every shape.
+    Returns the largest |error| of a weighted sum."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    cases = []  # (label, ids, length, weights)
+    cases = []  # (label, ids, length, weights, weighted sums exact)
 
-    def rand_ids(n, lo, hi, dtype):
+    def rand_ids(n, lo, hi, dtype=torch.int64):
         return torch.randint(lo, hi, (n,), generator=g, device=dev, dtype=dtype)
 
     def rand_w(n):
         return torch.rand(n, generator=g, device=dev)
 
+    def dyadic(n):  # multiples of 1/2: every partial sum here is exact in float32, in any order
+        return torch.randint(1, 5, (n,), generator=g, device=dev).float() * 0.5
+
+    big = 1 << 20
+    top = histogram.SHARED_MAX_BINS
     # the main path's shape and dtype: ConfusionMatrix, C=128, B=8192, argmax labels (int64)
-    main_x = rand_ids(8192, 0, 128**2, torch.int64)
-    cases.append(("main N=8192 L=16384 int64", main_x, 128**2, rand_w(8192)))
-    cases.append(("main N=8192 L=16384 int32", main_x.to(torch.int32), 128**2, rand_w(8192)))
-    cases.append(("imagenet N=8192 L=1e6", rand_ids(8192, 0, 10**6, torch.int64), 10**6, rand_w(8192)))
-    # one bin takes every id: worst-case contention; dyadic weights sum exactly in any order
-    same = torch.full((1 << 20,), 7, dtype=torch.int64, device=dev)
-    dyadic = torch.randint(1, 5, (1 << 20,), generator=g, device=dev).float() * 0.5
-    cases.append(("contention N=2**20 one bin", same, 128**2, dyadic))
-    cases.append(("out of range N=8192", rand_ids(8192, -(128**2), 2 * 128**2, torch.int32), 128**2, rand_w(8192)))
+    main_x = rand_ids(8192, 0, 128**2)
+    cases.append(("main N=8192 L=16384 int64", main_x, 128**2, rand_w(8192), False))
+    cases.append(("main N=8192 L=16384 int32", main_x.to(torch.int32), 128**2, rand_w(8192), False))
+    cases.append(("imagenet N=8192 L=1e6", rand_ids(8192, 0, 10**6), 10**6, rand_w(8192), False))
+    cases.append((f"threshold L={top}", rand_ids(big, -5, top + 5), top, rand_w(big), False))
+    cases.append((f"threshold+1 L={top + 1}", rand_ids(big, -5, top + 6), top + 1, rand_w(big), False))
+    cases.append(("multilabel N=2**20 L=512", multilabel_ids(g, 8192, 128), 512, rand_w(big), False))
+    cases.append(("binary N=2**20 L=4", rand_ids(big, 0, 4), 4, dyadic(big), True))
+    # one bin takes every id: worst-case contention
+    same = torch.full((big,), 7, dtype=torch.int64, device=dev)
+    cases.append(("contention N=2**20 one bin", same, 128**2, dyadic(big), True))
+    cases.append(("out of range N=8192", rand_ids(8192, -(128**2), 2 * 128**2, torch.int32), 128**2, rand_w(8192), False))
     wide = torch.tensor([2**32 + 5, 2**31, 2**31 + 7, -(2**40), 5, 2**33], dtype=torch.int64, device=dev)
-    wide = torch.cat([wide, rand_ids(4096, 0, 64, torch.int64)])
-    cases.append(("int64 beyond 2**31", wide, 64, rand_w(wide.numel())))
-    cases.append(("N=1", rand_ids(1, 0, 10, torch.int64), 10, rand_w(1)))
-    cases.append(("N=0", rand_ids(0, 0, 10, torch.int64), 10, rand_w(0)))
+    wide = torch.cat([wide, rand_ids(4096, 0, 64)])
+    cases.append(("int64 beyond 2**31", wide, 64, rand_w(wide.numel()), False))
+    cases.append(("N=1", rand_ids(1, 0, 10), 10, rand_w(1), False))
+    cases.append(("N=0", rand_ids(0, 0, 10), 10, rand_w(0), False))
 
     max_abs_err = 0.0
-    for label, x, length, w in cases:
-        got = histogram.fused_bincount(x, length)
+    for label, x, length, w, exact in cases:
         want = histogram._bincount_plain(x, length)
-        got_w = histogram.fused_bincount(x, length, weights=w)
         want_w = histogram._bincount_plain(x, length, w)
-        torch.cuda.synchronize()
-        assert got.dtype == torch.int32 and torch.equal(got, want), f"bincount {label}: unweighted counts differ"
-        exact = label.startswith("contention")
-        if exact:
-            assert torch.equal(got_w, want_w), f"bincount {label}: dyadic weighted sums differ"
-        else:
-            torch.testing.assert_close(got_w, want_w, rtol=RTOL, atol=ATOL, msg=f"bincount {label}: weighted sums")
-        err = float((got_w - want_w).abs().max()) if length else 0.0
-        max_abs_err = max(max_abs_err, err)
-        log(f"bincount {label}: unweighted exact, weighted max |err| {err:.3g}")
+        # the dispatched path (what the main path calls), then the global path at the same shape
+        runs = [("dispatched", lambda w_: histogram.fused_bincount(x, length, weights=w_))]
+        runs.append(("global", lambda w_: histogram._launch(x, length, w_, False)))
+        if length <= histogram.SHARED_MAX_BINS:
+            runs.append(("shared", lambda w_: histogram._launch(x, length, w_, True)))
+        errs = []
+        for path, run in runs:
+            before = histogram.KERNEL_LAUNCHES
+            got, got_w = run(None), run(w)
+            assert histogram.KERNEL_LAUNCHES == before + 2, f"bincount {label} ({path}): not one launch per call"
+            torch.cuda.synchronize()
+            assert got.dtype == torch.int32 and torch.equal(got, want), f"bincount {label} ({path}): counts differ"
+            if exact:
+                assert torch.equal(got_w, want_w), f"bincount {label} ({path}): dyadic weighted sums differ"
+            else:
+                torch.testing.assert_close(got_w, want_w, rtol=RTOL, atol=ATOL, msg=f"bincount {label} ({path})")
+            errs.append(float((got_w - want_w).abs().max()) if length else 0.0)
+        max_abs_err = max(max_abs_err, *errs)
+        log(f"bincount {label}: unweighted exact on {len(runs)} paths, weighted max |err| {max(errs):.3g}"
+            + (" (dyadic: exact)" if exact else ""))
     wide_counts = histogram.fused_bincount(wide, 64)
     assert int(wide_counts[5]) == 1 + int((wide[6:] == 5).sum()), "an int64 id beyond 2**31 was counted"
 
-    length = 128**2
-    ms = cuda_time_ms(lambda: histogram.fused_bincount(main_x, length))
-    plain_ms = cuda_time_ms(lambda: histogram._bincount_plain(main_x, length))
-    # every main-path id is in range, so torch.bincount computes the same function on them
-    library_ms = cuda_time_ms(lambda: torch.bincount(main_x, minlength=length))
-    bytes_moved = main_x.numel() * main_x.element_size() + length * 4
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, 2 * main_x.numel() / FP32_OPS_PER_S) * 1e3
-    rows = device_profile([lambda: histogram.fused_bincount(main_x, length)] * 52)
-    device_rows = {k[:70]: [row_ms / 50, n / 50] for k, (row_ms, n) in rows.items()}
-    log(f"bincount timing at N=8192 L=16384 int64: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-        f"torch.bincount {library_ms:.5f} ms, bound {bound_ms:.6f} ms ({bytes_moved} bytes); "
-        f"device ms and launches per call: {device_rows}")
-    timing = {"shape": "N=8192 L=16384 int64", "device_ms_per_call": device_rows}
-    return timing, {
+    # dirty memory: the counts come from torch.empty, so the kernel must write every bin
+    for label, x, length in (("main (shared path)", main_x, 128**2), ("L=1e6 (global path)", cases[2][1], 10**6)):
+        for w in (None, torch.ones(x.numel(), device=dev)):
+            got = dirty_call(histogram, x, length, w)
+            torch.cuda.synchronize()
+            assert torch.equal(got, histogram._bincount_plain(x, length, w)), f"dirty memory {label}: differs"
+        log(f"bincount dirty memory {label}: the junk block was handed back and overwritten exactly")
+    return max_abs_err
+
+
+def host_us_per_call(fn, iters: int = 200, warmup: int = 20) -> float:
+    """Host microseconds per call of ``fn`` over ``iters`` calls that end in one synchronise."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
+def sweep_bincount(histogram, card: str) -> list:
+    """Both paths of the kernel, the plain version and torch.bincount at the shapes the port
+    gives it, unweighted and with int64 ids, as the ConfusionMatrix calls it."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    big = 1 << 20
+    shapes = [
+        ("main", torch.randint(0, 128**2, (8192,), generator=g, device=dev), 128**2),
+        ("large-L", torch.randint(0, 10**6, (4096,), generator=g, device=dev), 10**6),
+        ("multilabel", multilabel_ids(g, 8192, 128), 512),
+        ("binary", torch.randint(0, 4, (big,), generator=g, device=dev), 4),
+        ("one-bin", torch.full((big,), 7, dtype=torch.int64, device=dev), 128**2),
+    ]
+    rows = []
+    for name, x, length in shapes:
+        bytes_moved = x.numel() * x.element_size() + 4 * length  # ids read once, counts written once
+        # bytes bound it: a compare and an add an id are far below the card's operation rate
+        bound_ms = max(bytes_moved / HBM_BYTES_PER_S, 2 * x.numel() / FP32_OPS_PER_S) * 1e3
+        row = {"shape": name, "n": x.numel(), "length": length, "bytes": bytes_moved, "bound_ms": bound_ms,
+               "dispatched_path": histogram.kernel_path(length)}
+        paths = [("dispatched", lambda: histogram.fused_bincount(x, length))]
+        if row["dispatched_path"] != "global":
+            paths.append(("global", lambda: histogram._launch(x, length, None, False)))
+        for path, fn in paths:
+            prof = device_profile([fn] * 52)
+            device_ms = sum(ms for ms, _ in prof.values()) / 50
+            ops = sum(k for _, k in prof.values()) / 50
+            if path == "dispatched":
+                assert ops == 1.0, f"bincount sweep {name}: {ops} device operations per call, not 1: {prof}"
+            row[path] = {
+                "device_ms": device_ms,
+                "device_ops_per_call": ops,
+                "share_of_bound": bound_ms / device_ms if device_ms else None,
+                "wrapper_ms": cuda_time_ms(fn),
+                "host_us_per_call": host_us_per_call(fn),
+                "device_rows": {k[:60]: v for k, v in prof.items()},
+            }
+        row["plain_ms"] = cuda_time_ms(lambda: histogram._bincount_plain(x, length))
+        # every swept id is in range, so torch.bincount computes the same function on them
+        row["library_ms"] = cuda_time_ms(lambda: torch.bincount(x, minlength=length))
+        rows.append(row)
+        summary = {p: {k: row[p][k] for k in ("device_ms", "device_ops_per_call", "wrapper_ms", "host_us_per_call")}
+                   for p in ("dispatched", "global") if p in row}
+        log(f"bincount sweep {name} N={x.numel()} L={length}: {json.dumps(summary)}, plain {row['plain_ms']:.5f} ms, "
+            f"torch.bincount {row['library_ms']:.5f} ms, bound {bound_ms:.6f} ms  [{card}]")
+    return rows
+
+
+def kernel_entry(sweep: list, max_abs_err: float) -> dict:
+    """The kernels line's entry: the dispatched path at the main-path shape."""
+    main = next(r for r in sweep if r["shape"] == "main")
+    return {
         "name": "bincount",
         "route": "cuda",
         "source": "metrics_tpu_torch/csrc/bincount.cu",
         "replaces": "metrics_tpu/ops/histogram.py:36",
         "launches": None,  # filled from the main path's run
         "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "ms": main["dispatched"]["wrapper_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": library_ms,
+        "library_ms": main["library_ms"],
     }
 
 
@@ -327,6 +432,30 @@ def large_l_path(mt, histogram) -> dict:
     return {"batch": batch, "num_classes": num_classes, "steps": steps, "steps_per_s": steps / seconds}
 
 
+def multilabel_path(mt, histogram) -> dict:
+    """ConfusionMatrix(multilabel=True) at B=8192, C=128: N = 2**20 ids into L = 512 bins a step."""
+    batch, num_classes, steps = 8192, 128, 10
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batches = [
+        (torch.rand(batch, num_classes, generator=g, device="cuda"),
+         torch.randint(0, 2, (batch, num_classes), generator=g, device="cuda"))
+        for _ in range(steps)
+    ]
+    metric = mt.ConfusionMatrix(num_classes=num_classes, multilabel=True, device="cuda")
+    histogram.KERNEL_LAUNCHES = 0
+    seconds = run_suite(metric, batches, 0)
+    assert histogram.KERNEL_LAUNCHES == steps, f"multilabel path: {histogram.KERNEL_LAUNCHES} launches for {steps}"
+    reference = mt.ConfusionMatrix(num_classes=num_classes, multilabel=True, device="cpu")
+    for preds, target in batches:
+        reference.update(preds.cpu(), target.cpu())
+    got, want = metric.confmat.cpu(), reference.confmat
+    assert got.dtype == torch.int32 and torch.equal(got, want), "multilabel path: confmat differs from the CPU"
+    assert int(got.sum()) == steps * batch * num_classes
+    assert torch.equal(metric.compute().cpu(), reference.compute())
+    log(f"multilabel path B={batch} C={num_classes}: {steps / seconds:.2f} steps/s, state equals the CPU")
+    return {"batch": batch, "num_classes": num_classes, "steps": steps, "steps_per_s": steps / seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -345,12 +474,16 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, device {kind}")
     build_s = build_kernels(_native, histogram)
 
-    kernel_timing, kernel = check_bincount(histogram)
+    max_abs_err = check_bincount(histogram)
+    sweep = sweep_bincount(histogram, card)
+    log(json.dumps({"bincount_sweep": sweep, "card": card}))
+    kernel = kernel_entry(sweep, max_abs_err)
     main = main_path(mt, checks, histogram, card)
     kernel["launches"] = main["first"]["kernel_launches"]
     large = large_l_path(mt, histogram)
+    multilabel = multilabel_path(mt, histogram)
 
-    log(json.dumps({"build_s": build_s, "bincount": kernel_timing, "main_path": main, "large_l_path": large}))
+    log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel}))
     log(json.dumps({"kernels": [kernel]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

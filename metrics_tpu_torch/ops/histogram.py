@@ -8,16 +8,20 @@ dropped, never clipped into bin 0 (the ``ignore_index`` / pad sentinel -1
 convention). Unweighted calls return int32 counts, weighted calls float32.
 
 Why atomics replace the one-hot product: the TPU kernel does O(N*L) compares
-so that the MXU, not a serialising scatter, does the counting. On Hopper,
-atomics resolve in L2 at full rate, so the kernel in ``csrc/bincount.cu`` is a
-grid-stride loop with one ``atomicAdd`` per valid id: O(N) work, each id read
-once. Unweighted counts are integer atomics and bit-exact; weighted counts are
-float32 atomics whose summation order varies from run to run.
+so that the MXU, not a serialising scatter, does the counting. On Hopper a
+bincount is a scatter of O(N) atomics. The kernel in ``csrc/bincount.cu``
+(its source note gives the design) makes one launch per call and writes every
+bin itself, so the wrapper allocates the counts with ``torch.empty`` and no
+memset runs. Where ``length <= SHARED_MAX_BINS`` each block counts in a
+private histogram in shared memory and flushes its non-zero bins; above it
+the same launch adds with global atomics (:func:`kernel_path` picks). Lanes
+of a warp with the same bin add with one atomic. Unweighted counts are
+bit-exact; weighted sums are float32 in a run-dependent order.
 
-Bound on the card: ``4N`` bytes of ids read and ``4L`` bytes of counts zeroed
-and written. For the headline suite's confusion matrix (N = 8192,
-L = 128**2 = 16384) that is 96 KiB, about 0.03 us at 3.35 TB/s: the call is
-bound by its launch.
+Bound on the card: the ids read (``8N`` bytes for int64), the weights read
+(``4N``) and ``4L`` bytes of counts written. For the headline suite's
+confusion matrix (N = 8192, L = 128**2 = 16384) that is 128 KiB, about
+0.04 us at 3.35 TB/s: the call is bound by its launch.
 
 A CPU tensor takes :func:`_bincount_plain`. A CUDA tensor launches the kernel
 or raises; nothing falls back.
@@ -25,7 +29,7 @@ or raises; nothing falls back.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 from torch import Tensor
@@ -36,7 +40,11 @@ from metrics_tpu_torch.ops import _native
 KERNEL_LAUNCHES = 0
 
 SOURCE = "bincount.cu"
-_ENTRY = {torch.int32: "mt_bincount_i32", torch.int64: "mt_bincount_i64"}
+#: The most bins the shared-memory path takes: 128 KiB of 4-byte bins, which
+#: leaves room for one block of 1024 threads on each SM. The source's
+#: ``kSharedMaxBins`` must agree; the binding checks that it does.
+SHARED_MAX_BINS = 32768
+_ID_BYTES = {torch.int32: 4, torch.int64: 8}
 _MAX_LENGTH = 2**31 - 1
 
 
@@ -57,66 +65,97 @@ def _bincount_plain(x: Tensor, length: int, weights: Optional[Tensor] = None) ->
     return counts.index_add_(0, idx, torch.where(valid, w, torch.zeros_like(w)))
 
 
-_bound: Dict[torch.dtype, ctypes._CFuncPtr] = {}
+def kernel_path(length: int) -> str:
+    """The kernel's path for ``length`` bins: ``"shared"`` where they fit the
+    shared-memory budget of ``SHARED_MAX_BINS`` bins, else ``"global"``."""
+    return "shared" if length <= SHARED_MAX_BINS else "global"
 
 
-def _kernel(dtype: torch.dtype) -> ctypes._CFuncPtr:
-    """The C entry point for ``dtype`` ids, built and bound on first use."""
-    fn = _bound.get(dtype)
-    if fn is None:
-        fn = getattr(_native.load(SOURCE), _ENTRY[dtype])
+_entry: Optional[ctypes._CFuncPtr] = None
+
+
+def _kernel() -> ctypes._CFuncPtr:
+    """The C entry point ``mt_bincount``, built and bound on first use."""
+    global _entry
+    if _entry is None:
+        lib = _native.load(SOURCE)
+        lib.mt_bincount_shared_max_bins.restype = ctypes.c_int64
+        built = lib.mt_bincount_shared_max_bins()
+        if built != SHARED_MAX_BINS:
+            raise RuntimeError(f"{SOURCE} takes {built} bins in shared memory, the wrapper {SHARED_MAX_BINS}")
+        fn = lib.mt_bincount
         fn.argtypes = [
             ctypes.c_void_p,  # ids
+            ctypes.c_int,  # bytes per id: 4 or 8
             ctypes.c_void_p,  # weights or NULL
             ctypes.c_int64,  # n
-            ctypes.c_void_p,  # counts
+            ctypes.c_void_p,  # counts, uninitialised
             ctypes.c_int64,  # length
+            ctypes.c_int,  # 1: shared-memory path, 0: global path
+            ctypes.c_int,  # device ordinal
             ctypes.c_void_p,  # cudaStream_t
         ]
         fn.restype = ctypes.c_int
-        _bound[dtype] = fn
-    return fn
+        _entry = fn
+    return _entry
 
 
-def bincount_cuda(x: Tensor, length: int, weights: Optional[Tensor] = None) -> Tensor:
-    """Launch the CUDA kernel on ``x`` (1-D, contiguous, int32 or int64, on the card).
-
-    Allocates the zeroed counts, launches on the current stream and does not
-    synchronise. Raises on anything the kernel does not take.
-    """
+def _launch(x: Tensor, length: int, weights: Optional[Tensor], shared: bool) -> Tensor:
+    """Check the arguments, allocate the counts and launch the kernel once on
+    the current stream, on the shared-memory path or the global one. Does not
+    synchronise. ``length == 0`` has no bin to write and launches nothing."""
     global KERNEL_LAUNCHES
-    if x.device.type != "cuda":
-        raise ValueError(f"the bincount kernel takes a CUDA tensor, got one on {x.device}")
-    if x.dtype not in _ENTRY:
+    if x.dtype not in _ID_BYTES:
         raise TypeError(f"the bincount kernel takes int32 or int64 ids, got {x.dtype}")
     if x.ndim != 1 or not x.is_contiguous():
         raise ValueError("the bincount kernel takes a contiguous 1-D tensor of ids")
     if not 0 <= length <= _MAX_LENGTH:
         raise ValueError(f"`length` must lie in [0, 2**31), got {length}")
+    if shared and length > SHARED_MAX_BINS:
+        raise ValueError(f"the shared-memory path takes at most {SHARED_MAX_BINS} bins, got {length}")
+    if x.device.type != "cuda":
+        raise ValueError(f"the bincount kernel takes a CUDA tensor, got one on {x.device}")
     n = x.numel()
     if weights is not None:
         if weights.device != x.device or weights.dtype != torch.float32:
             raise TypeError("weights must be float32 on the ids' device")
         if weights.shape != (n,) or not weights.is_contiguous():
             raise ValueError(f"weights must be contiguous of shape ({n},), got {tuple(weights.shape)}")
-    counts = torch.zeros(length, dtype=torch.int32 if weights is None else torch.float32, device=x.device)
-    if n == 0:
+    counts = torch.empty(length, dtype=torch.int32 if weights is None else torch.float32, device=x.device)
+    if length == 0:
         return counts
-    fn = _kernel(x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            x.data_ptr(),
-            None if weights is None else weights.data_ptr(),
-            n,
-            counts.data_ptr(),
-            length,
-            stream,
-        )
+    fn = _kernel()
+    device = x.get_device()
+    args = (
+        x.data_ptr(),
+        _ID_BYTES[x.dtype],
+        None if weights is None else weights.data_ptr(),
+        n,
+        counts.data_ptr(),
+        length,
+        int(shared),
+        device,
+    )
+    if device == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
         raise RuntimeError(f"the bincount kernel failed to launch: CUDA error {rc}")
     KERNEL_LAUNCHES += 1
     return counts
+
+
+def bincount_cuda(x: Tensor, length: int, weights: Optional[Tensor] = None) -> Tensor:
+    """Launch the CUDA kernel on ``x`` (1-D, contiguous, int32 or int64, on the card),
+    on the path :func:`kernel_path` picks for ``length``.
+
+    One launch per call and no memset: the kernel writes every bin of the
+    counts it is handed. Does not synchronise. Raises on anything the kernel
+    does not take.
+    """
+    return _launch(x, length, weights, kernel_path(length) == "shared")
 
 
 def fused_bincount(x: Tensor, length: int, weights: Optional[Tensor] = None) -> Tensor:
@@ -132,11 +171,13 @@ def fused_bincount(x: Tensor, length: int, weights: Optional[Tensor] = None) -> 
         >>> fused_bincount(torch.tensor([-1, 0, 1, 5, 99, 1]), 3)
         tensor([1, 2, 0], dtype=torch.int32)
     """
-    x = torch.as_tensor(x).reshape(-1)
-    if x.is_floating_point() or x.is_complex() or x.dtype == torch.bool:
-        raise TypeError(f"bincount takes integer ids, got {x.dtype}")
-    if x.dtype not in _ENTRY:
+    if not isinstance(x, Tensor):
+        x = torch.as_tensor(x)
+    if x.dtype not in _ID_BYTES:
+        if x.is_floating_point() or x.is_complex() or x.dtype == torch.bool:
+            raise TypeError(f"bincount takes integer ids, got {x.dtype}")
         x = x.to(torch.int64)  # widening: every narrower integer id keeps its value
+    x = x.reshape(-1)
     if weights is not None:
         weights = torch.as_tensor(weights, device=x.device).reshape(-1).to(torch.float32)
     if x.device.type == "cpu":
@@ -144,4 +185,4 @@ def fused_bincount(x: Tensor, length: int, weights: Optional[Tensor] = None) -> 
     return bincount_cuda(x.contiguous(), length, None if weights is None else weights.contiguous())
 
 
-__all__ = ["bincount_cuda", "fused_bincount"]
+__all__ = ["bincount_cuda", "fused_bincount", "kernel_path"]

@@ -128,3 +128,64 @@ def test_cpu_path_counts_no_kernel_launch():
     before = histogram.KERNEL_LAUNCHES
     fused_bincount(torch.arange(10), 10)
     assert histogram.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize(
+    "length,path",
+    [
+        (1, "shared"),
+        (4, "shared"),  # binary confusion matrix
+        (512, "shared"),  # multilabel confusion matrix, C=128
+        (128**2, "shared"),  # the main path
+        (histogram.SHARED_MAX_BINS - 1, "shared"),
+        (histogram.SHARED_MAX_BINS, "shared"),
+        (histogram.SHARED_MAX_BINS + 1, "global"),
+        (2 * histogram.SHARED_MAX_BINS, "global"),
+        (182**2, "global"),  # the smallest square confusion matrix past the budget: C=182
+        (181**2, "shared"),
+        (10**6, "global"),  # C=1000
+        (2**31 - 1, "global"),
+    ],
+)
+def test_kernel_path_by_length(length, path):
+    assert histogram.kernel_path(length) == path
+
+
+def test_wrapper_budget_matches_the_kernel_source():
+    """The wrapper's threshold is the source's ``kSharedMaxBins`` (the binding checks it again on the card)."""
+    import re
+    from metrics_tpu_torch.ops import _native
+
+    source = (_native.CSRC_DIR / histogram.SOURCE).read_text()
+    built = int(re.search(r"constexpr int64_t kSharedMaxBins = (\d+);", source).group(1))
+    assert built == histogram.SHARED_MAX_BINS == 32768
+    assert 4 * histogram.SHARED_MAX_BINS <= 227 * 1024  # one block's shared memory on Hopper
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.float32, torch.bool])
+def test_kernel_wrapper_refuses_bad_dtypes_without_a_launch(dtype):
+    before = histogram.KERNEL_LAUNCHES
+    with pytest.raises(TypeError, match="int32 or int64"):
+        bincount_cuda(torch.zeros(4, dtype=dtype), 4)
+    assert histogram.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("length", [0, 4, 10**6])
+def test_kernel_wrapper_refuses_cpu_tensors_on_both_paths(dtype, length):
+    before = histogram.KERNEL_LAUNCHES
+    for shared in (False, True) if length <= histogram.SHARED_MAX_BINS else (False,):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            histogram._launch(torch.zeros(4, dtype=dtype), length, None, shared)
+    assert histogram.KERNEL_LAUNCHES == before
+
+
+def test_shared_path_refuses_more_bins_than_its_budget():
+    before = histogram.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="shared-memory path"):
+        histogram._launch(torch.zeros(4, dtype=torch.int64), histogram.SHARED_MAX_BINS + 1, None, True)
+    with pytest.raises(ValueError, match="length"):
+        bincount_cuda(torch.zeros(4, dtype=torch.int64), 2**31)
+    with pytest.raises(ValueError, match="contiguous 1-D"):
+        bincount_cuda(torch.zeros(8, dtype=torch.int64)[::2], 4)
+    assert histogram.KERNEL_LAUNCHES == before

@@ -1,6 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA bincount kernel against
-its plain PyTorch version, the wrapper's checks and launch count, and a small
-suite on the card against the same suite on the CPU.
+its plain PyTorch version on both of its paths (shared-memory and global), at
+the shared-memory threshold, with hot bins and on memory full of junk; the
+wrapper's checks and one launch per call; and a small suite on the card
+against the same suite on the CPU.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -36,6 +38,70 @@ def test_kernel_matches_plain(dev, dtype, n, length):
     assert histogram.KERNEL_LAUNCHES == before + 2
     assert got.dtype == torch.int32 and torch.equal(got, histogram._bincount_plain(x, length))
     torch.testing.assert_close(got_w, histogram._bincount_plain(x, length, w), rtol=1e-5, atol=1e-4)
+
+
+def _check_one_call(x, length, w=None, exact_weights=False):
+    """One ``fused_bincount`` call is one launch, and it agrees with the plain version."""
+    before = histogram.KERNEL_LAUNCHES
+    got = histogram.fused_bincount(x, length)
+    assert histogram.KERNEL_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, histogram._bincount_plain(x, length))
+    if w is not None:
+        got_w = histogram.fused_bincount(x, length, weights=w)
+        assert histogram.KERNEL_LAUNCHES == before + 2
+        want_w = histogram._bincount_plain(x, length, w)
+        if exact_weights:
+            assert torch.equal(got_w, want_w)
+        else:
+            torch.testing.assert_close(got_w, want_w, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("length", [histogram.SHARED_MAX_BINS - 1, histogram.SHARED_MAX_BINS, histogram.SHARED_MAX_BINS + 1])
+def test_shared_memory_threshold(dev, length):
+    g = torch.Generator(device=dev).manual_seed(length)
+    x = torch.randint(-5, length + 5, (1 << 20,), generator=g, device=dev)
+    _check_one_call(x, length, torch.rand(1 << 20, generator=g, device=dev))
+
+
+@pytest.mark.parametrize("length", [4, 16384])
+def test_hot_bins_with_dyadic_weights_are_exact(dev, length):
+    """L=4: the binary confusion matrix; L=16384 with one bin: worst-case contention."""
+    g = torch.Generator(device=dev).manual_seed(length)
+    n = 1 << 20
+    x = torch.randint(0, 4, (n,), generator=g, device=dev) if length == 4 else torch.full((n,), 7, device=dev)
+    dyadic = torch.randint(1, 5, (n,), generator=g, device=dev).float() * 0.5  # sums exact in any order
+    _check_one_call(x, length, dyadic, exact_weights=True)
+
+
+@pytest.mark.parametrize("length", [16384, 10**6])
+def test_dirty_memory_is_overwritten(dev, length):
+    """The counts come from ``torch.empty``: hand the kernel a block full of junk first."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randint(0, length, (8192,), generator=g, device=dev)
+    for dtype in (torch.int32, torch.float32):
+        w = None if dtype == torch.int32 else torch.ones(8192, device=dev)
+        junk = torch.full((length,), -12345, dtype=dtype, device=dev)
+        ptr = junk.data_ptr()
+        del junk
+        got = histogram.fused_bincount(x, length, weights=w)
+        assert got.data_ptr() == ptr, "the allocator did not hand back the junk block"
+        torch.cuda.synchronize()
+        want = histogram._bincount_plain(x, length, w)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("n", [0, 1])
+def test_tiny_inputs_on_both_paths(dev, shared, n):
+    x = torch.full((n,), 3, dtype=torch.int64, device=dev)
+    w = torch.full((n,), 0.25, device=dev)
+    before = histogram.KERNEL_LAUNCHES
+    got = histogram._launch(x, 10, None, shared)
+    got_w = histogram._launch(x, 10, w, shared)
+    assert histogram.KERNEL_LAUNCHES == before + 2
+    assert got.tolist() == [0, 0, 0, n, 0, 0, 0, 0, 0, 0]
+    assert got_w.tolist() == [0.0, 0.0, 0.0, 0.25 * n, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]
 
 
 def test_int64_ids_beyond_int32_are_dropped(dev):
