@@ -11,11 +11,15 @@ Phases, each of which raises on failure (exit code 1):
    the main path gives it and at edge shapes: the bincount on its dispatched
    path and on each of its two paths (shared-memory, global), at the
    shared-memory threshold and one bin above it, with hot bins, on memory
-   full of junk, at N=0 and N=1. Then a sweep of five shapes the port gives
-   the bincount (main, large-L, multilabel, binary, one-bin), both paths:
-   device time and device operations per call (torch.profiler), wrapper time
-   (CUDA events) and host time per call, beside the plain version,
-   ``torch.bincount`` and the bound. One JSON line ``{"bincount_sweep": ...}``.
+   full of junk, at N=0 and N=1. Then a sweep of six shapes the port gives
+   the bincount (main, large-L, multilabel, binary, one-bin, segmentation),
+   both paths:
+   device time and device operations per call (torch.profiler; a session that
+   records no device rows is tried again, and after three such sessions the
+   row's device time is null), one launch per call (the wrapper's counter),
+   wrapper time (CUDA events) and host time per call, beside the plain
+   version, ``torch.bincount`` and the bound. One JSON line
+   ``{"bincount_sweep": ...}``.
 3. The main path: the headline suite of ``bench.py`` (Accuracy, F1Score,
    ConfusionMatrix, Precision; macro, C=128) on batches of B=8192 softmax
    rows, 5 warm-up and 50 timed ``update`` steps, then ``compute()``, in
@@ -28,6 +32,25 @@ Phases, each of which raises on failure (exit code 1):
 5. The multilabel path: ConfusionMatrix(multilabel=True) at B=8192, C=128
    (2**20 ids into 512 bins a step), 10 steps, its state equal to the CPU's
    and one kernel launch per update.
+6. The agreement path, ImageNet-1k width: CohenKappa, MatthewsCorrCoef,
+   JaccardIndex (C=1000, L = 10**6 bins), Specificity (macro) and
+   HammingDistance in one collection, B=4096 softmax rows a step. The three
+   confusion-matrix metrics must share one compute group: the first update
+   runs every member to find the groups (three launches), every later one
+   launches the kernel once.
+7. The segmentation path, Cityscapes width: JaccardIndex (mIoU) and Dice
+   (macro, global) with C=19 on B=2 images of 1024 x 2048, preds a float32
+   softmax (2, 19, 1024, 2048): N = 4,194,304 ids into L = 361 bins a step,
+   one launch a step.
+8. The aggregation path: MeanMetric (weighted), SumMetric, MaxMetric,
+   MinMetric and CatMetric on per-step loss tensors with NaNs, under each
+   ``nan_strategy`` and validation mode, against the CPU; then the five in
+   one collection, timed.
+
+Paths 6 and 7 run in validation modes "first" and "full" (3 alternating
+trials each), equal the CPU on the same batches (counts bit-exact, values
+within rtol 1e-5) and report steps/s, device ms/step by kernel and the
+device's idle share.
 
 Output: labelled lines, then a JSON line ``{"kernels": [...]}``, then the
 nvidia-smi line, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -39,6 +62,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -48,6 +72,7 @@ HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 RTOL, ATOL = 1e-5, 1e-4  # weighted bincount: float32 atomics in run-dependent order
+PROFILE_ATTEMPTS = 3  # profiler sessions tried before a sweep row's device time is "not measured"
 
 
 def log(*parts) -> None:
@@ -208,6 +233,8 @@ def sweep_bincount(histogram, card: str) -> list:
         ("multilabel", multilabel_ids(g, 8192, 128), 512),
         ("binary", torch.randint(0, 4, (big,), generator=g, device=dev), 4),
         ("one-bin", torch.full((big,), 7, dtype=torch.int64, device=dev), 128**2),
+        # JaccardIndex at Cityscapes width: 2 x 1024 x 2048 pixel ids into 19**2 bins
+        ("segmentation", torch.randint(0, 19**2, (2 * 1024 * 2048,), generator=g, device=dev), 19**2),
     ]
     rows = []
     for name, x, length in shapes:
@@ -220,10 +247,19 @@ def sweep_bincount(histogram, card: str) -> list:
         if row["dispatched_path"] != "global":
             paths.append(("global", lambda: histogram._launch(x, length, None, False)))
         for path, fn in paths:
-            prof = device_profile([fn] * 52)
-            device_ms = sum(ms for ms, _ in prof.values()) / 50
-            ops = sum(k for _, k in prof.values()) / 50
-            if path == "dispatched":
+            # A profiler session now and then records no device rows at all; the launch
+            # counter, not the profiler, is what proves one launch per call.
+            for attempt in range(1, PROFILE_ATTEMPTS + 1):
+                before = histogram.KERNEL_LAUNCHES
+                prof = device_profile([fn] * 52)
+                assert histogram.KERNEL_LAUNCHES - before == 52, f"bincount sweep {name} ({path}): not one launch per call"
+                if prof:
+                    break
+                log(f"bincount sweep {name} ({path}): the profiler saw no device time (attempt {attempt})")
+            # None: the profiler saw no device time in any attempt, so it was not measured
+            device_ms = sum(ms for ms, _ in prof.values()) / 50 if prof else None
+            ops = sum(k for _, k in prof.values()) / 50 if prof else None
+            if prof and path == "dispatched":
                 assert ops == 1.0, f"bincount sweep {name}: {ops} device operations per call, not 1: {prof}"
             row[path] = {
                 "device_ms": device_ms,
@@ -274,13 +310,18 @@ def make_suite(mt, num_classes: int, device: str):
     )
 
 
-def make_batches(batch: int, num_classes: int, steps: int, seed: int):
+def make_batches(batch: int, num_classes: int, steps: int, seed: int, signal: float = 0.0, spatial=()):
+    """Softmax preds (B, C, *spatial) and int64 targets (B, *spatial); ``signal`` is
+    added to the target's logit, so that preds agree with targets more than by chance."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     out = []
     for _ in range(steps):
-        logits = torch.randn(batch, num_classes, generator=g, device="cuda")
-        target = torch.randint(0, num_classes, (batch,), generator=g, device="cuda")
+        logits = torch.randn((batch, num_classes) + tuple(spatial), generator=g, device="cuda")
+        target = torch.randint(0, num_classes, (batch,) + tuple(spatial), generator=g, device="cuda")
+        if signal:
+            logits.scatter_add_(1, target.unsqueeze(1), torch.full(target.unsqueeze(1).shape, signal, device="cuda"))
         out.append((torch.softmax(logits, dim=1), target))
+        del logits
     return out
 
 
@@ -296,7 +337,8 @@ def run_suite(suite, batches, warmup: int) -> float:
     return time.perf_counter() - t0
 
 
-def assert_suites_equal(gpu_suite, cpu_suite, label: str) -> None:
+def assert_suites_equal(gpu_suite, cpu_suite, label: str, rtol: float = 0.0) -> dict:
+    """Every state bit-exact, every value within atol 1e-6 (and ``rtol``); returns the values."""
     gpu_members = dict(gpu_suite.items(keep_base=True, copy_state=False))
     for name, cpu_m in cpu_suite.items(keep_base=True, copy_state=False):
         for state, value in cpu_m.metric_state.items():
@@ -307,44 +349,52 @@ def assert_suites_equal(gpu_suite, cpu_suite, label: str) -> None:
         got = gpu_res[key].cpu()
         assert torch.isfinite(got.float()).all(), f"{label}: {key} is not finite"
         if want.is_floating_point():
-            torch.testing.assert_close(got, want, atol=1e-6, rtol=0, msg=f"{label}: {key}")
+            torch.testing.assert_close(got, want, atol=1e-6, rtol=rtol, msg=f"{label}: {key}")
         else:
             assert got.dtype == torch.int32 and torch.equal(got, want), f"{label}: {key} differs"
+    return {k: v.cpu().tolist() for k, v in gpu_res.items()}
 
 
 def device_profile(steps, warmup: int = 2) -> dict:
     """Device-side time by kernel over ``steps`` (callables), from torch.profiler.
 
-    The first ``warmup`` steps run before the profiler starts. Only
+    The first ``warmup`` steps run in the profiler's warm-up cycle, which
+    traces and discards them: device events launched just after tracing
+    starts can be lost, whole sessions of short calls among them. Only
     device-side rows (kernels, memsets, copies: rows with device time and
     no CPU time of their own) are kept, so no time is counted twice.
     Returns key -> [device ms, count].
     """
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for step in steps[:warmup]:
-        step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for step in steps[:warmup]:
+            step()
+        torch.cuda.synchronize()
+        prof.step()
         for step in steps[warmup:]:
             step()
         torch.cuda.synchronize()
+        prof.step()
 
     def device_us(event) -> float:
         return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0.0)
 
     rows = prof.key_averages()
-    kept = {e.key: [device_us(e) / 1e3, e.count] for e in rows if device_us(e) > 0 and e.self_cpu_time_total == 0}
+    # "ProfilerStep*" is the schedule's own span, mirrored on the device timeline
+    kept = {e.key: [device_us(e) / 1e3, e.count] for e in rows
+            if device_us(e) > 0 and e.self_cpu_time_total == 0 and not e.key.startswith("ProfilerStep")}
     if not kept:
         seen = [(e.key[:50], e.self_cpu_time_total, device_us(e)) for e in rows][:15]
         log(f"profiler: no device-side rows; {len(rows)} rows, first ones (key, self cpu us, device us): {seen}")
     return kept
 
 
-def profile_steps(suite, batches, warmup: int = 2) -> dict:
-    """Device time per steady suite step, in all and by kernel."""
+def profile_steps(update, batches, warmup: int = 2) -> dict:
+    """Device time per steady step ``update(*batch)``, in all and by kernel."""
     active = len(batches) - warmup
-    rows = device_profile([lambda p=p, t=t: suite.update(p, t) for p, t in batches], warmup)
+    rows = device_profile([lambda b=b: update(*b) for b in batches], warmup)
     busy_ms = sum(ms for ms, _ in rows.values())
     top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:12]
     return {
@@ -407,7 +457,7 @@ def main_path(mt, checks, histogram, card: str, trials: int = 3) -> dict:
             f"{batch * 1e3 / median:.1f} samples/s (median of {trials}; ms/step {per_step}), "
             f"{result[mode]['kernel_launches']} launches  [{card}]")
     checks.set_validation_mode("first")
-    prof = profile_steps(first_suite, batches[:12])
+    prof = profile_steps(first_suite.update, batches[:12])
     if prof["device_ms_per_step"] is not None:
         prof["device_idle_share"] = 1.0 - prof["device_ms_per_step"] / result["first"]["ms_per_step"]
     result["profile_first"] = prof
@@ -456,6 +506,230 @@ def multilabel_path(mt, histogram) -> dict:
     return {"batch": batch, "num_classes": num_classes, "steps": steps, "steps_per_s": steps / seconds}
 
 
+# ------------------------------------------------------------------ phases 6 and 7
+def agreement_suite(mt, device: str, num_classes: int = 1000):
+    return mt.MetricCollection(
+        {
+            "kappa": mt.CohenKappa(num_classes, device=device),
+            "mcc": mt.MatthewsCorrCoef(num_classes, device=device),
+            "jaccard": mt.JaccardIndex(num_classes, device=device),
+            "specificity": mt.Specificity(num_classes=num_classes, average="macro", device=device),
+            "hamming": mt.HammingDistance(device=device),
+        }
+    )
+
+
+def segmentation_suite(mt, device: str, num_classes: int = 19):
+    return mt.MetricCollection(
+        {
+            "miou": mt.JaccardIndex(num_classes=num_classes, device=device),
+            "dice": mt.Dice(num_classes=num_classes, average="macro", mdmc_average="global", device=device),
+        }
+    )
+
+
+def confmat_path(label, make_suite_fn, checks, histogram, batches, cpu_steps, warmup, timed, confmat_group, card,
+                 trials: int = 3) -> dict:
+    """A collection whose confusion-matrix members share one compute group, on the card.
+
+    Equality: the suite on the card and on the CPU over the first ``cpu_steps``
+    batches. Then ``trials`` timed runs in each validation mode, the modes
+    alternating: ``warmup`` + ``timed`` updates cycling over ``batches``. The
+    launch count is set to 0 before each run and read after its first update
+    (every member updates once, to find the groups: one launch per member of
+    ``confmat_group``) and after the rest (one launch a step)."""
+    checks.set_validation_mode("full")
+    gpu, cpu = make_suite_fn("cuda"), make_suite_fn("cpu")
+    for preds, target in batches[:cpu_steps]:
+        gpu.update(preds, target)
+        cpu.update(preds.cpu(), target.cpu())
+    groups = sorted(sorted(g) for g in gpu.compute_groups.values())
+    assert sorted(confmat_group) in groups, f"{label}: {confmat_group} do not share a compute group: {groups}"
+    values = assert_suites_equal(gpu, cpu, label, rtol=1e-5)
+    del gpu, cpu
+    log(f"{label}: states equal the CPU over {cpu_steps} steps, values within rtol 1e-5; groups {groups}")
+
+    steps = warmup + timed
+    stream = [batches[i % len(batches)] for i in range(steps)]
+    result = {"steps": steps, "timed_steps": timed, "trials": trials, "cpu_steps": cpu_steps, "groups": groups,
+              "values": values, "card": card}
+    seconds = {"first": [], "full": []}
+    for trial in range(trials):
+        for mode in ("first", "full"):
+            checks.set_validation_mode(mode)
+            suite = make_suite_fn("cuda")
+            histogram.KERNEL_LAUNCHES = 0
+            suite.update(*stream[0])
+            first_launches = histogram.KERNEL_LAUNCHES
+            histogram.KERNEL_LAUNCHES = 0
+            seconds[mode].append(run_suite(suite, stream[1:], warmup - 1))
+            rest_launches = histogram.KERNEL_LAUNCHES
+            assert first_launches == len(confmat_group), f"{label} ({mode}): {first_launches} launches on the first update"
+            assert rest_launches == steps - 1, f"{label} ({mode}): {rest_launches} launches in {steps - 1} steps"
+            if trial == 0:
+                result[mode] = {"kernel_launches": first_launches + rest_launches,
+                                "first_update_launches": first_launches,
+                                "launches_per_step_after_first": rest_launches / (steps - 1)}
+                if mode == "first":
+                    first_suite = suite
+            del suite
+    for mode, runs in seconds.items():
+        per_step = sorted(t / timed * 1e3 for t in runs)
+        median = per_step[len(per_step) // 2]
+        result[mode].update(ms_per_step_runs=per_step, ms_per_step=median, steps_per_s=1e3 / median)
+    checks.set_validation_mode("first")
+    prof = profile_steps(first_suite.update, stream[:8])
+    if prof["device_ms_per_step"] is not None:
+        prof["device_idle_share"] = 1.0 - prof["device_ms_per_step"] / result["first"]["ms_per_step"]
+    result["profile_first"] = prof
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first_suite.update(*stream[0])
+    torch.cuda.synchronize()
+    result["peak_device_bytes_one_step"] = torch.cuda.max_memory_allocated()
+    log(f"profile {label} (mode=first): {json.dumps(prof)}")
+    return result
+
+
+def layer_profile(histogram, preds, target, num_classes: int, calls: int = 10) -> dict:
+    """Device ms per call of each layer a member's update runs, on one batch of a path
+    (torch.profiler, ``calls`` calls after 2 untimed): input canonicalisation (each
+    group leader runs it once a step), the confusion matrix's pair ids, the bincount
+    kernel, and the macro stat scores with the (N, C, X) -> (N*X, C) layout copy."""
+    from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores
+    from metrics_tpu_torch.utils.checks import _input_format_classification
+
+    p, t, _ = _input_format_classification(preds, target)
+    ids = t.argmax(dim=1).reshape(-1) * num_classes + p.argmax(dim=1).reshape(-1)
+    stages = {
+        "canonicalise": lambda: _input_format_classification(preds, target),
+        "pair_ids": lambda: t.argmax(dim=1).reshape(-1) * num_classes + p.argmax(dim=1).reshape(-1),
+        "bincount": lambda: histogram.fused_bincount(ids, num_classes**2),
+        "stat_scores": lambda: _stat_scores(p.movedim(1, -1).reshape(-1, num_classes),
+                                            t.movedim(1, -1).reshape(-1, num_classes), reduce="macro"),
+    }
+    out = {}
+    for name, fn in stages.items():
+        rows = device_profile([fn] * (calls + 2))
+        # None: the profiler saw no device time, so it was not measured
+        out[name] = {"device_ms": sum(ms for ms, _ in rows.values()) / calls if rows else None,
+                     "device_ops": sum(n for _, n in rows.values()) / calls if rows else None}
+    return out
+
+
+def agreement_path(mt, checks, histogram, card) -> dict:
+    """ImageNet-1k width: C=1000, B=4096 softmax rows a step; the confusion matrix has 10**6 bins."""
+    batch, num_classes = 4096, 1000
+    batches = make_batches(batch, num_classes, 8, seed=5, signal=4.0)
+    result = confmat_path("agreement path", lambda dev: agreement_suite(mt, dev, num_classes), checks, histogram,
+                          batches, cpu_steps=8, warmup=4, timed=20, confmat_group=["jaccard", "kappa", "mcc"],
+                          card=card)
+    result.update(batch=batch, num_classes=num_classes,
+                  device_ms_per_call_by_layer=layer_profile(histogram, *batches[0], num_classes))
+    log(f"agreement path, device ms per call by layer: {json.dumps(result['device_ms_per_call_by_layer'])}  [{card}]")
+    for mode in ("first", "full"):
+        r = result[mode]
+        r["samples_per_s"] = batch * r["steps_per_s"]
+        log(f"agreement path B={batch} C={num_classes} mode={mode}: {r['steps_per_s']:.2f} steps/s, "
+            f"{r['samples_per_s']:.1f} samples/s (ms/step {r['ms_per_step_runs']}), launches {r['kernel_launches']} "
+            f"(first update {r['first_update_launches']}, then {r['launches_per_step_after_first']} a step)  [{card}]")
+    return result
+
+
+def segmentation_path(mt, checks, histogram, card) -> dict:
+    """Cityscapes width: C=19, B=2 images of 1024 x 2048; 4,194,304 pixel ids into 361 bins a step."""
+    batch, num_classes, spatial = 2, 19, (1024, 2048)
+    batches = make_batches(batch, num_classes, 3, seed=6, signal=3.0, spatial=spatial)
+    result = confmat_path("segmentation path", lambda dev: segmentation_suite(mt, dev, num_classes), checks,
+                          histogram, batches, cpu_steps=3, warmup=2, timed=10, confmat_group=["miou"], card=card)
+    pixels = batch * spatial[0] * spatial[1]
+    result.update(batch=batch, num_classes=num_classes, spatial=list(spatial), pixels_per_step=pixels,
+                  device_ms_per_call_by_layer=layer_profile(histogram, *batches[0], num_classes))
+    log(f"segmentation path, device ms per call by layer: {json.dumps(result['device_ms_per_call_by_layer'])}  [{card}]")
+    for mode in ("first", "full"):
+        r = result[mode]
+        r["pixels_per_s"] = pixels * r["steps_per_s"]
+        log(f"segmentation path B={batch} {spatial[0]}x{spatial[1]} C={num_classes} mode={mode}: "
+            f"{r['steps_per_s']:.2f} steps/s, {r['pixels_per_s']:.4g} pixels/s (ms/step {r['ms_per_step_runs']}), "
+            f"launches {r['kernel_launches']}  [{card}]")
+    return result
+
+
+# ------------------------------------------------------------------ phase 8
+AGGREGATORS = ("MeanMetric", "SumMetric", "MaxMetric", "MinMetric", "CatMetric")
+
+
+def _update_outcome(metric, args) -> str:
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            metric.update(*args)
+        except RuntimeError as err:
+            return f"RuntimeError: {err}"
+    return "ok"
+
+
+def aggregation_path(mt, checks, card) -> dict:
+    """Per-step loss tensors (B=4096) with NaNs in some steps' values and others' weights:
+    every aggregator under every nan_strategy and validation mode, on the card and on the CPU."""
+    batch, steps = 4096, 12
+    g = torch.Generator(device="cuda").manual_seed(7)
+    stream = []
+    for step in range(steps):
+        loss = torch.rand(batch, generator=g, device="cuda") * 3
+        weight = torch.rand(batch, generator=g, device="cuda")
+        if step % 3 == 1:
+            loss[::97] = float("nan")
+        if step % 4 == 2:
+            weight[::89] = float("nan")
+        stream.append((loss, weight))
+    checked = 0
+    for mode in ("full", "first", "off"):
+        checks.set_validation_mode(mode)
+        for strategy in ("error", "warn", "ignore", 0.5):
+            for name in AGGREGATORS:
+                gpu = getattr(mt, name)(nan_strategy=strategy, device="cuda")
+                cpu = getattr(mt, name)(nan_strategy=strategy, device="cpu")
+                for loss, weight in stream:
+                    args = (loss, weight) if name == "MeanMetric" else (loss,)
+                    outcome = _update_outcome(gpu, args)
+                    assert outcome == _update_outcome(cpu, [a.cpu() for a in args]), f"{name}/{strategy}/{mode}: {outcome}"
+                for state, want in cpu.metric_state.items():
+                    got = getattr(gpu, state)
+                    got = torch.cat([v.cpu() for v in got]) if isinstance(got, list) else got.cpu()
+                    want = torch.cat(want) if isinstance(want, list) else want
+                    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6, equal_nan=True,
+                                               msg=f"aggregation {name}/{strategy}/{mode}: state {state}")
+                torch.testing.assert_close(gpu.compute().cpu(), cpu.compute(), rtol=1e-5, atol=1e-6, equal_nan=True,
+                                           msg=f"aggregation {name}/{strategy}/{mode}: compute")
+                checked += 1
+    log(f"aggregation path: {checked} aggregator x nan_strategy x mode runs of {steps} steps equal the CPU")
+
+    checks.set_validation_mode("first")
+    suite = mt.MetricCollection({name: getattr(mt, name)(device="cuda") for name in AGGREGATORS}, compute_groups=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for loss, weight in stream[:2]:
+            suite.update(loss, weight=weight)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for loss, weight in stream[2:]:
+            suite.update(loss, weight=weight)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        values = {k: (v.numel() if k == "CatMetric" else float(v)) for k, v in suite.compute().items()}
+        prof = profile_steps(lambda loss, weight: suite.update(loss, weight=weight), stream[:8])
+    ms = seconds / (steps - 2) * 1e3
+    assert all(v == v for k, v in values.items()), f"aggregation suite: NaN in {values}"
+    result = {"batch": batch, "steps": steps, "runs_checked": checked, "ms_per_step": ms, "steps_per_s": 1e3 / ms,
+              "values": values, "profile_first": prof, "card": card}
+    if prof["device_ms_per_step"] is not None:
+        prof["device_idle_share"] = 1.0 - prof["device_ms_per_step"] / ms
+    log(f"aggregation path (mode=first, default nan_strategy 'warn'): {1e3 / ms:.2f} steps/s; "
+        f"profile {json.dumps(prof)}  [{card}]")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -479,11 +753,16 @@ def main() -> int:
     log(json.dumps({"bincount_sweep": sweep, "card": card}))
     kernel = kernel_entry(sweep, max_abs_err)
     main = main_path(mt, checks, histogram, card)
-    kernel["launches"] = main["first"]["kernel_launches"]
     large = large_l_path(mt, histogram)
     multilabel = multilabel_path(mt, histogram)
+    agreement = agreement_path(mt, checks, histogram, card)
+    segmentation = segmentation_path(mt, checks, histogram, card)
+    aggregation = aggregation_path(mt, checks, card)
+    # each path's first timed run in mode "first", counted from 0 just before it
+    kernel["launches"] = sum(p["first"]["kernel_launches"] for p in (main, agreement, segmentation))
 
-    log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel}))
+    log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
+                    "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation}))
     log(json.dumps({"kernels": [kernel]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -5,16 +5,29 @@ its layout and names. Metrics are ``nn.Module``s whose states live on the
 current CUDA device unless a ``device`` is given (``device="cpu"`` runs on
 the CPU). The confusion-matrix histogram runs a hand-written CUDA kernel
 (``csrc/bincount.cu``), built with ``nvcc`` at first use.
+
+Ported so far: the classification metrics built on stat scores (Accuracy,
+Precision, Recall, F1Score, FBetaScore, Specificity, Dice, StatScores) and
+on the confusion matrix (ConfusionMatrix, CohenKappa, MatthewsCorrCoef,
+JaccardIndex), HammingDistance, the aggregators (Max, Min, Sum, Cat, Mean)
+and MetricCollection.
 """
 from metrics_tpu_torch import functional
 from metrics_tpu_torch.__about__ import __version__
+from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.classification import (
     Accuracy,
+    CohenKappa,
     ConfusionMatrix,
+    Dice,
     F1Score,
     FBetaScore,
+    HammingDistance,
+    JaccardIndex,
+    MatthewsCorrCoef,
     Precision,
     Recall,
+    Specificity,
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection
@@ -23,14 +36,25 @@ from metrics_tpu_torch.metric import Metric
 
 __all__ = [
     "Accuracy",
+    "CatMetric",
+    "CohenKappa",
     "ConfusionMatrix",
+    "Dice",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
+    "JaccardIndex",
+    "MatthewsCorrCoef",
+    "MaxMetric",
+    "MeanMetric",
     "Metric",
     "MetricCollection",
+    "MinMetric",
     "Precision",
     "Recall",
+    "Specificity",
     "StatScores",
+    "SumMetric",
     "__version__",
     "functional",
     "load_reference_state",

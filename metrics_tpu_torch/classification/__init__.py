@@ -1,7 +1,27 @@
 from metrics_tpu_torch.classification.accuracy import Accuracy
+from metrics_tpu_torch.classification.cohen_kappa import CohenKappa
 from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix
+from metrics_tpu_torch.classification.dice import Dice
 from metrics_tpu_torch.classification.f_beta import F1Score, FBetaScore
+from metrics_tpu_torch.classification.hamming import HammingDistance
+from metrics_tpu_torch.classification.jaccard import JaccardIndex
+from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrCoef
 from metrics_tpu_torch.classification.precision_recall import Precision, Recall
+from metrics_tpu_torch.classification.specificity import Specificity
 from metrics_tpu_torch.classification.stat_scores import StatScores
 
-__all__ = ["Accuracy", "ConfusionMatrix", "F1Score", "FBetaScore", "Precision", "Recall", "StatScores"]
+__all__ = [
+    "Accuracy",
+    "CohenKappa",
+    "ConfusionMatrix",
+    "Dice",
+    "F1Score",
+    "FBetaScore",
+    "HammingDistance",
+    "JaccardIndex",
+    "MatthewsCorrCoef",
+    "Precision",
+    "Recall",
+    "Specificity",
+    "StatScores",
+]

@@ -1,8 +1,44 @@
 """Numerically careful compute helpers (JAX counterpart: `metrics_tpu/utils/compute.py`)."""
 from __future__ import annotations
 
+import functools
+from typing import Any, Callable
+
 import torch
 from torch import Tensor
+
+
+def high_precision(fn: Callable) -> Callable:
+    """Run ``fn`` with float32 matrix products at full float32 precision.
+
+    On the card a float32 product runs in TF32 (a 10-bit mantissa) whenever
+    the caller has set ``torch.set_float32_matmul_precision("high")`` or
+    ``"medium"``, which loses integer exactness on counts above 2048. The
+    wrapper sets ``"highest"`` for the duration of the call and restores the
+    caller's setting afterwards, also when ``fn`` raises. The setting is
+    process-wide, as it is in PyTorch.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch.utils.compute import high_precision
+        >>> torch.set_float32_matmul_precision("high")
+        >>> high_precision(torch.get_float32_matmul_precision)()
+        'highest'
+        >>> torch.get_float32_matmul_precision()
+        'high'
+        >>> torch.set_float32_matmul_precision("highest")
+    """
+
+    @functools.wraps(fn)
+    def wrapper(*args: Any, **kwargs: Any) -> Any:
+        previous = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("highest")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.set_float32_matmul_precision(previous)
+
+    return wrapper
 
 
 def _safe_divide(num: Tensor, denom: Tensor) -> Tensor:
@@ -16,4 +52,4 @@ def _safe_divide(num: Tensor, denom: Tensor) -> Tensor:
     return torch.where(zero, torch.zeros_like(num), num / torch.where(zero, torch.ones_like(denom), denom))
 
 
-__all__ = ["_safe_divide"]
+__all__ = ["high_precision", "_safe_divide"]

@@ -197,3 +197,53 @@ def test_load_reference_state_refuses_mismatched_state():
         load_reference_state(tm, {"confmat": np.zeros((C + 1, C + 1), dtype=np.int32)})
     with pytest.raises(KeyError):
         load_reference_state(tm, {})
+
+
+def _agreement_suite(pkg, num_classes=C):
+    """The agreement suite: three confusion-matrix metrics, Specificity and HammingDistance."""
+    dev = {} if pkg is jmt else {"device": "cpu"}
+    return pkg.MetricCollection(
+        {
+            "kappa": pkg.CohenKappa(num_classes=num_classes, **dev),
+            "mcc": pkg.MatthewsCorrCoef(num_classes=num_classes, **dev),
+            "jaccard": pkg.JaccardIndex(num_classes=num_classes, **dev),
+            "specificity": pkg.Specificity(num_classes=num_classes, average="macro", **dev),
+            "hamming": pkg.HammingDistance(**dev),
+        }
+    )
+
+
+def test_agreement_suite_matches_jax_and_groups_the_confusion_matrices(monkeypatch):
+    """kappa, mcc and jaccard share one compute group: after the first update, which
+    updates every member to find the groups, one bincount serves all three."""
+    from metrics_tpu_torch.utils import data
+
+    calls = []
+    real = data.fused_bincount
+    monkeypatch.setattr(data, "fused_bincount", lambda *a, **k: calls.append(1) or real(*a, **k))
+    js, ts = _agreement_suite(jmt), _agreement_suite(tmt)
+    per_update = []
+    for preds, target in _batches(seed=9):
+        before = len(calls)
+        js.update(jnp.asarray(preds), jnp.asarray(target))
+        ts.update(torch.from_numpy(preds), torch.from_numpy(target))
+        per_update.append(len(calls) - before)
+    assert per_update == [3] + [1] * (STEPS - 1)
+    assert ts.compute_groups == js.compute_groups
+    groups = sorted(sorted(g) for g in ts.compute_groups.values())
+    assert groups == [["hamming"], ["jaccard", "kappa", "mcc"], ["specificity"]]
+    members = dict(ts.items(keep_base=True, copy_state=False))
+    assert members["kappa"].confmat is members["mcc"].confmat is members["jaccard"].confmat
+    _assert_results_equal(js.compute(), ts.compute())
+
+
+def test_mean_metric_beside_the_suite():
+    """A loss MeanMetric in the same collection: its update takes the loss, the others skip it."""
+    js = jmt.MetricCollection({"loss": jmt.MeanMetric(), "sum": jmt.SumMetric()})
+    ts = tmt.MetricCollection({"loss": tmt.MeanMetric(device="cpu"), "sum": tmt.SumMetric(device="cpu")})
+    rng = np.random.RandomState(10)
+    for _ in range(3):
+        loss = rng.rand(B).astype(np.float32)
+        js.update(jnp.asarray(loss))
+        ts.update(torch.from_numpy(loss))
+    _assert_results_equal(js.compute(), ts.compute())

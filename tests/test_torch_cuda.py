@@ -1,8 +1,10 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA bincount kernel against
 its plain PyTorch version on both of its paths (shared-memory and global), at
 the shared-memory threshold, with hot bins and on memory full of junk; the
-wrapper's checks and one launch per call; and a small suite on the card
-against the same suite on the CPU.
+wrapper's checks and one launch per call; a small suite on the card
+against the same suite on the CPU; each metric of the confusion-matrix and
+stat-score families and each aggregator on the card against the CPU; and
+Cohen's kappa at C=1000 with counts above 2048 under TF32 matmul settings.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -149,3 +151,91 @@ def test_suite_on_the_card_equals_the_cpu(dev):
     assert torch.equal(got["confmat"].cpu(), want["confmat"])
     for key in ("acc", "f1"):
         torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-6, rtol=0)
+
+
+def _batches(dev, num_classes, steps=3, batch=512, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [
+        (torch.softmax(torch.randn(batch, num_classes, generator=g, device=dev), dim=1),
+         torch.randint(0, num_classes, (batch,), generator=g, device=dev))
+        for _ in range(steps)
+    ]
+
+
+def _assert_equal_to_cpu(gpu, cpu, rtol=0.0):
+    for name, want in cpu.metric_state.items():
+        got = getattr(gpu, name)
+        got, want = (got, want) if isinstance(want, list) else ([got], [want])
+        assert len(got) == len(want), name
+        for g, w in zip(got, want):
+            g = g.cpu()
+            assert g.dtype == w.dtype
+            if w.is_floating_point():
+                torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-5, equal_nan=True)
+            else:
+                assert torch.equal(g, w), name
+    torch.testing.assert_close(gpu.compute().cpu(), cpu.compute(), atol=1e-6, rtol=rtol, equal_nan=True)
+
+
+FAMILY = [
+    ("CohenKappa", dict(num_classes=10, weights="quadratic")),
+    ("MatthewsCorrCoef", dict(num_classes=10)),
+    ("JaccardIndex", dict(num_classes=10, ignore_index=0)),
+    ("Specificity", dict(num_classes=10, average="macro")),
+    ("Dice", dict(num_classes=10, average="macro")),
+    ("HammingDistance", dict()),
+]
+
+
+@pytest.mark.parametrize("cls_name,kwargs", FAMILY, ids=[f[0] for f in FAMILY])
+def test_family_on_the_card_equals_the_cpu(dev, cls_name, kwargs):
+    gpu, cpu = getattr(mt, cls_name)(device=dev, **kwargs), getattr(mt, cls_name)(device="cpu", **kwargs)
+    before = histogram.KERNEL_LAUNCHES
+    for preds, target in _batches(dev, 10):
+        gpu.update(preds, target)
+        cpu.update(preds.cpu(), target.cpu())
+    confmat_metric = cls_name in ("CohenKappa", "MatthewsCorrCoef", "JaccardIndex")
+    assert histogram.KERNEL_LAUNCHES - before == (3 if confmat_metric else 0)  # one bincount per update
+    _assert_equal_to_cpu(gpu, cpu)
+
+
+@pytest.mark.parametrize("nan_strategy", ["error", "warn", "ignore", 0.5], ids=str)
+@pytest.mark.parametrize("cls_name", ["MaxMetric", "MinMetric", "SumMetric", "CatMetric", "MeanMetric"])
+def test_aggregators_on_the_card_equal_the_cpu(dev, cls_name, nan_strategy):
+    g = torch.Generator(device=dev).manual_seed(5)
+    gpu, cpu = getattr(mt, cls_name)(nan_strategy=nan_strategy, device=dev), getattr(mt, cls_name)(nan_strategy=nan_strategy, device="cpu")
+    for step in range(4):
+        x = torch.rand(64, generator=g, device=dev)
+        if nan_strategy != "error" and step % 2:
+            x[::7] = float("nan")
+        args = (x, torch.rand(64, generator=g, device=dev)) if cls_name == "MeanMetric" else (x,)
+        gpu.update(*args)
+        cpu.update(*(a.cpu() for a in args))
+    _assert_equal_to_cpu(gpu, cpu, rtol=1e-5)
+
+
+def test_cohen_kappa_exact_counts_under_tf32(dev):
+    """C=1000 and marginals above 2048: with the caller's matmul precision at "high"
+    (TF32 on the card), the expected matrix stays the float32 product of the counts."""
+    from metrics_tpu_torch.utils.compute import high_precision
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, num_classes = 1 << 20, 1000
+    hot = torch.randint(0, 10, (n,), generator=g, device=dev)  # ten classes take half the labels
+    target = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, hot, torch.randint(0, num_classes, (n,), generator=g, device=dev))
+    preds = torch.where(torch.rand(n, generator=g, device=dev) < 0.7, target, torch.randint(0, num_classes, (n,), generator=g, device=dev))
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        gpu, cpu = mt.CohenKappa(num_classes, device=dev), mt.CohenKappa(num_classes, device="cpu")
+        gpu.update(preds, target)
+        cpu.update(preds.cpu(), target.cpu())
+        assert int(cpu.confmat.sum(dim=0).max()) > 2048
+        _assert_equal_to_cpu(gpu, cpu, rtol=1e-5)
+        sum0 = gpu.confmat.sum(dim=0, keepdim=True).float()
+        sum1 = gpu.confmat.sum(dim=1, keepdim=True).float()
+        product = high_precision(torch.matmul)(sum1, sum0)
+        assert torch.equal(product.cpu(), sum1.cpu() * sum0.cpu())
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
