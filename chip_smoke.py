@@ -47,6 +47,19 @@ Phases, each of which raises on failure (exit code 1):
    ``nan_strategy`` and validation mode, against the CPU; then the five in
    one collection, timed.
 
+9. The sync path: the headline, agreement, segmentation and aggregator suites
+   (full width, two updates each) synced across processes. First through
+   NCCL in a process group of one rank, the sync forced: every state after a
+   sync equals the state before it bit for bit, ``unsync`` puts the local
+   states back, a coalesced sync is one payload collective (plus one metadata
+   collective where a ``cat`` state is packed), and the per-state protocol,
+   forced with an explicit ``dist_sync_fn``, gives the same states with two
+   collectives a state; both protocols timed. Then two spawned ranks on the
+   one card joined by Gloo with CUDA tensors (NCCL refuses two ranks on one
+   device), each fed its own batches and losses of an uneven length: their
+   ``compute()`` (which syncs) must equal one CPU instance fed every batch of
+   both, counts bit-exact and values within atol 1e-6 and rtol 1e-5.
+
 Paths 6 and 7 run in validation modes "first" and "full" (3 alternating
 trials each), equal the CPU on the same batches (counts bit-exact, values
 within rtol 1e-5) and report steps/s, device ms/step by kernel and the
@@ -59,8 +72,10 @@ Without a CUDA device it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -730,6 +745,315 @@ def aggregation_path(mt, checks, card) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 9
+SYNC_SUITES = ("headline", "agreement", "segmentation", "aggregators")
+SYNC_STEPS = 2  # updates of each suite on each rank
+SYNC_TRIALS = 5  # timed syncs of each protocol, alternating, after one untimed sync
+SYNC_WORLD_S = 600  # wall-clock limit of the two-rank world
+SYNC_DEVICE = "cuda"  # where the synced suites live
+
+
+def sync_suite(mt, name: str, device: str):
+    if name == "headline":
+        return make_suite(mt, 128, device)
+    if name == "agreement":
+        return agreement_suite(mt, device, 1000)
+    if name == "segmentation":
+        return segmentation_suite(mt, device, 19)
+    return mt.MetricCollection({n: getattr(mt, n)(device=device) for n in AGGREGATORS}, compute_groups=False)
+
+
+def sync_batches(name: str, rank: int, steps: int = SYNC_STEPS) -> list:
+    """Rank ``rank``'s updates of suite ``name`` on the card, ``(args, kwargs)`` each, from a seed
+    of the suite and the rank: full-width batches, and per-sample losses of an uneven length."""
+    seed = 100 + 10 * rank + SYNC_SUITES.index(name)
+    if name == "headline":
+        return [((p, t), {}) for p, t in make_batches(8192, 128, steps, seed)]
+    if name == "agreement":
+        return [((p, t), {}) for p, t in make_batches(4096, 1000, steps, seed, signal=4.0)]
+    if name == "segmentation":
+        return [((p, t), {}) for p, t in make_batches(2, 19, steps, seed, signal=3.0, spatial=(1024, 2048))]
+    g = torch.Generator(device=SYNC_DEVICE).manual_seed(seed)
+    batch = 4096 + 1000 * rank  # CatMetric holds an uneven number of rows on each rank
+    return [((torch.rand(batch, generator=g, device=SYNC_DEVICE) * 3,),
+             {"weight": torch.rand(batch, generator=g, device=SYNC_DEVICE)}) for _ in range(steps)]
+
+
+def per_state_gather(tensor, group=None):
+    """``gather_all_tensors`` behind another name: a ``dist_sync_fn`` that forces the per-state protocol."""
+    from metrics_tpu_torch.parallel import gather_all_tensors
+
+    return gather_all_tensors(tensor, group)
+
+
+def suite_states(suite) -> dict:
+    """(member, state) -> the state, a list state concatenated as a sync leaves it."""
+    out = {}
+    for name, m in suite.items(keep_base=True, copy_state=False):
+        for state, value in m.metric_state.items():
+            out[(name, state)] = torch.cat(value) if isinstance(value, list) else value
+    return out
+
+
+def timed_sync(suite, protocol: str) -> tuple:
+    """One suite sync by ``protocol``: (ms on the host clock, ending in a synchronise; collective counts)."""
+    from metrics_tpu_torch.parallel import collective_stats, reset_collective_stats
+
+    kwargs = {"dist_sync_fn": per_state_gather} if protocol == "per_state" else {}
+    reset_collective_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    suite.sync(distributed_available=lambda: True, **kwargs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    stats = collective_stats()
+    return ms, {k: stats[k] for k in ("sync_shape_collectives", "sync_payload_collectives", "sync_bytes_gathered",
+                                      "sync_states_coalesced")}
+
+
+def sync_trials(suite, check=None) -> dict:
+    """One untimed coalesced sync (a live group checks a new static layout once), then
+    ``SYNC_TRIALS`` syncs of each protocol, alternating; ``check(suite)`` after each sync."""
+    out = {"first": None, "coalesced": [], "per_state": []}
+    order = ["coalesced"] + ["coalesced", "per_state", "per_state", "coalesced"] * ((SYNC_TRIALS + 1) // 2)
+    for i, protocol in enumerate(order):
+        ms, counts = timed_sync(suite, protocol)
+        if check is not None:
+            check(suite)
+        suite.unsync()
+        if i == 0:
+            out["first"] = counts
+        elif len(out[protocol]) < SYNC_TRIALS:
+            out[protocol].append((ms, counts))
+    result = {"first_sync_counts": out["first"]}
+    for protocol in ("coalesced", "per_state"):
+        times = sorted(ms for ms, _ in out[protocol])
+        counts = [c for _, c in out[protocol]]
+        assert all(c == counts[0] for c in counts), f"{protocol}: the collective counts differ between syncs: {counts}"
+        result[protocol] = {"sync_ms_median": times[len(times) // 2], "sync_ms": times, "counts": counts[0]}
+    return result
+
+
+def sync_profile(suite, protocol: str, syncs: int = 3) -> dict:
+    """Where a suite sync's time goes (torch.profiler, ``syncs`` syncs after one in the warm-up
+    cycle): device ms and device operations per sync, and per sync the host ops with the most
+    self CPU time, each with its calls. Host times are taken under the profiler."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    kwargs = {"dist_sync_fn": per_state_gather} if protocol == "per_state" else {}
+
+    def one_sync():
+        suite.sync(distributed_available=lambda: True, **kwargs)
+        torch.cuda.synchronize()
+        suite.unsync()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        one_sync()
+        prof.step()
+        for _ in range(syncs):
+            one_sync()
+        prof.step()
+
+    def device_us(event) -> float:
+        return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0.0)
+
+    rows = [e for e in prof.key_averages() if not e.key.startswith("ProfilerStep")]
+    device = [e for e in rows if device_us(e) > 0 and e.self_cpu_time_total == 0]
+    host = sorted((e for e in rows if e.self_cpu_time_total > 0), key=lambda e: -e.self_cpu_time_total)
+    return {
+        "device_ms_per_sync": sum(device_us(e) for e in device) / 1e3 / syncs if device else None,
+        "device_ops_per_sync": sum(e.count for e in device) / syncs,
+        "host_op_ms_per_sync": sum(e.self_cpu_time_total for e in host) / 1e3 / syncs,
+        "top_host_ops_per_sync": {e.key[:60]: [e.self_cpu_time_total / 1e3 / syncs, e.count / syncs] for e in host[:8]},
+    }
+
+
+def assert_sync_counts(label: str, result: dict, n_states: int, has_cat: bool) -> None:
+    co, ps = result["coalesced"]["counts"], result["per_state"]["counts"]
+    assert co["sync_payload_collectives"] == 1, f"{label}: {co} payload collectives per coalesced sync"
+    assert co["sync_shape_collectives"] == int(has_cat), f"{label}: {co} metadata collectives per coalesced sync"
+    assert co["sync_states_coalesced"] == n_states, f"{label}: {co['sync_states_coalesced']} of {n_states} states packed"
+    assert ps["sync_shape_collectives"] == ps["sync_payload_collectives"] == n_states, (
+        f"{label}: the per-state protocol issued {ps} for {n_states} states")
+
+
+def sync_world_of_one(mt, histogram, name: str, card: str) -> dict:
+    """Suite ``name`` updated on the card, then synced through NCCL in a world of one rank: every
+    state bit-exact after each sync, the local states back after each unsync, the collective
+    counts of both protocols, and their sync times."""
+    suite = sync_suite(mt, name, SYNC_DEVICE)
+    histogram.KERNEL_LAUNCHES = 0
+    for args, kwargs in sync_batches(name, 0):
+        suite.update(*args, **kwargs)
+    torch.cuda.synchronize()
+    launches = histogram.KERNEL_LAUNCHES
+    members = dict(suite.items(keep_base=True, copy_state=False))
+    local = {(m, s): v for m, member in members.items() for s, v in member.metric_state.items()}
+    want = {k: v.clone() for k, v in suite_states(suite).items()}
+    has_cat = any(isinstance(v, list) for v in local.values())
+
+    def check(synced):
+        for (m, s), value in want.items():
+            got = getattr(members[m], s)
+            assert got.device == value.device and got.dtype == value.dtype and torch.equal(got, value), (
+                f"sync {name}: {m}.{s} changed in a world of one")
+
+    result = sync_trials(suite, check)
+    for (m, s), value in local.items():  # unsync put back the very same local states
+        got = getattr(members[m], s)
+        assert (got == value) if isinstance(value, list) else (got is value), f"sync {name}: {m}.{s} not restored"
+    assert_sync_counts(f"sync {name} (NCCL, world of one)", result, len(want), has_cat)
+    # the first update of a collection runs every member: each confusion-matrix member launches once
+    expected = {"headline": SYNC_STEPS, "agreement": 3 + SYNC_STEPS - 1, "segmentation": SYNC_STEPS}.get(name, 0)
+    assert launches == expected, f"sync {name}: {launches} bincount launches in {SYNC_STEPS} updates, not {expected}"
+    packed = result["coalesced"]["counts"]["sync_bytes_gathered"]
+    result.update(states=len(want), bytes_packed=packed, kernel_launches=launches, card=card)
+    result["profile"] = {protocol: sync_profile(suite, protocol) for protocol in ("coalesced", "per_state")}
+    log(f"sync {name} (NCCL, world of one): {len(want)} states, {packed} bytes packed; collectives a sync: coalesced "
+        f"{result['coalesced']['counts']['sync_shape_collectives']} metadata + 1 payload (first sync "
+        f"{result['first_sync_counts']['sync_shape_collectives']} + 1), per-state "
+        f"{result['per_state']['counts']['sync_shape_collectives']} shape + "
+        f"{result['per_state']['counts']['sync_payload_collectives']} payload; sync ms (median of {SYNC_TRIALS}): "
+        f"coalesced {result['coalesced']['sync_ms_median']:.4f}, per-state {result['per_state']['sync_ms_median']:.4f}"
+        f"  [{card}]")
+    log(f"sync {name} profile: {json.dumps(result['profile'])}  [{card}]")
+    return result
+
+
+def gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """One rank of the two-rank world on the one card (Gloo, CUDA tensors): each suite fed this
+    rank's batches and computed (``compute()`` syncs), then timed syncs of both protocols."""
+    import torch.distributed as dist
+
+    if str(HERE) not in sys.path:
+        sys.path.insert(0, str(HERE))
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch.parallel import collective_stats, reset_collective_stats
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world)
+    result: dict = {}
+    try:
+        probe = torch.full((4,), rank, dtype=torch.int32, device=SYNC_DEVICE)
+        rows = [torch.empty_like(probe) for _ in range(world)]
+        try:
+            dist.all_gather(rows, probe)
+            result["gloo_cuda"] = [r.tolist() for r in rows] == [[r] * 4 for r in range(world)]
+        except RuntimeError as err:
+            result["gloo_cuda"], result["gloo_cuda_error"] = False, str(err)
+        for name in SYNC_SUITES if result["gloo_cuda"] else ():
+            suite = sync_suite(mt, name, SYNC_DEVICE)
+            for args, kwargs in sync_batches(name, rank):
+                suite.update(*args, **kwargs)
+            reset_collective_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            values = suite.compute()
+            torch.cuda.synchronize()
+            compute_ms = (time.perf_counter() - t0) * 1e3
+            stats = collective_stats()
+            n_states = len(suite_states(suite))
+            result[name] = {
+                "values": {k: v.cpu() for k, v in values.items()},
+                "compute_ms": compute_ms,
+                "compute_counts": {k: stats[k] for k in ("sync_shape_collectives", "sync_payload_collectives",
+                                                         "sync_bytes_gathered")},
+                "states": n_states,
+                "has_cat": name == "aggregators",
+                **sync_trials(suite),
+            }
+            del suite
+    finally:
+        torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def run_two_ranks(world: int = 2) -> list:
+    """Spawn the two ranks of the Gloo world; kill them at ``SYNC_WORLD_S`` seconds."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_method = f"file://{os.path.join(tmp, 'rendezvous')}"
+        procs = [ctx.Process(target=gloo_rank, args=(rank, world, init_method, tmp)) for rank in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + SYNC_WORLD_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        hung = [p for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        codes = [p.exitcode for p in procs]
+        if hung or any(codes):
+            raise RuntimeError(f"two-rank sync world: exit codes {codes}, {len(hung)} killed at {SYNC_WORLD_S} s")
+        return [torch.load(os.path.join(tmp, f"{rank}.pt")) for rank in range(world)]
+
+
+def sync_two_ranks(mt, card: str) -> dict:
+    """Two ranks on the one card over Gloo: both ranks' synced values equal one CPU instance
+    fed every batch of both (counts bit-exact, values within atol 1e-6 and rtol 1e-5)."""
+    results = run_two_ranks()
+    if not all(r["gloo_cuda"] for r in results):
+        log(f"sync two ranks: torch's Gloo refused CUDA tensors for all_gather: {results[0].get('gloo_cuda_error')}")
+        return {"gloo_cuda": False, "error": results[0].get("gloo_cuda_error"), "card": card}
+    out = {"gloo_cuda": True, "card": card}
+    for name in SYNC_SUITES:
+        reference = sync_suite(mt, name, "cpu")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for rank in range(len(results)):
+                for args, kwargs in sync_batches(name, rank):
+                    reference.update(*(a.cpu() for a in args), **{k: v.cpu() for k, v in kwargs.items()})
+            want = reference.compute()
+        for rank, result in enumerate(results):
+            got = result[name]["values"]
+            assert sorted(got) == sorted(want), f"sync {name}, rank {rank}: keys {sorted(got)}"
+            for key, value in want.items():
+                g = got[key]
+                assert torch.isfinite(g.float()).all(), f"sync {name}, rank {rank}: {key} is not finite"
+                if value.is_floating_point():
+                    torch.testing.assert_close(g, value, atol=1e-6, rtol=1e-5, msg=f"sync {name}, rank {rank}: {key}")
+                else:
+                    assert g.dtype == value.dtype and torch.equal(g, value), f"sync {name}, rank {rank}: {key} differs"
+            assert_sync_counts(f"sync {name} (Gloo, rank {rank})", result[name], result[name]["states"],
+                               result[name]["has_cat"])
+        r0 = results[0][name]
+        out[name] = {k: [r[name][k] for r in results] for k in ("compute_ms", "compute_counts")}
+        out[name].update({p: [r[name][p] for r in results] for p in ("coalesced", "per_state", "first_sync_counts")})
+        out[name]["states"] = r0["states"]
+        log(f"sync {name} (Gloo, two ranks on one card, CUDA tensors): both ranks equal the CPU fed every batch; "
+            f"compute() with its sync {[round(r[name]['compute_ms'], 4) for r in results]} ms; sync ms (median of "
+            f"{SYNC_TRIALS}, rank 0): coalesced {r0['coalesced']['sync_ms_median']:.4f} "
+            f"({r0['coalesced']['counts']['sync_shape_collectives']} metadata + 1 payload, "
+            f"{r0['coalesced']['counts']['sync_bytes_gathered']} bytes gathered), per-state "
+            f"{r0['per_state']['sync_ms_median']:.4f} ({r0['per_state']['counts']['sync_payload_collectives']} x 2)"
+            f"  [{card}]")
+    return out
+
+
+def sync_path(mt, histogram, card: str) -> dict:
+    """Phase 9: every suite synced through NCCL in a world of one rank, then two ranks over Gloo."""
+    import torch.distributed as dist
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # the machine has no network: bootstrap over loopback
+    torch.cuda.set_device(0)
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}", rank=0, world_size=1)
+        try:
+            for name in SYNC_SUITES:
+                result[name] = sync_world_of_one(mt, histogram, name, card)
+        finally:
+            dist.destroy_process_group()
+    result["kernel_launches"] = sum(result[name]["kernel_launches"] for name in SYNC_SUITES)
+    result["two_ranks_gloo"] = sync_two_ranks(mt, card)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -758,11 +1082,14 @@ def main() -> int:
     agreement = agreement_path(mt, checks, histogram, card)
     segmentation = segmentation_path(mt, checks, histogram, card)
     aggregation = aggregation_path(mt, checks, card)
-    # each path's first timed run in mode "first", counted from 0 just before it
+    sync = sync_path(mt, histogram, card)
+    # each path's first timed run in mode "first", and the sync phase's updates, counted from 0 just before each
     kernel["launches"] = sum(p["first"]["kernel_launches"] for p in (main, agreement, segmentation))
+    kernel["launches"] += sync["kernel_launches"]
 
     log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
-                    "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation}))
+                    "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation,
+                    "sync_path": sync}))
     log(json.dumps({"kernels": [kernel]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

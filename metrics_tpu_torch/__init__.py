@@ -10,9 +10,11 @@ Ported so far: the classification metrics built on stat scores (Accuracy,
 Precision, Recall, F1Score, FBetaScore, Specificity, Dice, StatScores) and
 on the confusion matrix (ConfusionMatrix, CohenKappa, MatthewsCorrCoef,
 JaccardIndex), HammingDistance, the aggregators (Max, Min, Sum, Cat, Mean)
-and MetricCollection.
+and MetricCollection, and state sync across processes
+(``metrics_tpu_torch.parallel``): ``compute()`` reduces the states over the
+``torch.distributed`` process group, a whole suite in one collective.
 """
-from metrics_tpu_torch import functional
+from metrics_tpu_torch import functional, parallel
 from metrics_tpu_torch.__about__ import __version__
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.classification import (
@@ -58,4 +60,5 @@ __all__ = [
     "__version__",
     "functional",
     "load_reference_state",
+    "parallel",
 ]

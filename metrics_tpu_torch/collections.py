@@ -12,6 +12,11 @@ rebinds the leader's states to new tensors.
 
 As in TorchMetrics, the collection is an ``nn.ModuleDict``, so ``.to()`` and
 ``state_dict()`` reach every member.
+
+Suite sync (`metrics_tpu/collections.py` ``_partition_sync_members`` `:1144`,
+``sync`` `:1362`, ``unsync`` `:1489`, ``_auto_sync_context`` `:1533`): with
+more than one process, ``compute()`` syncs the whole suite in one payload
+collective before its members compute, then restores their local states.
 """
 from __future__ import annotations
 
@@ -22,8 +27,13 @@ import torch
 from torch import nn
 
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.parallel import bucketing as _bucketing
+from metrics_tpu_torch.parallel.sync import distributed_available as _distributed_available
 from metrics_tpu_torch.utils.data import _flatten_dict, allclose
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+_UNSET_GROUP = object()
 
 
 class MetricCollection(nn.ModuleDict):
@@ -99,7 +109,13 @@ class MetricCollection(nn.ModuleDict):
                 self._groups_checked = True
 
     def compute(self) -> Dict[str, Any]:
-        res = {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
+        ctx = self._auto_sync_context()
+        if ctx is not None:
+            # the whole suite synced up front: every member computes presynced
+            with ctx:
+                res = {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
+        else:
+            res = {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
         res = _flatten_dict(res)
         return {self._set_name(k): v for k, v in res.items()}
 
@@ -120,6 +136,145 @@ class MetricCollection(nn.ModuleDict):
     def persistent(self, mode: bool = True) -> None:
         for _, m in self.items(keep_base=True, copy_state=False):
             m.persistent(mode)
+
+    # ------------------------------------------------------------------- sync
+    def _partition_sync_members(
+        self, dist_sync_fn: Optional[Any], process_group: Optional[Any]
+    ) -> Tuple[List[Tuple[str, Metric]], List[Tuple[Metric, List[Metric]]], List[Metric], Any]:
+        """Split the members into those whose trees pack into the suite's one
+        payload collective and those that sync on their own (a custom gather,
+        states that cannot be packed, another process group). Returns
+        ``(members, coalesced, individual, group)``; raises when a member is
+        already synced."""
+        members = list(self.items(keep_base=True, copy_state=False))
+        if any(m._is_synced for _, m in members):
+            raise MetricsUserError("The Metric has already been synced.")
+        coalesced: List[Tuple[Metric, List[Metric]]] = []
+        individual: List[Metric] = []
+        anchor_group: Any = _UNSET_GROUP
+        for _, m in members:
+            nodes: List[Metric] = []
+            eligible = dist_sync_fn is None and m.dist_sync_fn is None
+            if eligible:
+                nodes = _bucketing.tree_nodes(m)
+                group = process_group if process_group is not None else m.process_group
+                eligible = (
+                    not any(n._is_synced for n in nodes)
+                    and (process_group is not None or not any(n.process_group is not m.process_group for n in nodes[1:]))
+                    and _bucketing.coalescible(nodes)
+                )
+                if eligible:
+                    if anchor_group is _UNSET_GROUP:
+                        anchor_group = group
+                    elif group is not anchor_group:
+                        eligible = False  # one collective, one group
+            if eligible:
+                coalesced.append((m, nodes))
+            else:
+                individual.append(m)
+        return members, coalesced, individual, anchor_group
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Any] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Any] = _distributed_available,
+    ) -> None:
+        """Sync every member across processes: the whole suite in one coalesced payload collective where it can.
+
+        Members are packed member by member, not group leader by leader, so the
+        layout depends only on how the suite was built, never on which compute
+        groups this process's data formed: every process builds the same one.
+        Members that cannot be packed sync through their own :meth:`Metric.sync`.
+        On any failure every member's local states are restored and the error
+        is raised.
+        """
+        if not should_sync:
+            return
+        if not (distributed_available() if callable(distributed_available) else None):
+            return
+        members, coalesced, individual, group = self._partition_sync_members(dist_sync_fn, process_group)
+        try:
+            if coalesced:
+                nodes = [n for _, tree in coalesced for n in tree]
+                snaps = [(n, n._state_snapshot()) for n in nodes]
+                try:
+                    _bucketing.coalesced_sync_nodes(nodes, group=None if group is _UNSET_GROUP else group)
+                except Exception:
+                    for n, snap in snaps:
+                        n._restore_state(snap)
+                    raise
+                for n, snap in snaps:
+                    n._cache = snap
+                    n._is_synced = True
+            for m in individual:
+                m.sync(dist_sync_fn, process_group, True, distributed_available)
+        except Exception:
+            # no member may stay synced while another holds its local states
+            for _, m in members:
+                if m._is_synced:
+                    m.unsync()
+            self._relink_groups()
+            raise
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore every member's local states; group members share the leader's states again."""
+        if not should_unsync:
+            return
+        for _, m in self.items(keep_base=True, copy_state=False):
+            if m._is_synced:
+                m.unsync()
+        self._relink_groups()
+
+    def _relink_groups(self) -> None:
+        if self._enable_compute_groups and self._groups_checked:
+            self._compute_groups_create_state_ref()
+
+    class _SyncContext:
+        def __init__(self, collection: "MetricCollection", should_unsync: bool = True, **kwargs: Any) -> None:
+            self.collection = collection
+            self.kwargs = kwargs
+            self.should_unsync = should_unsync
+
+        def __enter__(self) -> "MetricCollection":
+            self.collection.sync(**self.kwargs)
+            return self.collection
+
+        def __exit__(self, *exc: Any) -> None:
+            self.collection.unsync(should_unsync=self.should_unsync)
+
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Any] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Any] = _distributed_available,
+    ) -> "MetricCollection._SyncContext":
+        """Context manager: the suite's sync on enter, every member's local states back on exit."""
+        return MetricCollection._SyncContext(
+            self,
+            should_unsync=should_unsync,
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+        )
+
+    def _auto_sync_context(self) -> Optional["MetricCollection._SyncContext"]:
+        """The suite sync of ``compute()``, only where it is unambiguous: more
+        than one process, and every member on the default sync flags (syncing
+        on compute, unsyncing after, no custom gather, not synced yet). Otherwise
+        each member syncs in its own ``compute()``, as before."""
+        if not _distributed_available():
+            return None
+        members = [m for _, m in self.items(keep_base=True, copy_state=False)]
+        if not members or all(m._computed is not None for m in members):
+            return None  # every member returns its cached value
+        if any(m._is_synced or not m._to_sync or not m._should_unsync or m.dist_sync_fn is not None for m in members):
+            return None
+        return self.sync_context()
 
     # ---------------------------------------------------------- compute groups
     def _merge_compute_groups(self) -> None:

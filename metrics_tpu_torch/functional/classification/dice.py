@@ -13,23 +13,9 @@ from torch import Tensor
 
 from metrics_tpu_torch.functional.classification.precision_recall import _check_average_arg, _prf_update
 from metrics_tpu_torch.functional.classification.stat_scores import _reduce_stat_scores
+from metrics_tpu_torch.parallel.sync import reduce
 from metrics_tpu_torch.utils.data import to_categorical
 from metrics_tpu_torch.utils.enums import AverageMethod, MDMCAverageMethod
-
-
-def _reduce(x: Tensor, reduction: str) -> Tensor:
-    """Reduce a tensor: ``"elementwise_mean" | "sum" | "none"`` (reference `distributed.py:22-41`).
-
-    A private copy of the JAX package's ``parallel.sync.reduce``; it moves to
-    the port's ``parallel/sync.py`` when state sync is ported.
-    """
-    if reduction == "elementwise_mean":
-        return torch.mean(x)
-    if reduction == "sum":
-        return torch.sum(x)
-    if reduction in ("none", None):
-        return x
-    raise ValueError("Reduction parameter unknown.")
 
 
 def _dice_compute(
@@ -118,7 +104,7 @@ def dice_score(
         score = torch.where(denom > 0, 2 * tp / torch.where(denom > 0, denom, 1.0), float(nan_score))
         score = torch.where(has_fg, score, float(no_fg_score))
         scores.append(score)
-    return _reduce(torch.stack(scores), reduction)
+    return reduce(torch.stack(scores), reduction)
 
 
 __all__ = ["dice", "dice_score"]

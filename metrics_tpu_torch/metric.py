@@ -10,11 +10,19 @@ attributes that move with ``.to()``, and ``state_dict()`` holds the states
 marked persistent. Updates rebind states to new tensors instead of writing
 into them, so a snapshot is a dict of references, as in the JAX package.
 
+State sync across processes (`metrics_tpu/metric.py` ``_sync_dist``
+`:1841`, ``_sync_coalesced`` `:1857`, ``sync`` `:1928`, ``unsync`` `:2174`,
+``sync_context`` `:2221`): ``compute()`` syncs the states across the process
+group, computes, and restores the local states. A metric syncs through the
+coalesced protocol (:mod:`metrics_tpu_torch.parallel.bucketing`, one
+payload collective) unless it brings its own ``dist_sync_fn``, which takes
+the per-state protocol.
+
 Left for later slices of the port: the dispatch engine and fused programs,
 deferred dispatch, ``update_many``/``forward_many``, the fault ladders,
 telemetry, the state journal, ``as_functions`` and ``CompositionalMetric``,
-and state sync across processes (``compute()`` raises while a process group
-of more than one rank is live).
+``compute_on_cpu``, and the sync planes beyond the core (retries, deadlines,
+membership, degraded tiers, ``sync_async``).
 """
 from __future__ import annotations
 
@@ -27,18 +35,15 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 from torch import Tensor, nn
 
+from metrics_tpu_torch.parallel import bucketing as _bucketing
+from metrics_tpu_torch.parallel import sync as _psync
+from metrics_tpu_torch.parallel.reductions import resolve_reduction
+from metrics_tpu_torch.parallel.sync import distributed_available as _distributed_available
+from metrics_tpu_torch.parallel.sync import gather_all_tensors
 from metrics_tpu_torch.utils import checks as _checks
-from metrics_tpu_torch.utils.data import _flatten, dim_zero_cat, dim_zero_max, dim_zero_mean, dim_zero_min, dim_zero_sum
+from metrics_tpu_torch.utils.data import _flatten, apply_to_collection, dim_zero_cat
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
-
-_REDUCTIONS: Dict[str, Callable] = {
-    "sum": dim_zero_sum,
-    "mean": dim_zero_mean,
-    "max": dim_zero_max,
-    "min": dim_zero_min,
-    "cat": dim_zero_cat,
-}
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -55,16 +60,6 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
             " pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
-
-
-def _raise_if_distributed() -> None:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"compute() across {dist.get_world_size()} processes needs state sync, which"
-            " metrics_tpu_torch does not have yet (ROADMAP.md, Queue 1, 'State sync');"
-            " it refuses to serve a value from this process's states alone"
-        )
 
 
 def _squeeze_scalar(value: Any) -> Any:
@@ -85,6 +80,12 @@ class Metric(nn.Module, ABC):
     Args:
         device: where the states live. ``None`` means the current CUDA device,
             and raises when there is none; pass ``"cpu"`` to run on the CPU.
+        dist_sync_on_step: sync the batch state across processes in ``forward``.
+        process_group: the ``torch.distributed.ProcessGroup`` to sync over;
+            None means the default group.
+        dist_sync_fn: a gather ``fn(tensor, group=...) -> list of tensors`` to
+            sync with, state by state, in place of the coalesced protocol.
+        sync_on_compute: sync the states across processes in ``compute()``.
 
     Example:
         >>> import torch
@@ -110,10 +111,29 @@ class Metric(nn.Module, ABC):
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = None
 
-    def __init__(self, *, device: Union[str, torch.device, None] = None, **kwargs: Any) -> None:
+    def __init__(
+        self,
+        *,
+        device: Union[str, torch.device, None] = None,
+        dist_sync_on_step: bool = False,
+        process_group: Optional[Any] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        sync_on_compute: bool = True,
+        **kwargs: Any,
+    ) -> None:
         super().__init__()
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {sorted(kwargs)}")
+        if not isinstance(dist_sync_on_step, bool):
+            raise ValueError(f"Expected `dist_sync_on_step` to be a bool, got {dist_sync_on_step}")
+        if dist_sync_fn is not None and not callable(dist_sync_fn):
+            raise ValueError(f"Expected `dist_sync_fn` to be callable or None, got {dist_sync_fn}")
+        if not isinstance(sync_on_compute, bool):
+            raise ValueError(f"Expected `sync_on_compute` to be a bool, got {sync_on_compute}")
+        self.dist_sync_on_step = dist_sync_on_step
+        self.process_group = _psync.check_group(process_group)
+        self.dist_sync_fn = dist_sync_fn
+        self.sync_on_compute = sync_on_compute
         self._device = resolve_device(device)
         self._defaults: Dict[str, Union[Tensor, list]] = {}
         self._reductions: Dict[str, Optional[Callable]] = {}
@@ -123,7 +143,10 @@ class Metric(nn.Module, ABC):
         self._update_count = 0
         self._computed: Any = None
         self._forward_cache: Any = None
-        self._to_sync = True  # False while forward computes a batch value
+        self._is_synced = False
+        self._cache: Optional[Dict[str, Any]] = None  # the local states while synced
+        self._to_sync = sync_on_compute  # forward sets dist_sync_on_step while it computes a batch value
+        self._should_unsync = True  # False while forward computes a batch value
 
         self.update: Callable = self._wrap_update(self.update)  # type: ignore[method-assign]
         self.compute: Callable = self._wrap_compute(self.compute)  # type: ignore[method-assign]
@@ -150,19 +173,7 @@ class Metric(nn.Module, ABC):
             default = default.detach().to(self._device)
         else:
             raise ValueError(f"State default must be a tensor or an empty list, got {type(default)}")
-        if isinstance(dist_reduce_fx, str):
-            spec = dist_reduce_fx.lower()
-            if spec not in _REDUCTIONS:
-                raise ValueError(
-                    f"`dist_reduce_fx` must be one of {sorted(_REDUCTIONS)}, a callable, or None; got {dist_reduce_fx!r}"
-                )
-            fn: Optional[Callable] = _REDUCTIONS[spec]
-        elif callable(dist_reduce_fx):
-            spec, fn = "custom", dist_reduce_fx
-        elif dist_reduce_fx is None:
-            spec, fn = None, None
-        else:
-            raise ValueError(f"`dist_reduce_fx` must be a string, callable, or None, got {type(dist_reduce_fx)}")
+        spec, fn = resolve_reduction(dist_reduce_fx)
         self._defaults[name] = default
         self._reductions[name] = fn
         self._reduction_specs[name] = spec
@@ -219,8 +230,6 @@ class Metric(nn.Module, ABC):
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
         def wrapped(*args: Any, **kwargs: Any) -> Any:
-            if self._to_sync:
-                _raise_if_distributed()
             if self._update_count == 0:
                 rank_zero_warn(
                     f"The ``compute`` method of metric {self.__class__.__name__} was called before the ``update``"
@@ -229,8 +238,12 @@ class Metric(nn.Module, ABC):
                 )
             if self._computed is not None:
                 return self._computed
-            with torch.no_grad():
-                self._computed = _squeeze_scalar(compute(*args, **kwargs))
+            # synced for this call only: the local states come back on exit
+            with self.sync_context(
+                dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+            ):
+                with torch.no_grad():
+                    self._computed = _squeeze_scalar(compute(*args, **kwargs))
             return self._computed
 
         return wrapped
@@ -240,8 +253,13 @@ class Metric(nn.Module, ABC):
         """Compute the metric on the batch AND accumulate it into the state.
 
         Returns the batch value (reference ``forward`` `metric.py:228-247`).
+        With ``dist_sync_on_step`` the batch value is synced across processes.
         """
-        if self.full_state_update or self.full_state_update is None:
+        if self._is_synced:
+            raise MetricsUserError(
+                "The Metric shouldn't be synced when performing `forward`. HINT: Did you forget to call `unsync()`?"
+            )
+        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
             self._forward_cache = self._forward_full_state_update(*args, **kwargs)
         else:
             self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
@@ -254,7 +272,8 @@ class Metric(nn.Module, ABC):
         try:
             self.update(*args, **kwargs)
             update_count = self._update_count
-            self._to_sync = False
+            self._to_sync = self.dist_sync_on_step
+            self._should_unsync = False
             cache = self._state_snapshot()
             self.reset()
             self.update(*args, **kwargs)
@@ -267,7 +286,10 @@ class Metric(nn.Module, ABC):
             self._update_count = entry_count
             raise
         finally:
-            self._to_sync = True
+            self._is_synced = False
+            self._cache = None
+            self._should_unsync = True
+            self._to_sync = self.sync_on_compute
             self._computed = None
         return batch_val
 
@@ -276,7 +298,8 @@ class Metric(nn.Module, ABC):
         global_state = self._state_snapshot()
         update_count = self._update_count
         self.reset()
-        self._to_sync = False
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
         try:
             self.update(*args, **kwargs)
             batch_val = self.compute()
@@ -287,7 +310,10 @@ class Metric(nn.Module, ABC):
             self._update_count = update_count
             raise
         finally:
-            self._to_sync = True
+            self._is_synced = False
+            self._cache = None
+            self._should_unsync = True
+            self._to_sync = self.sync_on_compute
             self._computed = None
         return batch_val
 
@@ -315,12 +341,145 @@ class Metric(nn.Module, ABC):
                 reduced = self._reductions[name](torch.stack([incoming, local]))
             setattr(self, name, reduced)
 
+    # ------------------------------------------------------------------- sync
+    def _sync_children(self) -> List["Metric"]:
+        """Child metrics whose states sync with this one's (wrappers); none yet."""
+        return []
+
+    def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
+        """The per-state protocol: one ``dist_sync_fn`` call per tensor, then each state reduced."""
+        input_dict = {name: getattr(self, name) for name in self._reductions}
+        for name, spec in self._reduction_specs.items():
+            value = input_dict[name]
+            # a `cat` list goes as one tensor, at least 1-d (every process gathers the same ndim)
+            if spec == "cat" and isinstance(value, list) and value:
+                input_dict[name] = [dim_zero_cat(value) if len(value) > 1 else torch.atleast_1d(value[0])]
+        group = process_group if process_group is not None else self.process_group
+        output_dict = apply_to_collection(input_dict, Tensor, dist_sync_fn, group=group)
+        _bucketing.apply_gathered_states(self, output_dict)
+
+    def _sync_coalesced(self, dist_sync_fn: Callable, process_group: Optional[Any]) -> bool:
+        """Sync this metric's tree with the coalesced protocol; False when it
+        takes the per-state protocol instead (a custom gather, or states that
+        cannot be packed). Children are marked synced with their own snapshots."""
+        if dist_sync_fn is not gather_all_tensors:
+            return False
+        nodes = _bucketing.tree_nodes(self)
+        if any(n._is_synced for n in nodes[1:]):
+            return False
+        if process_group is None and any(n.process_group is not self.process_group for n in nodes[1:]):
+            return False  # each child gathers over its own group
+        if not _bucketing.coalescible(nodes):
+            return False
+        snaps = [(n, n._state_snapshot()) for n in nodes[1:]]
+        try:
+            _bucketing.coalesced_sync_nodes(nodes, group=process_group if process_group is not None else self.process_group)
+        except Exception:
+            for n, snap in snaps:
+                n._restore_state(snap)
+            raise
+        for n, snap in snaps:
+            n._cache = snap
+            n._is_synced = True
+        return True
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = _distributed_available,
+    ) -> None:
+        """Replace the local states with their reduction across processes (reference `metric.py:416-450`).
+
+        A no-op unless ``distributed_available()`` is true: by default, while
+        more than one process is in the default group. Pass
+        ``distributed_available=lambda: True`` to sync a world of one. On any
+        failure the local states are restored and the error is raised.
+        """
+        if self._is_synced and should_sync:
+            raise MetricsUserError("The Metric has already been synced.")
+        is_distributed = distributed_available() if callable(distributed_available) else None
+        if not should_sync or not is_distributed:
+            return
+        if dist_sync_fn is None:
+            dist_sync_fn = self.dist_sync_fn or gather_all_tensors
+        self._cache = self._state_snapshot()
+        try:
+            if not self._sync_coalesced(dist_sync_fn, process_group):
+                self._sync_dist(dist_sync_fn, process_group=process_group)
+                for child in self._sync_children():
+                    child.sync(dist_sync_fn, process_group, should_sync, distributed_available)
+            self._is_synced = True
+        except Exception:
+            # a failed sync leaves the local states intact: no state half-reduced
+            self._restore_state(self._cache)
+            self._cache = None
+            self._is_synced = False
+            for child in self._sync_children():
+                if child._is_synced:
+                    child.unsync()
+            raise
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the local states from before :meth:`sync` (reference `metric.py:452-472`)."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise MetricsUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise MetricsUserError("The internal cache should exist to unsync the Metric.")
+        self._restore_state(self._cache)
+        self._is_synced = False
+        self._cache = None
+        for child in self._sync_children():
+            if child._is_synced:
+                child.unsync(should_unsync)
+
+    class _SyncContext:
+        def __init__(self, metric: "Metric", should_unsync: bool = True, **kwargs: Any) -> None:
+            self.metric = metric
+            self.kwargs = kwargs
+            self.should_unsync = should_unsync
+            self._presynced = False
+
+        def __enter__(self) -> "Metric":
+            # a metric synced before (by its collection's suite sync) computes on
+            # the synced states and leaves the unsync to whoever synced it
+            self._presynced = self.metric._is_synced
+            if not self._presynced:
+                self.metric.sync(**self.kwargs)
+            return self.metric
+
+        def __exit__(self, *exc: Any) -> None:
+            self.metric.unsync(should_unsync=self.should_unsync and self.metric._is_synced and not self._presynced)
+
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = _distributed_available,
+    ) -> "Metric._SyncContext":
+        """Context manager: sync on enter, restore the local states on exit."""
+        return Metric._SyncContext(
+            self,
+            should_unsync=should_unsync,
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+        )
+
     # ------------------------------------------------------------- lifecycle
     def reset(self) -> None:
         """Reset every state to its default (reference `metric.py:547-562`)."""
         self._update_count = 0
         self._forward_cache = None
         self._computed = None
+        self._is_synced = False
+        self._cache = None
         for name, default in self._defaults.items():
             setattr(self, name, [] if isinstance(default, list) else default.clone())
 
@@ -353,6 +512,8 @@ class Metric(nn.Module, ABC):
                 setattr(self, name, fn(value))
             else:
                 setattr(self, name, [fn(v) for v in value])
+        if self._cache is not None:
+            self._cache = {k: [fn(v) for v in c] if isinstance(c, list) else fn(c) for k, c in self._cache.items()}
         self._device = fn(torch.zeros(0, device=self._device)).device
         self._computed = None
         return self

@@ -30,10 +30,18 @@ def dim_zero_cat(x: TensorOrList) -> Tensor:
 
 
 def dim_zero_sum(x: Tensor) -> Tensor:
-    return torch.sum(x, dim=0)
+    """Sum along dim 0, keeping the dtype as ``jnp.sum`` does: int32 and int64
+    stay as they are (``torch.sum`` would widen int32 to int64), bool and the
+    narrower integers sum to int32."""
+    if x.dtype in (torch.int32, torch.int64) or x.is_floating_point() or x.is_complex():
+        return torch.sum(x, dim=0, dtype=x.dtype)
+    return torch.sum(x, dim=0, dtype=torch.int32)
 
 
 def dim_zero_mean(x: Tensor) -> Tensor:
+    """Mean along dim 0; bool and integer inputs give float32, as ``jnp.mean`` does."""
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.to(torch.float32)
     return torch.mean(x, dim=0)
 
 

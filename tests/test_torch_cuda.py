@@ -4,13 +4,17 @@ the shared-memory threshold, with hot bins and on memory full of junk; the
 wrapper's checks and one launch per call; a small suite on the card
 against the same suite on the CPU; each metric of the confusion-matrix and
 stat-score families and each aggregator on the card against the CPU; and
-Cohen's kappa at C=1000 with counts above 2048 under TF32 matmul settings.
+Cohen's kappa at C=1000 with counts above 2048 under TF32 matmul settings;
+and state sync through NCCL in a world of one process: the headline suite
+bit-exact in one payload collective, and the packed layout's alignment.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import os
+
 import pytest
 import torch
 
@@ -239,3 +243,93 @@ def test_cohen_kappa_exact_counts_under_tf32(dev):
         assert torch.get_float32_matmul_precision() == "high"
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+# ------------------------------------------------------------------ state sync
+@pytest.fixture
+def nccl_world(dev, tmp_path, monkeypatch):
+    """A NCCL process group of one rank on the card (NCCL refuses two ranks on one device)."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.parallel import bucketing
+
+    monkeypatch.setitem(os.environ, "NCCL_SOCKET_IFNAME", os.environ.get("NCCL_SOCKET_IFNAME", "lo"))
+    monkeypatch.setattr(bucketing, "_MANIFEST_CACHE", {})
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0, world_size=1)
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+def _bits(x):
+    return x.reshape(-1).view(torch.uint8) if x.dtype != torch.bool else x.reshape(-1).to(torch.uint8)
+
+
+def test_nccl_world_of_one_syncs_the_headline_suite_bit_exact(nccl_world):
+    from metrics_tpu_torch.parallel import collective_stats, reset_collective_stats
+
+    num_classes = 128
+    suite = mt.MetricCollection(
+        {
+            "acc": mt.Accuracy(num_classes=num_classes, average="macro"),
+            "f1": mt.F1Score(num_classes=num_classes, average="macro"),
+            "confmat": mt.ConfusionMatrix(num_classes=num_classes),
+            "precision": mt.Precision(num_classes=num_classes, average="macro"),
+        }
+    )
+    for preds, target in _batches(torch.device("cuda"), num_classes, steps=3, batch=2048):
+        suite.update(preds, target)
+    members = dict(suite.items(keep_base=True, copy_state=False))
+    local = {name: {k: v.clone() for k, v in m.metric_state.items()} for name, m in members.items()}
+    counts = []
+    for _ in range(2):
+        reset_collective_stats()
+        suite.sync(distributed_available=lambda: True)
+        stats = collective_stats()
+        counts.append((stats["sync_shape_collectives"], stats["sync_payload_collectives"]))
+        for name, m in members.items():
+            for state, value in local[name].items():
+                got = getattr(m, state)
+                assert got.is_cuda and got.dtype == value.dtype and torch.equal(got, value), (name, state)
+        suite.unsync()
+    # the first sync of the layout checks it across the group once; then one payload collective
+    assert counts == [(1, 1), (0, 1)]
+
+
+def test_nccl_world_of_one_keeps_every_dtype_aligned(nccl_world, dev):
+    layout = [("flag", torch.bool, (3,)), ("small", torch.int8, (5,)), ("wide", torch.int64, (2,)),
+              ("byte", torch.uint8, ()), ("double", torch.float64, ()), ("brain", torch.bfloat16, (2, 3)),
+              ("half", torch.float16, (3,)), ("count", torch.int32, (7,))]
+
+    class Layout(mt.Metric):
+        full_state_update = True
+
+        def __init__(self):
+            super().__init__()
+            for name, dtype, shape in layout:
+                self.add_state(name, torch.zeros(shape, dtype=dtype), dist_reduce_fx=None)
+            self.add_state("rows", [], dist_reduce_fx="cat")
+
+        def update(self):
+            g = torch.Generator(device=dev).manual_seed(3)
+            for name, dtype, shape in layout:
+                setattr(self, name, (torch.randn(shape, generator=g, device=dev) * 100).to(dtype))
+            self.rows.append(torch.randint(0, 100, (3,), generator=g, device=dev, dtype=torch.int8))
+            self.rows.append(torch.randint(0, 100, (4,), generator=g, device=dev, dtype=torch.int8))
+
+        def compute(self):
+            return self.count
+
+    m = Layout()
+    m.update()
+    local = {name: getattr(m, name) for name, _, _ in layout}
+    rows = torch.cat(m.rows)
+    m.sync(distributed_available=lambda: True)
+    for name, value in local.items():
+        got = getattr(m, name)
+        assert got.shape == (1,) + value.shape and torch.equal(_bits(got[0]), _bits(value)), name
+    assert torch.equal(m.rows, rows)
+    m.unsync()
+    assert all(getattr(m, name) is value for name, value in local.items())

@@ -1,6 +1,6 @@
 """The port's ``Metric`` lifecycle: forward, accumulation, reset, clone,
-state_dict, persistence, compute caching, reductions, the device rule, the
-refusal to compute across processes, and the validation modes (held to the
+state_dict, persistence, compute caching, reductions, the device rule, a
+synced compute across processes, and the validation modes (held to the
 JAX package's behaviour on the same inputs)."""
 import jax.numpy as jnp
 import numpy as np
@@ -186,16 +186,25 @@ def test_no_device_means_cuda_and_raises_without_one(monkeypatch):
     assert tmt.Accuracy(device="cpu").device == torch.device("cpu")
 
 
-def test_compute_refuses_a_multi_process_world(monkeypatch):
-    m = _f1()
+def test_compute_syncs_in_a_multi_process_world(monkeypatch):
+    from tests.helpers.torch_sync import TorchFakeGather
+
+    m, other, both = _f1(), _f1(), _f1()
     p, t = _t(*_batch(0))
+    other.update(*_t(*_batch(1)))
+    for batch in (0, 0, 1):
+        both.update(*_t(*_batch(batch)))
+    want = both.compute()  # one process fed every batch of both ranks
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
     m(p, t)  # forward's batch value is local by definition
     m.update(p, t)
-    with pytest.raises(NotImplementedError, match="State sync"):
-        m.compute()
+    local_tp = m.tp
+    m.dist_sync_fn = TorchFakeGather([m, other])
+    assert torch.equal(m.compute(), want)
+    assert not m._is_synced and m.tp is local_tp  # the local states are back
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 1)
+    m.update(p, t)
     assert torch.isfinite(m.compute())
 
 

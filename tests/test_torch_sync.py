@@ -1,0 +1,562 @@
+"""State sync of the port against the JAX package's per-state sync.
+
+The same numpy data (made from a seed) fills N = 2 and 3 rank instances in
+both packages. The JAX ranks sync through ``_FakeGather`` (an emulated
+N-rank gather) and the JAX package's per-state protocol; the port's ranks
+sync through its coalesced protocol (the N-rank world stood in for its two
+collectives, ``tests/helpers/torch_sync.install_world``) and through its
+per-state protocol (``TorchFakeGather``). Integers must agree exactly and
+floats within atol 1e-6 and rtol 1e-5, as the JAX package's tests hold them.
+One real world of two processes (Gloo, on the CPU) syncs the headline suite
+and a ``CatMetric`` and must equal the in-process results.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import metrics_tpu as jmt
+import metrics_tpu_torch as tmt
+from metrics_tpu_torch.parallel import collective_stats, reset_collective_stats
+from metrics_tpu_torch.parallel import bucketing
+from metrics_tpu_torch.utils.exceptions import MetricsUserError, SyncFault
+from tests.helpers.testers import _FakeGather
+from tests.helpers.torch_sync import (
+    TorchFakeGather,
+    cat_rows,
+    gloo_world_worker,
+    headline_suite,
+    install_world,
+    run_world,
+    suite_batches,
+)
+
+DIST_ON = lambda: True  # noqa: E731
+C = 6
+
+# ------------------------------------------------------------------ the probe
+# One state of every spec: name -> (shape, or "list" for a list state; spec)
+PROBE_STATES = {
+    "s_sum": ((3,), "sum"),
+    "s_mean": ((3,), "mean"),
+    "s_max": ((3,), "max"),
+    "s_min": ((3,), "min"),
+    "scalar": ((), "sum"),  # a 0-d state
+    "scalar_max": ((), "max"),
+    "stacked": ((2,), None),
+    "custom": ((3,), "custom"),
+    "rows": ("list", "cat"),
+}
+DTYPES = ["bool", "int8", "int32", "int64", "float32", "float64", "bfloat16"]
+
+
+def _flip_torch(stacked):
+    return torch.flip(stacked, [0]).reshape(-1)
+
+
+def _flip_jax(stacked):
+    return jnp.flip(stacked, 0).reshape(-1)
+
+
+class _TorchProbe(tmt.Metric):
+    full_state_update = True
+
+    def __init__(self, dtype, **kwargs):
+        super().__init__(device="cpu", **kwargs)
+        dt = getattr(torch, dtype)
+        for name, (shape, spec) in PROBE_STATES.items():
+            if shape == "list":
+                self.add_state(name, [], dist_reduce_fx=spec)
+            else:
+                self.add_state(name, torch.zeros(shape, dtype=dt), dist_reduce_fx=_flip_torch if spec == "custom" else spec)
+
+    def update(self, states):
+        dt = self._defaults["s_sum"].dtype
+        for name, value in states.items():
+            if name == "rows":
+                self.rows.extend(torch.from_numpy(v).to(dt) for v in value)
+            else:
+                setattr(self, name, torch.from_numpy(np.asarray(value)).to(dt))
+
+    def compute(self):
+        return self.s_sum
+
+
+class _JaxProbe(jmt.Metric):
+    full_state_update = True
+
+    def __init__(self, dtype, **kwargs):
+        super().__init__(**kwargs)
+        for name, (shape, spec) in PROBE_STATES.items():
+            if shape == "list":
+                self.add_state(name, [], dist_reduce_fx=spec)
+            else:
+                self.add_state(name, jnp.zeros(shape, dtype=dtype), dist_reduce_fx=_flip_jax if spec == "custom" else spec)
+
+    def update(self, states):
+        dt = self._defaults["s_sum"].dtype
+        for name, value in states.items():
+            if name == "rows":
+                self.rows.extend(jnp.asarray(v).astype(dt) for v in value)
+            else:
+                setattr(self, name, jnp.asarray(value).astype(dt))
+
+    def compute(self):
+        return self.s_sum
+
+
+def _values(rng, shape, dtype):
+    if dtype == "bool":
+        return rng.rand(*shape) > 0.5
+    if dtype.startswith("int"):
+        return rng.randint(-50, 50, shape).astype(dtype)
+    # quarter steps, float32 (numpy has no bfloat16): every sum here is exact in bfloat16 too
+    return (rng.randint(-8, 8, shape) * 0.25).astype(np.float32)
+
+
+def _probe_states(rank: int, dtype: str, rows: bool = True):
+    rng = np.random.RandomState(100 + rank)
+    out = {name: _values(rng, shape, dtype) for name, (shape, _) in PROBE_STATES.items() if shape != "list"}
+    # uneven: rank r appends 1 + r rows of 2 + r values
+    out["rows"] = [_values(rng, (2 + rank,), dtype) for _ in range(1 + rank)] if rows else []
+    return out
+
+
+def _make_probes(world, dtype, rows=True):
+    jax_ranks, port_ranks = [], []
+    for r in range(world):
+        states = _probe_states(r, dtype, rows)
+        # the JAX package runs without x64: int64 and float64 states hold int32 and float32
+        jm = _JaxProbe(jax.dtypes.canonicalize_dtype(jnp.bfloat16 if dtype == "bfloat16" else dtype))
+        jm.update(states)
+        tm = _TorchProbe(dtype)
+        tm.update(states)
+        jax_ranks.append(jm)
+        port_ranks.append(tm)
+    return jax_ranks, port_ranks
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    x = np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
+    return x
+
+
+def _assert_value(got, want, label):
+    if isinstance(want, list) or isinstance(got, list):
+        assert isinstance(got, list) and isinstance(want, list) and len(got) == len(want), label
+        for g, w in zip(got, want):
+            _assert_value(g, w, label)
+        return
+    g, w = _np(got), _np(want)
+    assert g.shape == w.shape, f"{label}: shape {g.shape} != {w.shape}"
+    if w.dtype == np.bool_ or np.issubdtype(w.dtype, np.integer):
+        np.testing.assert_array_equal(g, w, err_msg=label)
+    else:
+        np.testing.assert_allclose(g, w, atol=1e-6, rtol=1e-5, err_msg=label)
+
+
+def _assert_bit_equal(a, b, label):
+    if isinstance(a, list) or isinstance(b, list):
+        assert isinstance(a, list) and isinstance(b, list) and len(a) == len(b), label
+        for x, y in zip(a, b):
+            _assert_bit_equal(x, y, label)
+        return
+    assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), label
+
+
+def _snapshot(m):
+    return {k: (list(v) if isinstance(v, list) else v) for k, v in m.metric_state.items()}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("world", [2, 3])
+def test_every_spec_and_dtype_matches_jax(world, dtype, monkeypatch):
+    jax_ranks, port_ranks = _make_probes(world, dtype)
+    jax_ranks[0].sync(dist_sync_fn=_FakeGather(jax_ranks), distributed_available=DIST_ON)
+    want = dict(jax_ranks[0].metric_state)
+
+    # the port's per-state protocol
+    per_state = port_ranks[0].clone()
+    per_state.sync(dist_sync_fn=TorchFakeGather([per_state] + port_ranks[1:]), distributed_available=DIST_ON)
+    # the port's coalesced protocol
+    coalesced = port_ranks[0]
+    local = _snapshot(coalesced)
+    install_world(monkeypatch, port_ranks[1:])
+    reset_collective_stats()
+    coalesced.sync(distributed_available=DIST_ON)
+    stats = collective_stats()
+    assert (stats["sync_payload_collectives"], stats["sync_shape_collectives"]) == (1, 1)  # the cat state's metadata
+    assert stats["sync_states_coalesced"] == len(PROBE_STATES)
+    for name in PROBE_STATES:
+        _assert_value(getattr(coalesced, name), want[name], f"{name} ({dtype}, world {world}) vs JAX")
+        _assert_bit_equal(getattr(coalesced, name), getattr(per_state, name), f"{name}: coalesced vs per-state")
+    coalesced.unsync()
+    for name, value in local.items():
+        after = getattr(coalesced, name)
+        assert after == value if isinstance(value, list) else after is value
+
+
+def test_cat_with_an_empty_rank(monkeypatch):
+    """A cat state empty on one rank: the coalesced protocol carries it (the per-state one cannot),
+    and the result equals the JAX per-state sync of the other ranks."""
+    jax_ranks, port_ranks = [], []
+    for r in (1, 2):
+        jm, tm = jmt.CatMetric(), tmt.CatMetric(device="cpu")
+        for row in cat_rows(7, r):
+            jm.update(jnp.asarray(row))
+            tm.update(torch.from_numpy(row))
+        jax_ranks.append(jm)
+        port_ranks.append(tm)
+    jax_ranks[0].sync(dist_sync_fn=_FakeGather(jax_ranks), distributed_available=DIST_ON)
+    empty = tmt.CatMetric(device="cpu")
+    for m, *others in ([empty] + port_ranks, [port_ranks[0], empty, port_ranks[1]]):
+        install_world(monkeypatch, others)
+        m.sync(distributed_available=DIST_ON)
+        _assert_value(m.value, jax_ranks[0].value, "cat with an empty rank")
+        m.unsync()
+    # empty on every rank: stays empty
+    install_world(monkeypatch, [tmt.CatMetric(device="cpu")])
+    empty.sync(distributed_available=DIST_ON)
+    assert empty.value == []
+    empty.unsync()
+
+
+# ------------------------------------------------------------------ the suites
+def _agreement_suite(pkg):
+    dev = {"device": "cpu"} if pkg is tmt else {}
+    return pkg.MetricCollection(
+        {
+            "kappa": pkg.CohenKappa(C, **dev),
+            "mcc": pkg.MatthewsCorrCoef(C, **dev),
+            "jaccard": pkg.JaccardIndex(C, **dev),
+            "specificity": pkg.Specificity(num_classes=C, average="macro", **dev),
+            "hamming": pkg.HammingDistance(**dev),
+        }
+    )
+
+
+def _aggregator_suite(pkg):
+    dev = {"device": "cpu"} if pkg is tmt else {}
+    names = ("MeanMetric", "SumMetric", "MaxMetric", "MinMetric", "CatMetric")
+    return pkg.MetricCollection({n: getattr(pkg, n)(**dev) for n in names}, compute_groups=False)
+
+
+SUITES = {
+    "headline": (headline_suite, [["acc"], ["confmat"], ["f1", "precision"]]),
+    "agreement": (_agreement_suite, [["hamming"], ["jaccard", "kappa", "mcc"], ["specificity"]]),
+    "aggregators": (_aggregator_suite, None),
+}
+
+
+def _feed(suite, pkg, rank, seed, kind):
+    arr = jnp.asarray if pkg is jmt else torch.from_numpy
+    if kind == "aggregators":
+        rng = np.random.RandomState(seed + rank)
+        for row in cat_rows(seed, rank):
+            suite.update(arr(row), weight=arr(rng.rand(row.shape[0]).astype(np.float32)))
+        return
+    for preds, target in suite_batches(seed + rank, 2 + rank, num_classes=C):
+        suite.update(arr(preds), arr(target))
+
+
+def _jax_per_state_values(jax_suites):
+    members = [dict(s.items(keep_base=True, copy_state=False)) for s in jax_suites]
+    out = {}
+    for name in members[0]:
+        ranks = [m[name] for m in members]
+        ranks[0].sync(dist_sync_fn=_FakeGather(ranks), distributed_available=DIST_ON)
+        out[name] = ranks[0].compute()
+        ranks[0].unsync()
+    return out
+
+
+@pytest.mark.parametrize("kind", sorted(SUITES))
+@pytest.mark.parametrize("world", [2, 3])
+def test_suite_sync_matches_jax(kind, world, monkeypatch):
+    make, groups = SUITES[kind]
+    jax_suites, port_suites = [make(jmt) for _ in range(world)], [make(tmt) for _ in range(world)]
+    for r in range(world):
+        _feed(jax_suites[r], jmt, r, 20, kind)
+        _feed(port_suites[r], tmt, r, 20, kind)
+    want = _jax_per_state_values(jax_suites)
+    suite = port_suites[0]
+    if groups is not None:
+        assert sorted(sorted(g) for g in suite.compute_groups.values()) == groups
+    local = {k: _snapshot(m) for k, m in suite.items(keep_base=True, copy_state=False)}
+    install_world(monkeypatch, port_suites[1:])
+    reset_collective_stats()
+    with suite.sync_context(distributed_available=DIST_ON):
+        got = suite.compute()
+    stats = collective_stats()
+    # one payload collective for the whole suite; the `cat` state adds one metadata collective
+    assert stats["sync_payload_collectives"] == 1
+    assert stats["sync_shape_collectives"] == (1 if kind == "aggregators" else 0)
+    assert stats["sync_coalesced_payloads"] == 1
+    for name, value in want.items():
+        _assert_value(got[name], value, f"{kind} suite, {name}, world {world}")
+    # unsynced: the local states, and each compute group shares its leader's tensors again
+    members = dict(suite.items(keep_base=True, copy_state=False))
+    for name, states in local.items():
+        assert not members[name]._is_synced
+        for state, value in states.items():
+            after = getattr(members[name], state)
+            assert after == value if isinstance(value, list) else after is value
+    for group in suite.compute_groups.values():
+        for state in members[group[0]]._defaults:
+            assert all(getattr(members[n], state) is getattr(members[group[0]], state) for n in group[1:])
+
+
+def test_synced_compute_then_update_and_compute_again(monkeypatch):
+    """After a synced compute, the compute groups go on from the local states."""
+    suites = [headline_suite(tmt) for _ in range(2)]
+    every = headline_suite(tmt)  # one process fed every batch of both ranks
+    for r, suite in enumerate(suites):
+        for preds, target in suite_batches(30 + r, 2):
+            suite.update(torch.from_numpy(preds), torch.from_numpy(target))
+            every.update(torch.from_numpy(preds), torch.from_numpy(target))
+    install_world(monkeypatch, suites[1:])
+    for step in range(2):
+        with suites[0].sync_context(distributed_available=DIST_ON):
+            got = suites[0].compute()
+        want = every.compute()
+        for key, value in want.items():
+            assert torch.equal(got[key], value), (step, key)
+        preds, target = suite_batches(40 + step, 1)[0]
+        suites[0].update(torch.from_numpy(preds), torch.from_numpy(target))
+        every.update(torch.from_numpy(preds), torch.from_numpy(target))
+
+
+# ----------------------------------------------------------- the lifecycle
+def test_dist_sync_on_step_forward_syncs_the_batch_value(monkeypatch):
+    (p0, t0), (p1, t1) = suite_batches(50, 2)
+    m = tmt.F1Score(num_classes=C, average="macro", dist_sync_on_step=True, device="cpu")
+    other = tmt.F1Score(num_classes=C, average="macro", device="cpu")
+    other.update(torch.from_numpy(p1), torch.from_numpy(t1))  # rank 1's batch state
+    jax_batch = jmt.F1Score(num_classes=C, average="macro")(
+        jnp.asarray(np.concatenate([p0, p1])), jnp.asarray(np.concatenate([t0, t1]))
+    )
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    m.dist_sync_fn = TorchFakeGather([m, other])
+    batch_value = m(torch.from_numpy(p0), torch.from_numpy(t0))
+    _assert_value(batch_value, jax_batch, "dist_sync_on_step batch value")
+    assert not m._is_synced
+    local = tmt.F1Score(num_classes=C, average="macro", device="cpu")
+    local.update(torch.from_numpy(p0), torch.from_numpy(t0))
+    assert torch.equal(m.tp, local.tp)  # the accumulated state stays local
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_state_dict_inside_sync_context_holds_the_reduced_value(pkg):
+    mod = jmt if pkg == "jax" else tmt
+    dev = {} if pkg == "jax" else {"device": "cpu"}
+    arr = jnp.asarray if pkg == "jax" else torch.tensor
+    ranks = [mod.SumMetric(**dev) for _ in range(2)]
+    for r, m in enumerate(ranks):
+        m.persistent(True)
+        m.update(arr([2.0 + r]))
+    gather = _FakeGather(ranks) if pkg == "jax" else TorchFakeGather(ranks)
+    with ranks[0].sync_context(dist_sync_fn=gather, distributed_available=DIST_ON):
+        sd = ranks[0].state_dict()
+    assert float(np.asarray(sd["value"])) == 5.0
+    assert float(ranks[0].value) == 2.0
+
+
+def test_double_sync_and_unsync_raise_and_forward_refuses_a_synced_metric():
+    m = tmt.SumMetric(device="cpu")
+    m.update(torch.tensor([1.0]))
+    m.sync(distributed_available=DIST_ON)
+    with pytest.raises(MetricsUserError, match="already been synced"):
+        m.sync(distributed_available=DIST_ON)
+    with pytest.raises(MetricsUserError, match="shouldn't be synced"):
+        m(torch.tensor([1.0]))
+    m.unsync()
+    with pytest.raises(MetricsUserError, match="un-synced"):
+        m.unsync()
+    m.sync(distributed_available=lambda: False)  # a world of one: nothing happens
+    assert not m._is_synced
+
+
+def test_sync_flags_are_validated():
+    with pytest.raises(ValueError, match="dist_sync_on_step"):
+        tmt.SumMetric(device="cpu", dist_sync_on_step=1)
+    with pytest.raises(ValueError, match="sync_on_compute"):
+        tmt.SumMetric(device="cpu", sync_on_compute="yes")
+    with pytest.raises(ValueError, match="dist_sync_fn"):
+        tmt.SumMetric(device="cpu", dist_sync_fn=3)
+    with pytest.raises(ValueError, match="ProcessGroup"):
+        tmt.SumMetric(device="cpu", process_group=[0, 1])
+
+
+def test_sync_on_compute_false_serves_the_local_value(monkeypatch):
+    m, other = tmt.SumMetric(device="cpu", sync_on_compute=False), tmt.SumMetric(device="cpu")
+    m.update(torch.tensor([1.0]))
+    other.update(torch.tensor([5.0]))
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    m.dist_sync_fn = TorchFakeGather([m, other])
+    assert float(m.compute()) == 1.0
+
+
+class _FailingGather(TorchFakeGather):
+    def __init__(self, rank_metrics, fail_at):
+        super().__init__(rank_metrics)
+        self.fail_at = fail_at
+
+    def __call__(self, tensor, group=None):
+        if self._call_idx == self.fail_at:
+            raise SyncFault("injected transport failure", site="sync-gather")
+        return super().__call__(tensor, group)
+
+
+@pytest.mark.parametrize("fail_at", [0, 3, 6])
+def test_a_gather_failing_mid_walk_leaves_the_state_intact(fail_at):
+    _, ranks = _make_probes(2, "float32")
+    m = ranks[0]
+    local = _snapshot(m)
+    with pytest.raises(SyncFault, match="injected"):
+        m.sync(dist_sync_fn=_FailingGather(ranks, fail_at), distributed_available=DIST_ON)
+    assert not m._is_synced and m._cache is None
+    for name, value in local.items():
+        after = getattr(m, name)
+        assert after == value if isinstance(value, list) else after is value
+
+
+def test_a_failing_payload_collective_leaves_every_member_intact(monkeypatch):
+    suites = [headline_suite(tmt) for _ in range(2)]
+    for r, suite in enumerate(suites):
+        for preds, target in suite_batches(60 + r, 2):
+            suite.update(torch.from_numpy(preds), torch.from_numpy(target))
+    local = {k: _snapshot(m) for k, m in suites[0].items(keep_base=True, copy_state=False)}
+
+    def broken(packed, group):
+        raise SyncFault("injected payload failure", site="sync-gather")
+
+    monkeypatch.setattr(bucketing, "_payload_allgather", broken)
+    with pytest.raises(SyncFault, match="injected"):
+        suites[0].sync(distributed_available=DIST_ON)
+    for name, m in suites[0].items(keep_base=True, copy_state=False):
+        assert not m._is_synced
+        for state, value in local[name].items():
+            assert getattr(m, state) is value
+
+
+def test_a_member_failing_after_the_suite_packed_rolls_back_every_member(monkeypatch):
+    """A member with its own gather syncs after the coalesced members; its failure unsyncs them all."""
+    ranks = []
+    for r in range(2):
+        suite = tmt.MetricCollection(
+            {"sum": tmt.SumMetric(device="cpu"), "max": tmt.MaxMetric(device="cpu")}, compute_groups=False
+        )
+        suite.update(torch.tensor([1.0 + r, 4.0]))
+        ranks.append(suite)
+    members = [dict(s.items(keep_base=True, copy_state=False)) for s in ranks]
+    members[0]["max"].dist_sync_fn = _FailingGather([m["max"] for m in members], fail_at=0)
+    install_world(monkeypatch, [m["sum"] for m in members[1:]])
+    with pytest.raises(SyncFault, match="injected"):
+        ranks[0].sync(distributed_available=DIST_ON)
+    assert float(members[0]["sum"].value) == 5.0 and not members[0]["sum"]._is_synced
+    assert float(members[0]["max"].value) == 4.0 and not members[0]["max"]._is_synced
+
+
+# ---------------------------------------------------- a real world of processes
+@pytest.fixture(scope="module")
+def gloo_world():
+    return run_world(gloo_world_worker, 2, 70, timeout=60.0)
+
+
+def _in_process_world(monkeypatch, seed=70):
+    suites, cats = [], []
+    for rank in range(2):
+        suite = headline_suite(tmt)
+        for preds, target in suite_batches(seed + rank, 3):
+            suite.update(torch.from_numpy(preds), torch.from_numpy(target))
+        cat = tmt.CatMetric(device="cpu")
+        for row in cat_rows(seed, rank):
+            cat.update(torch.from_numpy(row))
+        suites.append(suite)
+        cats.append(cat)
+    return suites, cats
+
+
+def test_two_gloo_processes_equal_the_in_process_sync(gloo_world, monkeypatch):
+    suites, cats = _in_process_world(monkeypatch)
+    install_world(monkeypatch, suites[1:])
+    with suites[0].sync_context(distributed_available=DIST_ON):
+        want = suites[0].compute()
+    install_world(monkeypatch, cats[1:])
+    with cats[0].sync_context(distributed_available=DIST_ON):
+        want_cat = cats[0].compute()
+    for rank, result in enumerate(gloo_world):
+        assert sorted(result["values"]) == sorted(want)
+        for key, value in want.items():
+            got = result["values"][key]
+            assert got.dtype == value.dtype and torch.equal(got, value), (rank, key)
+        assert torch.equal(result["cat"], want_cat), rank
+    # compute() restored each rank's local states
+    assert not torch.equal(gloo_world[0]["local_tp"], gloo_world[1]["local_tp"])
+
+
+def test_two_gloo_processes_coalesce_the_suite(gloo_world):
+    for result in gloo_world:
+        # compute(): the suite's first sync checks the static layout once (1 + 1), CatMetric's
+        # metadata and payload (1 + 1)
+        stats = result["compute_stats"]
+        assert (stats["sync_shape_collectives"], stats["sync_payload_collectives"]) == (2, 2)
+        assert stats["sync_coalesced_payloads"] == 2
+        # the layout is cached: every later suite sync is one payload collective
+        for counts in result["sync_counts"]:
+            assert counts == {"sync_shape_collectives": 0, "sync_payload_collectives": 1}
+
+
+def test_two_gloo_processes_gather_uneven_shapes(gloo_world):
+    for result in gloo_world:
+        g = result["gathered"]
+        assert [t.tolist() for t in g["uneven"]] == [[0, 1], [0, 1, 2]]
+        assert all(t.dtype == torch.int32 for t in g["uneven"])
+        assert [t.tolist() for t in g["uneven_2d"]] == [[[0, 0, 0]], [[1, 1], [1, 1]]]
+        assert [t.shape for t in g["scalar"]] == [(), ()] and [float(t) for t in g["scalar"]] == [0.5, 1.5]
+        assert [t.tolist() for t in g["bool"]] == [[True, False], [True, True]]
+
+
+def test_two_gloo_processes_sync_pytree_one_collective_a_spec(gloo_world):
+    x0, x1 = torch.tensor([1.0, 2.0, 3.0]), torch.tensor([2.0, 4.0, 6.0])
+    want = {
+        "s": x0 + x1,
+        "m": (x0 + x1) / 2,
+        "mx": x1,
+        "mn": x0,
+        "c": torch.cat([x0, x1]),
+        "n": torch.stack([x0, x1]),
+        "f": (x0 + x1) * 10,
+    }
+    for result in gloo_world:
+        out = result["pytree"]
+        for key, value in want.items():
+            assert torch.equal(out[key], value), key
+        assert len(out["rows"]) == 1 and torch.equal(out["rows"][0], torch.cat([x0, x1]))
+
+
+@pytest.mark.parametrize("reduction", ["elementwise_mean", "sum", "none"])
+@pytest.mark.parametrize("class_reduction", ["micro", "macro", "weighted", "none"])
+def test_reduce_and_class_reduce_match_jax(reduction, class_reduction):
+    from metrics_tpu.parallel import class_reduce as jax_class_reduce
+    from metrics_tpu.parallel import reduce as jax_reduce
+    from metrics_tpu_torch.parallel import class_reduce, reduce
+
+    rng = np.random.RandomState(3)
+    x = rng.rand(4, 5).astype(np.float32)
+    num, denom = rng.randint(0, 5, 6), rng.randint(0, 9, 6)
+    denom[2] = 0  # 0/0 -> 0
+    weights = rng.rand(6).astype(np.float32)
+    _assert_value(reduce(torch.from_numpy(x), reduction), jax_reduce(jnp.asarray(x), reduction), reduction)
+    _assert_value(
+        class_reduce(*map(torch.from_numpy, (num, denom, weights)), class_reduction),
+        jax_class_reduce(*map(jnp.asarray, (num, denom, weights)), class_reduction),
+        class_reduction,
+    )
+    with pytest.raises(ValueError):
+        reduce(torch.from_numpy(x), "max")
