@@ -15,8 +15,8 @@ Phases, each of which raises on failure (exit code 1):
    the bincount (main, large-L, multilabel, binary, one-bin, segmentation),
    both paths:
    device time and device operations per call (torch.profiler; a session that
-   records no device rows is tried again, and after three such sessions the
-   row's device time is null), one launch per call (the wrapper's counter),
+   records fewer device operations than calls is tried again, and after three
+   such sessions the row's device time is null), one launch per call (the wrapper's counter),
    wrapper time (CUDA events) and host time per call, beside the plain
    version, ``torch.bincount`` and the bound. One JSON line
    ``{"bincount_sweep": ...}``.
@@ -46,9 +46,27 @@ Phases, each of which raises on failure (exit code 1):
    MinMetric and CatMetric on per-step loss tensors with NaNs, under each
    ``nan_strategy`` and validation mode, against the CPU; then the five in
    one collection, timed.
-
-9. The sync path: the headline, agreement, segmentation and aggregator suites
-   (full width, two updates each) synced across processes. First through
+9. The curve paths. ``curves_binary``: AUROC, AveragePrecision, ROC and
+   PrecisionRecallCurve (binary) in one collection over 64 updates of
+   262,144 scores (2**24 in all; Bernoulli(0.03) labels, scores rounded to
+   multiples of 2**-12, so long tie runs form), one ``compute()``.
+   ``curves_imagenet``: AUROC and AveragePrecision (macro, C=1000),
+   CalibrationError (15 bins) and BinnedAveragePrecision (100 thresholds)
+   over 50 updates of 1000 softmax rows (the 50,000 ImageNet-1k validation
+   rows), one ``compute()``, then the weighted functional AUROC and AP on the
+   same arrays (one bincount each). Each is held against the same suite on
+   the CPU: states, counts and curves bit for bit, areas within
+   ``CURVE_AREA_ATOL``; the binned updates' CPU twin runs every batch only if
+   it takes about ``CPU_TWIN_BINNED_S``, else the first 5. Reported: update
+   ms per step (median of 3 runs, mode "first"), ``compute()`` ms, device
+   busy time and idle share of both, the host reads of the device a
+   ``compute()`` makes, the 2**24 sort's device time and the binned update's
+   (with bounds and peak memory). Then ``sorted_curves``: the sort-based
+   binary and multi-class AUROC and AP on both paths' arrays against the
+   eager values (``SORTED_AREA_ATOL``), timed against the eager calls.
+10. The sync path: the headline, agreement, segmentation and aggregator suites
+   (full width, two updates each) and a binary AUROC + AveragePrecision suite
+   buffering rows of shapes (n,) and (n, 1) synced across processes. First through
    NCCL in a process group of one rank, the sync forced: every state after a
    sync equals the state before it bit for bit, ``unsync`` puts the local
    states back, a coalesced sync is one payload collective (plus one metadata
@@ -262,16 +280,20 @@ def sweep_bincount(histogram, card: str) -> list:
         if row["dispatched_path"] != "global":
             paths.append(("global", lambda: histogram._launch(x, length, None, False)))
         for path, fn in paths:
-            # A profiler session now and then records no device rows at all; the launch
-            # counter, not the profiler, is what proves one launch per call.
+            # A profiler session now and then records no device rows, or loses some of them
+            # (fewer device operations than calls: every call launches once, as the launch
+            # counter, not the profiler, proves); such a session is taken again.
             for attempt in range(1, PROFILE_ATTEMPTS + 1):
                 before = histogram.KERNEL_LAUNCHES
                 prof = device_profile([fn] * 52)
                 assert histogram.KERNEL_LAUNCHES - before == 52, f"bincount sweep {name} ({path}): not one launch per call"
-                if prof:
+                seen = sum(k for _, k in prof.values())
+                if seen >= 50:
                     break
-                log(f"bincount sweep {name} ({path}): the profiler saw no device time (attempt {attempt})")
-            # None: the profiler saw no device time in any attempt, so it was not measured
+                log(f"bincount sweep {name} ({path}): the profiler saw {seen} device operations of 50 calls "
+                    f"(attempt {attempt})")
+                prof = {}
+            # None: no session recorded every call's device operation, so it was not measured
             device_ms = sum(ms for ms, _ in prof.values()) / 50 if prof else None
             ops = sum(k for _, k in prof.values()) / 50 if prof else None
             if prof and path == "dispatched":
@@ -370,6 +392,11 @@ def assert_suites_equal(gpu_suite, cpu_suite, label: str, rtol: float = 0.0) -> 
     return {k: v.cpu().tolist() for k, v in gpu_res.items()}
 
 
+def device_us(event) -> float:
+    """A profiler row's own device time in µs, under the name this torch gives it."""
+    return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0.0)
+
+
 def device_profile(steps, warmup: int = 2) -> dict:
     """Device-side time by kernel over ``steps`` (callables), from torch.profiler.
 
@@ -392,9 +419,6 @@ def device_profile(steps, warmup: int = 2) -> dict:
             step()
         torch.cuda.synchronize()
         prof.step()
-
-    def device_us(event) -> float:
-        return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0.0)
 
     rows = prof.key_averages()
     # "ProfilerStep*" is the schedule's own span, mirrored on the device timeline
@@ -746,7 +770,409 @@ def aggregation_path(mt, checks, card) -> dict:
 
 
 # ------------------------------------------------------------------ phase 9
-SYNC_SUITES = ("headline", "agreement", "segmentation", "aggregators")
+CURVE_AREA_ATOL = {"binary": 1e-6, "multiclass": 1e-5}  # eager areas, card against CPU (the JAX tests' tolerances)
+SORTED_AREA_ATOL = {"binary": 1e-4, "multiclass": 1e-5}  # sort-based areas against the eager curves on the card
+CONF_SUM_RTOL = 1e-5  # CalibrationError's float32 confidence sums: another order of addition on each side
+CPU_TWIN_BINNED_S = 20.0  # the CPU twin of the binned updates runs all batches only if it takes about this long
+HOST_READ_OPS = ("aten::_local_scalar_dense", "aten::item", "aten::nonzero")
+CURVES_DEVICE = "cuda"  # where the curve paths run
+CURVES_BINARY_SHAPE = (64, 262_144)  # updates, scores an update: 2**24 scores
+CURVES_IMAGENET_SHAPE = (50, 1000, 1000)  # updates, rows an update, classes: the ImageNet-1k validation set
+
+
+def curves_binary_suite(mt, device: str):
+    """A CTR or fraud model's evaluation metrics: exact AUROC, AP, ROC and PR curve over every score."""
+    return mt.MetricCollection(
+        {
+            "auroc": mt.AUROC(pos_label=1, device=device),
+            "ap": mt.AveragePrecision(pos_label=1, device=device),
+            "roc": mt.ROC(pos_label=1, device=device),
+            "pr_curve": mt.PrecisionRecallCurve(pos_label=1, device=device),
+        }
+    )
+
+
+def curves_imagenet_suite(mt, device: str, num_classes: int, binned: bool = True):
+    """The ImageNet-1k validation pass's ranking and calibration metrics."""
+    members = {
+        "auroc": mt.AUROC(num_classes=num_classes, average="macro", device=device),
+        "ap": mt.AveragePrecision(num_classes=num_classes, average="macro", device=device),
+        "ece": mt.CalibrationError(n_bins=15, norm="l1", device=device),
+    }
+    if binned:
+        members["binned_ap"] = mt.BinnedAveragePrecision(num_classes=num_classes, thresholds=100, device=device)
+    return mt.MetricCollection(members)
+
+
+def curves_binary_batches(seed: int = 20) -> list:
+    """Bernoulli(0.03) labels (int64) and float32 scores with signal, rounded to multiples
+    of 2**-12, so that long tie runs form: ``steps * batch`` = 2**24 scores."""
+    steps, batch = CURVES_BINARY_SHAPE
+    g = torch.Generator(device=CURVES_DEVICE).manual_seed(seed)
+    out = []
+    for _ in range(steps):
+        target = (torch.rand(batch, generator=g, device=CURVES_DEVICE) < 0.03).to(torch.int64)
+        logits = torch.randn(batch, generator=g, device=CURVES_DEVICE) + 2.0 * target - 1.5
+        out.append((torch.round(torch.sigmoid(logits) * 4096) / 4096, target))
+    return out
+
+
+def curves_imagenet_batches(seed: int = 21) -> list:
+    """Softmax rows (B, C) and int64 labels: the row's arg-max 75% of the time, else uniform."""
+    steps, batch, num_classes = CURVES_IMAGENET_SHAPE
+    g = torch.Generator(device=CURVES_DEVICE).manual_seed(seed)
+    out = []
+    for _ in range(steps):
+        probs = torch.softmax(torch.randn(batch, num_classes, generator=g, device=CURVES_DEVICE) * 2.0, dim=1)
+        uniform = torch.randint(0, num_classes, (batch,), generator=g, device=CURVES_DEVICE)
+        keep = torch.rand(batch, generator=g, device=CURVES_DEVICE) < 0.75
+        out.append((probs, torch.where(keep, probs.argmax(dim=1), uniform)))
+    return out
+
+
+def compute_profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler, after one call in the warm-up cycle: device ms and
+    operations, and the host ops that read the device (``HOST_READ_OPS``) with their counts."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+
+    rows = [e for e in prof.key_averages() if not e.key.startswith("ProfilerStep")]
+    device = [e for e in rows if device_us(e) > 0 and e.self_cpu_time_total == 0]
+    counts = {e.key: e.count for e in rows}
+    return {
+        # None: the profiler saw no device time, so it was not measured
+        "device_ms": sum(device_us(e) for e in device) / 1e3 if device else None,
+        "device_ops": sum(e.count for e in device),
+        "host_reads": {k: counts.get(k, 0) for k in HOST_READ_OPS},
+        "top_device_ms": {e.key[:60]: [device_us(e) / 1e3, e.count]
+                          for e in sorted(device, key=lambda e: -device_us(e))[:8]},
+    }
+
+
+def timed_ms(fn, repeats: int = 1) -> float:
+    """Host milliseconds of ``fn`` (the best of ``repeats``), each run ending in a synchronise."""
+    best = float("inf")
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def fresh_compute(suite):
+    """``suite.compute()`` with every member's cached value dropped, so that it computes again."""
+    for _, m in suite.items(keep_base=True, copy_state=False):
+        m._computed = None
+    return suite.compute()
+
+
+def assert_curve_close(got, want, label: str, atol) -> float:
+    """A result on the card against the CPU's, recursing into lists and tuples: bit for bit when
+    ``atol`` is None, else within ``atol``. Returns the largest |difference| of the finite values."""
+    if isinstance(want, (list, tuple)):
+        assert isinstance(got, (list, tuple)) and len(got) == len(want), f"{label}: {type(got)} of {len(got)}"
+        return max([assert_curve_close(g, w, label, atol) for g, w in zip(got, want)], default=0.0)
+    g = got.cpu()
+    assert g.dtype == want.dtype and g.shape == want.shape, f"{label}: {g.dtype} {tuple(g.shape)}"
+    torch.testing.assert_close(g, want, atol=atol or 0.0, rtol=0.0, equal_nan=True, msg=label)
+    finite = torch.isfinite(want)
+    return float((g[finite].double() - want[finite].double()).abs().max()) if finite.any() else 0.0
+
+
+def assert_member_states_equal(gpu_members: dict, cpu_members: dict, label: str) -> None:
+    """Every state of every CPU member's twin on the card bit for bit; a float sum state
+    (CalibrationError's ``conf_bin``) within ``CONF_SUM_RTOL``."""
+    for name, cpu_m in cpu_members.items():
+        for state, want in cpu_m.metric_state.items():
+            got = getattr(gpu_members[name], state)
+            got, want = (got, want) if isinstance(want, list) else ([got], [want])
+            assert len(got) == len(want), f"{label}: {name}.{state} has {len(got)} rows, not {len(want)}"
+            for g, w in zip(got, want):
+                g = g.cpu()
+                assert g.dtype == w.dtype and g.shape == w.shape, f"{label}: {name}.{state}"
+                if state == "conf_bin":
+                    torch.testing.assert_close(g, w, rtol=CONF_SUM_RTOL, atol=0.0, msg=f"{label}: {name}.{state}")
+                else:
+                    assert torch.equal(g, w), f"{label}: state {name}.{state} differs from the CPU"
+
+
+def time_update_trials(make_suite_fn, batches, checks, histogram, trials: int = 3):
+    """``trials`` runs of every update on a new suite in validation mode "first": (ms per step of each
+    run, sorted; launches of the first run; the first run's suite)."""
+    checks.set_validation_mode("first")
+    runs, launches, first = [], None, None
+    for trial in range(trials):
+        suite = make_suite_fn(CURVES_DEVICE)
+        histogram.KERNEL_LAUNCHES = 0
+        seconds = run_suite(suite, batches, 0)
+        if trial == 0:
+            launches, first = histogram.KERNEL_LAUNCHES, suite
+        else:
+            del suite
+        runs.append(seconds / len(batches) * 1e3)
+    return sorted(runs), launches, first
+
+
+def sort_profile(preds) -> dict:
+    """The eager curve's descending stable argsort of ``preds``: device ms per call over 5 calls,
+    and its bound from bytes (the float32 keys read once, the int64 indices written once)."""
+    rows = device_profile([lambda: torch.argsort(-preds, stable=True)] * 7)
+    n = preds.numel()
+    bound_ms = (4 * n + 8 * n) / HBM_BYTES_PER_S * 1e3
+    device_ms = sum(ms for ms, _ in rows.values()) / 5 if rows else None
+    return {"n": n, "device_ms": device_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "share_of_bound": bound_ms / device_ms if device_ms else None,
+            "device_rows": {k[:60]: v for k, v in rows.items()}}
+
+
+def binned_profile(preds, target, thresholds) -> dict:
+    """One binned update's compare and contraction: device ms per call over 5 calls, its bound
+    (the larger of bytes at the memory rate and float32 operations at the FP32 rate), peak memory."""
+    from metrics_tpu_torch.ops.binned import binned_curve_counts, threshold_chunk
+
+    n, c = preds.shape
+    t = thresholds.numel()
+    t01 = (target == 1).to(torch.float32)
+    rows = device_profile([lambda: binned_curve_counts(preds, t01, thresholds)] * 7)
+    bytes_moved = 4 * (2 * n * c + t + 3 * c * t)  # scores and 0/1 targets read, three (C, T) counts written
+    ops = 4 * n * c * t  # a compare, a multiply and an add for TP, an add for the >= total
+    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    binned_curve_counts(preds, t01, thresholds)
+    torch.cuda.synchronize()
+    device_ms = sum(ms for ms, _ in rows.values()) / 5 if rows else None
+    return {"n": n, "c": c, "t": t, "threshold_chunk": threshold_chunk(n, c, t), "device_ms": device_ms,
+            "bytes": bytes_moved, "ops": ops, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops / FP32_OPS_PER_S > bytes_moved / HBM_BYTES_PER_S else "bytes",
+            "share_of_bound": bound_ms / device_ms if device_ms else None,
+            "peak_extra_bytes": torch.cuda.max_memory_allocated() - base,
+            "device_rows": {k[:60]: v for k, v in rows.items()}}
+
+
+def curves_binary_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 9a: AUROC, AP, ROC and the PR curve over 2**24 binary scores in 64 updates, one compute."""
+    batches = curves_binary_batches()
+    n = sum(p.numel() for p, _ in batches)
+    runs, launches, suite = time_update_trials(lambda dev: curves_binary_suite(mt, dev), batches, checks, histogram)
+    groups = sorted(sorted(g) for g in suite.compute_groups.values())
+    assert groups == [["ap", "auroc", "pr_curve", "roc"]], f"curves_binary: groups {groups}"
+    assert launches == 0, f"curves_binary: {launches} bincount launches in its updates"
+    # on a suite of its own: the profiled updates must not reach the suite held against the CPU
+    update_prof = profile_steps(curves_binary_suite(mt, CURVES_DEVICE).update, batches[:10])
+    result = {"n": n, "batch": batches[0][0].numel(), "steps": len(batches), "groups": groups, "card": card,
+              "update_ms_per_step_runs": runs, "update_ms_per_step": runs[len(runs) // 2],
+              "update_profile": update_prof, "kernel_launches": launches}
+    if update_prof["device_ms_per_step"] is not None:
+        update_prof["device_idle_share"] = 1.0 - update_prof["device_ms_per_step"] / result["update_ms_per_step"]
+    leader = dict(suite.items(keep_base=True, copy_state=False))["ap"]
+    result["state_bytes_on_card"] = sum(t.numel() * t.element_size() for t in leader.preds + leader.target)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    values = suite.compute()
+    torch.cuda.synchronize()
+    result["compute_ms"] = (time.perf_counter() - t0) * 1e3
+    result["compute_again_ms"] = timed_ms(lambda: fresh_compute(suite))  # the allocator warm from the first
+    prof = compute_profile(lambda: fresh_compute(suite))
+    result["compute_profile"] = prof
+    if prof["device_ms"] is not None:
+        prof["device_idle_share"] = 1.0 - prof["device_ms"] / result["compute_ms"]
+
+    cpu = curves_binary_suite(mt, "cpu")
+    for preds, target in batches:
+        cpu.update(preds.cpu(), target.cpu())
+    assert_member_states_equal(dict(suite.items(keep_base=True, copy_state=False)),
+                               dict(cpu.items(keep_base=True, copy_state=False)), "curves_binary")
+    t0 = time.perf_counter()
+    want = cpu.compute()
+    result["cpu_compute_ms"] = (time.perf_counter() - t0) * 1e3
+    err = {}
+    for key in ("roc", "pr_curve"):
+        err[key] = assert_curve_close(values[key], want[key], f"curves_binary {key}", None)
+    for key in ("auroc", "ap"):
+        err[key] = assert_curve_close(values[key], want[key], f"curves_binary {key}", CURVE_AREA_ATOL["binary"])
+    result.update(values={k: float(values[k]) for k in ("auroc", "ap")}, curve_points=values["roc"][0].numel(),
+                  max_abs_err_vs_cpu=err)
+    all_preds = torch.cat([p for p, _ in batches])
+    result["sort"] = sort_profile(all_preds)
+    log(f"curves_binary N={n} ({len(batches)} x {result['batch']}): update {result['update_ms_per_step']:.4f} ms/step "
+        f"(runs {runs}), compute {result['compute_ms']:.2f} ms (again {result['compute_again_ms']:.2f} ms; CPU "
+        f"{result['cpu_compute_ms']:.1f} ms), "
+        f"values {result['values']}, {result['curve_points']} ROC points, curves bit for bit and areas within "
+        f"{CURVE_AREA_ATOL['binary']} of the CPU (max |err| {err})  [{card}]")
+    log(f"curves_binary profiles: update {json.dumps(update_prof)}; compute {json.dumps(prof)}; "
+        f"sort {json.dumps(result['sort'])}  [{card}]")
+    return result, batches, values
+
+
+def curves_imagenet_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 9b: AUROC, AP (macro, C=1000), CalibrationError and BinnedAveragePrecision (T=100)
+    over the 50,000 ImageNet-1k validation rows in 50 updates, one compute, then the weighted
+    functional AUROC and AP on the same arrays."""
+    num_classes = CURVES_IMAGENET_SHAPE[2]
+    batches = curves_imagenet_batches()
+    n = sum(p.shape[0] for p, _ in batches)
+    runs, launches, suite = time_update_trials(lambda dev: curves_imagenet_suite(mt, dev, num_classes), batches, checks, histogram)
+    groups = sorted(sorted(g) for g in suite.compute_groups.values())
+    assert groups == [["ap", "auroc"], ["binned_ap"], ["ece"]], f"curves_imagenet: groups {groups}"
+    assert launches == len(batches), f"curves_imagenet: {launches} bincount launches in {len(batches)} updates"
+    update_prof = profile_steps(curves_imagenet_suite(mt, CURVES_DEVICE, num_classes).update, batches[:8])
+    result = {"n": n, "batch": batches[0][0].shape[0], "num_classes": num_classes, "steps": len(batches),
+              "groups": groups, "card": card, "update_ms_per_step_runs": runs,
+              "update_ms_per_step": runs[len(runs) // 2], "update_profile": update_prof, "kernel_launches": launches}
+    if update_prof["device_ms_per_step"] is not None:
+        update_prof["device_idle_share"] = 1.0 - update_prof["device_ms_per_step"] / result["update_ms_per_step"]
+    leader = dict(suite.items(keep_base=True, copy_state=False))["ap"]
+    result["state_bytes_on_card"] = sum(t.numel() * t.element_size() for t in leader.preds + leader.target)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    values = suite.compute()
+    torch.cuda.synchronize()
+    result["compute_ms"] = (time.perf_counter() - t0) * 1e3
+    result["compute_again_ms"] = timed_ms(lambda: fresh_compute(suite))  # the allocator warm from the first
+    prof = compute_profile(lambda: fresh_compute(suite))
+    result["compute_profile"] = prof
+    if prof["device_ms"] is not None:
+        prof["device_idle_share"] = 1.0 - prof["device_ms"] / result["compute_ms"]
+
+    # the CPU twin: every batch through the exact and calibration members, the binned member's
+    # batches only as far as CPU_TWIN_BINNED_S allows
+    cpu = curves_imagenet_suite(mt, "cpu", num_classes, binned=False)
+    for preds, target in batches:
+        cpu.update(preds.cpu(), target.cpu())
+    cpu_binned = mt.BinnedAveragePrecision(num_classes=num_classes, thresholds=100, device="cpu")
+    t0 = time.perf_counter()
+    cpu_binned.update(batches[0][0].cpu(), batches[0][1].cpu())
+    per_update_s = time.perf_counter() - t0
+    binned_steps = len(batches) if per_update_s * len(batches) <= CPU_TWIN_BINNED_S else 5
+    for preds, target in batches[1:binned_steps]:
+        cpu_binned.update(preds.cpu(), target.cpu())
+    gpu_binned = mt.BinnedAveragePrecision(num_classes=num_classes, thresholds=100, device=CURVES_DEVICE)
+    for preds, target in batches[:binned_steps]:
+        gpu_binned.update(preds, target)
+    gpu_members = dict(suite.items(keep_base=True, copy_state=False))
+    if binned_steps == len(batches):
+        for state in ("TPs", "FPs", "FNs"):  # the suite's member ran the same updates on the card
+            assert torch.equal(getattr(gpu_members["binned_ap"], state), getattr(gpu_binned, state))
+    for state in ("TPs", "FPs", "FNs"):
+        assert torch.equal(getattr(gpu_binned, state).cpu(), getattr(cpu_binned, state)), f"binned {state} differs"
+    assert_member_states_equal(gpu_members, dict(cpu.items(keep_base=True, copy_state=False)), "curves_imagenet")
+    t0 = time.perf_counter()
+    want = cpu.compute()
+    result["cpu_compute_ms"] = (time.perf_counter() - t0) * 1e3
+    err = {k: assert_curve_close(values[k], want[k], f"curves_imagenet {k}", CURVE_AREA_ATOL["multiclass"])
+           for k in ("auroc", "ap")}
+    err["ece"] = assert_curve_close(values["ece"], want["ece"], "curves_imagenet ece", CURVE_AREA_ATOL["binary"])
+    err["binned_ap"] = assert_curve_close(gpu_binned.compute(), cpu_binned.compute(), "curves_imagenet binned_ap",
+                                          CURVE_AREA_ATOL["binary"])
+    assert len(values["binned_ap"]) == num_classes and all(torch.isfinite(v) for v in values["binned_ap"][:10])
+    result.update(values={k: float(values[k]) for k in ("auroc", "ap", "ece")},
+                  binned_ap_mean=float(torch.stack(values["binned_ap"]).mean()), max_abs_err_vs_cpu=err,
+                  cpu_twin_binned_steps=binned_steps, cpu_binned_s_per_update=per_update_s)
+
+    # the weighted functional areas on the same arrays: the class support is one bincount each
+    all_preds = torch.cat([p for p, _ in batches])
+    all_target = torch.cat([t for _, t in batches])
+    histogram.KERNEL_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w_auroc = mt.functional.auroc(all_preds, all_target, num_classes=num_classes, average="weighted")
+    w_ap = mt.functional.average_precision(all_preds, all_target, num_classes=num_classes, average="weighted")
+    torch.cuda.synchronize()
+    result["weighted_ms"] = (time.perf_counter() - t0) * 1e3
+    result["weighted_launches"] = histogram.KERNEL_LAUNCHES
+    assert result["weighted_launches"] == 2, f"weighted areas: {result['weighted_launches']} bincount launches"
+    cpu_preds, cpu_target = all_preds.cpu(), all_target.cpu()
+    err["weighted_auroc"] = assert_curve_close(
+        w_auroc, mt.functional.auroc(cpu_preds, cpu_target, num_classes=num_classes, average="weighted"),
+        "weighted auroc", CURVE_AREA_ATOL["multiclass"])
+    err["weighted_ap"] = assert_curve_close(
+        w_ap, mt.functional.average_precision(cpu_preds, cpu_target, num_classes=num_classes, average="weighted"),
+        "weighted ap", CURVE_AREA_ATOL["multiclass"])
+    result["weighted_values"] = {"auroc": float(w_auroc), "ap": float(w_ap)}
+
+    thresholds = torch.from_numpy(gpu_binned.thresholds).to(CURVES_DEVICE)
+    onehot = torch.nn.functional.one_hot(batches[0][1], num_classes)
+    result["binned"] = binned_profile(batches[0][0], onehot, thresholds)
+    log(f"curves_imagenet N={n} C={num_classes}: update {result['update_ms_per_step']:.4f} ms/step (runs {runs}), "
+        f"{launches} bincount launches; compute {result['compute_ms']:.1f} ms (again {result['compute_again_ms']:.1f} "
+        f"ms; CPU {result['cpu_compute_ms']:.1f} ms); "
+        f"values {result['values']}, binned AP mean {result['binned_ap_mean']:.6f}; weighted AUROC and AP "
+        f"{result['weighted_values']} in {result['weighted_ms']:.1f} ms, 2 launches; CPU twin of the binned updates "
+        f"over {binned_steps} of {len(batches)} batches ({per_update_s:.2f} s an update on the CPU); max |err| vs "
+        f"CPU {err}  [{card}]")
+    log(f"curves_imagenet profiles: update {json.dumps(update_prof)}; compute {json.dumps(prof)}; "
+        f"binned update {json.dumps(result['binned'])}  [{card}]")
+    return result, (all_preds, all_target), values
+
+
+def sorted_curves_path(binary, imagenet, binary_values, imagenet_values, card: str) -> dict:
+    """Phase 9c: the sort-based exact areas on both paths' arrays, each against the eager curve's
+    value on the card, each timed against the eager path's functional call."""
+    import metrics_tpu_torch.functional as F
+    from metrics_tpu_torch.ops import sorted_curves
+
+    (bp, bt), (mp, mt_) = binary, imagenet
+    num_classes = mp.shape[1]
+    cases = {
+        "binary_auroc_sorted": (lambda: sorted_curves.binary_auroc_sorted(bp, bt),
+                                lambda: F.auroc(bp, bt, pos_label=1), binary_values["auroc"], "binary"),
+        "binary_average_precision_sorted": (lambda: sorted_curves.binary_average_precision_sorted(bp, bt),
+                                            lambda: F.average_precision(bp, bt, pos_label=1), binary_values["ap"],
+                                            "binary"),
+        "multiclass_auroc_sorted": (lambda: sorted_curves.multiclass_auroc_sorted(mp, mt_, num_classes, "macro"),
+                                    lambda: F.auroc(mp, mt_, num_classes=num_classes), imagenet_values["auroc"],
+                                    "multiclass"),
+        "multiclass_average_precision_sorted": (
+            lambda: sorted_curves.multiclass_average_precision_sorted(mp, mt_, num_classes, "macro"),
+            lambda: F.average_precision(mp, mt_, num_classes=num_classes), imagenet_values["ap"], "multiclass"),
+    }
+    out = {"card": card}
+    for name, (fn, eager_fn, eager_value, kind) in cases.items():
+        got = fn()
+        err = abs(float(got) - float(eager_value))
+        assert err <= SORTED_AREA_ATOL[kind], f"{name}: {float(got)} against the eager {float(eager_value)}"
+        ms = timed_ms(fn, repeats=3)
+        eager_ms = timed_ms(eager_fn, repeats=1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = {"value": float(got), "eager_value": float(eager_value), "abs_err": err,
+                     "atol": SORTED_AREA_ATOL[kind], "ms": ms, "eager_ms": eager_ms,
+                     "peak_extra_bytes": torch.cuda.max_memory_allocated() - base}
+        log(f"sorted_curves {name}: {float(got):.8f} (eager {float(eager_value):.8f}, |err| {err:.3g} <= "
+            f"{SORTED_AREA_ATOL[kind]}), {ms:.3f} ms against the eager path's {eager_ms:.1f} ms  [{card}]")
+    return out
+
+
+def curves_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 9: the two curve paths and the sort-based areas on their arrays."""
+    binary, binary_batches, binary_values = curves_binary_path(mt, checks, histogram, card)
+    imagenet, imagenet_arrays, imagenet_values = curves_imagenet_path(mt, checks, histogram, card)
+    binary_arrays = (torch.cat([p for p, _ in binary_batches]), torch.cat([t for _, t in binary_batches]))
+    del binary_batches
+    sorted_result = sorted_curves_path(binary_arrays, imagenet_arrays, binary_values, imagenet_values, card)
+    return {"curves_binary": binary, "curves_imagenet": imagenet, "sorted_curves": sorted_result,
+            "kernel_launches": binary["kernel_launches"] + imagenet["kernel_launches"] + imagenet["weighted_launches"]}
+
+
+# ------------------------------------------------------------------ phase 10
+SYNC_SUITES = ("headline", "agreement", "segmentation", "aggregators", "curves")
 SYNC_STEPS = 2  # updates of each suite on each rank
 SYNC_TRIALS = 5  # timed syncs of each protocol, alternating, after one untimed sync
 SYNC_WORLD_S = 600  # wall-clock limit of the two-rank world
@@ -760,6 +1186,9 @@ def sync_suite(mt, name: str, device: str):
         return agreement_suite(mt, device, 1000)
     if name == "segmentation":
         return segmentation_suite(mt, device, 19)
+    if name == "curves":
+        return mt.MetricCollection({"auroc": mt.AUROC(pos_label=1, device=device),
+                                    "ap": mt.AveragePrecision(pos_label=1, device=device)})
     return mt.MetricCollection({n: getattr(mt, n)(device=device) for n in AGGREGATORS}, compute_groups=False)
 
 
@@ -774,6 +1203,18 @@ def sync_batches(name: str, rank: int, steps: int = SYNC_STEPS) -> list:
     if name == "segmentation":
         return [((p, t), {}) for p, t in make_batches(2, 19, steps, seed, signal=3.0, spatial=(1024, 2048))]
     g = torch.Generator(device=SYNC_DEVICE).manual_seed(seed)
+    if name == "curves":
+        # binary rows of shapes (n,) and (n, 1) in turn, rank 1's in the other order: each sync
+        # must bring them to one rank before it packs them
+        out = []
+        for step in range(steps):
+            n = 65536 + 4096 * rank
+            preds = torch.round(torch.rand(n, generator=g, device=SYNC_DEVICE) * 4096) / 4096
+            target = (torch.rand(n, generator=g, device=SYNC_DEVICE) < 0.3).to(torch.int64)
+            if (step + rank) % 2:
+                preds, target = preds[:, None], target[:, None]
+            out.append(((preds, target), {}))
+        return out
     batch = 4096 + 1000 * rank  # CatMetric holds an uneven number of rows on each rank
     return [((torch.rand(batch, generator=g, device=SYNC_DEVICE) * 3,),
              {"weight": torch.rand(batch, generator=g, device=SYNC_DEVICE)}) for _ in range(steps)]
@@ -855,9 +1296,6 @@ def sync_profile(suite, protocol: str, syncs: int = 3) -> dict:
             one_sync()
         prof.step()
 
-    def device_us(event) -> float:
-        return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0.0)
-
     rows = [e for e in prof.key_averages() if not e.key.startswith("ProfilerStep")]
     device = [e for e in rows if device_us(e) > 0 and e.self_cpu_time_total == 0]
     host = sorted((e for e in rows if e.self_cpu_time_total > 0), key=lambda e: -e.self_cpu_time_total)
@@ -889,6 +1327,12 @@ def sync_world_of_one(mt, histogram, name: str, card: str) -> dict:
     torch.cuda.synchronize()
     launches = histogram.KERNEL_LAUNCHES
     members = dict(suite.items(keep_base=True, copy_state=False))
+    if name == "curves":
+        # buffered rows of shapes (n,) and (n, 1): the first sync brings them to one rank in place
+        # (Metric._canonicalize_list_states) before it packs them; the local states are read after it
+        suite.sync(distributed_available=lambda: True)
+        suite.unsync()
+        assert all(r.ndim == 1 for m in members.values() for r in m.preds + m.target), "rows not canonicalised"
     local = {(m, s): v for m, member in members.items() for s, v in member.metric_state.items()}
     want = {k: v.clone() for k, v in suite_states(suite).items()}
     has_cat = any(isinstance(v, list) for v in local.values())
@@ -960,7 +1404,7 @@ def gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
                 "compute_counts": {k: stats[k] for k in ("sync_shape_collectives", "sync_payload_collectives",
                                                          "sync_bytes_gathered")},
                 "states": n_states,
-                "has_cat": name == "aggregators",
+                "has_cat": name in ("aggregators", "curves"),
                 **sync_trials(suite),
             }
             del suite
@@ -1082,14 +1526,16 @@ def main() -> int:
     agreement = agreement_path(mt, checks, histogram, card)
     segmentation = segmentation_path(mt, checks, histogram, card)
     aggregation = aggregation_path(mt, checks, card)
+    curves = curves_path(mt, checks, histogram, card)
     sync = sync_path(mt, histogram, card)
-    # each path's first timed run in mode "first", and the sync phase's updates, counted from 0 just before each
+    # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, and
+    # the sync phase's updates, counted from 0 just before each
     kernel["launches"] = sum(p["first"]["kernel_launches"] for p in (main, agreement, segmentation))
-    kernel["launches"] += sync["kernel_launches"]
+    kernel["launches"] += curves["kernel_launches"] + sync["kernel_launches"]
 
     log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
                     "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation,
-                    "sync_path": sync}))
+                    "curves_path": curves, "sync_path": sync}))
     log(json.dumps({"kernels": [kernel]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

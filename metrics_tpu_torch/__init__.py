@@ -9,8 +9,10 @@ the CPU). The confusion-matrix histogram runs a hand-written CUDA kernel
 Ported so far: the classification metrics built on stat scores (Accuracy,
 Precision, Recall, F1Score, FBetaScore, Specificity, Dice, StatScores) and
 on the confusion matrix (ConfusionMatrix, CohenKappa, MatthewsCorrCoef,
-JaccardIndex), HammingDistance, the aggregators (Max, Min, Sum, Cat, Mean)
-and MetricCollection, and state sync across processes
+JaccardIndex), HammingDistance, the curve family (PrecisionRecallCurve,
+ROC, AUROC, AveragePrecision, AUC, CalibrationError and the binned curves),
+the aggregators (Max, Min, Sum, Cat, Mean) and MetricCollection, and state
+sync across processes
 (``metrics_tpu_torch.parallel``): ``compute()`` reduces the states over the
 ``torch.distributed`` process group, a whole suite in one collective.
 """
@@ -18,7 +20,14 @@ from metrics_tpu_torch import functional, parallel
 from metrics_tpu_torch.__about__ import __version__
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.classification import (
+    AUC,
+    AUROC,
     Accuracy,
+    AveragePrecision,
+    BinnedAveragePrecision,
+    BinnedPrecisionRecallCurve,
+    BinnedRecallAtFixedPrecision,
+    CalibrationError,
     CohenKappa,
     ConfusionMatrix,
     Dice,
@@ -28,7 +37,9 @@ from metrics_tpu_torch.classification import (
     JaccardIndex,
     MatthewsCorrCoef,
     Precision,
+    PrecisionRecallCurve,
     Recall,
+    ROC,
     Specificity,
     StatScores,
 )
@@ -37,7 +48,14 @@ from metrics_tpu_torch.interop import load_reference_state
 from metrics_tpu_torch.metric import Metric
 
 __all__ = [
+    "AUC",
+    "AUROC",
     "Accuracy",
+    "AveragePrecision",
+    "BinnedAveragePrecision",
+    "BinnedPrecisionRecallCurve",
+    "BinnedRecallAtFixedPrecision",
+    "CalibrationError",
     "CatMetric",
     "CohenKappa",
     "ConfusionMatrix",
@@ -53,6 +71,8 @@ __all__ = [
     "MetricCollection",
     "MinMetric",
     "Precision",
+    "PrecisionRecallCurve",
+    "ROC",
     "Recall",
     "Specificity",
     "StatScores",

@@ -1,4 +1,13 @@
 from metrics_tpu_torch.classification.accuracy import Accuracy
+from metrics_tpu_torch.classification.auc import AUC
+from metrics_tpu_torch.classification.auroc import AUROC
+from metrics_tpu_torch.classification.avg_precision import AveragePrecision
+from metrics_tpu_torch.classification.binned_precision_recall import (
+    BinnedAveragePrecision,
+    BinnedPrecisionRecallCurve,
+    BinnedRecallAtFixedPrecision,
+)
+from metrics_tpu_torch.classification.calibration_error import CalibrationError
 from metrics_tpu_torch.classification.cohen_kappa import CohenKappa
 from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix
 from metrics_tpu_torch.classification.dice import Dice
@@ -7,11 +16,20 @@ from metrics_tpu_torch.classification.hamming import HammingDistance
 from metrics_tpu_torch.classification.jaccard import JaccardIndex
 from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrCoef
 from metrics_tpu_torch.classification.precision_recall import Precision, Recall
+from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve
+from metrics_tpu_torch.classification.roc import ROC
 from metrics_tpu_torch.classification.specificity import Specificity
 from metrics_tpu_torch.classification.stat_scores import StatScores
 
 __all__ = [
+    "AUC",
+    "AUROC",
     "Accuracy",
+    "AveragePrecision",
+    "BinnedAveragePrecision",
+    "BinnedPrecisionRecallCurve",
+    "BinnedRecallAtFixedPrecision",
+    "CalibrationError",
     "CohenKappa",
     "ConfusionMatrix",
     "Dice",
@@ -21,6 +39,8 @@ __all__ = [
     "JaccardIndex",
     "MatthewsCorrCoef",
     "Precision",
+    "PrecisionRecallCurve",
+    "ROC",
     "Recall",
     "Specificity",
     "StatScores",

@@ -157,6 +157,8 @@ class MetricCollection(nn.ModuleDict):
             eligible = dist_sync_fn is None and m.dist_sync_fn is None
             if eligible:
                 nodes = _bucketing.tree_nodes(m)
+                for n in nodes:
+                    n._canonicalize_list_states()
                 group = process_group if process_group is not None else m.process_group
                 eligible = (
                     not any(n._is_synced for n in nodes)

@@ -1,4 +1,8 @@
 from metrics_tpu_torch.functional.classification.accuracy import accuracy
+from metrics_tpu_torch.functional.classification.auc import auc
+from metrics_tpu_torch.functional.classification.auroc import auroc
+from metrics_tpu_torch.functional.classification.average_precision import average_precision
+from metrics_tpu_torch.functional.classification.calibration_error import calibration_error
 from metrics_tpu_torch.functional.classification.cohen_kappa import cohen_kappa
 from metrics_tpu_torch.functional.classification.confusion_matrix import confusion_matrix
 from metrics_tpu_torch.functional.classification.dice import dice, dice_score
@@ -7,11 +11,17 @@ from metrics_tpu_torch.functional.classification.hamming import hamming_distance
 from metrics_tpu_torch.functional.classification.jaccard import jaccard_index
 from metrics_tpu_torch.functional.classification.matthews_corrcoef import matthews_corrcoef
 from metrics_tpu_torch.functional.classification.precision_recall import precision, precision_recall, recall
+from metrics_tpu_torch.functional.classification.precision_recall_curve import precision_recall_curve
+from metrics_tpu_torch.functional.classification.roc import roc
 from metrics_tpu_torch.functional.classification.specificity import specificity
 from metrics_tpu_torch.functional.classification.stat_scores import stat_scores
 
 __all__ = [
     "accuracy",
+    "auc",
+    "auroc",
+    "average_precision",
+    "calibration_error",
     "cohen_kappa",
     "confusion_matrix",
     "dice",
@@ -23,7 +33,9 @@ __all__ = [
     "matthews_corrcoef",
     "precision",
     "precision_recall",
+    "precision_recall_curve",
     "recall",
+    "roc",
     "specificity",
     "stat_scores",
 ]

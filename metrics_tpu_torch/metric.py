@@ -203,6 +203,18 @@ class Metric(nn.Module, ABC):
         for name, value in state.items():
             setattr(self, name, list(value) if isinstance(value, list) else value)
 
+    def _canonicalize_list_states(self) -> None:
+        """Bring buffered list-state rows to their canonical per-row form, in place.
+
+        A metric that buffers raw input rows (the curve metrics) leaves the
+        layout transform out of ``update`` and runs it after concatenation in
+        ``compute``. Whatever observes the rows one by one needs them
+        canonical first: the sync (rows of one state must share their rank
+        to be concatenated and gathered), ``state_dict`` and pickling. Those
+        paths call this hook; an override must be idempotent. The base class
+        buffers nothing raw (JAX counterpart `metrics_tpu/metric.py:404`).
+        """
+
     # ----------------------------------------------------------------- update
     @abstractmethod
     def update(self, *args: Any, **kwargs: Any) -> None:
@@ -371,7 +383,10 @@ class Metric(nn.Module, ABC):
             return False  # each child gathers over its own group
         if not _bucketing.coalescible(nodes):
             return False
-        snaps = [(n, n._state_snapshot()) for n in nodes[1:]]
+        snaps = []
+        for n in nodes[1:]:
+            n._canonicalize_list_states()
+            snaps.append((n, n._state_snapshot()))
         try:
             _bucketing.coalesced_sync_nodes(nodes, group=process_group if process_group is not None else self.process_group)
         except Exception:
@@ -404,6 +419,7 @@ class Metric(nn.Module, ABC):
             return
         if dist_sync_fn is None:
             dist_sync_fn = self.dist_sync_fn or gather_all_tensors
+        self._canonicalize_list_states()
         self._cache = self._state_snapshot()
         try:
             if not self._sync_coalesced(dist_sync_fn, process_group):
@@ -488,7 +504,9 @@ class Metric(nn.Module, ABC):
         return copy.deepcopy(self)
 
     def __getstate__(self) -> Dict[str, Any]:
-        # the wrapped bound methods close over this instance: re-wrapped on restore
+        # the wrapped bound methods close over this instance: re-wrapped on restore;
+        # pickled rows are canonical, as in a checkpoint
+        self._canonicalize_list_states()
         return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute")}
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
@@ -521,6 +539,7 @@ class Metric(nn.Module, ABC):
     # -------------------------------------------------------- serialization
     def _save_to_state_dict(self, destination: Dict[str, Any], prefix: str, keep_vars: bool) -> None:
         super()._save_to_state_dict(destination, prefix, keep_vars)
+        self._canonicalize_list_states()
         for name in self._defaults:
             if not self._persistent[name]:
                 continue

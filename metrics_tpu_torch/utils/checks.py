@@ -125,6 +125,13 @@ class _ValueStats:
         return float(self._fetch()[3])
 
 
+def _check_same_shape(preds: Tensor, target: Tensor) -> None:
+    if preds.shape != target.shape:
+        raise RuntimeError(
+            f"Predictions and targets are expected to have the same shape, got {preds.shape} and {target.shape}"
+        )
+
+
 def _check_for_empty(preds: Tensor, target: Tensor) -> bool:
     return preds.numel() == 0 and target.numel() == 0
 
@@ -293,6 +300,22 @@ def _check_classification_inputs(
     return case
 
 
+def _classification_case(preds, target, threshold: float = 0.5) -> DataType:
+    """Resolve the input's :class:`DataType` case with the full validation of
+    :func:`_input_format_classification`, but format nothing.
+
+    The curve metrics buffer raw rows: they need the case at ``update`` time
+    to check that it stays the same, and leave the layout transform to the
+    moment the rows are observed (JAX counterpart `checks.py:427`).
+    """
+    preds = torch.as_tensor(preds)
+    target = torch.as_tensor(target, device=preds.device)
+    preds, target = _squeeze_excess_dims(preds, target)
+    return _check_classification_inputs(
+        preds, target, threshold=threshold, num_classes=None, multiclass=None, top_k=None
+    )
+
+
 def _input_format_classification(
     preds,
     target,
@@ -371,6 +394,8 @@ def _input_squeeze(preds, target) -> Tuple[Tensor, Tensor]:
 
 __all__ = [
     "_check_classification_inputs",
+    "_check_same_shape",
+    "_classification_case",
     "_input_format_classification",
     "_input_squeeze",
     "set_validation_mode",

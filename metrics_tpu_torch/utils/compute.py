@@ -52,4 +52,25 @@ def _safe_divide(num: Tensor, denom: Tensor) -> Tensor:
     return torch.where(zero, torch.zeros_like(num), num / torch.where(zero, torch.ones_like(denom), denom))
 
 
-__all__ = ["high_precision", "_safe_divide"]
+def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
+    """Trapezoidal area under ``(x, y)``, optionally sorting by ``x`` first.
+
+    The direction is read from the data without a host read: the area is
+    negated when ``x`` never increases, and a curve that goes both ways is
+    integrated as it is (JAX counterpart `metrics_tpu/utils/compute.py:51`).
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch.utils.compute import _auc_compute
+        >>> _auc_compute(torch.tensor([3.0, 2.0, 1.0, 0.0]), torch.tensor([2.0, 2.0, 1.0, 0.0]))
+        tensor(4.)
+    """
+    if reorder:
+        order = torch.argsort(x, stable=True)
+        x, y = x[order], y[order]
+    dx = x[1:] - x[:-1]
+    direction = torch.where((dx <= 0).all(), -1.0, 1.0)
+    return direction * torch.trapezoid(y, x)
+
+
+__all__ = ["high_precision", "_safe_divide", "_auc_compute"]

@@ -42,6 +42,11 @@ class TorchFakeGather:
 
     def __init__(self, rank_metrics: Sequence[Metric]) -> None:
         self.rank_metrics = rank_metrics
+        # every rank's own sync canonicalises its buffered rows; here only one
+        # rank syncs, so the others are canonicalised for it
+        for m in rank_metrics:
+            for node in bucketing.tree_nodes(m):
+                node._canonicalize_list_states()
         self._schedule = self._build_schedule(rank_metrics[0])
         self._call_idx = 0
 
@@ -102,6 +107,8 @@ def install_world(monkeypatch, others: Sequence[Any]) -> None:
         out = []
         for obj in others:
             nodes = tree_of(obj)
+            for node in nodes:  # as each rank's own sync does before it packs
+                node._canonicalize_list_states()
             entries, values = bucketing._collect(nodes)
             device = next((v.device for v in values if v is not None), nodes[0].device)
             packed, meta, _ = bucketing._pack(entries, values, device)
@@ -204,9 +211,29 @@ def headline_suite(pkg: Any, num_classes: int = C, **kwargs: Any):
     )
 
 
+def curve_rows(seed: int, rank: int):
+    """Binary score rows for the curve suite: rank r gets 2 + r rows, of shape (n,) and (m, 1) in turn."""
+    rng = np.random.RandomState(2000 + seed + rank)
+    rows = []
+    for i in range(2 + rank):
+        n = 30 + 7 * i + 5 * rank
+        preds, target = np.round(rng.rand(n), 2).astype(np.float32), rng.randint(0, 2, n)
+        rows.append((preds, target) if i % 2 == 0 else (preds[:, None], target[:, None]))
+    return rows
+
+
+def curve_suite(pkg: Any, **kwargs: Any):
+    """AUROC and AveragePrecision, binary: one compute group of buffered rows after the first update."""
+    dev = {"device": "cpu"} if pkg is tmt else {}
+    return pkg.MetricCollection(
+        {"auroc": pkg.AUROC(pos_label=1, **dev), "ap": pkg.AveragePrecision(pos_label=1, **dev)}, **kwargs
+    )
+
+
 def gloo_world_worker(rank: int, world: int, seed: int) -> dict:
-    """One rank of the real-process test: the headline suite and a ``CatMetric``
-    fed this rank's batches, ``compute()`` (which syncs), the collective
+    """One rank of the real-process test: the headline suite, a ``CatMetric``
+    and the curve suite (binary rows of two ranks) fed this rank's batches,
+    ``compute()`` (which syncs), the collective
     counts of two explicit suite syncs, ``gather_all_tensors`` on uneven
     shapes and ``sync_pytree`` with every spec."""
     from metrics_tpu_torch.parallel import collective_stats, gather_all_tensors, reset_collective_stats, sync_pytree
@@ -227,11 +254,16 @@ def gloo_world_worker(rank: int, world: int, seed: int) -> dict:
         suite.sync()
         counts.append({k: v for k, v in collective_stats().items() if k.endswith("_collectives")})
         suite.unsync()
+    curves = curve_suite(tmt)
+    for preds, target in curve_rows(seed, rank):
+        curves.update(torch.from_numpy(preds), torch.from_numpy(target))
+    curve_values = curves.compute()
     x = torch.tensor([1.0, 2.0, 3.0]) * (rank + 1)
     specs = {"s": "sum", "m": "mean", "mx": "max", "mn": "min", "c": "cat", "n": None, "f": lambda t: t.sum(0) * 10}
     return {
         "values": values,
         "cat": cat_value,
+        "curves": curve_values,
         "compute_stats": compute_stats,
         "sync_counts": counts,
         "local_tp": suite["acc"].tp.clone(),
@@ -246,4 +278,4 @@ def gloo_world_worker(rank: int, world: int, seed: int) -> dict:
     }
 
 
-__all__ = ["TorchFakeGather", "install_world", "run_world", "tree_of"]
+__all__ = ["TorchFakeGather", "curve_rows", "curve_suite", "install_world", "run_world", "tree_of"]

@@ -247,3 +247,93 @@ def test_mean_metric_beside_the_suite():
         js.update(jnp.asarray(loss))
         ts.update(torch.from_numpy(loss))
     _assert_results_equal(js.compute(), ts.compute())
+
+
+# ------------------------------------------------------------- the curve suites
+def _curves_binary_suite(pkg):
+    """The binary curve suite of ``chip_smoke.py``: four metrics buffering the same raw rows."""
+    dev = {} if pkg is jmt else {"device": "cpu"}
+    return pkg.MetricCollection(
+        {
+            "auroc": pkg.AUROC(pos_label=1, **dev),
+            "ap": pkg.AveragePrecision(pos_label=1, **dev),
+            "roc": pkg.ROC(pos_label=1, **dev),
+            "pr_curve": pkg.PrecisionRecallCurve(pos_label=1, **dev),
+        }
+    )
+
+
+def _curves_imagenet_suite(pkg, num_classes=C):
+    """The ImageNet curve suite of ``chip_smoke.py`` at a small width."""
+    dev = {} if pkg is jmt else {"device": "cpu"}
+    return pkg.MetricCollection(
+        {
+            "auroc": pkg.AUROC(num_classes=num_classes, average="macro", **dev),
+            "ap": pkg.AveragePrecision(num_classes=num_classes, average="macro", **dev),
+            "ece": pkg.CalibrationError(n_bins=15, norm="l1", **dev),
+            "binned_ap": pkg.BinnedAveragePrecision(num_classes=num_classes, thresholds=100, **dev),
+        }
+    )
+
+
+def _binary_batches(seed=11, steps=STEPS):
+    rng = np.random.RandomState(seed)
+    return [(np.round(rng.rand(B), 2).astype(np.float32), (rng.rand(B) < 0.3).astype(np.int64)) for _ in range(steps)]
+
+
+@pytest.mark.parametrize("kind", ["binary", "imagenet"])
+def test_curve_suites_form_the_jax_groups_and_match_jax(kind, monkeypatch):
+    from metrics_tpu_torch.utils import data
+    from tests.test_torch_curves import assert_curve
+
+    calls = []
+    real = data.fused_bincount
+    monkeypatch.setattr(data, "fused_bincount", lambda *a, **k: calls.append(1) or real(*a, **k))
+    make = _curves_binary_suite if kind == "binary" else _curves_imagenet_suite
+    batches = _binary_batches() if kind == "binary" else _batches(seed=12)
+    js, ts = make(jmt), make(tmt)
+    for preds, target in batches:
+        js.update(jnp.asarray(preds), jnp.asarray(target))
+        ts.update(torch.from_numpy(preds), torch.from_numpy(target))
+    assert ts.compute_groups == js.compute_groups
+    groups = sorted(sorted(g) for g in ts.compute_groups.values())
+    if kind == "binary":
+        assert groups == [["ap", "auroc", "pr_curve", "roc"]]
+        assert calls == []
+    else:
+        assert groups == [["ap", "auroc"], ["binned_ap"], ["ece"]]
+        assert len(calls) == STEPS  # CalibrationError: one bincount an update
+    members = dict(ts.items(keep_base=True, copy_state=False))
+    leader = ts.compute_groups[0][0]
+    for name in ts.compute_groups[0][1:]:
+        assert members[name].preds is members[leader].preds
+    want, got = js.compute(), ts.compute()
+    assert sorted(want) == sorted(got)
+    for key in want:
+        exact = key in ("roc", "pr_curve")
+        assert_curve(want[key], got[key], None if exact else (1e-6 if kind == "binary" else 1e-5))
+
+
+def test_grouped_members_keep_their_inferred_attributes():
+    """Only the leader updates after the first update, so the members compute with
+    the mode, classes and positive label their own first update inferred."""
+    from tests.test_torch_curves import assert_curve
+
+    def suite(pkg):
+        dev = {} if pkg is jmt else {"device": "cpu"}
+        return pkg.MetricCollection(
+            {"a_auroc": pkg.AUROC(num_classes=C, **dev), "b_ap": pkg.AveragePrecision(num_classes=C, **dev),
+             "c_pr": pkg.PrecisionRecallCurve(num_classes=C, **dev)}
+        )
+
+    js, ts = suite(jmt), suite(tmt)
+    for preds, target in _batches(seed=13):
+        js.update(jnp.asarray(preds), jnp.asarray(target))
+        ts.update(torch.from_numpy(preds), torch.from_numpy(target))
+    assert ts.compute_groups == js.compute_groups == {0: ["a_auroc", "b_ap", "c_pr"]}
+    members = dict(ts.items(keep_base=True, copy_state=False))
+    assert members["a_auroc"].mode == "multi-class" and members["a_auroc"].update_count == STEPS
+    assert members["b_ap"].num_classes == members["c_pr"].num_classes == C and members["c_pr"].pos_label is None
+    want, got = js.compute(), ts.compute()
+    for key in want:
+        assert_curve(want[key], got[key], None if key == "c_pr" else 1e-5)

@@ -5,7 +5,11 @@ wrapper's checks and one launch per call; a small suite on the card
 against the same suite on the CPU; each metric of the confusion-matrix and
 stat-score families and each aggregator on the card against the CPU; and
 Cohen's kappa at C=1000 with counts above 2048 under TF32 matmul settings;
-and state sync through NCCL in a world of one process: the headline suite
+each curve metric (the exact curves, AUROC, AveragePrecision,
+CalibrationError, the binned family) on the card against the CPU, the
+sort-based areas against the eager curves, CalibrationError's one bincount
+launch an update, and the binned counts exact under TF32 settings; and state
+sync through NCCL in a world of one process: the headline suite
 bit-exact in one payload collective, and the packed layout's alignment.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
@@ -216,6 +220,112 @@ def test_aggregators_on_the_card_equal_the_cpu(dev, cls_name, nan_strategy):
         gpu.update(*args)
         cpu.update(*(a.cpu() for a in args))
     _assert_equal_to_cpu(gpu, cpu, rtol=1e-5)
+
+
+def _assert_close_tree(got, want, atol):
+    """A result on the card against the CPU's: tensors, or lists and tuples of them; ``atol`` None is exact."""
+    if isinstance(want, (list, tuple)):
+        assert isinstance(got, (list, tuple)) and len(got) == len(want)
+        for g, w in zip(got, want):
+            _assert_close_tree(g, w, atol)
+        return
+    g = got.cpu()
+    assert g.dtype == want.dtype and g.shape == want.shape
+    torch.testing.assert_close(g, want, atol=atol or 0.0, rtol=0.0, equal_nan=True)
+
+
+CURVES = [
+    ("PrecisionRecallCurve", dict(pos_label=1), "binary", None),
+    ("ROC", dict(num_classes=10), "multiclass", None),
+    ("AUROC", dict(pos_label=1), "binary", 1e-6),
+    ("AUROC", dict(num_classes=10, average="weighted"), "multiclass", 1e-5),
+    ("AveragePrecision", dict(num_classes=10), "multiclass", 1e-5),
+    ("AveragePrecision", dict(num_classes=10, average="weighted"), "multiclass", 1e-5),
+    ("CalibrationError", dict(n_bins=15), "multiclass", 1e-6),
+    ("BinnedPrecisionRecallCurve", dict(num_classes=10, thresholds=50), "multiclass", 1e-6),
+    ("BinnedAveragePrecision", dict(num_classes=10, thresholds=50), "multiclass", 1e-6),
+    ("BinnedRecallAtFixedPrecision", dict(num_classes=1, thresholds=50, min_precision=0.3), "binary", 1e-6),
+]
+
+
+def _curve_batches(dev, kind, steps=3, batch=512, seed=3):
+    if kind == "multiclass":
+        return _batches(dev, 10, steps, batch, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    # scores on a grid of 2**-8, so that long tie runs form
+    return [(torch.floor(torch.rand(batch, generator=g, device=dev) * 256) / 256,
+             torch.randint(0, 2, (batch,), generator=g, device=dev)) for _ in range(steps)]
+
+
+@pytest.mark.parametrize("cls_name,kwargs,kind,atol", CURVES, ids=[f"{c[0]}-{c[2]}" for c in CURVES])
+def test_curve_metrics_on_the_card_equal_the_cpu(dev, cls_name, kwargs, kind, atol):
+    gpu, cpu = getattr(mt, cls_name)(device=dev, **kwargs), getattr(mt, cls_name)(device="cpu", **kwargs)
+    for preds, target in _curve_batches(dev, kind):
+        gpu.update(preds, target)
+        cpu.update(preds.cpu(), target.cpu())
+    for name, want in cpu.metric_state.items():
+        got = getattr(gpu, name)
+        exact = not want[0].is_floating_point() if isinstance(want, list) else name != "conf_bin"
+        _assert_close_tree(got, want, None if exact else 1e-4)
+    _assert_close_tree(gpu.compute(), cpu.compute(), atol)
+
+
+def test_calibration_error_update_is_one_bincount_launch(dev):
+    metric = mt.CalibrationError(n_bins=15, device=dev)
+    batches = _batches(dev, 1000, steps=4, batch=1000, seed=9)
+    before = histogram.KERNEL_LAUNCHES
+    for preds, target in batches:
+        metric.update(preds, target)
+    assert histogram.KERNEL_LAUNCHES - before == len(batches)
+    assert metric.count_bin.dtype == metric.acc_bin.dtype == torch.int32
+    assert int(metric.count_bin.sum()) == 4000
+
+
+def test_weighted_curve_areas_count_the_support_with_the_kernel(dev):
+    preds, target = _batches(dev, 10, steps=1, batch=2048, seed=11)[0]
+    before = histogram.KERNEL_LAUNCHES
+    got_auroc = mt.functional.auroc(preds, target, num_classes=10, average="weighted")
+    got_ap = mt.functional.average_precision(preds, target, num_classes=10, average="weighted")
+    assert histogram.KERNEL_LAUNCHES - before == 2
+    want_auroc = mt.functional.auroc(preds.cpu(), target.cpu(), num_classes=10, average="weighted")
+    want_ap = mt.functional.average_precision(preds.cpu(), target.cpu(), num_classes=10, average="weighted")
+    torch.testing.assert_close(got_auroc.cpu(), want_auroc, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got_ap.cpu(), want_ap, atol=1e-5, rtol=0)
+
+
+def test_sorted_curves_on_the_card_equal_the_eager_path(dev):
+    from metrics_tpu_torch.ops import sorted_curves
+
+    (bp, bt), = _curve_batches(dev, "binary", steps=1, batch=4096)
+    torch.testing.assert_close(sorted_curves.binary_auroc_sorted(bp, bt).cpu(),
+                               mt.functional.auroc(bp.cpu(), bt.cpu(), pos_label=1), atol=1e-6, rtol=0)
+    torch.testing.assert_close(sorted_curves.binary_average_precision_sorted(bp, bt).cpu(),
+                               mt.functional.average_precision(bp.cpu(), bt.cpu(), pos_label=1), atol=1e-6, rtol=0)
+    preds, target = _batches(dev, 10, steps=1, batch=2048, seed=12)[0]
+    torch.testing.assert_close(sorted_curves.multiclass_auroc_sorted(preds, target, 10).cpu(),
+                               mt.functional.auroc(preds.cpu(), target.cpu(), num_classes=10), atol=1e-5, rtol=0)
+    torch.testing.assert_close(sorted_curves.multiclass_average_precision_sorted(preds, target, 10).cpu(),
+                               mt.functional.average_precision(preds.cpu(), target.cpu(), num_classes=10),
+                               atol=1e-5, rtol=0)
+
+
+def test_binned_counts_on_the_card_are_exact_under_tf32(dev):
+    """The compare and contraction give the CPU's counts with the caller's precision at "high"."""
+    from metrics_tpu_torch.ops.binned import binned_curve_counts
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    preds = torch.rand(3000, 64, generator=g, device=dev)
+    target = (torch.rand(3000, 64, generator=g, device=dev) < 0.5).float()
+    thresholds = torch.linspace(0, 1, 100, device=dev)
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = binned_curve_counts(preds, target, thresholds)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    want = binned_curve_counts(preds.cpu(), target.cpu(), thresholds.cpu())
+    for g_, w in zip(got, want):
+        assert torch.equal(g_.cpu(), w)
 
 
 def test_cohen_kappa_exact_counts_under_tf32(dev):

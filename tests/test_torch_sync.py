@@ -25,6 +25,8 @@ from tests.helpers.testers import _FakeGather
 from tests.helpers.torch_sync import (
     TorchFakeGather,
     cat_rows,
+    curve_rows,
+    curve_suite,
     gloo_world_worker,
     headline_suite,
     install_world,
@@ -538,6 +540,123 @@ def test_two_gloo_processes_sync_pytree_one_collective_a_spec(gloo_world):
         for key, value in want.items():
             assert torch.equal(out[key], value), key
         assert len(out["rows"]) == 1 and torch.equal(out["rows"][0], torch.cat([x0, x1]))
+
+
+def test_two_gloo_processes_sync_mixed_rank_curve_rows(gloo_world):
+    """Rows of shapes (n,) and (m, 1) on both ranks: each rank's sync canonicalises them first."""
+    every = curve_suite(tmt)
+    for rank in range(2):
+        for preds, target in curve_rows(70, rank):
+            every.update(torch.from_numpy(preds), torch.from_numpy(target))
+    want = every.compute()
+    for rank, result in enumerate(gloo_world):
+        for key, value in want.items():
+            np.testing.assert_allclose(result["curves"][key].numpy(), value.numpy(), atol=1e-6, rtol=0,
+                                       err_msg=f"rank {rank}, {key}")
+
+
+# ------------------------------------------------------- buffered curve rows
+def _feed_curves(suite, pkg, rank, seed):
+    arr = jnp.asarray if pkg is jmt else torch.from_numpy
+    for preds, target in curve_rows(seed, rank):
+        suite.update(arr(preds), arr(target))
+
+
+@pytest.mark.parametrize("protocol", ["coalesced", "per_state"])
+@pytest.mark.parametrize("world", [2, 3])
+def test_mixed_rank_curve_rows_sync_matches_jax(world, protocol, monkeypatch):
+    """AUROC + AveragePrecision on binary rows of shapes (n,) and (m, 1) mixed within and
+    across ranks: the port's sync equals the JAX per-state sync through ``_FakeGather``."""
+    jax_suites, port_suites = [curve_suite(jmt) for _ in range(world)], [curve_suite(tmt) for _ in range(world)]
+    for r in range(world):
+        _feed_curves(jax_suites[r], jmt, r, 80)
+        _feed_curves(port_suites[r], tmt, r, 80)
+    want = _jax_per_state_values(jax_suites)
+    suite = port_suites[0]
+    # both members buffer equal rows after the first update: one compute group, as in the JAX package
+    assert sorted(sorted(g) for g in suite.compute_groups.values()) == [["ap", "auroc"]]
+    assert sorted(sorted(g) for g in jax_suites[0].compute_groups.values()) == [["ap", "auroc"]]
+    if protocol == "coalesced":
+        install_world(monkeypatch, port_suites[1:])
+        reset_collective_stats()
+        with suite.sync_context(distributed_available=DIST_ON):
+            got = suite.compute()
+        stats = collective_stats()
+        assert (stats["sync_shape_collectives"], stats["sync_payload_collectives"]) == (1, 1)
+    else:
+        members = [dict(s.items(keep_base=True, copy_state=False)) for s in port_suites]
+        got = {}
+        for name in members[0]:
+            ranks = [m[name] for m in members]
+            ranks[0].sync(dist_sync_fn=TorchFakeGather(ranks), distributed_available=DIST_ON)
+            got[name] = ranks[0].compute()
+            ranks[0].unsync()
+    for name, value in want.items():
+        _assert_value(got[name], value, f"curve suite, {name}, world {world}, {protocol}")
+    # unsynced: the local rows, canonical (1-D) now, and still one group
+    for member in dict(suite.items(keep_base=True, copy_state=False)).values():
+        assert isinstance(member.preds, list) and all(p.ndim == 1 for p in member.preds)
+
+
+def test_a_single_curve_metric_syncs_mixed_rows_in_one_payload(monkeypatch):
+    ranks = [tmt.AUROC(pos_label=1, device="cpu") for _ in range(2)]
+    jax_ranks = [jmt.AUROC(pos_label=1) for _ in range(2)]
+    for r in range(2):
+        for preds, target in curve_rows(90, r):
+            ranks[r].update(torch.from_numpy(preds), torch.from_numpy(target))
+            jax_ranks[r].update(jnp.asarray(preds), jnp.asarray(target))
+    jax_ranks[0].sync(dist_sync_fn=_FakeGather(jax_ranks), distributed_available=DIST_ON)
+    want = jax_ranks[0].compute()
+    install_world(monkeypatch, ranks[1:])
+    reset_collective_stats()
+    ranks[0].sync(distributed_available=DIST_ON)
+    assert collective_stats()["sync_payload_collectives"] == 1
+    assert ranks[0].preds.ndim == 1  # the cat reduction leaves one canonical tensor
+    _assert_value(ranks[0].compute(), want, "AUROC synced")
+    ranks[0].unsync()
+    assert isinstance(ranks[0].preds, list)
+
+
+@pytest.mark.parametrize("name", ["AUROC", "AveragePrecision", "PrecisionRecallCurve", "ROC"])
+def test_mixed_rank_rows_in_state_dict_and_pickle_match_jax(name):
+    import pickle
+
+    jm, tm = getattr(jmt, name)(pos_label=1), getattr(tmt, name)(pos_label=1, device="cpu")
+    for preds, target in curve_rows(95, 1):
+        jm.update(jnp.asarray(preds), jnp.asarray(target))
+        tm.update(torch.from_numpy(preds), torch.from_numpy(target))
+    jm.persistent(True)
+    tm.persistent(True)
+    j_sd, t_sd = jm.state_dict(), tm.state_dict()
+    for key in ("preds", "target"):
+        assert [tuple(r.shape) for r in t_sd[key]] == [np.asarray(r).shape for r in j_sd[key]]
+        for jr, tr in zip(j_sd[key], t_sd[key]):
+            np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    clone = pickle.loads(pickle.dumps(tm))
+    assert [tuple(p.shape) for p in clone.preds] == [tuple(p.shape) for p in tm.preds]
+    got, want = clone.compute(), jm.compute()
+    if isinstance(want, tuple):  # a curve: (x, y, thresholds)
+        got, want = list(got), list(want)
+    _assert_value(got, want, f"{name} after pickling")
+
+
+def test_post_sync_state_dict_and_compute_on_the_reduced_cat_state():
+    """Inside the sync the rows are one tensor: the hook leaves it, state_dict and compute read it."""
+    import pickle
+
+    ranks = [tmt.PrecisionRecallCurve(pos_label=1, device="cpu") for _ in range(2)]
+    rng = np.random.RandomState(7)
+    for rank in ranks:
+        rank.update(torch.from_numpy(rng.rand(16).astype(np.float32)), torch.from_numpy(rng.randint(0, 2, 16)))
+        rank.persistent(True)
+    m = ranks[0]
+    with m.sync_context(dist_sync_fn=TorchFakeGather(ranks), distributed_available=DIST_ON):
+        assert not isinstance(m.preds, list)
+        assert m.state_dict()["preds"].shape == (32,)
+        pickle.dumps(m)
+        p, r, _ = m.compute()
+        assert p.shape[0] == r.shape[0]
+    assert isinstance(m.preds, list)
 
 
 @pytest.mark.parametrize("reduction", ["elementwise_mean", "sum", "none"])
