@@ -65,8 +65,12 @@ Phases, each of which raises on failure (exit code 1):
    binary and multi-class AUROC and AP on both paths' arrays against the
    eager values (``SORTED_AREA_ATOL``), timed against the eager calls.
 10. The sync path: the headline, agreement, segmentation and aggregator suites
-   (full width, two updates each) and a binary AUROC + AveragePrecision suite
-   buffering rows of shapes (n,) and (n, 1) synced across processes. First through
+   (full width, two updates each), a binary AUROC + AveragePrecision suite
+   buffering rows of shapes (n,) and (n, 1), a regression suite (Pearson's
+   moments of spec None, stacked by the sync; Spearman's ``cat`` rows) and a
+   retrieval suite (rows of int64 query ids in list states of spec None, which
+   decline the packed lane and sync row by row, as in JAX) synced across
+   processes. First through
    NCCL in a process group of one rank, the sync forced: every state after a
    sync equals the state before it bit for bit, ``unsync`` puts the local
    states back, a coalesced sync is one payload collective (plus one metadata
@@ -77,11 +81,42 @@ Phases, each of which raises on failure (exit code 1):
    device), each fed its own batches and losses of an uneven length: their
    ``compute()`` (which syncs) must equal one CPU instance fed every batch of
    both, counts bit-exact and values within atol 1e-6 and rtol 1e-5.
+11. ``ranking_imagenet`` (run after phase 9, before the sync): CoverageError,
+   LabelRankingAveragePrecision and LabelRankingLoss on multi-label targets
+   (1 to 3 positives a row), HingeLoss (Crammer-Singer and one-vs-all, the
+   first positive as the class) and KLDivergence (against a second model's
+   softmax) over 50 updates of (1000, 1000) softmax rows, one update's scores
+   rounded to 2**-12 for ties. LRAP's compare runs in blocks under 256 MiB.
+12. ``regression_2p24``: all twelve regression metrics (Tweedie at power 1.5)
+   in one collection over 64 updates of 262,144 rows (2**24; targets >= 0
+   with 30% zeros, preds > 0), one ``compute()`` (Spearman sorts 2**24 twice);
+   then R2Score, ExplainedVariance and MeanSquaredError per output over 16
+   updates of (65,536, 16).
+13. ``pairwise_embeddings``: the four pairwise functions on x (4096, 768)
+   against y (8192, 768), reduction None and "mean", then x against itself
+   (zero diagonal); Manhattan in row blocks under 256 MiB. The CPU twin
+   computes the first ``PAIRWISE_CPU_ROWS`` rows.
+14. ``retrieval_msmarco``: ten retrieval metrics in one collection over
+   6,980 queries x 1,000 candidates (MS MARCO dev-small re-ranking; 70
+   updates of 100 queries, the last of 80; scores rounded to 2**-10; about 1% of queries
+   with no relevant passage), one ``compute()`` and a second that must give
+   the same bits; a graded NDCG (0 to 3); the nine one-query functions on
+   100 queries. Each query grouping counts its rows with the bincount kernel.
+   The CPU twin computes all 70 updates only if that takes about
+   ``RETRIEVAL_CPU_TWIN_S``, else the first 10 against a card suite fed the
+   same 10.
 
 Paths 6 and 7 run in validation modes "first" and "full" (3 alternating
 trials each), equal the CPU on the same batches (counts bit-exact, values
 within rtol 1e-5) and report steps/s, device ms/step by kernel and the
-device's idle share.
+device's idle share. Paths 11 to 14 hold every state and value against a CPU
+twin fed the same batches (counts, ranks and hits bit for bit; floats within
+the tolerances stated beside their constants) and report update ms per step
+(median of 3 runs, mode "first"), ``compute()`` ms (the first and the next),
+device time and idle share (torch.profiler), the host reads a ``compute()``
+makes, peak extra device memory and bincount launches, and the device time
+of the grouping sort, the segmented scan, the LRAP compare and the Spearman
+sort beside their bounds.
 
 Output: labelled lines, then a JSON line ``{"kernels": [...]}``, then the
 nvidia-smi line, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -876,17 +911,32 @@ def fresh_compute(suite):
     return suite.compute()
 
 
-def assert_curve_close(got, want, label: str, atol) -> float:
+def assert_curve_close(got, want, label: str, atol, rtol: float = 0.0) -> float:
     """A result on the card against the CPU's, recursing into lists and tuples: bit for bit when
-    ``atol`` is None, else within ``atol``. Returns the largest |difference| of the finite values."""
+    ``atol`` and ``rtol`` are 0 or None, else within them. Returns the largest |difference| of the
+    finite values."""
     if isinstance(want, (list, tuple)):
         assert isinstance(got, (list, tuple)) and len(got) == len(want), f"{label}: {type(got)} of {len(got)}"
-        return max([assert_curve_close(g, w, label, atol) for g, w in zip(got, want)], default=0.0)
+        return max([assert_curve_close(g, w, label, atol, rtol) for g, w in zip(got, want)], default=0.0)
     g = got.cpu()
     assert g.dtype == want.dtype and g.shape == want.shape, f"{label}: {g.dtype} {tuple(g.shape)}"
-    torch.testing.assert_close(g, want, atol=atol or 0.0, rtol=0.0, equal_nan=True, msg=label)
+    torch.testing.assert_close(g, want, atol=atol or 0.0, rtol=rtol, equal_nan=True, msg=lambda m: f"{label}: {m}")
     finite = torch.isfinite(want)
     return float((g[finite].double() - want[finite].double()).abs().max()) if finite.any() else 0.0
+
+
+def assert_state_close(got, want, label: str, rtol: float = 0.0, atol: float = 0.0) -> None:
+    """A state (a tensor or a list of rows) on the card against the CPU's: bit for bit, or for
+    floats within ``rtol``/``atol`` where they are given."""
+    got, want = (got, want) if isinstance(want, list) else ([got], [want])
+    assert len(got) == len(want), f"{label}: {len(got)} rows, not {len(want)}"
+    for g, w in zip(got, want):
+        g = g.cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape, f"{label}: {g.dtype} {tuple(g.shape)}"
+        if w.is_floating_point() and (rtol or atol):
+            torch.testing.assert_close(g, w, rtol=rtol, atol=atol, equal_nan=True, msg=lambda m: f"{label}: {m}")
+        else:
+            assert torch.equal(g, w), f"{label}: differs from the CPU"
 
 
 def assert_member_states_equal(gpu_members: dict, cpu_members: dict, label: str) -> None:
@@ -894,78 +944,84 @@ def assert_member_states_equal(gpu_members: dict, cpu_members: dict, label: str)
     (CalibrationError's ``conf_bin``) within ``CONF_SUM_RTOL``."""
     for name, cpu_m in cpu_members.items():
         for state, want in cpu_m.metric_state.items():
-            got = getattr(gpu_members[name], state)
-            got, want = (got, want) if isinstance(want, list) else ([got], [want])
-            assert len(got) == len(want), f"{label}: {name}.{state} has {len(got)} rows, not {len(want)}"
-            for g, w in zip(got, want):
-                g = g.cpu()
-                assert g.dtype == w.dtype and g.shape == w.shape, f"{label}: {name}.{state}"
-                if state == "conf_bin":
-                    torch.testing.assert_close(g, w, rtol=CONF_SUM_RTOL, atol=0.0, msg=f"{label}: {name}.{state}")
-                else:
-                    assert torch.equal(g, w), f"{label}: state {name}.{state} differs from the CPU"
+            assert_state_close(getattr(gpu_members[name], state), want, f"{label}: {name}.{state}",
+                               rtol=CONF_SUM_RTOL if state == "conf_bin" else 0.0)
 
 
-def time_update_trials(make_suite_fn, batches, checks, histogram, trials: int = 3):
-    """``trials`` runs of every update on a new suite in validation mode "first": (ms per step of each
-    run, sorted; launches of the first run; the first run's suite)."""
+def time_runs(make, update, batches, checks, histogram, trials: int = 3) -> tuple:
+    """``trials`` runs of ``update(obj, batch)`` over every batch on a new ``make()``, mode "first":
+    (ms per step of each run, sorted; bincount launches of the first run; the first run's object)."""
     checks.set_validation_mode("first")
     runs, launches, first = [], None, None
     for trial in range(trials):
-        suite = make_suite_fn(CURVES_DEVICE)
+        obj = make()
         histogram.KERNEL_LAUNCHES = 0
-        seconds = run_suite(suite, batches, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            update(obj, batch)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) / len(batches) * 1e3)
         if trial == 0:
-            launches, first = histogram.KERNEL_LAUNCHES, suite
-        else:
-            del suite
-        runs.append(seconds / len(batches) * 1e3)
+            launches, first = histogram.KERNEL_LAUNCHES, obj
     return sorted(runs), launches, first
 
 
-def sort_profile(preds) -> dict:
-    """The eager curve's descending stable argsort of ``preds``: device ms per call over 5 calls,
-    and its bound from bytes (the float32 keys read once, the int64 indices written once)."""
-    rows = device_profile([lambda: torch.argsort(-preds, stable=True)] * 7)
-    n = preds.numel()
-    bound_ms = (4 * n + 8 * n) / HBM_BYTES_PER_S * 1e3
+def update_batch(metric, batch) -> None:
+    metric.update(*batch)
+
+
+def peak_extra_bytes(fn) -> int:
+    """Device memory ``fn`` allocates above what was allocated before it, at its peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def op_profile(fn, bytes_moved: int, ops: int) -> dict:
+    """Device ms per call of ``fn`` (5 calls after 2 in the warm-up cycle) beside its bound: the
+    larger of its bytes at the memory rate and its operations at the float32 rate."""
+    rows = device_profile([fn] * 7)
     device_ms = sum(ms for ms, _ in rows.values()) / 5 if rows else None
-    return {"n": n, "device_ms": device_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    return {"device_ms": device_ms, "bytes": bytes_moved, "ops": ops, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops / FP32_OPS_PER_S > bytes_moved / HBM_BYTES_PER_S else "bytes",
             "share_of_bound": bound_ms / device_ms if device_ms else None,
-            "device_rows": {k[:60]: v for k, v in rows.items()}}
+            "device_rows": {k[:60]: v for k, v in sorted(rows.items(), key=lambda kv: -kv[1][0])[:6]}}
+
+
+def sort_profile(preds) -> dict:
+    """The eager curve's descending stable argsort of ``preds``, beside its bound from bytes (the
+    float32 keys read once, the int64 indices written once)."""
+    return {"n": preds.numel(),
+            **op_profile(lambda: torch.argsort(-preds, stable=True), bytes_moved=12 * preds.numel(), ops=0)}
 
 
 def binned_profile(preds, target, thresholds) -> dict:
-    """One binned update's compare and contraction: device ms per call over 5 calls, its bound
-    (the larger of bytes at the memory rate and float32 operations at the FP32 rate), peak memory."""
+    """One binned update's compare and contraction beside its bound, and its peak extra memory."""
     from metrics_tpu_torch.ops.binned import binned_curve_counts, threshold_chunk
 
     n, c = preds.shape
     t = thresholds.numel()
     t01 = (target == 1).to(torch.float32)
-    rows = device_profile([lambda: binned_curve_counts(preds, t01, thresholds)] * 7)
-    bytes_moved = 4 * (2 * n * c + t + 3 * c * t)  # scores and 0/1 targets read, three (C, T) counts written
-    ops = 4 * n * c * t  # a compare, a multiply and an add for TP, an add for the >= total
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    binned_curve_counts(preds, t01, thresholds)
-    torch.cuda.synchronize()
-    device_ms = sum(ms for ms, _ in rows.values()) / 5 if rows else None
-    return {"n": n, "c": c, "t": t, "threshold_chunk": threshold_chunk(n, c, t), "device_ms": device_ms,
-            "bytes": bytes_moved, "ops": ops, "bound_ms": bound_ms,
-            "bound_by": "operations" if ops / FP32_OPS_PER_S > bytes_moved / HBM_BYTES_PER_S else "bytes",
-            "share_of_bound": bound_ms / device_ms if device_ms else None,
-            "peak_extra_bytes": torch.cuda.max_memory_allocated() - base,
-            "device_rows": {k[:60]: v for k, v in rows.items()}}
+    run = lambda: binned_curve_counts(preds, t01, thresholds)  # noqa: E731
+    # scores and 0/1 targets read, three (C, T) counts written; a compare, a multiply and an add for
+    # TP, an add for the >= total
+    out = {"n": n, "c": c, "t": t, "threshold_chunk": threshold_chunk(n, c, t),
+           **op_profile(run, bytes_moved=4 * (2 * n * c + t + 3 * c * t), ops=4 * n * c * t)}
+    out["peak_extra_bytes"] = peak_extra_bytes(run)
+    return out
 
 
 def curves_binary_path(mt, checks, histogram, card: str) -> dict:
     """Phase 9a: AUROC, AP, ROC and the PR curve over 2**24 binary scores in 64 updates, one compute."""
     batches = curves_binary_batches()
     n = sum(p.numel() for p, _ in batches)
-    runs, launches, suite = time_update_trials(lambda dev: curves_binary_suite(mt, dev), batches, checks, histogram)
+    runs, launches, suite = time_runs(lambda: curves_binary_suite(mt, CURVES_DEVICE), update_batch, batches, checks,
+                                      histogram)
     groups = sorted(sorted(g) for g in suite.compute_groups.values())
     assert groups == [["ap", "auroc", "pr_curve", "roc"]], f"curves_binary: groups {groups}"
     assert launches == 0, f"curves_binary: {launches} bincount launches in its updates"
@@ -1024,7 +1080,8 @@ def curves_imagenet_path(mt, checks, histogram, card: str) -> dict:
     num_classes = CURVES_IMAGENET_SHAPE[2]
     batches = curves_imagenet_batches()
     n = sum(p.shape[0] for p, _ in batches)
-    runs, launches, suite = time_update_trials(lambda dev: curves_imagenet_suite(mt, dev, num_classes), batches, checks, histogram)
+    runs, launches, suite = time_runs(lambda: curves_imagenet_suite(mt, CURVES_DEVICE, num_classes), update_batch,
+                                      batches, checks, histogram)
     groups = sorted(sorted(g) for g in suite.compute_groups.values())
     assert groups == [["ap", "auroc"], ["binned_ap"], ["ece"]], f"curves_imagenet: groups {groups}"
     assert launches == len(batches), f"curves_imagenet: {launches} bincount launches in {len(batches)} updates"
@@ -1171,8 +1228,509 @@ def curves_path(mt, checks, histogram, card: str) -> dict:
             "kernel_launches": binary["kernel_launches"] + imagenet["kernel_launches"] + imagenet["weighted_launches"]}
 
 
+# ------------------------------------------------------------------ phases 11 to 14
+EVAL_DEVICE = "cuda"  # where phases 11 to 14 run
+CPU_TWIN_S = 15.0  # a CPU twin runs every batch where that takes about this long, else the first ones that fit
+RANKING_SHAPE = (50, 1000, 1000)  # updates, rows an update, labels: the ImageNet-1k validation set
+RANKING_RTOL = 1e-5  # float sums of per-row values (LRAP, ranking loss, hinge, KL) in another order on each side
+REGRESSION_SHAPE = (64, 262_144)  # updates, rows an update: 2**24 rows
+MULTIOUTPUT_SHAPE = (16, 65_536, 16)  # updates, rows an update, outputs
+# float32 sums of 2**24 terms, in another order on each side, through moment formulas that subtract
+# such sums (E[x²] - E[x]²), which multiplies their relative error
+REGRESSION_RTOL = 1e-4
+# Spearman: both sides rank alike (the same integer positions, made float32 the same way), but the
+# means and products of 2**24 ranks near 8.4e6 (a float32 ulp of 1 there) are summed in another order
+SPEARMAN_ATOL = 1e-4
+PAIRWISE_SHAPE = (4096, 8192, 768)  # rows of x, rows of y, width: sentence embeddings of BERT-base width
+PAIRWISE_CPU_ROWS = 256  # rows of x the CPU twin computes, all columns
+# float32 sums of 768 products in another order on each side (|values| up to about 1e3 for Manhattan,
+# 40 for Euclidean); Euclidean's expansion cancels only where rows coincide, whose zeroed diagonal is exact
+PAIRWISE_ATOL, PAIRWISE_RTOL = 1e-3, 1e-5
+RETRIEVAL_SHAPE = (6980, 100, 1000)  # queries, queries an update, candidates a query: MS MARCO dev-small re-ranking
+RETRIEVAL_ATOL = 1e-6  # means over queries of exact per-query values, in another order on each side
+RETRIEVAL_CPU_TWIN_S = 30.0  # the retrieval CPU twin computes all 70 updates only if that takes about this long
+
+
+def median(values) -> float:
+    values = sorted(values)
+    return values[len(values) // 2]
+
+
+def cpu_twin_steps(update_cpu_once_s: float, steps: int) -> int:
+    """Every step if the CPU twin takes about ``CPU_TWIN_S`` for them, else the first ones that fit (at least 2)."""
+    return steps if update_cpu_once_s * steps <= CPU_TWIN_S else max(2, int(CPU_TWIN_S / update_cpu_once_s))
+
+
+def compute_all(members: dict) -> dict:
+    """Every member's ``compute()``, its cached value dropped first."""
+    out = {}
+    for name, m in members.items():
+        m._computed = None
+        out[name] = m.compute()
+    return out
+
+
+def timed_compute(members: dict, result: dict) -> dict:
+    """The first ``compute()`` of every member timed, then again, then profiled; the values of the first."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    values = compute_all(members)
+    torch.cuda.synchronize()
+    result["compute_ms"] = (time.perf_counter() - t0) * 1e3
+    result["compute_again_ms"] = timed_ms(lambda: compute_all(members))
+    prof = compute_profile(lambda: compute_all(members))
+    if prof["device_ms"] is not None:
+        prof["device_idle_share"] = 1.0 - prof["device_ms"] / result["compute_again_ms"]
+    result["compute_profile"] = prof
+    return values
+
+
+def update_profile(make, update, batches, ms_per_step: float) -> dict:
+    """Device time per update step on a new ``make()`` (the first 2 steps in the profiler's warm-up)."""
+    obj = make()
+    prof = profile_steps(lambda *b: update(obj, b), batches)
+    if prof["device_ms_per_step"] is not None:
+        prof["device_idle_share"] = 1.0 - prof["device_ms_per_step"] / ms_per_step
+    return prof
+
+
+# ---- phase 11: ranking_imagenet
+def ranking_batches(seed: int = 30) -> list:
+    """ImageNet-1k validation rows as softmax scores (B, C) with multi-label targets of 1 to 3
+    positives a row (the ImageNet-ReaL relabelling gives some images several), the first positive
+    (the row's arg-max 75% of the time) as the class, and a second seeded model's softmax as ``q``.
+    Update 7's scores are rounded to multiples of 2**-12, so that tie runs form."""
+    steps, batch, labels = RANKING_SHAPE
+    g = torch.Generator(device=EVAL_DEVICE).manual_seed(seed)
+    rows = torch.arange(batch, device=EVAL_DEVICE)
+    out = []
+    for step in range(steps):
+        logits = torch.randn(batch, labels, generator=g, device=EVAL_DEVICE) * 2.0
+        uniform = torch.randint(0, labels, (batch,), generator=g, device=EVAL_DEVICE)
+        keep = torch.rand(batch, generator=g, device=EVAL_DEVICE) < 0.75
+        cls = torch.where(keep, logits.argmax(dim=1), uniform)
+        n_pos = torch.randint(1, 4, (batch, 1), generator=g, device=EVAL_DEVICE)
+        extra = torch.randint(0, labels, (batch, 2), generator=g, device=EVAL_DEVICE)
+        target = torch.zeros(batch, labels, dtype=torch.int64, device=EVAL_DEVICE)
+        target[rows, cls] = 1
+        target.scatter_reduce_(1, extra, (n_pos > torch.arange(1, 3, device=EVAL_DEVICE)).to(torch.int64), "amax")
+        preds = torch.softmax(logits, dim=1)
+        if step == 7:
+            preds = torch.round(preds * 4096) / 4096
+        q = torch.softmax(logits * 0.5 + torch.randn(batch, labels, generator=g, device=EVAL_DEVICE), dim=1)
+        out.append((preds, target, cls, q))
+    return out
+
+
+def ranking_members(mt, device) -> dict:
+    return {
+        "coverage": mt.CoverageError(device=device),
+        "lrap": mt.LabelRankingAveragePrecision(device=device),
+        "ranking_loss": mt.LabelRankingLoss(device=device),
+        "hinge_cs": mt.HingeLoss(multiclass_mode="crammer-singer", device=device),
+        "hinge_ova": mt.HingeLoss(multiclass_mode="one-vs-all", device=device),
+        "kl": mt.KLDivergence(device=device),
+    }
+
+
+def ranking_update(members: dict, batch) -> None:
+    preds, target, cls, q = batch
+    for name in ("coverage", "lrap", "ranking_loss"):
+        members[name].update(preds, target)
+    members["hinge_cs"].update(preds, cls)
+    members["hinge_ova"].update(preds, cls)
+    members["kl"].update(preds, q)
+
+
+def ranking_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 11: the multi-label ranking metrics, HingeLoss (both modes) and KLDivergence over the
+    50,000 ImageNet-1k validation rows in 50 updates."""
+    from metrics_tpu_torch.functional.classification import ranking as ranking_fn
+
+    batches = ranking_batches()
+    steps, batch, labels = RANKING_SHAPE
+    make = lambda: ranking_members(mt, EVAL_DEVICE)  # noqa: E731
+    runs, launches, members = time_runs(make, ranking_update, batches, checks, histogram)
+    result = {"n": steps * batch, "labels": labels, "steps": steps, "card": card, "update_ms_per_step_runs": runs,
+              "update_ms_per_step": median(runs), "kernel_launches": launches}
+    result["update_profile"] = update_profile(make, ranking_update, batches[:8], result["update_ms_per_step"])
+    result["update_peak_extra_bytes"] = peak_extra_bytes(lambda: ranking_update(make(), batches[0]))
+    preds, target = batches[0][0], batches[0][1]
+    result["lrap_block_rows"] = max(1, ranking_fn.LRAP_BLOCK_BYTES // (2 * labels * labels))  # int16 counts
+    result["lrap_peak_extra_bytes"] = peak_extra_bytes(lambda: ranking_fn._lrap_rank_counts(preds, target == 1))
+    assert result["lrap_block_rows"] * 2 * labels * labels <= 256 * 2**20, "an LRAP block over 256 MiB"
+    result["lrap_compare"] = op_profile(lambda: ranking_fn._lrap_rank_counts(preds, target == 1),
+                                        bytes_moved=batch * labels * (4 + 8 + 2 * 4), ops=4 * batch * labels * labels)
+    values = timed_compute(members, result)
+
+    # the CPU twin: every batch if it fits CPU_TWIN_S, else the first ones against a card twin fed the same
+    cpu = ranking_members(mt, "cpu")
+    cpu_batches = [tuple(t.cpu() for t in b) for b in batches[:1]]
+    t0 = time.perf_counter()
+    ranking_update(cpu, cpu_batches[0])
+    once = time.perf_counter() - t0
+    twin_steps = cpu_twin_steps(once, steps)
+    for b in batches[1:twin_steps]:
+        ranking_update(cpu, tuple(t.cpu() for t in b))
+    card_twin = members
+    if twin_steps < steps:
+        card_twin = ranking_members(mt, EVAL_DEVICE)
+        for b in batches[:twin_steps]:
+            ranking_update(card_twin, b)
+    for name, cpu_m in cpu.items():
+        for state, want in cpu_m.metric_state.items():
+            # counts and the coverage sums (integers below 2**24 in every order) bit for bit
+            exact = state in ("total", "sample_weight") or name == "coverage"
+            assert_state_close(getattr(card_twin[name], state), want, f"ranking {name}.{state}",
+                               rtol=0.0 if exact else RANKING_RTOL, atol=0.0 if exact else 1e-6)
+    err = {name: assert_curve_close(compute_all(card_twin)[name], value, f"ranking {name}", atol=1e-6, rtol=RANKING_RTOL)
+           for name, value in compute_all(cpu).items()}
+    result.update(values={k: (float(v) if v.numel() == 1 else float(v.mean())) for k, v in values.items()},
+                  cpu_twin_steps=twin_steps, cpu_s_per_update=once, max_abs_err_vs_cpu=err)
+    assert launches == 0, f"ranking: {launches} bincount launches"
+    log(f"ranking_imagenet N={result['n']} L={labels}: update {result['update_ms_per_step']:.3f} ms/step (runs {runs}), "
+        f"compute {result['compute_ms']:.3f} ms (again {result['compute_again_ms']:.3f}); values {result['values']}; "
+        f"peak extra {result['update_peak_extra_bytes']} bytes an update (LRAP blocks of {result['lrap_block_rows']} "
+        f"rows, {result['lrap_peak_extra_bytes']} bytes); CPU twin over {twin_steps} of {steps} updates "
+        f"({once:.2f} s an update on the CPU), max |err| {err}  [{card}]")
+    log(f"ranking_imagenet profiles: update {json.dumps(result['update_profile'])}; compute "
+        f"{json.dumps(result['compute_profile'])}; LRAP compare {json.dumps(result['lrap_compare'])}  [{card}]")
+    return result
+
+
+# ---- phase 12: regression_2p24
+def regression_batches(seed: int = 31, shape=None) -> list:
+    """The evaluation shard of a demand-forecasting or claims model: targets >= 0 with about 30%
+    exact zeros, predictions > 0 (a Tweedie objective with 1 < power < 2 is the usual loss)."""
+    g = torch.Generator(device=EVAL_DEVICE).manual_seed(seed)
+    steps, rows = (shape or REGRESSION_SHAPE)[0], (shape or REGRESSION_SHAPE)[1:]
+    out = []
+    for _ in range(steps):
+        level = torch.exp(torch.randn(rows, generator=g, device=EVAL_DEVICE) * 0.8)
+        zero = torch.rand(rows, generator=g, device=EVAL_DEVICE) < 0.3
+        target = torch.where(zero, 0.0, level * torch.exp(torch.randn(rows, generator=g, device=EVAL_DEVICE) * 0.3))
+        out.append((level * 0.7 + 0.05, target))
+    return out
+
+
+def regression_suite(mt, device):
+    return mt.MetricCollection({
+        "mse": mt.MeanSquaredError(device=device),
+        "mae": mt.MeanAbsoluteError(device=device),
+        "msle": mt.MeanSquaredLogError(device=device),
+        "mape": mt.MeanAbsolutePercentageError(device=device),
+        "smape": mt.SymmetricMeanAbsolutePercentageError(device=device),
+        "wmape": mt.WeightedMeanAbsolutePercentageError(device=device),
+        "cosine": mt.CosineSimilarity(device=device),
+        "explained_variance": mt.ExplainedVariance(device=device),
+        "r2": mt.R2Score(device=device),
+        "pearson": mt.PearsonCorrCoef(device=device),
+        "spearman": mt.SpearmanCorrCoef(device=device),
+        "tweedie": mt.TweedieDevianceScore(power=1.5, device=device),
+    })
+
+
+def multioutput_suite(mt, device):
+    outputs = MULTIOUTPUT_SHAPE[2]
+    return mt.MetricCollection({
+        "r2": mt.R2Score(num_outputs=outputs, multioutput="raw_values", device=device),
+        "explained_variance": mt.ExplainedVariance(multioutput="raw_values", device=device),
+        "mse": mt.MeanSquaredError(num_outputs=outputs, device=device),
+    })
+
+
+def regression_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 12: all twelve regression metrics over 2**24 rows in 64 updates, one compute; then
+    R2Score, ExplainedVariance and MeanSquaredError per output over 16 updates of (65,536, 16)."""
+    from metrics_tpu_torch.functional.regression.correlation import _rank_data
+
+    batches = regression_batches()
+    n = sum(p.numel() for p, _ in batches)
+    make = lambda: regression_suite(mt, EVAL_DEVICE)  # noqa: E731
+    runs, launches, suite = time_runs(make, update_batch, batches, checks, histogram)
+    groups = sorted(sorted(g) for g in suite.compute_groups.values())
+    assert ["cosine", "spearman"] in groups, f"regression: groups {groups}"
+    result = {"n": n, "steps": len(batches), "groups": groups, "card": card, "update_ms_per_step_runs": runs,
+              "update_ms_per_step": median(runs), "kernel_launches": launches}
+    result["update_profile"] = update_profile(make, update_batch, batches[:10], result["update_ms_per_step"])
+    members = dict(suite.items(keep_base=True, copy_state=False))
+    spearman = members["spearman"]
+    result["buffered_bytes_on_card"] = sum(t.numel() * t.element_size() for t in spearman.preds + spearman.target)
+    result["compute_peak_extra_bytes"] = peak_extra_bytes(lambda: compute_all(members))
+    values = timed_compute(members, result)
+    all_preds = torch.cat([p for p, _ in batches])
+    result["spearman_sort"] = op_profile(lambda: torch.sort(all_preds), bytes_moved=(4 + 4 + 8) * n, ops=0)
+    result["spearman_rank"] = op_profile(lambda: _rank_data(all_preds), bytes_moved=(4 + 4) * n, ops=0)
+
+    cpu = regression_suite(mt, "cpu")
+    t0 = time.perf_counter()
+    for p, t in batches:
+        cpu.update(p.cpu(), t.cpu())
+    result["cpu_update_s"] = time.perf_counter() - t0
+    cpu_members = dict(cpu.items(keep_base=True, copy_state=False))
+    for name, cpu_m in cpu_members.items():
+        for state, want in cpu_m.metric_state.items():
+            exact = isinstance(want, list) or not want.is_floating_point() or state == "n_obs"
+            assert_state_close(getattr(members[name], state), want, f"regression {name}.{state}",
+                               rtol=0.0 if exact else REGRESSION_RTOL, atol=0.0 if exact else 1e-6)
+    t0 = time.perf_counter()
+    want = {k: m.compute() for k, m in cpu_members.items()}
+    result["cpu_compute_s"] = time.perf_counter() - t0
+    err = {k: assert_curve_close(values[k], w, f"regression {k}", atol=SPEARMAN_ATOL if k == "spearman" else 1e-6,
+                                 rtol=0.0 if k == "spearman" else REGRESSION_RTOL) for k, w in want.items()}
+    result.update(values={k: float(v) for k, v in values.items()}, max_abs_err_vs_cpu=err)
+
+    mo_batches = regression_batches(seed=32, shape=MULTIOUTPUT_SHAPE)
+    mo = multioutput_suite(mt, EVAL_DEVICE)
+    mo_cpu = multioutput_suite(mt, "cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p, t in mo_batches:
+        mo.update(p, t)
+    torch.cuda.synchronize()
+    result["multioutput_update_ms_per_step"] = (time.perf_counter() - t0) / len(mo_batches) * 1e3
+    for p, t in mo_batches:
+        mo_cpu.update(p.cpu(), t.cpu())
+    mo_values, mo_want = mo.compute(), mo_cpu.compute()
+    result["multioutput_max_abs_err_vs_cpu"] = {
+        k: assert_curve_close(mo_values[k], w, f"multioutput {k}", atol=1e-6, rtol=REGRESSION_RTOL) for k, w in mo_want.items()}
+    assert all(v.shape == (MULTIOUTPUT_SHAPE[2],) for v in mo_values.values())
+    assert launches == 0, f"regression: {launches} bincount launches"
+    log(f"regression_2p24 N={n}: update {result['update_ms_per_step']:.4f} ms/step (runs {runs}), compute "
+        f"{result['compute_ms']:.2f} ms (again {result['compute_again_ms']:.2f}; CPU {result['cpu_compute_s']:.1f} s), "
+        f"peak extra {result['compute_peak_extra_bytes']} bytes; values {result['values']}; max |err| vs CPU {err}; "
+        f"multi-output (16 x 65,536 x 16) {result['multioutput_update_ms_per_step']:.4f} ms/step, max |err| "
+        f"{result['multioutput_max_abs_err_vs_cpu']}  [{card}]")
+    log(f"regression_2p24 profiles: update {json.dumps(result['update_profile'])}; compute "
+        f"{json.dumps(result['compute_profile'])}; sort {json.dumps(result['spearman_sort'])}; ranks "
+        f"{json.dumps(result['spearman_rank'])}  [{card}]")
+    return result
+
+
+# ---- phase 13: pairwise_embeddings
+def pairwise_path(mt, card: str) -> dict:
+    """Phase 13: the four pairwise functions on x (4096, 768) against y (8192, 768), reduction None
+    and "mean", then x against itself with its zero diagonal; Manhattan in its row blocks."""
+    from metrics_tpu_torch.functional.pairwise import distances
+
+    n, m, d = PAIRWISE_SHAPE
+    g = torch.Generator(device=EVAL_DEVICE).manual_seed(33)
+    x = torch.randn(n, d, generator=g, device=EVAL_DEVICE)
+    y = torch.randn(m, d, generator=g, device=EVAL_DEVICE)
+    x_cpu, y_cpu = x.cpu(), y.cpu()
+    rows = PAIRWISE_CPU_ROWS
+    result = {"n": n, "m": m, "d": d, "cpu_rows": rows, "card": card}
+    block_rows = max(1, distances.MANHATTAN_BLOCK_BYTES // (4 * m * d))
+    assert block_rows * m * d * 4 <= 256 * 2**20, "a Manhattan block over 256 MiB"
+    result["manhattan_block_rows"] = block_rows
+    for name in ("cosine_similarity", "euclidean_distance", "linear_similarity", "manhattan_distance"):
+        fn = getattr(mt.functional, f"pairwise_{name}")
+        out = {}
+        for label, args, cpu_args in (("xy", (x, y), (x_cpu[:rows], y_cpu)), ("xx", (x,), (x_cpu[:rows], x_cpu))):
+            full = fn(*args)
+            want = fn(*cpu_args, zero_diagonal=True) if label == "xx" else fn(*cpu_args)
+            err = assert_curve_close(full[:rows], want, f"pairwise {name} {label}", atol=PAIRWISE_ATOL, rtol=PAIRWISE_RTOL)
+            mean = fn(*args, reduction="mean")
+            torch.testing.assert_close(mean, full.mean(dim=-1), rtol=1e-5, atol=1e-5, msg=f"pairwise {name} mean")
+            if label == "xx":
+                assert bool((torch.diagonal(full) == 0).all()), f"pairwise {name}: the diagonal is not zero"
+            out[label] = {"ms": timed_ms(lambda: fn(*args), repeats=3),
+                          "mean_ms": timed_ms(lambda: fn(*args, reduction="mean"), repeats=3),
+                          "max_abs_err_vs_cpu": err,
+                          "peak_extra_bytes": peak_extra_bytes(lambda: fn(*args))}
+            del full
+        cols = m
+        flops = (3 if name == "manhattan_distance" else 2) * n * cols * d
+        out["xy"]["profile"] = op_profile(lambda: fn(x, y), bytes_moved=4 * (n * d + m * d + n * m), ops=flops)
+        result[name] = out
+        log(f"pairwise {name}: x·y {out['xy']['ms']:.3f} ms (mean {out['xy']['mean_ms']:.3f}), x·x "
+            f"{out['xx']['ms']:.3f} ms, peak extra {out['xy']['peak_extra_bytes']} bytes, max |err| vs CPU "
+            f"({rows} rows) {out['xy']['max_abs_err_vs_cpu']:.3g} / {out['xx']['max_abs_err_vs_cpu']:.3g}; device "
+            f"{json.dumps(out['xy']['profile'])}  [{card}]")
+    return result
+
+
+# ---- phase 14: retrieval_msmarco
+def retrieval_batches(seed: int = 34, graded: bool = False, steps: int = 0) -> list:
+    """MS MARCO passage re-ranking, dev-small shape: 6,980 queries of 1,000 candidates, 100 queries
+    an update (the last 80), int64 query ids, float32 scores rounded to multiples of 2**-10 (ties),
+    int64 relevance: one relevant passage for most queries, two for about 5%, none for about 1%
+    (graded 0 to 3, as in the TREC DL qrels, with ``graded``). ``steps`` cuts it to the first ones."""
+    total, per_update, cands = RETRIEVAL_SHAPE
+    g = torch.Generator(device=EVAL_DEVICE).manual_seed(seed)
+    out = []
+    for step in range(steps or -(-total // per_update)):
+        queries = min(per_update, total - step * per_update)
+        qid = torch.arange(step * per_update, step * per_update + queries, device=EVAL_DEVICE) * 1009 + 524_288
+        indexes = qid.repeat_interleave(cands)
+        scores = torch.randn(queries, cands, generator=g, device=EVAL_DEVICE)
+        first = torch.randint(0, cands, (queries,), generator=g, device=EVAL_DEVICE)
+        second = torch.randint(0, cands, (queries,), generator=g, device=EVAL_DEVICE)
+        u = torch.rand(queries, generator=g, device=EVAL_DEVICE)
+        rel = torch.zeros(queries, cands, dtype=torch.int64, device=EVAL_DEVICE)
+        rows = torch.arange(queries, device=EVAL_DEVICE)
+        rel[rows, first] = (u >= 0.01).to(torch.int64)
+        rel[rows, second] = torch.maximum(rel[rows, second], (u >= 0.95).to(torch.int64))
+        if graded:
+            rel = rel * torch.randint(1, 4, rel.shape, generator=g, device=EVAL_DEVICE)
+            rel = torch.maximum(rel, (torch.rand(rel.shape, generator=g, device=EVAL_DEVICE) < 0.01).to(torch.int64))
+        scores = scores + 2.0 * (rel > 0)
+        preds = torch.round(torch.sigmoid(scores) * 1024) / 1024
+        out.append((preds.reshape(-1), rel.reshape(-1), indexes))
+    return out
+
+
+def retrieval_suite(mt, device):
+    return mt.MetricCollection({
+        "mrr": mt.RetrievalMRR(device=device),
+        "map": mt.RetrievalMAP(device=device),
+        "ndcg@10": mt.RetrievalNormalizedDCG(k=10, device=device),
+        "p@10": mt.RetrievalPrecision(k=10, device=device),
+        "r@100": mt.RetrievalRecall(k=100, device=device),
+        "hit@10": mt.RetrievalHitRate(k=10, device=device),
+        "r_precision": mt.RetrievalRPrecision(device=device),
+        "fallout@10": mt.RetrievalFallOut(k=10, device=device),
+        "pr_curve": mt.RetrievalPrecisionRecallCurve(max_k=100, device=device),
+        "recall@p0.1": mt.RetrievalRecallAtFixedPrecision(min_precision=0.1, max_k=100, device=device),
+    })
+
+
+def retrieval_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 14: ten retrieval metrics in one collection over 6,980 queries x 1,000 candidates in
+    70 updates, one compute (twice: the same bits), graded NDCG, and the nine one-query functions."""
+    from metrics_tpu_torch.functional.retrieval.kernels import _descending_order
+    from metrics_tpu_torch.ops import segments
+    from metrics_tpu_torch.retrieval.base import group_rows
+
+    batches = retrieval_batches()
+    total, queries, cands = RETRIEVAL_SHAPE
+    steps, n = len(batches), total * cands
+    make = lambda: retrieval_suite(mt, EVAL_DEVICE)  # noqa: E731
+    runs, _, suite = time_runs(make, update_batch, batches, checks, histogram)
+    groups = sorted(sorted(g) for g in suite.compute_groups.values())
+    assert len(groups) == 1, f"retrieval: groups {groups}"
+    result = {"n": n, "queries": total, "steps": steps, "card": card, "update_ms_per_step_runs": runs,
+              "update_ms_per_step": median(runs)}
+    result["update_profile"] = update_profile(make, update_batch, batches[:10], result["update_ms_per_step"])
+    members = dict(suite.items(keep_base=True, copy_state=False))
+    leader = members["mrr"]
+    result["buffered_bytes_on_card"] = sum(t.numel() * t.element_size() for t in leader.preds + leader.target + leader.indexes)
+
+    histogram.KERNEL_LAUNCHES = 0
+    result["compute_peak_extra_bytes"] = peak_extra_bytes(lambda: compute_all(members))
+    result["kernel_launches"] = histogram.KERNEL_LAUNCHES
+    assert result["kernel_launches"] == len(members), f"retrieval: {result['kernel_launches']} bincount launches"
+    values = timed_compute(members, result)
+    again = compute_all(members)
+    for k, v in values.items():  # a second compute() gives the same bits
+        for a, b in zip(v if isinstance(v, tuple) else (v,), again[k] if isinstance(v, tuple) else (again[k],)):
+            assert a.dtype == b.dtype and torch.equal(a, b), f"retrieval {k}: a second compute() differs"
+
+    graded = mt.RetrievalNormalizedDCG(k=10, device=EVAL_DEVICE)
+    graded_batches = retrieval_batches(seed=35, graded=True)
+    for b in graded_batches:
+        graded.update(*b)
+    histogram.KERNEL_LAUNCHES = 0
+    graded_value = graded.compute()
+    result["kernel_launches"] += histogram.KERNEL_LAUNCHES
+    graded._computed = None
+    assert torch.equal(graded.compute(), graded_value), "graded NDCG: a second compute() differs"
+
+    # the grouping's sort, its counts and the segmented scan on every row, beside their bounds
+    preds = torch.cat([b[0] for b in batches])
+    target = torch.cat([b[1] for b in batches])
+    indexes = torch.cat([b[2] for b in batches])
+    ctx = group_rows(indexes, preds, target)
+    seg_raw = torch.unique(indexes, return_inverse=True)[1]
+
+    def lexsort():
+        order1 = _descending_order(preds)
+        return order1[torch.argsort(seg_raw[order1], stable=True)]
+
+    result["grouping_sort"] = op_profile(lexsort, bytes_moved=(4 + 8 + 8) * n, ops=0)
+    result["segmented_scan"] = op_profile(lambda: segments.segment_cumsum(ctx.rel, ctx.seg, ctx.num_groups),
+                                          bytes_moved=(4 + 8 + 4) * n, ops=n * max(1, (n - 1).bit_length()))
+    result["segment_count"] = op_profile(lambda: segments.segment_count(ctx.seg, ctx.num_groups),
+                                         bytes_moved=8 * n + 4 * ctx.num_groups, ops=0)
+
+    # the CPU twin: every update if that fits RETRIEVAL_CPU_TWIN_S, else the first 10, against a
+    # card suite fed the same 10
+    cpu = retrieval_suite(mt, "cpu")
+    twin = retrieval_suite(mt, EVAL_DEVICE)
+    for b in batches[:10]:
+        cpu.update(*(t.cpu() for t in b))
+        twin.update(*b)
+    t0 = time.perf_counter()
+    want = cpu.compute()
+    cpu_once = time.perf_counter() - t0
+    twin_steps = 10
+    if cpu_once * steps / 10 <= RETRIEVAL_CPU_TWIN_S:
+        cpu, twin_steps = retrieval_suite(mt, "cpu"), steps
+        for b in batches:
+            cpu.update(*(t.cpu() for t in b))
+        want = cpu.compute()
+        got = values
+    else:
+        got = twin.compute()
+    err = {k: assert_curve_close(got[k], w, f"retrieval {k}", atol=RETRIEVAL_ATOL) for k, w in want.items()}
+    if twin_steps == steps:
+        cpu_graded = mt.RetrievalNormalizedDCG(k=10, device="cpu")
+        for b in graded_batches:
+            cpu_graded.update(*(t.cpu() for t in b))
+        err["graded_ndcg@10"] = assert_curve_close(graded_value, cpu_graded.compute(), "graded ndcg", atol=RETRIEVAL_ATOL)
+    cpu_ctx = group_rows(indexes[: 10 * queries * cands].cpu(), preds[: 10 * queries * cands].cpu(),
+                         target[: 10 * queries * cands].cpu())
+    twin_ctx = group_rows(indexes[: 10 * queries * cands], preds[: 10 * queries * cands], target[: 10 * queries * cands])
+    for field in ("seg", "preds", "rel", "ranks", "cumrel", "counts", "starts", "n_pos"):
+        assert torch.equal(getattr(twin_ctx, field).cpu(), getattr(cpu_ctx, field)), f"retrieval grouping {field} differs"
+
+    # the nine one-query functions on 100 queries, against the CPU
+    functional = {
+        "retrieval_average_precision": {}, "retrieval_reciprocal_rank": {}, "retrieval_precision": {"k": 10},
+        "retrieval_recall": {"k": 100}, "retrieval_fall_out": {"k": 10}, "retrieval_hit_rate": {"k": 10},
+        "retrieval_r_precision": {}, "retrieval_normalized_dcg": {"k": 10},
+        "retrieval_precision_recall_curve": {"max_k": 100},
+    }
+    q_preds, q_target = batches[0][0].reshape(queries, cands), batches[0][1].reshape(queries, cands)
+    t0 = time.perf_counter()
+    fn_err = {}
+    for name, kwargs in functional.items():
+        fn = getattr(mt.functional, name)
+        for q in range(queries):
+            fn_err[name] = max(fn_err.get(name, 0.0), assert_curve_close(
+                fn(q_preds[q], q_target[q], **kwargs), fn(q_preds[q].cpu(), q_target[q].cpu(), **kwargs),
+                f"{name} query {q}", atol=RETRIEVAL_ATOL))
+    result["functional_s"] = time.perf_counter() - t0
+    result.update(values={k: (float(v) if not isinstance(v, tuple) else [float(x.float().mean()) for x in v])
+                          for k, v in values.items()},
+                  graded_ndcg=float(graded_value), cpu_twin_steps=twin_steps, cpu_compute_s_10_updates=cpu_once,
+                  max_abs_err_vs_cpu=err, functional_max_abs_err=fn_err, deterministic=True)
+    log(f"retrieval_msmarco {total} queries x {cands} in {steps} updates: update {result['update_ms_per_step']:.4f} ms/step "
+        f"(runs {runs}), compute {result['compute_ms']:.1f} ms (again {result['compute_again_ms']:.1f}), "
+        f"{result['kernel_launches']} bincount launches, peak extra {result['compute_peak_extra_bytes']} bytes; "
+        f"a second compute() the same bits; values {result['values']}; graded NDCG@10 {result['graded_ndcg']:.6f}; "
+        f"CPU twin over {twin_steps} of {steps} updates (10 updates: {cpu_once:.1f} s to compute on the CPU); "
+        f"max |err| {err}; functional on {queries} queries {fn_err}  [{card}]")
+    log(f"retrieval_msmarco profiles: update {json.dumps(result['update_profile'])}; compute "
+        f"{json.dumps(result['compute_profile'])}; grouping sort {json.dumps(result['grouping_sort'])}; segmented scan "
+        f"{json.dumps(result['segmented_scan'])}; segment count {json.dumps(result['segment_count'])}  [{card}]")
+    return result
+
+
+def eval_paths(mt, checks, histogram, card: str) -> dict:
+    """Phases 11 to 14."""
+    out = {"ranking_imagenet": ranking_path(mt, checks, histogram, card),
+           "regression_2p24": regression_path(mt, checks, histogram, card),
+           "pairwise_embeddings": pairwise_path(mt, card),
+           "retrieval_msmarco": retrieval_path(mt, checks, histogram, card)}
+    out["kernel_launches"] = sum(out[k]["kernel_launches"] for k in ("ranking_imagenet", "regression_2p24",
+                                                                     "retrieval_msmarco"))
+    return out
+
+
 # ------------------------------------------------------------------ phase 10
-SYNC_SUITES = ("headline", "agreement", "segmentation", "aggregators", "curves")
+SYNC_SUITES = ("headline", "agreement", "segmentation", "aggregators", "curves", "regression", "retrieval")
+SYNC_REGRESSION_ROWS = 65_536  # rows of each regression update on each rank
 SYNC_STEPS = 2  # updates of each suite on each rank
 SYNC_TRIALS = 5  # timed syncs of each protocol, alternating, after one untimed sync
 SYNC_WORLD_S = 600  # wall-clock limit of the two-rank world
@@ -1189,6 +1747,15 @@ def sync_suite(mt, name: str, device: str):
     if name == "curves":
         return mt.MetricCollection({"auroc": mt.AUROC(pos_label=1, device=device),
                                     "ap": mt.AveragePrecision(pos_label=1, device=device)})
+    if name == "regression":  # Pearson's moments of spec None, stacked; Spearman's `cat` rows
+        return mt.MetricCollection({"mse": mt.MeanSquaredError(device=device), "r2": mt.R2Score(device=device),
+                                    "pearson": mt.PearsonCorrCoef(device=device),
+                                    "spearman": mt.SpearmanCorrCoef(device=device),
+                                    "tweedie": mt.TweedieDevianceScore(power=1.5, device=device)})
+    if name == "retrieval":  # rows of int64 query ids in list states of spec None
+        return mt.MetricCollection({"map": mt.RetrievalMAP(device=device), "mrr": mt.RetrievalMRR(device=device),
+                                    "ndcg@10": mt.RetrievalNormalizedDCG(k=10, device=device),
+                                    "r@100": mt.RetrievalRecall(k=100, device=device)})
     return mt.MetricCollection({n: getattr(mt, n)(device=device) for n in AGGREGATORS}, compute_groups=False)
 
 
@@ -1202,6 +1769,10 @@ def sync_batches(name: str, rank: int, steps: int = SYNC_STEPS) -> list:
         return [((p, t), {}) for p, t in make_batches(4096, 1000, steps, seed, signal=4.0)]
     if name == "segmentation":
         return [((p, t), {}) for p, t in make_batches(2, 19, steps, seed, signal=3.0, spatial=(1024, 2048))]
+    if name == "regression":
+        return [(b, {}) for b in regression_batches(seed, shape=(steps, SYNC_REGRESSION_ROWS))]
+    if name == "retrieval":  # the ranks hold rows of the same queries
+        return [(b, {}) for b in retrieval_batches(seed, steps=steps)]
     g = torch.Generator(device=SYNC_DEVICE).manual_seed(seed)
     if name == "curves":
         # binary rows of shapes (n,) and (n, 1) in turn, rank 1's in the other order: each sync
@@ -1307,8 +1878,16 @@ def sync_profile(suite, protocol: str, syncs: int = 3) -> dict:
     }
 
 
-def assert_sync_counts(label: str, result: dict, n_states: int, has_cat: bool) -> None:
+def assert_sync_counts(label: str, result: dict, n_states: int, has_cat: bool, row_gathers: int = 0) -> None:
+    """A coalesced sync is one payload collective (plus one metadata collective for ``cat`` states),
+    the per-state protocol two collectives a state. List states of spec None (the retrieval rows,
+    ``row_gathers`` rows in all) decline the packed lane in both packages: two collectives a row."""
     co, ps = result["coalesced"]["counts"], result["per_state"]["counts"]
+    if row_gathers:
+        for counts in (co, ps):
+            assert counts["sync_shape_collectives"] == counts["sync_payload_collectives"] == row_gathers, (
+                f"{label}: {counts} for {row_gathers} buffered rows")
+        return
     assert co["sync_payload_collectives"] == 1, f"{label}: {co} payload collectives per coalesced sync"
     assert co["sync_shape_collectives"] == int(has_cat), f"{label}: {co} metadata collectives per coalesced sync"
     assert co["sync_states_coalesced"] == n_states, f"{label}: {co['sync_states_coalesced']} of {n_states} states packed"
@@ -1327,19 +1906,26 @@ def sync_world_of_one(mt, histogram, name: str, card: str) -> dict:
     torch.cuda.synchronize()
     launches = histogram.KERNEL_LAUNCHES
     members = dict(suite.items(keep_base=True, copy_state=False))
-    if name == "curves":
-        # buffered rows of shapes (n,) and (n, 1): the first sync brings them to one rank in place
-        # (Metric._canonicalize_list_states) before it packs them; the local states are read after it
+    if name in ("curves", "retrieval"):
+        # buffered raw rows (shapes (n,) and (n, 1); int64 targets): the first sync brings them to their
+        # canonical form in place (Metric._canonicalize_list_states) before it packs them; the local
+        # states are read after it
         suite.sync(distributed_available=lambda: True)
         suite.unsync()
         assert all(r.ndim == 1 for m in members.values() for r in m.preds + m.target), "rows not canonicalised"
     local = {(m, s): v for m, member in members.items() for s, v in member.metric_state.items()}
     want = {k: v.clone() for k, v in suite_states(suite).items()}
     has_cat = any(isinstance(v, list) for v in local.values())
+    row_gathers = sum(len(v) for (m, s), v in local.items() if isinstance(v, list) and members[m]._reduction_specs[s] is None)
 
     def check(synced):
         for (m, s), value in want.items():
             got = getattr(members[m], s)
+            if isinstance(got, list):  # rows of spec None, gathered row by row
+                got = torch.cat(got)
+            elif members[m]._reduction_specs[s] is None:
+                assert got.shape == (1,) + value.shape, f"sync {name}: {m}.{s} not stacked"  # one row a process
+                got = got[0]
             assert got.device == value.device and got.dtype == value.dtype and torch.equal(got, value), (
                 f"sync {name}: {m}.{s} changed in a world of one")
 
@@ -1347,7 +1933,7 @@ def sync_world_of_one(mt, histogram, name: str, card: str) -> dict:
     for (m, s), value in local.items():  # unsync put back the very same local states
         got = getattr(members[m], s)
         assert (got == value) if isinstance(value, list) else (got is value), f"sync {name}: {m}.{s} not restored"
-    assert_sync_counts(f"sync {name} (NCCL, world of one)", result, len(want), has_cat)
+    assert_sync_counts(f"sync {name} (NCCL, world of one)", result, len(want), has_cat, row_gathers)
     # the first update of a collection runs every member: each confusion-matrix member launches once
     expected = {"headline": SYNC_STEPS, "agreement": 3 + SYNC_STEPS - 1, "segmentation": SYNC_STEPS}.get(name, 0)
     assert launches == expected, f"sync {name}: {launches} bincount launches in {SYNC_STEPS} updates, not {expected}"
@@ -1355,8 +1941,10 @@ def sync_world_of_one(mt, histogram, name: str, card: str) -> dict:
     result.update(states=len(want), bytes_packed=packed, kernel_launches=launches, card=card)
     result["profile"] = {protocol: sync_profile(suite, protocol) for protocol in ("coalesced", "per_state")}
     log(f"sync {name} (NCCL, world of one): {len(want)} states, {packed} bytes packed; collectives a sync: coalesced "
-        f"{result['coalesced']['counts']['sync_shape_collectives']} metadata + 1 payload (first sync "
-        f"{result['first_sync_counts']['sync_shape_collectives']} + 1), per-state "
+        f"{result['coalesced']['counts']['sync_shape_collectives']} metadata + "
+        f"{result['coalesced']['counts']['sync_payload_collectives']} payload (first sync "
+        f"{result['first_sync_counts']['sync_shape_collectives']} + "
+        f"{result['first_sync_counts']['sync_payload_collectives']}), per-state "
         f"{result['per_state']['counts']['sync_shape_collectives']} shape + "
         f"{result['per_state']['counts']['sync_payload_collectives']} payload; sync ms (median of {SYNC_TRIALS}): "
         f"coalesced {result['coalesced']['sync_ms_median']:.4f}, per-state {result['per_state']['sync_ms_median']:.4f}"
@@ -1397,14 +1985,18 @@ def gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
             torch.cuda.synchronize()
             compute_ms = (time.perf_counter() - t0) * 1e3
             stats = collective_stats()
+            suite.unsync()  # the retrieval members leave compute() synced, as in JAX
             n_states = len(suite_states(suite))
+            row_gathers = sum(len(getattr(m, s)) for _, m in suite.items(keep_base=True, copy_state=False)
+                              for s, spec in m._reduction_specs.items() if spec is None and isinstance(getattr(m, s), list))
             result[name] = {
                 "values": {k: v.cpu() for k, v in values.items()},
                 "compute_ms": compute_ms,
                 "compute_counts": {k: stats[k] for k in ("sync_shape_collectives", "sync_payload_collectives",
                                                          "sync_bytes_gathered")},
                 "states": n_states,
-                "has_cat": name in ("aggregators", "curves"),
+                "has_cat": name in ("aggregators", "curves", "regression"),
+                "row_gathers": row_gathers,
                 **sync_trials(suite),
             }
             del suite
@@ -1447,11 +2039,17 @@ def sync_two_ranks(mt, card: str) -> dict:
     out = {"gloo_cuda": True, "card": card}
     for name in SYNC_SUITES:
         reference = sync_suite(mt, name, "cpu")
+        ranks_batches = [sync_batches(name, rank) for rank in range(len(results))]
+        # rows in the order the sync leaves them: rank by rank, but the retrieval rows (spec None,
+        # gathered row by row) batch by batch, each batch's ranks in turn
+        if name == "retrieval":
+            order = [ranks_batches[r][b] for b in range(SYNC_STEPS) for r in range(len(results))]
+        else:
+            order = [batch for batches in ranks_batches for batch in batches]
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            for rank in range(len(results)):
-                for args, kwargs in sync_batches(name, rank):
-                    reference.update(*(a.cpu() for a in args), **{k: v.cpu() for k, v in kwargs.items()})
+            for args, kwargs in order:
+                reference.update(*(a.cpu() for a in args), **{k: v.cpu() for k, v in kwargs.items()})
             want = reference.compute()
         for rank, result in enumerate(results):
             got = result[name]["values"]
@@ -1464,7 +2062,7 @@ def sync_two_ranks(mt, card: str) -> dict:
                 else:
                     assert g.dtype == value.dtype and torch.equal(g, value), f"sync {name}, rank {rank}: {key} differs"
             assert_sync_counts(f"sync {name} (Gloo, rank {rank})", result[name], result[name]["states"],
-                               result[name]["has_cat"])
+                               result[name]["has_cat"], result[name]["row_gathers"])
         r0 = results[0][name]
         out[name] = {k: [r[name][k] for r in results] for k in ("compute_ms", "compute_counts")}
         out[name].update({p: [r[name][p] for r in results] for p in ("coalesced", "per_state", "first_sync_counts")})
@@ -1472,7 +2070,8 @@ def sync_two_ranks(mt, card: str) -> dict:
         log(f"sync {name} (Gloo, two ranks on one card, CUDA tensors): both ranks equal the CPU fed every batch; "
             f"compute() with its sync {[round(r[name]['compute_ms'], 4) for r in results]} ms; sync ms (median of "
             f"{SYNC_TRIALS}, rank 0): coalesced {r0['coalesced']['sync_ms_median']:.4f} "
-            f"({r0['coalesced']['counts']['sync_shape_collectives']} metadata + 1 payload, "
+            f"({r0['coalesced']['counts']['sync_shape_collectives']} metadata + "
+            f"{r0['coalesced']['counts']['sync_payload_collectives']} payload, "
             f"{r0['coalesced']['counts']['sync_bytes_gathered']} bytes gathered), per-state "
             f"{r0['per_state']['sync_ms_median']:.4f} ({r0['per_state']['counts']['sync_payload_collectives']} x 2)"
             f"  [{card}]")
@@ -1480,7 +2079,7 @@ def sync_two_ranks(mt, card: str) -> dict:
 
 
 def sync_path(mt, histogram, card: str) -> dict:
-    """Phase 9: every suite synced through NCCL in a world of one rank, then two ranks over Gloo."""
+    """Phase 10: every suite synced through NCCL in a world of one rank, then two ranks over Gloo."""
     import torch.distributed as dist
 
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # the machine has no network: bootstrap over loopback
@@ -1527,15 +2126,17 @@ def main() -> int:
     segmentation = segmentation_path(mt, checks, histogram, card)
     aggregation = aggregation_path(mt, checks, card)
     curves = curves_path(mt, checks, histogram, card)
+    evaluation = eval_paths(mt, checks, histogram, card)
     sync = sync_path(mt, histogram, card)
-    # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, and
-    # the sync phase's updates, counted from 0 just before each
+    # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, the
+    # retrieval path's first compute() and graded NDCG, and the sync phase's updates, counted from 0
+    # just before each
     kernel["launches"] = sum(p["first"]["kernel_launches"] for p in (main, agreement, segmentation))
-    kernel["launches"] += curves["kernel_launches"] + sync["kernel_launches"]
+    kernel["launches"] += curves["kernel_launches"] + evaluation["kernel_launches"] + sync["kernel_launches"]
 
     log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
                     "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation,
-                    "curves_path": curves, "sync_path": sync}))
+                    "curves_path": curves, "eval_paths": evaluation, "sync_path": sync}))
     log(json.dumps({"kernels": [kernel]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

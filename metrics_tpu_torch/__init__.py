@@ -3,16 +3,15 @@
 The JAX package ``metrics_tpu`` stays the reference; this package mirrors
 its layout and names. Metrics are ``nn.Module``s whose states live on the
 current CUDA device unless a ``device`` is given (``device="cpu"`` runs on
-the CPU). The confusion-matrix histogram runs a hand-written CUDA kernel
+the CPU). The histogram of the confusion matrices, calibration bins and
+retrieval query groups runs a hand-written CUDA kernel
 (``csrc/bincount.cu``), built with ``nvcc`` at first use.
 
-Ported so far: the classification metrics built on stat scores (Accuracy,
-Precision, Recall, F1Score, FBetaScore, Specificity, Dice, StatScores) and
-on the confusion matrix (ConfusionMatrix, CohenKappa, MatthewsCorrCoef,
-JaccardIndex), HammingDistance, the curve family (PrecisionRecallCurve,
-ROC, AUROC, AveragePrecision, AUC, CalibrationError and the binned curves),
-the aggregators (Max, Min, Sum, Cat, Mean) and MetricCollection, and state
-sync across processes
+Ported so far: the whole classification domain (the stat-score family,
+the confusion-matrix family, HammingDistance, the curve family, HingeLoss,
+KLDivergence and the ranking metrics), the regression metrics, the pairwise
+distances (functional), the retrieval metrics, the aggregators (Max, Min,
+Sum, Cat, Mean) and MetricCollection, and state sync across processes
 (``metrics_tpu_torch.parallel``): ``compute()`` reduces the states over the
 ``torch.distributed`` process group, a whole suite in one collective.
 """
@@ -30,11 +29,16 @@ from metrics_tpu_torch.classification import (
     CalibrationError,
     CohenKappa,
     ConfusionMatrix,
+    CoverageError,
     Dice,
     F1Score,
     FBetaScore,
     HammingDistance,
+    HingeLoss,
     JaccardIndex,
+    KLDivergence,
+    LabelRankingAveragePrecision,
+    LabelRankingLoss,
     MatthewsCorrCoef,
     Precision,
     PrecisionRecallCurve,
@@ -46,6 +50,33 @@ from metrics_tpu_torch.classification import (
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.interop import load_reference_state
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.regression import (
+    CosineSimilarity,
+    ExplainedVariance,
+    MeanAbsoluteError,
+    MeanAbsolutePercentageError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    PearsonCorrCoef,
+    R2Score,
+    SpearmanCorrCoef,
+    SymmetricMeanAbsolutePercentageError,
+    TweedieDevianceScore,
+    WeightedMeanAbsolutePercentageError,
+)
+from metrics_tpu_torch.retrieval import (
+    RetrievalFallOut,
+    RetrievalHitRate,
+    RetrievalMAP,
+    RetrievalMetric,
+    RetrievalMRR,
+    RetrievalNormalizedDCG,
+    RetrievalPrecision,
+    RetrievalPrecisionRecallCurve,
+    RetrievalRecall,
+    RetrievalRecallAtFixedPrecision,
+    RetrievalRPrecision,
+)
 
 __all__ = [
     "AUC",
@@ -59,24 +90,52 @@ __all__ = [
     "CatMetric",
     "CohenKappa",
     "ConfusionMatrix",
+    "CosineSimilarity",
+    "CoverageError",
     "Dice",
+    "ExplainedVariance",
     "F1Score",
     "FBetaScore",
     "HammingDistance",
+    "HingeLoss",
     "JaccardIndex",
+    "KLDivergence",
+    "LabelRankingAveragePrecision",
+    "LabelRankingLoss",
     "MatthewsCorrCoef",
     "MaxMetric",
+    "MeanAbsoluteError",
+    "MeanAbsolutePercentageError",
     "MeanMetric",
+    "MeanSquaredError",
+    "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
     "MinMetric",
+    "PearsonCorrCoef",
     "Precision",
     "PrecisionRecallCurve",
+    "R2Score",
     "ROC",
     "Recall",
+    "RetrievalFallOut",
+    "RetrievalHitRate",
+    "RetrievalMAP",
+    "RetrievalMRR",
+    "RetrievalMetric",
+    "RetrievalNormalizedDCG",
+    "RetrievalPrecision",
+    "RetrievalPrecisionRecallCurve",
+    "RetrievalRPrecision",
+    "RetrievalRecall",
+    "RetrievalRecallAtFixedPrecision",
+    "SpearmanCorrCoef",
     "Specificity",
     "StatScores",
     "SumMetric",
+    "SymmetricMeanAbsolutePercentageError",
+    "TweedieDevianceScore",
+    "WeightedMeanAbsolutePercentageError",
     "__version__",
     "functional",
     "load_reference_state",

@@ -13,10 +13,13 @@ from metrics_tpu_torch.classification.confusion_matrix import ConfusionMatrix
 from metrics_tpu_torch.classification.dice import Dice
 from metrics_tpu_torch.classification.f_beta import F1Score, FBetaScore
 from metrics_tpu_torch.classification.hamming import HammingDistance
+from metrics_tpu_torch.classification.hinge import HingeLoss
 from metrics_tpu_torch.classification.jaccard import JaccardIndex
+from metrics_tpu_torch.classification.kl_divergence import KLDivergence
 from metrics_tpu_torch.classification.matthews_corrcoef import MatthewsCorrCoef
 from metrics_tpu_torch.classification.precision_recall import Precision, Recall
 from metrics_tpu_torch.classification.precision_recall_curve import PrecisionRecallCurve
+from metrics_tpu_torch.classification.ranking import CoverageError, LabelRankingAveragePrecision, LabelRankingLoss
 from metrics_tpu_torch.classification.roc import ROC
 from metrics_tpu_torch.classification.specificity import Specificity
 from metrics_tpu_torch.classification.stat_scores import StatScores
@@ -32,11 +35,16 @@ __all__ = [
     "CalibrationError",
     "CohenKappa",
     "ConfusionMatrix",
+    "CoverageError",
     "Dice",
     "F1Score",
     "FBetaScore",
     "HammingDistance",
+    "HingeLoss",
     "JaccardIndex",
+    "KLDivergence",
+    "LabelRankingAveragePrecision",
+    "LabelRankingLoss",
     "MatthewsCorrCoef",
     "Precision",
     "PrecisionRecallCurve",

@@ -126,6 +126,11 @@ class BinnedPrecisionRecallCurve(Metric):
         self.FNs = self.FNs + fns
 
     def compute(self) -> Union[Tuple[Tensor, ...], Tuple[List[Tensor], ...]]:
+        if self.TPs.shape[0] != self.num_classes:
+            # (N, C) preds counted into a metric built for fewer classes: JAX's concatenate raises TypeError
+            raise TypeError(
+                f"Cannot concatenate the counts of {self.TPs.shape[0]} classes with the {self.num_classes} of the metric"
+            )
         precisions = (self.TPs + METRIC_EPS) / (self.TPs + self.FPs + METRIC_EPS)
         recalls = self.TPs / (self.TPs + self.FNs + METRIC_EPS)
         ones = torch.ones((self.num_classes, 1), dtype=precisions.dtype, device=precisions.device)

@@ -13,6 +13,7 @@ from torch import Tensor
 
 from metrics_tpu_torch.functional.classification.stat_scores import _stat_scores_compute, _stat_scores_update
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utils.checks import _check_broadcastable
 from metrics_tpu_torch.utils.enums import AverageMethod, MDMCAverageMethod
 
 
@@ -84,6 +85,7 @@ class StatScores(Metric):
             ignore_index=self.ignore_index,
         )
         if self.reduce != AverageMethod.SAMPLES and self.mdmc_reduce != MDMCAverageMethod.SAMPLEWISE:
+            _check_broadcastable(tuple(self.tp.shape), tuple(tp.shape))
             self.tp = self.tp + tp
             self.fp = self.fp + fp
             self.tn = self.tn + tn

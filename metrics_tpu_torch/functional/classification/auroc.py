@@ -140,8 +140,12 @@ def _auroc_compute(
     # partial AUC with the McClish correction
     max_area = torch.tensor(max_fpr, dtype=torch.float32, device=fpr.device)
     stop = int(torch.searchsorted(fpr, max_area, right=True))
-    weight = (max_area - fpr[stop - 1]) / (fpr[stop] - fpr[stop - 1])
-    interp_tpr = tpr[stop - 1] + weight * (tpr[stop] - tpr[stop - 1])
+    # with no negative sample ``fpr`` is all zero and ``stop == len(fpr)``: the
+    # upper read is clamped to the last point, as JAX's gather clamps, and the
+    # interpolation gives NaN after roc's "No negative samples" warning
+    hi = min(stop, fpr.shape[0] - 1)
+    weight = (max_area - fpr[stop - 1]) / (fpr[hi] - fpr[stop - 1])
+    interp_tpr = tpr[stop - 1] + weight * (tpr[hi] - tpr[stop - 1])
     tpr = torch.cat([tpr[:stop], interp_tpr.reshape(1)])
     fpr = torch.cat([fpr[:stop], max_area.reshape(1)])
     partial_auc = _auc_compute_without_check(fpr, tpr, 1.0)

@@ -115,6 +115,9 @@ def _ce_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
         preds = torch.where(is_prob, preds, torch.sigmoid(preds))
         confidences, accuracies = preds, target
     elif mode == DataType.MULTICLASS:
+        if preds.ndim < 2:
+            # integer-label preds have no class dim to take the confidence over
+            raise ValueError(f"axis 1 is out of bounds for array of dimension {preds.ndim}")
         is_prob = ((preds >= 0) & (preds <= 1)).all()
         preds = torch.where(is_prob, preds, torch.softmax(preds, dim=1))
         confidences, predictions = preds.max(dim=1)

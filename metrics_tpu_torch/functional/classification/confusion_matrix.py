@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.utils.checks import _input_format_classification
+from metrics_tpu_torch.utils.checks import _check_broadcastable, _input_format_classification
 from metrics_tpu_torch.utils.data import _bincount
 from metrics_tpu_torch.utils.enums import DataType
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -31,6 +31,8 @@ def _confusion_matrix_update(
         target = target.argmax(dim=1)
     if multilabel:
         offsets = 4 * torch.arange(num_classes, device=preds.device)
+        # inputs that are not (N, C) multilabel: raise JAX's exception type
+        _check_broadcastable(tuple(preds.shape), tuple(offsets.shape))
         unique_mapping = ((2 * target + preds) + offsets).reshape(-1)
         return _bincount(unique_mapping, minlength=4 * num_classes).reshape(num_classes, 2, 2)
     unique_mapping = target.reshape(-1) * num_classes + preds.reshape(-1)

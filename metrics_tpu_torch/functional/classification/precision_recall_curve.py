@@ -44,6 +44,9 @@ def _binary_clf_curve(
 
     if preds.ndim > target.ndim:
         preds = preds[:, 0]
+    if target.shape[0] == 0:
+        # JAX's gather of the last score fails with a TypeError on no rows
+        raise TypeError("A curve needs at least one sample, got an empty batch")
     order = torch.argsort(-preds, stable=True)
     preds = preds[order]
     target = target[order]

@@ -52,6 +52,9 @@ def _stat_scores(
 
     tp_e, fp_e, tn_e, fn_e = _mask(tp_e), _mask(fp_e), _mask(tn_e), _mask(fn_e)
 
+    if preds.ndim < 2:
+        # an empty batch leaves the inputs unformatted, with no class dim: jnp raises ValueError there
+        raise ValueError(f"axis 1 is out of bounds for array of dimension {preds.ndim}")
     if reduce == "micro":
         dim = (0, 1) if preds.ndim == 2 else (1, 2)
     elif reduce == "macro":

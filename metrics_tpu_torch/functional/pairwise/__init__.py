@@ -1,0 +1,13 @@
+from metrics_tpu_torch.functional.pairwise.distances import (
+    pairwise_cosine_similarity,
+    pairwise_euclidean_distance,
+    pairwise_linear_similarity,
+    pairwise_manhattan_distance,
+)
+
+__all__ = [
+    "pairwise_cosine_similarity",
+    "pairwise_euclidean_distance",
+    "pairwise_linear_similarity",
+    "pairwise_manhattan_distance",
+]

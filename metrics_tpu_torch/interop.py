@@ -13,6 +13,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from metrics_tpu_torch.classification.ranking import _RankingBase
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utils.enums import DataType
@@ -20,7 +21,9 @@ from metrics_tpu_torch.utils.enums import DataType
 
 def _to_tensor(value: Any, like: torch.Tensor) -> torch.Tensor:
     tensor = torch.from_numpy(np.array(value, copy=True)).to(like.device)
-    if tensor.dtype != like.dtype or tensor.shape != like.shape:
+    # a scalar default takes any shape: updates broadcast it (ExplainedVariance's
+    # per-output sums), and a sync stacks it (PearsonCorrCoef's moments, one a process)
+    if tensor.dtype != like.dtype or (like.ndim > 0 and tensor.shape != like.shape):
         raise ValueError(
             f"state of dtype {tensor.dtype} and shape {tuple(tensor.shape)} does not fit a state of"
             f" dtype {like.dtype} and shape {tuple(like.shape)}"
@@ -45,6 +48,10 @@ def _load_metric(metric: Metric, state: Mapping[str, Any], update_count: int, mo
     metric._computed = None
     if mode is not None and hasattr(metric, "mode"):
         metric.mode = DataType(mode)
+    if isinstance(metric, _RankingBase):
+        # whether sample weights were passed is no state; a summed weight of 0 computes the
+        # same value either way, so a non-zero sum is the whole answer
+        metric._weighted = bool(metric.sample_weight != 0)
 
 
 def load_reference_state(
@@ -63,7 +70,10 @@ def load_reference_state(
             list states), as the JAX metric's ``metric_state`` gives it. For
             a collection, member name -> such a dict, or the flat
             ``"member.state"`` keys of the JAX collection's ``state_dict()``.
-            Dtypes and shapes must match the port's states exactly.
+            Dtypes must match the port's states; shapes too, but for states
+            whose default is a scalar (the moments that updates broadcast
+            or a sync stacks). A ranking metric counts as weighted when its
+            summed ``sample_weight`` is not 0.
         update_count: the number of updates the state accumulated (read by
             "mean" states and by the warning for a compute before any update).
         mode: the input case the JAX ``Accuracy`` resolved on its first update

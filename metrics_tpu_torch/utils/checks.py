@@ -104,6 +104,9 @@ class _ValueStats:
     def _fetch(self) -> np.ndarray:
         if self._vals is None:
             t, p = self._target, self._preds
+            if t.numel() == 0 or p.numel() == 0:
+                # torch raises RuntimeError on the min of no values; jnp raises ValueError
+                raise ValueError("zero-size array to reduction operation min which has no identity")
             stats = torch.stack([t.min().float(), t.max().float(), p.min().float(), p.max().float()])
             self._vals = stats.cpu().numpy()
         return self._vals
@@ -130,6 +133,19 @@ def _check_same_shape(preds: Tensor, target: Tensor) -> None:
         raise RuntimeError(
             f"Predictions and targets are expected to have the same shape, got {preds.shape} and {target.shape}"
         )
+
+
+def _check_broadcastable(a: Tuple[int, ...], b: Tuple[int, ...]) -> None:
+    """Raise as ``jnp`` does when arrays of shapes ``a`` and ``b`` cannot broadcast.
+
+    ``jnp`` raises ValueError when the ranks differ and TypeError when they
+    are equal; torch raises RuntimeError in both cases.
+    """
+    for x, y in zip(reversed(a), reversed(b)):
+        if x != y and x != 1 and y != 1:
+            if len(a) == len(b):
+                raise TypeError(f"add got incompatible shapes for broadcasting: {tuple(a)}, {tuple(b)}.")
+            raise ValueError(f"Incompatible shapes for broadcasting: shapes={[tuple(a), tuple(b)]}")
 
 
 def _check_for_empty(preds: Tensor, target: Tensor) -> bool:
@@ -387,13 +403,100 @@ def _input_format_classification(
     return preds.to(torch.int32), target.to(torch.int32), case
 
 
+def _is_integer_dtype(dtype: torch.dtype) -> bool:
+    return not (dtype.is_floating_point or dtype.is_complex or dtype == torch.bool)
+
+
+def _check_retrieval_dtypes(indexes: Tensor, preds: Tensor, target: Tensor) -> None:
+    if indexes.shape != preds.shape or preds.shape != target.shape:
+        raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
+    if not _is_integer_dtype(indexes.dtype):
+        raise ValueError("`indexes` must be a tensor of long integers")
+    if not preds.is_floating_point():
+        raise ValueError("`preds` must be a tensor of floats")
+    if target.is_complex():
+        raise ValueError("`target` must be a tensor of booleans, integers or floats")
+
+
+def _check_retrieval_metadata(
+    indexes,
+    preds,
+    target,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Check a retrieval triple and return it as it came (JAX counterpart `checks.py:527`).
+
+    The retrieval metrics buffer raw rows and flatten, cast and drop ignored
+    rows only when the rows are observed, so this formats nothing. Shapes and
+    dtypes are always checked. The checks of values (binary targets; a batch
+    that ``ignore_index`` leaves empty) read the device once, and follow the
+    validation mode.
+    """
+    indexes, preds, target = (torch.as_tensor(v) for v in (indexes, preds, target))
+    _check_retrieval_dtypes(indexes, preds, target)
+    if preds.numel() == 0:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty")
+    needs_range = not allow_non_binary_target
+    if (needs_range or ignore_index is not None) and _should_value_check(
+        preds, target, key_extra=("retrieval", ignore_index)
+    ):
+        t = target.reshape(-1).to(torch.float32)
+        valid = torch.ones_like(t, dtype=torch.bool) if ignore_index is None else target.reshape(-1) != ignore_index
+        inf = torch.tensor(float("inf"), device=t.device)
+        stats = torch.stack(
+            [valid.any().to(torch.float32), torch.where(valid, t, inf).min(), torch.where(valid, t, -inf).max()]
+        ).tolist()
+        if not stats[0]:
+            raise ValueError("`indexes`, `preds` and `target` must be non-empty")
+        if needs_range and (stats[2] > 1 or stats[1] < 0):
+            raise ValueError("`target` must contain binary values")
+    return indexes, preds, target
+
+
+def _check_retrieval_inputs(
+    indexes,
+    preds,
+    target,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Check and flatten a retrieval triple (JAX counterpart `checks.py:603`).
+
+    Returns 1-D rows: float32 scores, float32 or int32 targets by their
+    family, int32 indexes (int64 kept), rows whose target is
+    ``ignore_index`` dropped. The binary-target check reads the device once
+    and follows the validation mode.
+    """
+    indexes, preds, target = (torch.as_tensor(v) for v in (indexes, preds, target))
+    _check_retrieval_dtypes(indexes, preds, target)
+    target_is_float = target.is_floating_point()
+    indexes = indexes.reshape(-1)
+    preds = preds.reshape(-1).to(torch.float32)
+    target = target.reshape(-1)
+    if ignore_index is not None:
+        valid = target != ignore_index
+        indexes, preds, target = indexes[valid], preds[valid], target[valid]
+    if preds.numel() == 0:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty")
+    if not allow_non_binary_target and _should_value_check(preds, target, key_extra=("retrieval", ignore_index)):
+        tmin, tmax = torch.stack([target.min().to(torch.float32), target.max().to(torch.float32)]).tolist()
+        if tmax > 1 or tmin < 0:
+            raise ValueError("`target` must contain binary values")
+    target = target.to(torch.float32) if target_is_float else target.to(torch.int32)
+    return (indexes if indexes.dtype == torch.int64 else indexes.to(torch.int32)), preds, target
+
+
 def _input_squeeze(preds, target) -> Tuple[Tensor, Tensor]:
     preds = torch.as_tensor(preds)
     return _squeeze_excess_dims(preds, torch.as_tensor(target, device=preds.device))
 
 
 __all__ = [
+    "_check_broadcastable",
     "_check_classification_inputs",
+    "_check_retrieval_inputs",
+    "_check_retrieval_metadata",
     "_check_same_shape",
     "_classification_case",
     "_input_format_classification",

@@ -41,6 +41,33 @@ def high_precision(fn: Callable) -> Callable:
     return wrapper
 
 
+def _safe_xlogy(x: Tensor, y: Tensor) -> Tensor:
+    """``x * log(y)``, 0 where ``x == 0`` whatever ``y`` holds (JAX counterpart `metrics_tpu/utils/compute.py:38`).
+
+    Written as two ``where``s, not ``torch.xlogy``: that returns NaN for
+    ``x == 0, y == NaN``, where the JAX form returns 0.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch.utils.compute import _safe_xlogy
+        >>> _safe_xlogy(torch.tensor([0.0, 0.0, 2.0]), torch.tensor([float("nan"), 0.0, 1.0]))
+        tensor([0., 0., 0.])
+    """
+    zero = x == 0
+    safe_y = torch.where(zero, torch.ones_like(y), y)
+    return torch.where(zero, torch.zeros_like(x), x * torch.log(safe_y))
+
+
+def _l2_norm(x: Tensor, dim: int, keepdim: bool = False) -> Tensor:
+    """``sqrt(sum(x * x))`` along ``dim``, as ``jnp.linalg.norm`` computes it.
+
+    Not ``torch.linalg.vector_norm``: on the CPU it sums float32 squares in a
+    few running accumulators, and over a 2**24-row stream its norm is off by
+    1e-3 relative, where ``torch.sum`` (and JAX) stay near 1e-7.
+    """
+    return torch.sqrt((x * x).sum(dim=dim, keepdim=keepdim))
+
+
 def _safe_divide(num: Tensor, denom: Tensor) -> Tensor:
     """``num / denom`` with 0 where ``denom == 0`` (the reference's ``_safe_divide``).
 
@@ -73,4 +100,4 @@ def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
     return direction * torch.trapezoid(y, x)
 
 
-__all__ = ["high_precision", "_safe_divide", "_auc_compute"]
+__all__ = ["high_precision", "_l2_norm", "_safe_divide", "_safe_xlogy", "_auc_compute"]

@@ -29,6 +29,29 @@ def dim_zero_cat(x: TensorOrList) -> Tensor:
     return torch.cat(x, dim=0)
 
 
+def dim_zero_cat_ravel(x: TensorOrList) -> Tensor:
+    """Flatten each buffered row, then concatenate (JAX counterpart `metrics_tpu/utils/data.py:41`).
+
+    Buffered raw rows may have any rank; a state that a sync already
+    reduced to one tensor is flattened and returned.
+    """
+    if isinstance(x, Tensor):
+        return x.reshape(-1)
+    if not x:
+        raise ValueError("No samples to concatenate")
+    return torch.cat([v.reshape(-1) for v in x])
+
+
+def _keep_if_same(row: Tensor, canonical: Tensor) -> Tensor:
+    """``row`` itself when ``canonical`` has its shape and dtype, else ``canonical``.
+
+    A buffered row already in canonical form stays the same tensor (a
+    reshape or a cast to its own dtype makes another), so that snapshots of a
+    list state taken around a sync keep comparing equal.
+    """
+    return row if canonical.shape == row.shape and canonical.dtype == row.dtype else canonical
+
+
 def dim_zero_sum(x: Tensor) -> Tensor:
     """Sum along dim 0, keeping the dtype as ``jnp.sum`` does: int32 and int64
     stay as they are (``torch.sum`` would widen int32 to int64), bool and the
@@ -137,6 +160,7 @@ def allclose(x: Tensor, y: Tensor, rtol: float = 1e-5, atol: float = 1e-8) -> bo
 
 __all__ = [
     "dim_zero_cat",
+    "dim_zero_cat_ravel",
     "dim_zero_sum",
     "dim_zero_mean",
     "dim_zero_max",

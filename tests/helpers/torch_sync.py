@@ -230,9 +230,62 @@ def curve_suite(pkg: Any, **kwargs: Any):
     )
 
 
+def regression_rows(seed: int, rank: int):
+    """Positive targets with exact zeros and positive preds, 1-D: rank r gets 2 rows of 40 + 9r values."""
+    rng = np.random.RandomState(3000 + seed + rank)
+    rows = []
+    for _ in range(2):
+        n = 40 + 9 * rank
+        target = np.where(rng.rand(n) < 0.3, 0.0, rng.rand(n) * 4).astype(np.float32)
+        rows.append(((target + rng.rand(n) + 0.05).astype(np.float32), target))
+    return rows
+
+
+def regression_suite(pkg: Any, **kwargs: Any):
+    """Pearson's stacked moments (``None``), Spearman's ``cat`` rows, and summed states."""
+    dev = {"device": "cpu"} if pkg is tmt else {}
+    return pkg.MetricCollection(
+        {
+            "mse": pkg.MeanSquaredError(**dev),
+            "pearson": pkg.PearsonCorrCoef(**dev),
+            "spearman": pkg.SpearmanCorrCoef(**dev),
+            "r2": pkg.R2Score(**dev),
+            "tweedie": pkg.TweedieDevianceScore(power=1.5, **dev),
+        },
+        **kwargs,
+    )
+
+
+def retrieval_rows(seed: int, rank: int):
+    """Two batches of (preds, target, int64 indexes) a rank; the ranks share some query ids."""
+    rng = np.random.RandomState(4000 + seed + rank)
+    rows = []
+    for _ in range(2):
+        sizes = rng.randint(1, 12, 5)
+        indexes = np.repeat(rng.choice(12, 5, replace=False) + 10**10, sizes).astype(np.int64)
+        preds = np.round(rng.rand(indexes.size), 1).astype(np.float32)
+        rows.append((preds, (rng.rand(indexes.size) < 0.3).astype(np.int64), indexes))
+    return rows
+
+
+def retrieval_suite(pkg: Any, **kwargs: Any):
+    """Retrieval metrics of the same buffered rows (``None`` list states): one compute group."""
+    dev = {"device": "cpu"} if pkg is tmt else {}
+    return pkg.MetricCollection(
+        {
+            "map": pkg.RetrievalMAP(**dev),
+            "mrr": pkg.RetrievalMRR(**dev),
+            "ndcg": pkg.RetrievalNormalizedDCG(k=5, **dev),
+            "recall": pkg.RetrievalRecall(k=3, **dev),
+        },
+        **kwargs,
+    )
+
+
 def gloo_world_worker(rank: int, world: int, seed: int) -> dict:
-    """One rank of the real-process test: the headline suite, a ``CatMetric``
-    and the curve suite (binary rows of two ranks) fed this rank's batches,
+    """One rank of the real-process test: the headline suite, a ``CatMetric``,
+    the curve suite (binary rows of two ranks), the regression suite and the
+    retrieval suite fed this rank's batches,
     ``compute()`` (which syncs), the collective
     counts of two explicit suite syncs, ``gather_all_tensors`` on uneven
     shapes and ``sync_pytree`` with every spec."""
@@ -258,12 +311,25 @@ def gloo_world_worker(rank: int, world: int, seed: int) -> dict:
     for preds, target in curve_rows(seed, rank):
         curves.update(torch.from_numpy(preds), torch.from_numpy(target))
     curve_values = curves.compute()
+    regression = regression_suite(tmt)
+    for preds, target in regression_rows(seed, rank):
+        regression.update(torch.from_numpy(preds), torch.from_numpy(target))
+    retrieval = retrieval_suite(tmt)
+    for preds, target, indexes in retrieval_rows(seed, rank):
+        retrieval.update(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(indexes))
+    reset_collective_stats()
+    regression_values = regression.compute()
+    retrieval_values = retrieval.compute()
+    new_suite_stats = collective_stats()
     x = torch.tensor([1.0, 2.0, 3.0]) * (rank + 1)
     specs = {"s": "sum", "m": "mean", "mx": "max", "mn": "min", "c": "cat", "n": None, "f": lambda t: t.sum(0) * 10}
     return {
         "values": values,
         "cat": cat_value,
         "curves": curve_values,
+        "regression": regression_values,
+        "retrieval": retrieval_values,
+        "new_suite_stats": new_suite_stats,
         "compute_stats": compute_stats,
         "sync_counts": counts,
         "local_tp": suite["acc"].tp.clone(),
@@ -278,4 +344,15 @@ def gloo_world_worker(rank: int, world: int, seed: int) -> dict:
     }
 
 
-__all__ = ["TorchFakeGather", "curve_rows", "curve_suite", "install_world", "run_world", "tree_of"]
+__all__ = [
+    "TorchFakeGather",
+    "curve_rows",
+    "curve_suite",
+    "install_world",
+    "regression_rows",
+    "regression_suite",
+    "retrieval_rows",
+    "retrieval_suite",
+    "run_world",
+    "tree_of",
+]

@@ -6,7 +6,10 @@ Precision, Recall, F1Score, FBetaScore, ConfusionMatrix) run on binary,
 multi-class probability, multi-class label, multi-label and multi-dim
 multi-class inputs, made with numpy from a seed. Integer results must be
 exact and int32; float results agree within atol=1e-6. Where the JAX package
-refuses a configuration, the port must raise the same exception type.
+refuses a configuration or an input (a 0-row batch, integer-label preds to
+calibration_error, multilabel=True on other inputs, an empty curve, a binned
+metric with num_classes=1 on (N, C) preds), the port must raise the same
+exception type.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -191,13 +194,69 @@ def test_functional_ignore_index(name, jax_fn, torch_fn, average, ignore_index):
         (np.array([-1, 1, 0]), np.array([0, 1, 1]), {}),  # negative int preds
         (np.random.RandomState(0).rand(4, 3).astype(np.float32), np.array([0, 1, 5, 2]), {}),  # target >= C
         (np.array([0.3, 0.7]), np.array([0, 1]), {"average": "macro", "num_classes": 3}),  # binary with C > 2
+        # a case below names its function and the exception type JAX raises
+        (np.zeros(0, np.float32), np.zeros(0, np.int64), {"fn": "stat_scores", "reduce": "samples"}),  # 0 rows
+        (np.zeros(0, np.int64), np.zeros(0, np.int64), {"fn": "accuracy"}),  # 0 integer rows
+        (np.zeros((0, 3), np.int64), np.zeros((0, 3), np.int64), {"fn": "hamming_distance"}),
+        (np.array([0, 2, 1, 1]), np.array([0, 1, 1, 2]), {"fn": "calibration_error"}),  # integer-label preds
+        (np.random.RandomState(1).rand(6, 3, 4).astype(np.float32), np.random.RandomState(2).randint(0, 2, (6, 3, 4)),
+         {"fn": "confusion_matrix", "num_classes": 3, "multilabel": True}),  # multidim
+        (np.random.RandomState(3).rand(6, 3).astype(np.float32), np.array([0, 1, 2, 0, 1, 2]),
+         {"fn": "confusion_matrix", "num_classes": 3, "multilabel": True, "exc": TypeError}),  # 2-D multi-class
+        (np.array([0, 1, 2, 0, 1, 2]), np.array([0, 1, 2, 2, 1, 0]),
+         {"fn": "confusion_matrix", "num_classes": 3, "multilabel": True, "exc": TypeError}),  # 1-D labels
+        (np.zeros(0, np.float32), np.zeros(0, np.int64), {"fn": "roc", "pos_label": 1, "exc": TypeError}),  # no rows
+        (np.zeros(0, np.float32), np.zeros(0, np.int64), {"fn": "auroc", "pos_label": 1, "exc": TypeError}),
     ],
 )
 def test_functional_misuse_raises_like_jax(preds, target, kwargs):
-    with pytest.raises(ValueError):
-        jF.accuracy(jnp.asarray(preds), jnp.asarray(target), **kwargs)
-    with pytest.raises(ValueError):
-        tF.accuracy(torch.from_numpy(preds), torch.from_numpy(target), **kwargs)
+    kwargs = dict(kwargs)
+    name, exc = kwargs.pop("fn", "accuracy"), kwargs.pop("exc", ValueError)
+    with pytest.raises(exc):
+        getattr(jF, name)(jnp.asarray(preds), jnp.asarray(target), **kwargs)
+    with pytest.raises(exc):
+        getattr(tF, name)(torch.from_numpy(preds), torch.from_numpy(target), **kwargs)
+
+
+_RNG = np.random.RandomState(4)
+MODULE_MISUSE = [
+    # (metric, its arguments, preds, target, the exception type JAX raises); every raise comes at
+    # update or compute, the same call in both packages
+    ("Accuracy", {}, np.zeros(0, np.float32), np.zeros(0, np.int64), ValueError),
+    ("Accuracy", {"num_classes": 3, "average": "macro"}, np.zeros((0, 3, 2), np.int64), np.zeros((0, 3, 2), np.int64),
+     ValueError),
+    ("StatScores", {"reduce": "samples"}, np.zeros(0, np.float32), np.zeros(0, np.int64), ValueError),
+    ("StatScores", {"reduce": "samples"}, np.zeros((0, 3), np.int64), np.zeros((0, 3), np.int64), ValueError),
+    ("HammingDistance", {}, np.zeros(0, np.int64), np.zeros(0, np.int64), ValueError),
+    ("CalibrationError", {}, np.array([0, 2, 1, 1]), np.array([0, 1, 1, 2]), ValueError),
+    ("ConfusionMatrix", {"num_classes": 3, "multilabel": True}, _RNG.rand(6, 3, 4).astype(np.float32),
+     _RNG.randint(0, 2, (6, 3, 4)), ValueError),
+    ("ConfusionMatrix", {"num_classes": 3, "multilabel": True}, _RNG.rand(6, 3).astype(np.float32),
+     np.array([0, 1, 2, 0, 1, 2]), TypeError),
+    ("AUROC", {"pos_label": 1}, np.zeros(0, np.float32), np.zeros(0, np.int64), TypeError),
+    ("AveragePrecision", {"pos_label": 1}, np.zeros(0, np.float32), np.zeros(0, np.int64), TypeError),
+    ("ROC", {"pos_label": 1}, np.zeros(0, np.float32), np.zeros(0, np.int64), TypeError),
+    ("PrecisionRecallCurve", {"pos_label": 1}, np.zeros(0, np.float32), np.zeros(0, np.int64), TypeError),
+    ("BinnedPrecisionRecallCurve", {"num_classes": 1, "thresholds": 5}, _RNG.rand(6, 3).astype(np.float32),
+     _RNG.randint(0, 2, (6, 3)), TypeError),
+    ("BinnedAveragePrecision", {"num_classes": 1, "thresholds": 5}, _RNG.rand(6, 3).astype(np.float32),
+     _RNG.randint(0, 2, (6, 3)), TypeError),
+    ("BinnedRecallAtFixedPrecision", {"num_classes": 1, "thresholds": 5, "min_precision": 0.5},
+     _RNG.rand(6, 3).astype(np.float32), _RNG.randint(0, 2, (6, 3)), TypeError),
+]
+
+
+@pytest.mark.parametrize("cls_name,kwargs,preds,target,exc", MODULE_MISUSE,
+                         ids=[f"{m[0]}-{i}" for i, m in enumerate(MODULE_MISUSE)])
+def test_module_misuse_raises_like_jax(cls_name, kwargs, preds, target, exc):
+    def update_and_compute(metric, convert):
+        metric.update(convert(preds), convert(target))
+        metric.compute()
+
+    with pytest.raises(exc):
+        update_and_compute(getattr(jmt, cls_name)(**kwargs), jnp.asarray)
+    with pytest.raises(exc):
+        update_and_compute(getattr(tmt, cls_name)(device="cpu", **kwargs), torch.from_numpy)
 
 
 MODULES = [

@@ -303,3 +303,46 @@ def test_live_world_checks_a_static_layout_once(monkeypatch):
     with pytest.raises(SyncConfigFault):
         suites[0].sync(distributed_available=DIST_ON)
     assert not any(m._is_synced for m in suites[0].values(copy_state=False))
+
+
+def test_regression_suite_packs_pearson_moments_and_spearman_rows(monkeypatch):
+    """Pearson's six moments (spec None) ride the packed lane and come back stacked, one row a process;
+    Spearman's ``cat`` rows add the one metadata collective."""
+    from tests.helpers.torch_sync import regression_rows, regression_suite
+
+    ranks = [regression_suite(tmt) for _ in range(3)]
+    for r, suite in enumerate(ranks):
+        for preds, target in regression_rows(5, r):
+            suite.update(torch.from_numpy(preds), torch.from_numpy(target))
+    local = {name: getattr(ranks[0]["pearson"], name) for name in ("mean_x", "var_x", "n_total")}
+    install_world(monkeypatch, ranks[1:])
+    reset_collective_stats()
+    ranks[0].sync(distributed_available=DIST_ON)
+    stats = collective_stats()
+    assert (stats["sync_shape_collectives"], stats["sync_payload_collectives"]) == (1, 1)
+    pearson = ranks[0]["pearson"]
+    for name, value in local.items():
+        synced = getattr(pearson, name)
+        assert synced.shape == (3,) and torch.equal(synced[0], value)
+        assert all(torch.equal(synced[r], getattr(ranks[r]["pearson"], name)) for r in (1, 2))
+    assert ranks[0]["spearman"].preds.shape == (sum(2 * (40 + 9 * r) for r in range(3)),)
+    ranks[0].unsync()
+    assert torch.equal(ranks[0]["pearson"].var_x, local["var_x"])
+
+
+def test_retrieval_rows_decline_the_packed_lane():
+    """List states of spec None are gathered row by row (as the JAX coalescer declines them too)."""
+    from tests.helpers.torch_sync import retrieval_rows
+
+    metric = tmt.RetrievalMAP(device="cpu")
+    for preds, target, indexes in retrieval_rows(6, 0):
+        metric.update(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(indexes))
+    assert not bucketing.coalescible(bucketing.tree_nodes(metric))
+    reset_collective_stats()
+    before = metric.compute()
+    metric._computed = None
+    metric.sync(distributed_available=DIST_ON)
+    stats = collective_stats()
+    assert stats["sync_coalesced_payloads"] == 0
+    assert stats["sync_payload_collectives"] == stats["sync_shape_collectives"] == 3 * 2  # 3 states, 2 rows
+    assert torch.equal(metric.compute(), before)

@@ -10,7 +10,12 @@ CalibrationError, the binned family) on the card against the CPU, the
 sort-based areas against the eager curves, CalibrationError's one bincount
 launch an update, and the binned counts exact under TF32 settings; and state
 sync through NCCL in a world of one process: the headline suite
-bit-exact in one payload collective, and the packed layout's alignment.
+bit-exact in one payload collective, and the packed layout's alignment;
+the partial AUROC of a batch with no negative sample (NaN); the segment
+reductions against the CPU, deterministic, their counts one bincount
+launch on both kernel paths; the retrieval grouping and a retrieval suite
+against the CPU, the suite's second ``compute()`` the same bits; the
+ranking metrics on tied scores; and regression and pairwise functions.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -443,3 +448,127 @@ def test_nccl_world_of_one_keeps_every_dtype_aligned(nccl_world, dev):
     assert torch.equal(m.rows, rows)
     m.unsync()
     assert all(getattr(m, name) is value for name, value in local.items())
+
+
+# ------------------------------------------------------------------ slice 6
+def test_partial_auroc_without_negatives_is_nan_on_the_card(dev):
+    import warnings
+
+    for label in (1, 0):
+        preds = torch.rand(50, device=dev)
+        target = torch.full((50,), label, device=dev)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            value = mt.functional.auroc(preds, target, pos_label=label, max_fpr=0.5)
+            metric = mt.AUROC(pos_label=label, max_fpr=0.5, device=dev)
+            batch = metric(preds, target)
+            metric.update(preds[:7], target[:7])
+            total = metric.compute()
+        assert any("No negative samples" in str(w.message) for w in caught)
+        assert all(bool(torch.isnan(v)) for v in (value, batch, total))
+
+
+def test_segments_on_the_card_equal_the_cpu(dev):
+    from metrics_tpu_torch.ops import segments
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    for groups in (1000, histogram.SHARED_MAX_BINS + 7):  # the kernel's shared path, then its global path
+        ids = torch.sort(torch.randint(0, groups, (200_000,), generator=g, device=dev)).values
+        hits = (torch.rand(ids.shape[0], generator=g, device=dev) < 0.1).to(torch.float32)
+        data = torch.randn(ids.shape[0], generator=g, device=dev)
+        before = histogram.KERNEL_LAUNCHES
+        counts = segments.segment_count(ids, groups)
+        assert histogram.KERNEL_LAUNCHES - before == 1
+        assert torch.equal(counts.cpu(), segments.segment_count(ids.cpu(), groups))
+        assert torch.equal(segments.segment_starts(ids, groups, counts).cpu(), segments.segment_starts(ids.cpu(), groups))
+        assert torch.equal(segments.segment_ranks(ids, groups).cpu(), segments.segment_ranks(ids.cpu(), groups))
+        cum = segments.segment_cumsum(hits, ids, groups)
+        assert torch.equal(cum.cpu(), segments.segment_cumsum(hits.cpu(), ids.cpu(), groups))
+        sums = segments.segment_sum(data, ids, groups, counts)
+        # deterministic: the same bits again, with no float atomics
+        assert torch.equal(sums, segments.segment_sum(data, ids, groups, counts))
+        assert torch.equal(segments.segment_cumsum(data, ids, groups), segments.segment_cumsum(data, ids, groups))
+        torch.testing.assert_close(sums.cpu(), segments.segment_sum(data.cpu(), ids.cpu(), groups), atol=1e-4, rtol=1e-5)
+        assert torch.equal(segments.segment_max(data, ids, groups, counts).cpu(),
+                           segments.segment_max(data.cpu(), ids.cpu(), groups))
+
+
+def _retrieval_rows_on(dev, queries=300, per_query=50, seed=22):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n = queries * per_query
+    indexes = torch.randint(0, queries, (n,), generator=g, device=dev) * 7919 + 2**40
+    preds = torch.floor(torch.rand(n, generator=g, device=dev) * 64) / 64  # ties
+    preds[::13] = 0.0
+    preds[5::13] = -0.0
+    preds[7::97] = float("nan")
+    target = (torch.rand(n, generator=g, device=dev) < 0.1).to(torch.int64)
+    return preds, target, indexes
+
+
+def test_retrieval_grouping_on_the_card_equals_the_cpu(dev):
+    from metrics_tpu_torch.retrieval.base import group_rows
+
+    preds, target, indexes = _retrieval_rows_on(dev)
+    before = histogram.KERNEL_LAUNCHES
+    gpu = group_rows(indexes, preds, target)
+    assert histogram.KERNEL_LAUNCHES - before == 1  # segment_count
+    cpu = group_rows(indexes.cpu(), preds.cpu(), target.cpu())
+    for field in ("seg", "preds", "rel", "ranks", "cumrel", "counts", "starts", "n_pos"):
+        got, want = getattr(gpu, field).cpu(), getattr(cpu, field)
+        assert got.dtype == want.dtype and torch.equal(got.nan_to_num(-7.0), want.nan_to_num(-7.0)), field
+
+
+def test_retrieval_suite_on_the_card_equals_the_cpu_and_repeats_its_bits(dev):
+    def suite(device):
+        return mt.MetricCollection({
+            "map": mt.RetrievalMAP(device=device), "mrr": mt.RetrievalMRR(device=device),
+            "ndcg": mt.RetrievalNormalizedDCG(k=10, device=device), "p": mt.RetrievalPrecision(k=10, device=device),
+            "fo": mt.RetrievalFallOut(k=10, device=device), "rprec": mt.RetrievalRPrecision(device=device),
+            "curve": mt.RetrievalPrecisionRecallCurve(max_k=20, device=device),
+        })
+
+    gpu, cpu = suite(dev), suite("cpu")
+    for seed in range(3):
+        preds, target, indexes = _retrieval_rows_on(dev, queries=100, seed=30 + seed)
+        gpu.update(preds, target, indexes)
+        cpu.update(preds.cpu(), target.cpu(), indexes.cpu())
+    first = gpu.compute()
+    for _, m in gpu.items(keep_base=True, copy_state=False):
+        m._computed = None
+    again = gpu.compute()
+    want = cpu.compute()
+    def parts(v):
+        return v if isinstance(v, tuple) else (v,)
+
+    for key, value in want.items():
+        for a, b, w in zip(parts(first[key]), parts(again[key]), parts(value)):
+            assert torch.equal(a, b), key  # the same bits twice on the card
+            torch.testing.assert_close(a.cpu(), w, atol=1e-6, rtol=0)
+
+
+def test_ranking_metrics_with_ties_on_the_card_equal_the_cpu(dev):
+    g = torch.Generator(device=dev).manual_seed(23)
+    preds = torch.floor(torch.rand(300, 64, generator=g, device=dev) * 8) / 8  # long tie runs
+    target = (torch.rand(300, 64, generator=g, device=dev) < 0.05).to(torch.int64)
+    target[0] = 1
+    weight = torch.rand(300, generator=g, device=dev)
+    for name in ("coverage_error", "label_ranking_average_precision", "label_ranking_loss"):
+        fn = getattr(mt.functional, name)
+        torch.testing.assert_close(fn(preds, target, weight).cpu(), fn(preds.cpu(), target.cpu(), weight.cpu()),
+                                   atol=1e-6, rtol=1e-6)
+    # the ranking loss's double sort is stable on the card: its inverse permutation equals the CPU's
+    inverse = torch.argsort(torch.argsort(preds, dim=1, stable=True), dim=1, stable=True)
+    assert torch.equal(inverse.cpu(), torch.argsort(torch.argsort(preds.cpu(), dim=1, stable=True), dim=1, stable=True))
+
+
+def test_regression_and_pairwise_on_the_card_equal_the_cpu(dev):
+    g = torch.Generator(device=dev).manual_seed(24)
+    target = torch.floor(torch.rand(100_000, generator=g, device=dev) * 100) / 10
+    preds = target + torch.rand(100_000, generator=g, device=dev)
+    for name in ("spearman_corrcoef", "pearson_corrcoef", "r2_score", "explained_variance"):
+        fn = getattr(mt.functional, name)
+        torch.testing.assert_close(fn(preds, target).cpu(), fn(preds.cpu(), target.cpu()), atol=1e-5, rtol=1e-5)
+    x, y = torch.randn(300, 64, generator=g, device=dev), torch.randn(500, 64, generator=g, device=dev)
+    for name in ("pairwise_manhattan_distance", "pairwise_linear_similarity", "pairwise_cosine_similarity"):
+        fn = getattr(mt.functional, name)
+        torch.testing.assert_close(fn(x, y).cpu(), fn(x.cpu(), y.cpu()), atol=1e-4, rtol=1e-5)

@@ -6,7 +6,8 @@ with numpy from a seed (N <= 4096, C <= 10): with ties, signed zeros and NaN
 scores, sample weights, ``max_fpr``, unobserved classes and single-class
 targets. Curves and counts must equal the JAX package's bit for bit; areas
 agree within atol 1e-6 (binary) and 1e-5 (multi-class and multi-label), the
-tolerances of the JAX package's own tests. Warnings must be the same. Also:
+tolerances of the JAX package's own tests. Warnings must be the same, also
+for the partial AUROC of a batch with no negative sample (NaN). Also:
 the raw-row buffering (raw appends, the checks that still raise at
 ``update``, canonical rows in ``state_dict`` and pickles, mixed ``(N,)`` and
 ``(M, 1)`` binary rows), and list states carried across from the JAX
@@ -207,6 +208,37 @@ def test_binary_auroc_signed_zeros_and_nans():
 def test_partial_auroc(max_fpr):
     run_both(jF.auroc, tF.auroc, make_inputs("binary", seed=15, decimals=2), atol=ATOL_BINARY, pos_label=1,
              max_fpr=max_fpr)
+
+
+def _one_label_inputs(n, label, seed=17):
+    """``n`` scores whose targets are all ``label``: with ``pos_label=label`` no negative sample."""
+    rng = np.random.RandomState(seed + n)
+    return np.round(rng.rand(n), 2).astype(np.float32), np.full(n, label, dtype=np.int64)
+
+
+@pytest.mark.parametrize("max_fpr", [0.25, 0.75])
+@pytest.mark.parametrize("label", [1, 0], ids=["all-positive", "all-zero-pos-label-0"])
+@pytest.mark.parametrize("n", [1, 2, 5, 17, 50])
+def test_partial_auroc_without_negatives_is_nan_with_the_warning(n, label, max_fpr):
+    got = run_both(jF.auroc, tF.auroc, _one_label_inputs(n, label), atol=ATOL_BINARY, pos_label=label, max_fpr=max_fpr)
+    assert torch.isnan(got)
+
+
+@pytest.mark.parametrize("label", [1, 0], ids=["all-positive", "all-zero-pos-label-0"])
+@pytest.mark.parametrize("n", [1, 50])
+def test_partial_auroc_module_without_negatives_is_nan(n, label):
+    jm, tm = _module_pair("AUROC", {"pos_label": label, "max_fpr": 0.3})
+    for step in range(2):
+        preds, target = _one_label_inputs(n, label, seed=17 + step)
+        expected, jax_warnings = _call(jm, (preds, target), {}, jnp.asarray)
+        got, torch_warnings = _call(tm, (preds, target), {}, torch.from_numpy)
+        assert torch_warnings == jax_warnings and any("No negative samples" in w for w in torch_warnings)
+        assert_curve(expected, got, ATOL_BINARY)
+    expected, jax_warnings = _call(jm.compute, (), {}, jnp.asarray)
+    got, torch_warnings = _call(tm.compute, (), {}, torch.from_numpy)
+    assert torch_warnings == jax_warnings
+    assert_curve(expected, got, ATOL_BINARY)
+    assert torch.isnan(got)
 
 
 @pytest.mark.parametrize("max_fpr", [0.0, 1.5, 1])

@@ -29,6 +29,10 @@ def _forbidden(module):
 def test_port_files_exist():
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(PORT_FILES) > 20
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    for module in ("ops/segments.py", "regression/advanced.py", "retrieval/base.py", "functional/pairwise/distances.py",
+                   "functional/classification/ranking.py", "functional/retrieval/kernels.py"):
+        assert f"metrics_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
@@ -39,7 +43,9 @@ def test_no_jax_import(path):
 
 def test_importing_the_port_loads_no_jax():
     code = (
-        "import sys, metrics_tpu_torch, metrics_tpu_torch.interop, metrics_tpu_torch.ops.histogram; "
+        "import sys, metrics_tpu_torch, metrics_tpu_torch.interop, metrics_tpu_torch.ops.histogram, "
+        "metrics_tpu_torch.ops.segments, metrics_tpu_torch.regression, metrics_tpu_torch.retrieval, "
+        "metrics_tpu_torch.functional.pairwise, metrics_tpu_torch.classification.ranking; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu')); "
         "assert not bad, bad"
     )

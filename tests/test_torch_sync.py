@@ -7,8 +7,12 @@ sync through its coalesced protocol (the N-rank world stood in for its two
 collectives, ``tests/helpers/torch_sync.install_world``) and through its
 per-state protocol (``TorchFakeGather``). Integers must agree exactly and
 floats within atol 1e-6 and rtol 1e-5, as the JAX package's tests hold them.
-One real world of two processes (Gloo, on the CPU) syncs the headline suite
-and a ``CatMetric`` and must equal the in-process results.
+One real world of two processes (Gloo, on the CPU) syncs the headline suite,
+a ``CatMetric``, the curve suite, and the regression and retrieval suites,
+and must equal the in-process results. The regression suite (Pearson's
+stacked moments, Spearman's ``cat`` rows) and the retrieval suite (``None``
+list states of int64 ids) must also equal one instance fed every rank's
+batches.
 """
 import jax
 import jax.numpy as jnp
@@ -30,6 +34,10 @@ from tests.helpers.torch_sync import (
     gloo_world_worker,
     headline_suite,
     install_world,
+    regression_rows,
+    regression_suite,
+    retrieval_rows,
+    retrieval_suite,
     run_world,
     suite_batches,
 )
@@ -250,11 +258,21 @@ SUITES = {
     "headline": (headline_suite, [["acc"], ["confmat"], ["f1", "precision"]]),
     "agreement": (_agreement_suite, [["hamming"], ["jaccard", "kappa", "mcc"], ["specificity"]]),
     "aggregators": (_aggregator_suite, None),
+    "regression": (regression_suite, [["mse"], ["pearson"], ["r2"], ["spearman"], ["tweedie"]]),
 }
+WITH_LIST_STATES = ("aggregators", "regression")
 
 
 def _feed(suite, pkg, rank, seed, kind):
     arr = jnp.asarray if pkg is jmt else torch.from_numpy
+    if kind == "regression":
+        for preds, target in regression_rows(seed, rank):
+            suite.update(arr(preds), arr(target))
+        return
+    if kind == "retrieval":
+        for preds, target, indexes in retrieval_rows(seed, rank):
+            suite.update(arr(preds), arr(target), arr(indexes))
+        return
     if kind == "aggregators":
         rng = np.random.RandomState(seed + rank)
         for row in cat_rows(seed, rank):
@@ -293,9 +311,9 @@ def test_suite_sync_matches_jax(kind, world, monkeypatch):
     with suite.sync_context(distributed_available=DIST_ON):
         got = suite.compute()
     stats = collective_stats()
-    # one payload collective for the whole suite; the `cat` state adds one metadata collective
+    # one payload collective for the whole suite; `cat` states add one metadata collective
     assert stats["sync_payload_collectives"] == 1
-    assert stats["sync_shape_collectives"] == (1 if kind == "aggregators" else 0)
+    assert stats["sync_shape_collectives"] == (1 if kind in WITH_LIST_STATES else 0)
     assert stats["sync_coalesced_payloads"] == 1
     for name, value in want.items():
         _assert_value(got[name], value, f"{kind} suite, {name}, world {world}")
@@ -309,6 +327,52 @@ def test_suite_sync_matches_jax(kind, world, monkeypatch):
     for group in suite.compute_groups.values():
         for state in members[group[0]]._defaults:
             assert all(getattr(members[n], state) is getattr(members[group[0]], state) for n in group[1:])
+
+
+def test_synced_regression_suite_equals_one_instance_fed_every_batch(monkeypatch):
+    """Two ranks synced in the coalesced protocol compute what one process fed both ranks' batches does,
+    Pearson's merge of the stacked moments within atol 1e-6 and rtol 1e-5."""
+    ranks, every = [regression_suite(tmt) for _ in range(2)], regression_suite(tmt)
+    for r in range(2):
+        _feed(ranks[r], tmt, r, 90, "regression")
+        _feed(every, tmt, r, 90, "regression")
+    want = every.compute()
+    install_world(monkeypatch, ranks[1:])
+    reset_collective_stats()
+    with ranks[0].sync_context(distributed_available=DIST_ON):
+        assert ranks[0]["pearson"].var_x.shape == (2,)  # one row of moments a rank
+        got = ranks[0].compute()
+    assert collective_stats()["sync_payload_collectives"] == 1
+    for name, value in want.items():
+        _assert_value(got[name], value, name)
+
+
+@pytest.mark.parametrize("cls_name", ["RetrievalMAP", "RetrievalMRR", "RetrievalNormalizedDCG", "RetrievalRecall"])
+def test_retrieval_rows_sync_row_by_row_like_jax(cls_name):
+    """List states of spec None take the per-state protocol in both packages (the coalescer declines
+    them): every buffered row is gathered on its own, two collectives a row, and the synced rows come
+    batch by batch, each batch's ranks in turn. The port equals JAX's sync, and bit for bit one process
+    fed the rows in that order."""
+    kwargs = {"k": 3} if cls_name in ("RetrievalNormalizedDCG", "RetrievalRecall") else {}
+    jax_ranks = [getattr(jmt, cls_name)(**kwargs) for _ in range(2)]
+    port_ranks = [getattr(tmt, cls_name)(device="cpu", **kwargs) for _ in range(2)]
+    for r in range(2):
+        for preds, target, indexes in retrieval_rows(90, r):
+            jax_ranks[r].update(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(indexes))
+            port_ranks[r].update(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(indexes))
+    every = getattr(tmt, cls_name)(device="cpu", **kwargs)
+    for step in range(2):
+        for r in range(2):
+            every.update(*[torch.from_numpy(a) for a in retrieval_rows(90, r)[step]])
+    jax_ranks[0].sync(dist_sync_fn=_FakeGather(jax_ranks), distributed_available=DIST_ON)
+    reset_collective_stats()
+    port_ranks[0].sync(dist_sync_fn=TorchFakeGather(port_ranks), distributed_available=DIST_ON)
+    assert [tuple(t.shape) for t in port_ranks[0].indexes] == [tuple(np.asarray(t).shape) for t in jax_ranks[0].indexes]
+    assert all(t.dtype == torch.int64 for t in port_ranks[0].indexes)
+    got = port_ranks[0].compute()
+    _assert_value(got, jax_ranks[0].compute(), cls_name)
+    want = every.compute()
+    assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 def test_synced_compute_then_update_and_compute_again(monkeypatch):
@@ -553,6 +617,30 @@ def test_two_gloo_processes_sync_mixed_rank_curve_rows(gloo_world):
         for key, value in want.items():
             np.testing.assert_allclose(result["curves"][key].numpy(), value.numpy(), atol=1e-6, rtol=0,
                                        err_msg=f"rank {rank}, {key}")
+
+
+def test_two_gloo_processes_sync_regression_and_retrieval(gloo_world):
+    """Each rank's compute() equals one instance fed both ranks' batches; retrieval members sync one by one."""
+    for kind, make, rows in (("regression", regression_suite, regression_rows), ("retrieval", retrieval_suite, retrieval_rows)):
+        every = make(tmt)
+        # in the order the sync leaves the rows: retrieval's batch by batch, regression's rank by rank
+        order = [(r, b) for b in range(2) for r in range(2)] if kind == "retrieval" else [(r, b) for r in range(2) for b in range(2)]
+        for rank, batch in order:
+            every.update(*[torch.from_numpy(a) for a in rows(70, rank)[batch]])
+        want = every.compute()
+        for rank, result in enumerate(gloo_world):
+            for key, value in want.items():
+                got = result[kind][key]
+                if kind == "retrieval":
+                    assert torch.equal(got, value), (rank, key)
+                else:
+                    np.testing.assert_allclose(got.numpy(), value.numpy(), atol=1e-6, rtol=1e-5, err_msg=f"{rank} {key}")
+    for result in gloo_world:
+        # the regression suite: one metadata and one payload collective. The four retrieval members
+        # leave compute() synced (as in JAX), so each syncs alone, and their list states of spec None
+        # take the per-state protocol: a shape and a payload collective a row, 3 states of 2 rows each
+        stats = result["new_suite_stats"]
+        assert (stats["sync_shape_collectives"], stats["sync_payload_collectives"]) == (1 + 4 * 6, 1 + 4 * 6)
 
 
 # ------------------------------------------------------- buffered curve rows
