@@ -69,7 +69,9 @@ Phases, each of which raises on failure (exit code 1):
    buffering rows of shapes (n,) and (n, 1), a regression suite (Pearson's
    moments of spec None, stacked by the sync; Spearman's ``cat`` rows) and a
    retrieval suite (rows of int64 query ids in list states of spec None, which
-   decline the packed lane and sync row by row, as in JAX) synced across
+   decline the packed lane and sync row by row, as in JAX), a BootStrapper of
+   100 Accuracy clones (a wrapper tree: 600 states in one payload) and an SSIM
+   and UQI suite (buffered image rows) synced across
    processes. First through
    NCCL in a process group of one rank, the sync forced: every state after a
    sync equals the state before it bit for bit, ``unsync`` puts the local
@@ -105,6 +107,30 @@ Phases, each of which raises on failure (exit code 1):
    The CPU twin computes all 70 updates only if that takes about
    ``RETRIEVAL_CPU_TWIN_S``, else the first 10 against a card suite fed the
    same 10.
+15. ``wrappers_imagenet`` (after phase 14): over the same 50 x 1000 x 1000
+   ImageNet-1k rows, BootStrapper(Accuracy, macro) with 100 clones under each
+   sampling strategy (quantiles 0.025 and 0.975, raw values), BootStrapper
+   (ConfusionMatrix) with 20 clones (one bincount launch a clone's update),
+   ClasswiseWrapper(Accuracy, per class) with 1000 label names, MinMaxMetric
+   (Accuracy) driven by ``forward``, and 2PR / (P + R) of macro Precision and
+   Recall; a MetricTracker over a collection of such metrics for 5 epochs of
+   10 updates and its ``best_metric(return_step=True)``; then
+   MultioutputWrapper(R2Score) over phase 12's multi-output rows with a NaN in
+   1% of the rows (``remove_nans``). The bootstrap draws come from the card's
+   generator and are recorded and replayed to the CPU twin.
+16. ``image_restoration``: PSNR (range 1, and the observed range), SSIM,
+   MS-SSIM and UQI in one collection over 200 image pairs of 3 x 512 x 512 in
+   20 updates (DIV2K's 100 validation images as two crops each; a noisy
+   target near 30 dB), the three buffering metrics one compute group; SSIM's
+   depthwise convolution at (1000, 3, 522, 522) and MS-SSIM's pyramid beside
+   their bounds; then ERGAS, SAM and D-lambda over 32 four-band 256 x 256
+   pan-sharpening patches. The CPU twin takes every image only if that takes
+   about ``IMAGE_CPU_TWIN_S``, else the first updates that fit.
+
+Phases 15 and 16 report what phases 11 to 14 do, and hold every state and
+value against a CPU twin fed the same batches and the same bootstrap draws:
+counts and buffered rows bit for bit, floats within the tolerances stated
+beside their constants.
 
 Paths 6 and 7 run in validation modes "first" and "full" (3 alternating
 trials each), equal the CPU on the same batches (counts bit-exact, values
@@ -887,6 +913,8 @@ def compute_profile(fn) -> dict:
         "device_ms": sum(device_us(e) for e in device) / 1e3 if device else None,
         "device_ops": sum(e.count for e in device),
         "host_reads": {k: counts.get(k, 0) for k in HOST_READ_OPS},
+        # every copy to the host, ``item`` and ``tolist`` alike, as the device timeline shows it
+        "device_to_host_copies": sum(e.count for e in device if "DtoH" in e.key),
         "top_device_ms": {e.key[:60]: [device_us(e) / 1e3, e.count]
                           for e in sorted(device, key=lambda e: -device_us(e))[:8]},
     }
@@ -983,13 +1011,19 @@ def peak_extra_bytes(fn) -> int:
 
 def op_profile(fn, bytes_moved: int, ops: int) -> dict:
     """Device ms per call of ``fn`` (5 calls after 2 in the warm-up cycle) beside its bound: the
-    larger of its bytes at the memory rate and its operations at the float32 rate."""
-    rows = device_profile([fn] * 7)
-    device_ms = sum(ms for ms, _ in rows.values()) / 5 if rows else None
+    larger of its bytes at the memory rate and its operations at the float32 rate. A session whose
+    device rows the profiler lost is tried again, ``PROFILE_ATTEMPTS`` times in all; then the time
+    comes from CUDA events around 5 calls (``timed_by``)."""
+    for _ in range(PROFILE_ATTEMPTS):
+        rows = device_profile([fn] * 7)
+        if rows:
+            break
+    device_ms = sum(ms for ms, _ in rows.values()) / 5 if rows else cuda_time_ms(fn, iters=5, warmup=2)
     bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
-    return {"device_ms": device_ms, "bytes": bytes_moved, "ops": ops, "bound_ms": bound_ms,
+    return {"device_ms": device_ms, "timed_by": "profiler" if rows else "cuda_events", "bytes": bytes_moved,
+            "ops": ops, "bound_ms": bound_ms,
             "bound_by": "operations" if ops / FP32_OPS_PER_S > bytes_moved / HBM_BYTES_PER_S else "bytes",
-            "share_of_bound": bound_ms / device_ms if device_ms else None,
+            "share_of_bound": bound_ms / device_ms,
             "device_rows": {k[:60]: v for k, v in sorted(rows.items(), key=lambda kv: -kv[1][0])[:6]}}
 
 
@@ -1728,8 +1762,449 @@ def eval_paths(mt, checks, histogram, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phases 15 and 16
+WRAPPERS_SHAPE = CURVES_IMAGENET_SHAPE  # updates, rows an update, classes: the ImageNet-1k validation set
+BOOT_CLONES = 100  # BootStrapper clones over Accuracy
+BOOT_CONFMAT_CLONES = 20  # BootStrapper clones over ConfusionMatrix
+BOOT_QUANTILES = [0.025, 0.975]
+TRACKER_EPOCHS = 5  # MetricTracker: epochs of TRACKER_STEPS updates
+TRACKER_STEPS = 10
+TRACKER_BOOT_CLONES = 10  # clones of the BootStrapper inside the tracked collection
+MULTIOUTPUT_NAN_SHARE = 0.01  # rows of each multi-output update with a NaN in one column
+# the bootstrap statistics (mean, std, linear quantiles of 100 clones' float32 values) reduce in
+# another order on each side; the clones' counts are bit for bit
+WRAPPER_ATOL, WRAPPER_RTOL = 1e-6, 1e-5
+IMAGE_SHAPE = (20, 10, 3, 512, 512)  # updates, images an update, channels, height, width: DIV2K val as 2 crops each
+SPECTRAL_SHAPE = (4, 8, 4, 256, 256)  # updates, patches an update, bands, height, width: 4-band pan-sharpening
+IMAGE_ATOL = 1e-4  # the JAX package's image tests (tests/image/test_image.py:53)
+ERGAS_ATOL = 1e-2  # tests/image/test_image.py:202
+IMAGE_CPU_TWIN_S = 30.0  # the image CPU twin computes every image only if that takes about this long
+
+
+class DrawLog:
+    """BootStrapper's draws on the card, recorded, then replayed to a CPU twin: the two samplers
+    get the same index draws; no two generators are trusted to agree."""
+
+    def __init__(self):
+        from metrics_tpu_torch.wrappers import bootstrapping
+
+        self.module, self.real, self.draws = bootstrapping, bootstrapping._bootstrap_sampler, []
+
+    def record(self):
+        def sampler(*args):
+            out = self.real(*args)
+            self.draws.append([d.cpu() for d in out])
+            return out
+
+        self.module._bootstrap_sampler = sampler
+
+    def replay(self, start: int = 0):
+        queue = iter(list(self.draws[start:]))
+        self.module._bootstrap_sampler = lambda *args: next(queue)
+
+    def restore(self):
+        self.module._bootstrap_sampler = self.real
+
+
+def tree_states(metric) -> dict:
+    """(node, state) -> state of every metric in a tree, a list state concatenated."""
+    out = {}
+    for name, node in suite_nodes({"m": metric}).items():
+        for state, value in node.metric_state.items():
+            out[(name, state)] = torch.cat(value) if isinstance(value, list) and value else value
+    return out
+
+
+def assert_tree_close(got, want, label: str, float_rtol: float = 0.0) -> None:
+    """Every state of a metric tree on the card against its CPU twin's: counts bit for bit, floats
+    within ``float_rtol`` where it is given."""
+    got_states, want_states = tree_states(got), tree_states(want)
+    assert got_states.keys() == want_states.keys(), f"{label}: trees differ"
+    for key, w in want_states.items():
+        if isinstance(w, list):
+            assert got_states[key] == [], f"{label} {key}: rows on one side only"
+            continue
+        assert_state_close(got_states[key], w, f"{label} {key}", rtol=float_rtol if w.is_floating_point() else 0.0,
+                           atol=1e-6 if float_rtol and w.is_floating_point() else 0.0)
+
+
+def assert_values_close(got, want, label: str, atol: float, rtol: float) -> float:
+    """A result (a tensor, or a dict or list of them) on the card against the CPU's."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), f"{label}: keys differ"
+        return max((assert_values_close(got[k], w, f"{label} {k}", atol, rtol) for k, w in want.items()), default=0.0)
+    if isinstance(want, (list, tuple)):
+        return max((assert_values_close(g, w, label, atol, rtol) for g, w in zip(got, want)), default=0.0)
+    exact = not want.is_floating_point()
+    return assert_curve_close(got, want, label, atol=0.0 if exact else atol, rtol=0.0 if exact else rtol)
+
+
+def wrapper_batches(seed: int = 40) -> list:
+    """Softmax rows (B, C) and int64 labels: the row's arg-max 75% of the time, else uniform."""
+    steps, batch, num_classes = WRAPPERS_SHAPE
+    g = torch.Generator(device=EVAL_DEVICE).manual_seed(seed)
+    out = []
+    for _ in range(steps):
+        probs = torch.softmax(torch.randn(batch, num_classes, generator=g, device=EVAL_DEVICE) * 2.0, dim=1)
+        uniform = torch.randint(0, num_classes, (batch,), generator=g, device=EVAL_DEVICE)
+        keep = torch.rand(batch, generator=g, device=EVAL_DEVICE) < 0.75
+        out.append((probs, torch.where(keep, probs.argmax(dim=1), uniform)))
+    return out
+
+
+def f1_of(mt, device, num_classes):
+    """2PR / (P + R) of macro Precision and Recall."""
+    p = mt.Precision(num_classes=num_classes, average="macro", device=device)
+    r = mt.Recall(num_classes=num_classes, average="macro", device=device)
+    return 2 * p * r / (p + r)
+
+
+WRAPPER_MEMBERS = ("boot_poisson", "boot_multinomial", "boot_confmat", "classwise", "minmax", "f1")
+
+
+def wrapper_member(mt, name: str, device):
+    """One of phase 15's wrapped metrics, each fed every batch."""
+    c = WRAPPERS_SHAPE[2]
+    acc = lambda **kw: mt.Accuracy(num_classes=c, device=device, **kw)  # noqa: E731
+    if name.startswith("boot_") and name != "boot_confmat":
+        return mt.BootStrapper(acc(average="macro"), num_bootstraps=BOOT_CLONES, quantile=BOOT_QUANTILES, raw=True,
+                               sampling_strategy=name[len("boot_"):])
+    if name == "boot_confmat":
+        return mt.BootStrapper(mt.ConfusionMatrix(num_classes=c, device=device), num_bootstraps=BOOT_CONFMAT_CLONES)
+    if name == "classwise":
+        return mt.ClasswiseWrapper(acc(average=None), labels=[f"class_{i:04d}" for i in range(c)])
+    if name == "minmax":
+        return mt.MinMaxMetric(acc())
+    return f1_of(mt, device, c)
+
+
+def forward_batch(metric, batch) -> None:
+    metric(*batch)
+
+
+def tracked_collection(mt, device):
+    c = WRAPPERS_SHAPE[2]
+    return mt.MetricCollection({
+        "acc": mt.Accuracy(num_classes=c, average="macro", device=device),
+        "f1": f1_of(mt, device, c),
+        "classwise": mt.ClasswiseWrapper(mt.Accuracy(num_classes=c, average=None, device=device)),
+        "minmax": mt.MinMaxMetric(mt.Accuracy(num_classes=c, device=device)),
+        "boot": mt.BootStrapper(mt.Accuracy(num_classes=c, average="macro", device=device),
+                                num_bootstraps=TRACKER_BOOT_CLONES),
+    })
+
+
+def run_tracker(tracker, batches) -> None:
+    for epoch in range(TRACKER_EPOCHS):
+        tracker.increment()
+        for batch in batches[epoch * TRACKER_STEPS:(epoch + 1) * TRACKER_STEPS]:
+            tracker.update(*batch)
+
+
+def multioutput_nan_batches(seed: int = 41) -> list:
+    """The regression phase's multi-output rows with a NaN in one column of 1% of the rows."""
+    out = []
+    g = torch.Generator(device=EVAL_DEVICE).manual_seed(seed)
+    for preds, target in regression_batches(seed=seed, shape=MULTIOUTPUT_SHAPE):
+        rows, outputs = preds.shape
+        n_nan = int(rows * MULTIOUTPUT_NAN_SHARE)
+        idx = torch.randperm(rows, generator=g, device=EVAL_DEVICE)[:n_nan]
+        col = torch.randint(0, outputs, (n_nan,), generator=g, device=EVAL_DEVICE)
+        preds = preds.clone()
+        preds[idx, col] = float("nan")
+        out.append((preds, target))
+    return out
+
+
+def wrapper_component(name, make_card, make_cpu, step, batches, checks, histogram, float_rtol: float = 0.0):
+    """One wrapped metric driven by ``step(metric, batch)``: timed steps, device profile, host reads a
+    step, then the CPU twin (fed the card's bootstrap draws) over every batch where that fits
+    ``CPU_TWIN_S``, else the first ones, against a card instance fed the same; then ``compute()``
+    timed and profiled on the timed run's instance."""
+    runs, launches, obj = time_runs(make_card, step, batches, checks, histogram)
+    out = {"update_ms_per_step_runs": runs, "update_ms_per_step": median(runs), "kernel_launches": launches}
+    out["update_profile"] = update_profile(make_card, step, batches[:6], out["update_ms_per_step"])
+    probe = make_card()
+    probe_profile = compute_profile(lambda: step(probe, batches[0]))
+    out["update_host_reads"] = {**probe_profile["host_reads"],
+                                "device_to_host_copies": probe_profile["device_to_host_copies"]}
+    draws, cpu, twin = DrawLog(), make_cpu(), make_card()
+    try:
+        draws.record()
+        step(twin, batches[0])
+        draws.replay()
+        t0 = time.perf_counter()
+        step(cpu, tuple(t.cpu() for t in batches[0]))
+        once = time.perf_counter() - t0
+        twin_steps = cpu_twin_steps(once, len(batches))
+        draws.record()
+        for b in batches[1:twin_steps]:
+            step(twin, b)
+        draws.replay(start=1)  # the first step's draws went to the CPU already
+        for b in batches[1:twin_steps]:
+            step(cpu, tuple(t.cpu() for t in b))
+    finally:
+        draws.restore()
+    assert_tree_close(twin, cpu, f"wrappers {name}", float_rtol)
+    twin._computed = None
+    err = assert_values_close(twin.compute(), cpu.compute(), f"wrappers {name}", WRAPPER_ATOL,
+                              max(WRAPPER_RTOL, float_rtol))
+    out["compute_peak_extra_bytes"] = peak_extra_bytes(lambda: compute_all({name: obj}))
+    timed_compute({name: obj}, out)
+    out.update(cpu_twin_steps=twin_steps, cpu_s_per_update=once, max_abs_err_vs_cpu=err)
+    return out
+
+
+def wrappers_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 15: the wrappers over the 50,000 ImageNet-1k validation rows in 50 updates, a tracker
+    over 5 epochs, and MultioutputWrapper(R2Score) over the multi-output rows with NaNs."""
+    batches = wrapper_batches()
+    steps, batch, c = WRAPPERS_SHAPE
+    result = {"n": steps * batch, "classes": c, "steps": steps, "card": card}
+    for name in WRAPPER_MEMBERS:
+        make = lambda name=name: wrapper_member(mt, name, EVAL_DEVICE)  # noqa: E731
+        make_cpu = lambda name=name: wrapper_member(mt, name, "cpu")  # noqa: E731
+        step = forward_batch if name == "minmax" else update_batch  # MinMaxMetric is driven by forward
+        result[name] = wrapper_component(name, make, make_cpu, step, batches, checks, histogram)
+    want = BOOT_CONFMAT_CLONES * steps  # one launch a clone's update
+    assert result["boot_confmat"]["kernel_launches"] == want, (
+        f"boot_confmat: {result['boot_confmat']['kernel_launches']} bincount launches, not {want}")
+    assert all(result[k]["kernel_launches"] == 0 for k in WRAPPER_MEMBERS if k != "boot_confmat")
+    for name in ("boot_poisson", "boot_multinomial"):
+        # the resampled rows every clone reads once (its index_select and its update) beside the update's time
+        bytes_moved = BOOT_CLONES * batch * (c * 4 + 8 + 8)
+        profile = result[name]["update_profile"]
+        result[name]["clone_update"] = {
+            "device_ms_per_clone": profile["device_ms_per_step"] / BOOT_CLONES if profile["device_ms_per_step"] else None,
+            "bound_ms_per_clone": bytes_moved / HBM_BYTES_PER_S * 1e3 / BOOT_CLONES, "bound_by": "bytes"}
+
+    # the tracker: 5 epochs of 10 updates, the best of every value and its epoch
+    tracker_draws = DrawLog()
+    tracker = mt.MetricTracker(tracked_collection(mt, EVAL_DEVICE), maximize=True)
+    cpu_tracker = mt.MetricTracker(tracked_collection(mt, "cpu"), maximize=True)
+    try:
+        tracker_draws.record()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_tracker(tracker, batches)
+        torch.cuda.synchronize()
+        result["tracker_update_ms_per_step"] = (time.perf_counter() - t0) / (TRACKER_EPOCHS * TRACKER_STEPS) * 1e3
+        tracker_draws.replay()
+        run_tracker(cpu_tracker, [tuple(t.cpu() for t in b) for b in batches])
+    finally:
+        tracker_draws.restore()
+    for step, (a, b) in enumerate(zip(tracker._history, cpu_tracker._history)):
+        for (name, m), (_, m_cpu) in zip(a.items(keep_base=True, copy_state=False),
+                                         b.items(keep_base=True, copy_state=False)):
+            assert_tree_close(m, m_cpu, f"tracker step {step} {name}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, best_step = tracker.best_metric(return_step=True)
+    torch.cuda.synchronize()
+    result["tracker_best_metric_ms"] = (time.perf_counter() - t0) * 1e3
+    want_best, want_step = cpu_tracker.best_metric(return_step=True)
+    assert best.keys() == want_best.keys() and best_step == want_step, "tracker: best steps differ"
+    result["tracker_best_max_abs_err"] = max(abs(best[k] - want_best[k]) for k in best if best[k] == best[k])
+    assert result["tracker_best_max_abs_err"] <= WRAPPER_ATOL + WRAPPER_RTOL, result["tracker_best_max_abs_err"]
+    result["tracker_best"] = {k: [best[k], best_step[k]] for k in ("acc", "f1", "max", "mean")}
+
+    # MultioutputWrapper(R2Score) over the regression phase's rows with NaNs, remove_nans=True
+    mo_batches = multioutput_nan_batches()
+    make_mo = lambda device=EVAL_DEVICE: mt.MultioutputWrapper(  # noqa: E731
+        mt.R2Score(device=device), num_outputs=MULTIOUTPUT_SHAPE[2], remove_nans=True)
+    result["multioutput_r2"] = wrapper_component("multioutput_r2", make_mo, lambda: make_mo("cpu"), update_batch,
+                                                 mo_batches, checks, histogram, float_rtol=REGRESSION_RTOL)
+    result["kernel_launches"] = result["boot_confmat"]["kernel_launches"]
+    for name in WRAPPER_MEMBERS + ("multioutput_r2",):
+        r = result[name]
+        log(f"wrappers_imagenet {name}: update {r['update_ms_per_step']:.3f} ms/step (runs "
+            f"{[round(x, 3) for x in r['update_ms_per_step_runs']]}), device {r['update_profile']['device_ms_per_step']} "
+            f"ms/step, idle share {r['update_profile'].get('device_idle_share')}, host reads an update "
+            f"{r['update_host_reads']}; compute {r['compute_ms']:.3f} ms (again {r['compute_again_ms']:.3f}), host reads "
+            f"{r['compute_profile']['host_reads']}, peak extra {r['compute_peak_extra_bytes']} bytes; "
+            f"{r['kernel_launches']} bincount launches; CPU twin over {r['cpu_twin_steps']} updates, max |err| "
+            f"{r['max_abs_err_vs_cpu']}  [{card}]")
+    log(f"wrappers_imagenet tracker: {TRACKER_EPOCHS} epochs x {TRACKER_STEPS} updates at "
+        f"{result['tracker_update_ms_per_step']:.3f} ms/step, best_metric {result['tracker_best_metric_ms']:.2f} ms, "
+        f"best {result['tracker_best']}, max |err| {result['tracker_best_max_abs_err']}  [{card}]")
+    log("wrappers_imagenet profiles: " + json.dumps({k: {"update": result[k]["update_profile"],
+                                                          "compute": result[k]["compute_profile"]}
+                                                      for k in WRAPPER_MEMBERS + ("multioutput_r2",)})
+        + f"  [{card}]")
+    return result
+
+
+# ---- phase 16: image_restoration
+def restoration_batches(seed: int = 50, shape=None) -> list:
+    """A restoration model's outputs and their ground truth: smooth random textures with fine detail,
+    in [0, 1], and a target that is a noisy copy (PSNR near 30 dB), so every MS-SSIM scale correlates."""
+    steps, batch, channels, h, w = shape or IMAGE_SHAPE
+    g = torch.Generator(device=EVAL_DEVICE).manual_seed(seed)
+    out = []
+    for _ in range(steps):
+        coarse = torch.rand(batch, channels, h // 16, w // 16, generator=g, device=EVAL_DEVICE)
+        base = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+        detail = 0.08 * torch.randn(batch, channels, h, w, generator=g, device=EVAL_DEVICE)
+        target = (base + detail).clamp(0, 1)
+        preds = (target + 0.03 * torch.randn(batch, channels, h, w, generator=g, device=EVAL_DEVICE)).clamp(0, 1)
+        out.append((preds, target))
+    return out
+
+
+def restoration_suite(mt, device):
+    return mt.MetricCollection({
+        "psnr": mt.PeakSignalNoiseRatio(data_range=1.0, device=device),
+        "psnr_observed_range": mt.PeakSignalNoiseRatio(device=device),
+        "ssim": mt.StructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+        "ms_ssim": mt.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+        "uqi": mt.UniversalImageQualityIndex(device=device),
+    })
+
+
+def spectral_batches(seed: int = 51) -> list:
+    """Pan-sharpened 4-band patches (blue, green, red, near infrared reflectances in (0.02, 0.6)) and
+    their reference: the fusion's error is a smooth band bias and per-pixel noise."""
+    steps, batch, bands, h, w = SPECTRAL_SHAPE
+    g = torch.Generator(device=EVAL_DEVICE).manual_seed(seed)
+    out = []
+    for _ in range(steps):
+        coarse = torch.rand(batch, bands, h // 8, w // 8, generator=g, device=EVAL_DEVICE)
+        target = 0.02 + 0.5 * torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+        bias = 1.0 + 0.05 * torch.randn(batch, bands, 1, 1, generator=g, device=EVAL_DEVICE)
+        preds = (target * bias + 0.01 * torch.randn(batch, bands, h, w, generator=g, device=EVAL_DEVICE)).clamp(0.01, 1)
+        out.append((preds, target))
+    return out
+
+
+def spectral_suite(mt, device):
+    return mt.MetricCollection({
+        "ergas": mt.ErrorRelativeGlobalDimensionlessSynthesis(ratio=4, device=device),
+        "sam": mt.SpectralAngleMapper(device=device),
+        "d_lambda": mt.SpectralDistortionIndex(device=device),
+    })
+
+
+def image_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 16: PSNR (both ranges), SSIM, MS-SSIM and UQI over 200 image pairs of 3 x 512 x 512 in
+    20 updates, one compute(); then ERGAS, SAM and D-lambda over 32 four-band 256 x 256 patches."""
+    from metrics_tpu_torch.functional.image.helper import _depthwise_conv, _gaussian_kernel_2d
+
+    batches = restoration_batches()
+    steps, batch, channels, h, w = IMAGE_SHAPE
+    n_images = steps * batch
+    make = lambda: restoration_suite(mt, EVAL_DEVICE)  # noqa: E731
+    runs, launches, suite = time_runs(make, update_batch, batches, checks, histogram)
+    groups = sorted(sorted(g) for g in suite.compute_groups.values())
+    assert ["ms_ssim", "ssim", "uqi"] in groups, f"image: groups {groups}"
+    result = {"images": n_images, "shape": [channels, h, w], "steps": steps, "groups": groups, "card": card,
+              "update_ms_per_step_runs": runs, "update_ms_per_step": median(runs), "kernel_launches": launches}
+    result["update_profile"] = update_profile(make, update_batch, batches[:6], result["update_ms_per_step"])
+    members = dict(suite.items(keep_base=True, copy_state=False))
+    ssim = members["ssim"]
+    result["buffered_bytes_on_card"] = sum(t.numel() * t.element_size() for t in ssim.preds + ssim.target)
+    result["compute_peak_extra_bytes"] = {k: peak_extra_bytes(lambda m=m: compute_all({k: m})) for k, m in members.items()}
+    values = timed_compute(members, result)
+    result["member_compute_ms"] = {k: timed_ms(lambda m=m: compute_all({k: m})) for k, m in members.items()}
+
+    # SSIM's depthwise convolution of the five stacked statistics, 11 x 11 taps, against its bound
+    pad = 5
+    stack = torch.empty(5 * n_images, channels, h + 2 * pad, w + 2 * pad, device=EVAL_DEVICE).uniform_()
+    kernel = _gaussian_kernel_2d([11, 11], [1.5, 1.5], torch.float32, stack.device)
+    out_numel = 5 * n_images * channels * h * w
+    result["ssim_conv"] = op_profile(lambda: _depthwise_conv(stack, kernel), bytes_moved=4 * (stack.numel() + out_numel),
+                                     ops=2 * 121 * out_numel)
+    result["ssim_conv"]["shape"] = list(stack.shape)
+    del stack
+    # MS-SSIM: five scales of the same conv, the pools between them
+    ms_ops = sum(2 * 121 * 5 * n_images * channels * (h >> s) * (w >> s) for s in range(5))
+    ms_bytes = 2 * 4 * n_images * channels * h * w  # the function reads preds and target once; its result is a scalar
+    ms = members["ms_ssim"]
+    preds_all, target_all = ms._cat_states()
+    result["ms_ssim_pyramid"] = op_profile(
+        lambda: mt.functional.multiscale_structural_similarity_index_measure(preds_all, target_all, data_range=1.0),
+        bytes_moved=ms_bytes, ops=ms_ops)
+    del preds_all, target_all
+
+    # the CPU twin: every image where that fits IMAGE_CPU_TWIN_S, else the first updates that fit, against
+    # a card suite fed the same
+    cpu = restoration_suite(mt, "cpu")
+    cpu.update(*(t.cpu() for t in batches[0]))
+    t0 = time.perf_counter()
+    fresh_compute(cpu)
+    once = time.perf_counter() - t0
+    twin_steps = steps if once * steps <= IMAGE_CPU_TWIN_S else max(1, int(IMAGE_CPU_TWIN_S / once))
+    for b in batches[1:twin_steps]:
+        cpu.update(*(t.cpu() for t in b))
+    twin = suite if twin_steps == steps else make()
+    if twin_steps < steps:
+        for b in batches[:twin_steps]:
+            twin.update(*b)
+    twin_members = dict(twin.items(keep_base=True, copy_state=False))
+    for name, cpu_m in cpu.items(keep_base=True, copy_state=False):
+        for state, want in cpu_m.metric_state.items():
+            # the buffered rows bit for bit; PSNR's float32 sums of squared errors in another order
+            assert_state_close(getattr(twin_members[name], state), want, f"image {name}.{state}",
+                               rtol=0.0 if isinstance(want, list) else 1e-5)
+    t0 = time.perf_counter()
+    want = fresh_compute(cpu)
+    result["cpu_compute_s"] = time.perf_counter() - t0
+    got = values if twin_steps == steps else fresh_compute(twin)
+    err = {k: assert_curve_close(got[k], w, f"image {k}", atol=IMAGE_ATOL, rtol=1e-5) for k, w in want.items()}
+    for k, v in values.items():
+        assert torch.isfinite(v).all() and v.shape == (), f"image {k}: {v}"
+    result.update(values={k: float(v) for k, v in values.items()}, cpu_twin_images=twin_steps * batch,
+                  cpu_compute_s_one_update=once, max_abs_err_vs_cpu=err)
+
+    # ERGAS, SAM and D-lambda over the pan-sharpening patches, against the CPU on every patch
+    sp_batches = spectral_batches()
+    sp = spectral_suite(mt, EVAL_DEVICE)
+    sp_cpu = spectral_suite(mt, "cpu")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in sp_batches:
+        sp.update(*b)
+    torch.cuda.synchronize()
+    result["spectral_update_ms_per_step"] = (time.perf_counter() - t0) / len(sp_batches) * 1e3
+    sp_members = dict(sp.items(keep_base=True, copy_state=False))
+    sp_result: dict = {}
+    sp_values = timed_compute(sp_members, sp_result)
+    for b in sp_batches:
+        sp_cpu.update(*(t.cpu() for t in b))
+    sp_want = fresh_compute(sp_cpu)
+    sp_err = {k: assert_curve_close(sp_values[k], w, f"spectral {k}", atol=ERGAS_ATOL if k == "ergas" else IMAGE_ATOL,
+                                    rtol=1e-5) for k, w in sp_want.items()}
+    result["spectral"] = {"patches": SPECTRAL_SHAPE[0] * SPECTRAL_SHAPE[1], "shape": list(SPECTRAL_SHAPE[2:]),
+                          "values": {k: float(v) for k, v in sp_values.items()}, "max_abs_err_vs_cpu": sp_err,
+                          **sp_result}
+    assert launches == 0, f"image: {launches} bincount launches"
+    log(f"image_restoration {n_images} pairs of {channels}x{h}x{w} in {steps} updates: update "
+        f"{result['update_ms_per_step']:.4f} ms/step (runs {runs}), compute {result['compute_ms']:.1f} ms (again "
+        f"{result['compute_again_ms']:.1f}; members {result['member_compute_ms']}), peak extra "
+        f"{result['compute_peak_extra_bytes']} bytes, {result['buffered_bytes_on_card']} bytes buffered; values "
+        f"{result['values']}; CPU twin over {result['cpu_twin_images']} images (one update {once:.2f} s), max |err| {err}"
+        f"  [{card}]")
+    log(f"image_restoration SSIM conv {json.dumps(result['ssim_conv'])}; MS-SSIM {json.dumps(result['ms_ssim_pyramid'])}"
+        f"; compute profile {json.dumps(result['compute_profile'])}  [{card}]")
+    log(f"image_restoration spectral ({result['spectral']['patches']} patches of {SPECTRAL_SHAPE[2:]}): update "
+        f"{result['spectral_update_ms_per_step']:.4f} ms/step, compute {sp_result['compute_ms']:.2f} ms (again "
+        f"{sp_result['compute_again_ms']:.2f}); values {result['spectral']['values']}; max |err| {sp_err}  [{card}]")
+    return result
+
+
+def wrapper_image_paths(mt, checks, histogram, card: str) -> dict:
+    """Phases 15 and 16."""
+    out = {"wrappers_imagenet": wrappers_path(mt, checks, histogram, card),
+           "image_restoration": image_path(mt, checks, histogram, card)}
+    out["kernel_launches"] = out["wrappers_imagenet"]["kernel_launches"] + out["image_restoration"]["kernel_launches"]
+    return out
+
+
+
 # ------------------------------------------------------------------ phase 10
-SYNC_SUITES = ("headline", "agreement", "segmentation", "aggregators", "curves", "regression", "retrieval")
+SYNC_SUITES = ("headline", "agreement", "segmentation", "aggregators", "curves", "regression", "retrieval", "bootstrap",
+               "ssim")
+SYNC_BOOT_CLONES = 100  # the synced BootStrapper's clones of Accuracy (macro, C=1000): 600 states
+SYNC_IMAGE_SHAPE = (4, 3, 64, 64)  # the synced SSIM suite's images an update on each rank
 SYNC_REGRESSION_ROWS = 65_536  # rows of each regression update on each rank
 SYNC_STEPS = 2  # updates of each suite on each rank
 SYNC_TRIALS = 5  # timed syncs of each protocol, alternating, after one untimed sync
@@ -1756,6 +2231,12 @@ def sync_suite(mt, name: str, device: str):
         return mt.MetricCollection({"map": mt.RetrievalMAP(device=device), "mrr": mt.RetrievalMRR(device=device),
                                     "ndcg@10": mt.RetrievalNormalizedDCG(k=10, device=device),
                                     "r@100": mt.RetrievalRecall(k=100, device=device)})
+    if name == "bootstrap":  # a wrapper tree: 100 clones' states, none of the wrapper's own
+        return mt.MetricCollection({"boot": mt.BootStrapper(mt.Accuracy(num_classes=1000, average="macro", device=device),
+                                                            num_bootstraps=SYNC_BOOT_CLONES)})
+    if name == "ssim":  # buffered image rows, `cat` lists shared by one compute group
+        return mt.MetricCollection({"ssim": mt.StructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+                                    "uqi": mt.UniversalImageQualityIndex(device=device)})
     return mt.MetricCollection({n: getattr(mt, n)(device=device) for n in AGGREGATORS}, compute_groups=False)
 
 
@@ -1774,6 +2255,16 @@ def sync_batches(name: str, rank: int, steps: int = SYNC_STEPS) -> list:
     if name == "retrieval":  # the ranks hold rows of the same queries
         return [(b, {}) for b in retrieval_batches(seed, steps=steps)]
     g = torch.Generator(device=SYNC_DEVICE).manual_seed(seed)
+    if name == "bootstrap":
+        return [((torch.softmax(torch.randn(1000, 1000, generator=g, device=SYNC_DEVICE) * 2, dim=1),
+                  torch.randint(0, 1000, (1000,), generator=g, device=SYNC_DEVICE)), {}) for _ in range(steps)]
+    if name == "ssim":
+        out = []
+        for _ in range(steps):
+            target = torch.rand(SYNC_IMAGE_SHAPE, generator=g, device=SYNC_DEVICE)
+            noise = 0.05 * torch.randn(SYNC_IMAGE_SHAPE, generator=g, device=SYNC_DEVICE)
+            out.append((((target + noise).clamp(0, 1), target), {}))
+        return out
     if name == "curves":
         # binary rows of shapes (n,) and (n, 1) in turn, rank 1's in the other order: each sync
         # must bring them to one rank before it packs them
@@ -1798,10 +2289,27 @@ def per_state_gather(tensor, group=None):
     return gather_all_tensors(tensor, group)
 
 
-def suite_states(suite) -> dict:
-    """(member, state) -> the state, a list state concatenated as a sync leaves it."""
+def suite_nodes(suite) -> dict:
+    """Every metric of a suite's trees by dotted name: the members (of a collection, or of a dict)
+    and, under them, the child metrics of wrappers and compositions."""
     out = {}
-    for name, m in suite.items(keep_base=True, copy_state=False):
+
+    def walk(name, metric):
+        out[name] = metric
+        for child_name, child in metric._named_child_metrics():
+            walk(f"{name}.{child_name}", child)
+
+    items = suite.items() if isinstance(suite, dict) else suite.items(keep_base=True, copy_state=False)
+    for name, m in items:
+        walk(name, m)
+    return out
+
+
+def suite_states(suite) -> dict:
+    """(node, state) -> the state of every metric of the suite's trees, a list state concatenated
+    as a sync leaves it."""
+    out = {}
+    for name, m in suite_nodes(suite).items():
         for state, value in m.metric_state.items():
             out[(name, state)] = torch.cat(value) if isinstance(value, list) else value
     return out
@@ -1905,7 +2413,7 @@ def sync_world_of_one(mt, histogram, name: str, card: str) -> dict:
         suite.update(*args, **kwargs)
     torch.cuda.synchronize()
     launches = histogram.KERNEL_LAUNCHES
-    members = dict(suite.items(keep_base=True, copy_state=False))
+    members = suite_nodes(suite)
     if name in ("curves", "retrieval"):
         # buffered raw rows (shapes (n,) and (n, 1); int64 targets): the first sync brings them to their
         # canonical form in place (Metric._canonicalize_list_states) before it packs them; the local
@@ -1987,7 +2495,7 @@ def gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
             stats = collective_stats()
             suite.unsync()  # the retrieval members leave compute() synced, as in JAX
             n_states = len(suite_states(suite))
-            row_gathers = sum(len(getattr(m, s)) for _, m in suite.items(keep_base=True, copy_state=False)
+            row_gathers = sum(len(getattr(m, s)) for m in suite_nodes(suite).values()
                               for s, spec in m._reduction_specs.items() if spec is None and isinstance(getattr(m, s), list))
             result[name] = {
                 "values": {k: v.cpu() for k, v in values.items()},
@@ -1995,10 +2503,12 @@ def gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
                 "compute_counts": {k: stats[k] for k in ("sync_shape_collectives", "sync_payload_collectives",
                                                          "sync_bytes_gathered")},
                 "states": n_states,
-                "has_cat": name in ("aggregators", "curves", "regression"),
+                "has_cat": name in ("aggregators", "curves", "regression", "ssim"),
                 "row_gathers": row_gathers,
                 **sync_trials(suite),
             }
+            if name == "bootstrap":  # the draws differ by rank: the reference is the sum of the local states
+                result[name]["local"] = {k: v.cpu() for k, v in suite_states(suite).items()}
             del suite
     finally:
         torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
@@ -2040,6 +2550,13 @@ def sync_two_ranks(mt, card: str) -> dict:
     for name in SYNC_SUITES:
         reference = sync_suite(mt, name, "cpu")
         ranks_batches = [sync_batches(name, rank) for rank in range(len(results))]
+        if name == "bootstrap":
+            # every clone's synced state is the sum of the ranks' local states: a CPU BootStrapper
+            # loaded with those sums computes what each rank's synced compute() must give
+            summed = {f"{node}.{state}": sum(r[name]["local"][(node, state)] for r in results).numpy()
+                      for node, state in results[0][name]["local"]}
+            mt.load_reference_state(reference, summed, update_count=SYNC_STEPS * len(results), mode="multi-class")
+            ranks_batches = []
         # rows in the order the sync leaves them: rank by rank, but the retrieval rows (spec None,
         # gathered row by row) batch by batch, each batch's ranks in turn
         if name == "retrieval":
@@ -2115,28 +2632,40 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, device {kind}")
     build_s = build_kernels(_native, histogram)
 
-    max_abs_err = check_bincount(histogram)
-    sweep = sweep_bincount(histogram, card)
+    phase_s = {}
+
+    def timed_phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[label] = time.perf_counter() - t0
+        return out
+
+    max_abs_err = timed_phase("bincount_check", check_bincount, histogram)
+    sweep = timed_phase("bincount_sweep", sweep_bincount, histogram, card)
     log(json.dumps({"bincount_sweep": sweep, "card": card}))
     kernel = kernel_entry(sweep, max_abs_err)
-    main = main_path(mt, checks, histogram, card)
-    large = large_l_path(mt, histogram)
-    multilabel = multilabel_path(mt, histogram)
-    agreement = agreement_path(mt, checks, histogram, card)
-    segmentation = segmentation_path(mt, checks, histogram, card)
-    aggregation = aggregation_path(mt, checks, card)
-    curves = curves_path(mt, checks, histogram, card)
-    evaluation = eval_paths(mt, checks, histogram, card)
-    sync = sync_path(mt, histogram, card)
+    main = timed_phase("main", main_path, mt, checks, histogram, card)
+    large = timed_phase("large_l", large_l_path, mt, histogram)
+    multilabel = timed_phase("multilabel", multilabel_path, mt, histogram)
+    agreement = timed_phase("agreement", agreement_path, mt, checks, histogram, card)
+    segmentation = timed_phase("segmentation", segmentation_path, mt, checks, histogram, card)
+    aggregation = timed_phase("aggregation", aggregation_path, mt, checks, card)
+    curves = timed_phase("curves", curves_path, mt, checks, histogram, card)
+    evaluation = timed_phase("eval_11_14", eval_paths, mt, checks, histogram, card)
+    wrappers_image = timed_phase("wrappers_image_15_16", wrapper_image_paths, mt, checks, histogram, card)
+    sync = timed_phase("sync", sync_path, mt, histogram, card)
+    log(f"phase seconds: {json.dumps(phase_s)}")
     # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, the
-    # retrieval path's first compute() and graded NDCG, and the sync phase's updates, counted from 0
-    # just before each
+    # retrieval path's first compute() and graded NDCG, the wrapper phase's first timed runs, and the
+    # sync phase's updates, counted from 0 just before each
     kernel["launches"] = sum(p["first"]["kernel_launches"] for p in (main, agreement, segmentation))
-    kernel["launches"] += curves["kernel_launches"] + evaluation["kernel_launches"] + sync["kernel_launches"]
+    kernel["launches"] += (curves["kernel_launches"] + evaluation["kernel_launches"]
+                           + wrappers_image["kernel_launches"] + sync["kernel_launches"])
 
     log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
                     "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation,
-                    "curves_path": curves, "eval_paths": evaluation, "sync_path": sync}))
+                    "curves_path": curves, "eval_paths": evaluation, "wrapper_image_paths": wrappers_image,
+                    "sync_path": sync, "phase_seconds": phase_s}))
     log(json.dumps({"kernels": [kernel]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -10,10 +10,14 @@ retrieval query groups runs a hand-written CUDA kernel
 Ported so far: the whole classification domain (the stat-score family,
 the confusion-matrix family, HammingDistance, the curve family, HingeLoss,
 KLDivergence and the ranking metrics), the regression metrics, the pairwise
-distances (functional), the retrieval metrics, the aggregators (Max, Min,
-Sum, Cat, Mean) and MetricCollection, and state sync across processes
-(``metrics_tpu_torch.parallel``): ``compute()`` reduces the states over the
-``torch.distributed`` process group, a whole suite in one collective.
+distances (functional), the retrieval metrics, the image-quality metrics
+(PSNR, SSIM, MS-SSIM, UQI, ERGAS, SAM, D-lambda), the aggregators (Max, Min,
+Sum, Cat, Mean), MetricCollection, the arithmetic of metrics
+(CompositionalMetric) and the wrappers (BootStrapper, ClasswiseWrapper,
+MinMaxMetric, MultioutputWrapper, MetricTracker), and state sync across
+processes (``metrics_tpu_torch.parallel``): ``compute()`` reduces the states
+over the ``torch.distributed`` process group, a whole suite, wrapper trees
+included, in one collective.
 """
 from metrics_tpu_torch import functional, parallel
 from metrics_tpu_torch.__about__ import __version__
@@ -48,8 +52,17 @@ from metrics_tpu_torch.classification import (
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection
+from metrics_tpu_torch.image import (
+    ErrorRelativeGlobalDimensionlessSynthesis,
+    MultiScaleStructuralSimilarityIndexMeasure,
+    PeakSignalNoiseRatio,
+    SpectralAngleMapper,
+    SpectralDistortionIndex,
+    StructuralSimilarityIndexMeasure,
+    UniversalImageQualityIndex,
+)
 from metrics_tpu_torch.interop import load_reference_state
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import CompositionalMetric, Metric
 from metrics_tpu_torch.regression import (
     CosineSimilarity,
     ExplainedVariance,
@@ -77,6 +90,13 @@ from metrics_tpu_torch.retrieval import (
     RetrievalRecallAtFixedPrecision,
     RetrievalRPrecision,
 )
+from metrics_tpu_torch.wrappers import (
+    BootStrapper,
+    ClasswiseWrapper,
+    MetricTracker,
+    MinMaxMetric,
+    MultioutputWrapper,
+)
 
 __all__ = [
     "AUC",
@@ -86,13 +106,17 @@ __all__ = [
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "BootStrapper",
     "CalibrationError",
     "CatMetric",
+    "ClasswiseWrapper",
     "CohenKappa",
+    "CompositionalMetric",
     "ConfusionMatrix",
     "CosineSimilarity",
     "CoverageError",
     "Dice",
+    "ErrorRelativeGlobalDimensionlessSynthesis",
     "ExplainedVariance",
     "F1Score",
     "FBetaScore",
@@ -111,7 +135,12 @@ __all__ = [
     "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "MetricTracker",
+    "MinMaxMetric",
     "MinMetric",
+    "MultiScaleStructuralSimilarityIndexMeasure",
+    "MultioutputWrapper",
+    "PeakSignalNoiseRatio",
     "PearsonCorrCoef",
     "Precision",
     "PrecisionRecallCurve",
@@ -131,10 +160,14 @@ __all__ = [
     "RetrievalRecallAtFixedPrecision",
     "SpearmanCorrCoef",
     "Specificity",
+    "SpectralAngleMapper",
+    "SpectralDistortionIndex",
     "StatScores",
+    "StructuralSimilarityIndexMeasure",
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
     "TweedieDevianceScore",
+    "UniversalImageQualityIndex",
     "WeightedMeanAbsolutePercentageError",
     "__version__",
     "functional",

@@ -3,12 +3,16 @@
 A metric here holds no weights, only accumulator states, so carrying a
 model across becomes carrying state: a JAX metric's ``metric_state`` (or its
 ``state_dict()``), as numpy arrays, is loaded into the port's metric of the
-same configuration, and both then ``compute()`` the same value. This module
-takes plain numpy arrays and imports nothing of the JAX package.
+same configuration, and both then ``compute()`` the same value. Wrapper
+trees and compositions load child by child, under the names the JAX
+package's ``_named_child_metrics`` gives them (``metrics.3``, ``metric_a``,
+``_base_metric``), which are the port's ``state_dict`` prefixes too. This
+module takes plain numpy arrays and imports nothing of the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from copy import deepcopy
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -17,6 +21,7 @@ from metrics_tpu_torch.classification.ranking import _RankingBase
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utils.enums import DataType
+from metrics_tpu_torch.wrappers.tracker import MetricTracker
 
 
 def _to_tensor(value: Any, like: torch.Tensor) -> torch.Tensor:
@@ -31,7 +36,16 @@ def _to_tensor(value: Any, like: torch.Tensor) -> torch.Tensor:
     return tensor
 
 
+def _child_state(state: Mapping[str, Any], name: str) -> Dict[str, Any]:
+    """The part of ``state`` under ``name``: a nested dict, or the flat ``"name.key"`` entries."""
+    if isinstance(state.get(name), Mapping):
+        return dict(state[name])
+    return {k[len(name) + 1 :]: v for k, v in state.items() if k.startswith(name + ".")}
+
+
 def _load_metric(metric: Metric, state: Mapping[str, Any], update_count: int, mode: Optional[str]) -> None:
+    for name, child in metric._named_child_metrics():
+        _load_metric(child, _child_state(state, name), update_count, mode)
     missing = [name for name in metric._defaults if name not in state]
     if missing:
         raise KeyError(f"state for {type(metric).__name__} lacks {missing}")
@@ -56,7 +70,7 @@ def _load_metric(metric: Metric, state: Mapping[str, Any], update_count: int, mo
 
 def load_reference_state(
     metric: Any,
-    state: Mapping[str, Any],
+    state: Any,
     *,
     update_count: int = 1,
     mode: Optional[str] = None,
@@ -64,12 +78,18 @@ def load_reference_state(
     """Load a JAX metric's accumulated state into ``metric``.
 
     Args:
-        metric: a :class:`Metric`, or a :class:`MetricCollection` whose
-            members are loaded one by one.
+        metric: a :class:`Metric` (a wrapper or a composition loads each child
+            metric too), a :class:`MetricCollection` whose members are loaded
+            one by one, or a :class:`MetricTracker`.
         state: for a metric, state name -> numpy array (a list of arrays for
-            list states), as the JAX metric's ``metric_state`` gives it. For
-            a collection, member name -> such a dict, or the flat
-            ``"member.state"`` keys of the JAX collection's ``state_dict()``.
+            list states, such as an image metric's buffered rows), as the JAX
+            metric's ``metric_state`` gives it; a child's states under its
+            name, nested (``{"metrics.3": {...}}``) or flat (``"metrics.3.tp"``,
+            the keys of the JAX wrapper's ``state_dict()`` after
+            ``persistent(True)``). For a collection, member name -> such a
+            dict, or the flat ``"member.state"`` keys of the JAX collection's
+            ``state_dict()``. For a tracker, a sequence with one such state for
+            each step (the JAX tracker's steps), which replaces its history.
             Dtypes must match the port's states; shapes too, but for states
             whose default is a scalar (the moments that updates broadcast
             or a sync stacks). A ranking metric counts as weighted when its
@@ -89,13 +109,21 @@ def load_reference_state(
         tensor([[3, 1],
                 [0, 2]], dtype=torch.int32)
     """
+    if isinstance(metric, MetricTracker):
+        if not isinstance(state, Sequence):
+            raise TypeError(f"a tracker loads a sequence of step states, got {type(state).__name__}")
+        history = []
+        for step_state in state:
+            step = deepcopy(metric._base_metric)
+            step.reset()
+            load_reference_state(step, step_state, update_count=update_count, mode=mode)
+            history.append(step)
+        metric._history = history
+        metric._increment_called = bool(history)
+        return
     if isinstance(metric, MetricCollection):
         for name, member in metric.items(keep_base=True, copy_state=False):
-            if isinstance(state.get(name), Mapping):
-                member_state: Dict[str, Any] = dict(state[name])
-            else:
-                member_state = {k[len(name) + 1 :]: v for k, v in state.items() if k.startswith(name + ".")}
-            _load_metric(member, member_state, update_count, mode)
+            _load_metric(member, _child_state(state, name), update_count, mode)
         # the next update re-derives the compute groups from the loaded states
         metric._groups_checked = False
         if metric._enable_compute_groups:

@@ -18,11 +18,19 @@ coalesced protocol (:mod:`metrics_tpu_torch.parallel.bucketing`, one
 payload collective) unless it brings its own ``dist_sync_fn``, which takes
 the per-state protocol.
 
+Child metrics (wrappers, compositions; JAX ``_named_child_metrics``
+`:2556`): a metric held by another is a registered ``nn.Module`` child, and a
+fleet of them an ``nn.ModuleList``. :meth:`Metric._named_child_metrics` reads
+that registration in its order, and sync (``_sync_children``), ``persistent``,
+``state_dict`` and ``.to()`` all walk it, so a child that syncs is also saved
+and moved. The operators (`metric.py:2793-2890`) build a
+:class:`CompositionalMetric`; metrics hash by identity (`:2731`).
+
 Left for later slices of the port: the dispatch engine and fused programs,
 deferred dispatch, ``update_many``/``forward_many``, the fault ladders,
-telemetry, the state journal, ``as_functions`` and ``CompositionalMetric``,
-``compute_on_cpu``, and the sync planes beyond the core (retries, deadlines,
-membership, degraded tiers, ``sync_async``).
+telemetry, the state journal, ``as_functions``, ``compute_on_cpu``, and the
+sync planes beyond the core (retries, deadlines, membership, degraded tiers,
+``sync_async``).
 """
 from __future__ import annotations
 
@@ -30,7 +38,7 @@ import copy
 import functools
 import inspect
 from abc import ABC, abstractmethod
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import Tensor, nn
@@ -354,9 +362,25 @@ class Metric(nn.Module, ABC):
             setattr(self, name, reduced)
 
     # ------------------------------------------------------------------- sync
+    def _named_child_metrics(self) -> List[Tuple[str, "Metric"]]:
+        """(dotted name, child) for every child metric, in registration order.
+
+        A child is a ``Metric`` registered as a submodule, or one in a
+        registered ``nn.ModuleList`` (named ``"list.i"``). The names are the
+        ``state_dict`` prefixes. Registration order is the same in every
+        process that built the same tree, so the coalesced sync's layout is too.
+        """
+        out: List[Tuple[str, Metric]] = []
+        for name, child in self.named_children():
+            if isinstance(child, Metric):
+                out.append((name, child))
+            elif isinstance(child, nn.ModuleList):
+                out.extend((f"{name}.{i}", m) for i, m in enumerate(child) if isinstance(m, Metric))
+        return out
+
     def _sync_children(self) -> List["Metric"]:
-        """Child metrics whose states sync with this one's (wrappers); none yet."""
-        return []
+        """Child metrics whose states sync with this one's (JAX `metric.py:1832`)."""
+        return [child for _, child in self._named_child_metrics()]
 
     def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
         """The per-state protocol: one ``dist_sync_fn`` call per tensor, then each state reduced."""
@@ -520,7 +544,10 @@ class Metric(nn.Module, ABC):
         super().__setattr__(name, value)
 
     def _apply(self, fn: Callable, recurse: bool = True) -> "Metric":
-        """``.to()``, ``.cuda()``, ``.double()`` and kin reach the states and their defaults too."""
+        """``.to()``, ``.cuda()``, ``.double()`` and kin reach the states and their defaults too.
+
+        Child metrics are submodules, so ``nn.Module._apply`` reaches them (and
+        buffers such as a composition's scalar operand) first."""
         super()._apply(fn, recurse)
         for name, default in self._defaults.items():
             value = getattr(self, name)
@@ -578,9 +605,8 @@ class Metric(nn.Module, ABC):
         """Set whether every state is saved by ``state_dict()`` (reference `metric.py:657-660`)."""
         for name in self._persistent:
             self._persistent[name] = mode
-        for child in self.children():
-            if isinstance(child, Metric):
-                child.persistent(mode)
+        for _, child in self._named_child_metrics():
+            child.persistent(mode)
 
     # ------------------------------------------------------------- plumbing
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
@@ -592,5 +618,304 @@ class Metric(nn.Module, ABC):
             k: v for k, v in kwargs.items() if k in params and params[k].kind != inspect.Parameter.VAR_POSITIONAL
         }
 
+    # ------------------------------------------------------- composition ops
+    def __hash__(self) -> int:
+        # by identity, as in JAX (`metric.py:2731`): ``__eq__`` composes, and an
+        # nn.Module must stay hashable (``named_modules`` keeps a set)
+        return hash((self.__class__.__name__, id(self)))
 
-__all__ = ["Metric", "resolve_device"]
+    # ``__getitem__`` composes, so the old iteration protocol would never end:
+    # a metric is not iterable
+    __iter__ = None  # type: ignore[assignment]
+
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_sub, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_sub, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_mul, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_mul, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_div, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_div, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_floordiv, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_floordiv, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_mod, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_mod, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_and, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_and, other, self)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_or, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_or, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_xor, other, self)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(_op_eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(_op_ne, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_op_ge, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_op_abs, self, None)
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        # abs, as in JAX and the reference
+        return CompositionalMetric(_op_abs, self, None)
+
+    def __invert__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_op_not, self, None)
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(functools.partial(_op_getitem, idx=idx), self, None)
+
+
+# The operators are named module-level functions so that a composition pickles
+# (JAX `metric.py:2944-3025`).
+def _op_add(a, b):
+    return torch.add(a, b)
+
+
+def _op_sub(a, b):
+    return torch.sub(a, b)
+
+
+def _op_mul(a, b):
+    return torch.mul(a, b)
+
+
+def _op_div(a, b):
+    return torch.true_divide(a, b)
+
+
+def _op_floordiv(a, b):
+    return torch.floor_divide(a, b)
+
+
+def _op_mod(a, b):
+    return torch.remainder(a, b)
+
+
+def _op_pow(a, b):
+    return torch.pow(a, b)
+
+
+def _op_matmul(a, b):
+    return torch.matmul(a, b)
+
+
+def _op_and(a, b):
+    return torch.bitwise_and(a, b)
+
+
+def _op_or(a, b):
+    return torch.bitwise_or(a, b)
+
+
+def _op_xor(a, b):
+    return torch.bitwise_xor(a, b)
+
+
+def _op_eq(a, b):
+    return torch.eq(a, b)
+
+
+def _op_ne(a, b):
+    return torch.ne(a, b)
+
+
+def _op_lt(a, b):
+    return torch.lt(a, b)
+
+
+def _op_le(a, b):
+    return torch.le(a, b)
+
+
+def _op_gt(a, b):
+    return torch.gt(a, b)
+
+
+def _op_ge(a, b):
+    return torch.ge(a, b)
+
+
+def _op_abs(x):
+    return torch.abs(x)
+
+
+def _op_not(x):
+    return torch.logical_not(x)
+
+
+def _op_getitem(x, idx):
+    return x[idx]
+
+
+def _neg(x: Tensor) -> Tensor:
+    return -torch.abs(x)
+
+
+# a composition's operand as JAX's ``jnp.asarray`` makes it without x64: 32-bit
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def _operand(value: Any, device: torch.device) -> Optional[Tensor]:
+    if value is None:
+        return None
+    tensor = torch.as_tensor(value, device=device)
+    return tensor.to(_NARROW[tensor.dtype]) if tensor.dtype in _NARROW else tensor
+
+
+class CompositionalMetric(Metric):
+    """Lazy arithmetic composition of metrics (JAX `metric.py:3035-3124`).
+
+    It holds no states of its own: ``update``, ``forward`` and ``reset`` go to
+    the metric operands (kwargs filtered per update signature), and ``compute``
+    applies the operator to their values, with no cache or sync of its own (each
+    operand syncs in its own ``compute()``). A scalar or tensor operand becomes a
+    32-bit tensor on the composition's device (a buffer, so it follows ``.to()``).
+    The device defaults to the first metric operand's.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import MeanMetric, SumMetric
+        >>> ratio = MeanMetric(device="cpu") / SumMetric(device="cpu")
+        >>> type(ratio).__name__
+        'CompositionalMetric'
+        >>> ratio.update(torch.tensor([2.0, 4.0]))
+        >>> ratio.compute()
+        tensor(0.5000)
+    """
+
+    full_state_update: Optional[bool] = True
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, float, int, Tensor, None],
+        metric_b: Union[Metric, float, int, Tensor, None],
+        **kwargs: Any,
+    ) -> None:
+        operand = next((m for m in (metric_a, metric_b) if isinstance(m, Metric)), None)
+        if operand is not None:
+            kwargs.setdefault("device", operand.device)
+        super().__init__(**kwargs)
+        self.op = operator
+        for name, value in (("metric_a", metric_a), ("metric_b", metric_b)):
+            if isinstance(value, Metric) or value is None:
+                setattr(self, name, value)
+            else:
+                self.register_buffer(name, _operand(value, self.device), persistent=False)
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        pass  # no states of its own: the operands sync through _sync_children
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a = (
+            self.metric_a(*args, **self.metric_a._filter_kwargs(**kwargs))
+            if isinstance(self.metric_a, Metric)
+            else self.metric_a
+        )
+        val_b = (
+            self.metric_b(*args, **self.metric_b._filter_kwargs(**kwargs))
+            if isinstance(self.metric_b, Metric)
+            else self.metric_b
+        )
+        if val_a is None:
+            self._forward_cache = None
+        elif val_b is None:
+            # a unary operator when no second operand was given; None when that operand returned None
+            self._forward_cache = None if isinstance(self.metric_b, Metric) else self.op(val_a)
+        else:
+            self._forward_cache = self.op(val_a, val_b)
+        return self._forward_cache
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+
+    def __repr__(self) -> str:
+        op = self.op.__name__ if hasattr(self.op, "__name__") else self.op
+        return f"{self.__class__.__name__}(\n  {op}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        # no cache and no sync of its own: the operands' computes have both
+        return compute
+
+
+__all__ = ["CompositionalMetric", "Metric", "resolve_device"]

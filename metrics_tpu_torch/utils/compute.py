@@ -9,14 +9,16 @@ from torch import Tensor
 
 
 def high_precision(fn: Callable) -> Callable:
-    """Run ``fn`` with float32 matrix products at full float32 precision.
+    """Run ``fn`` with float32 matrix products and convolutions at full float32 precision.
 
     On the card a float32 product runs in TF32 (a 10-bit mantissa) whenever
     the caller has set ``torch.set_float32_matmul_precision("high")`` or
-    ``"medium"``, which loses integer exactness on counts above 2048. The
-    wrapper sets ``"highest"`` for the duration of the call and restores the
-    caller's setting afterwards, also when ``fn`` raises. The setting is
-    process-wide, as it is in PyTorch.
+    ``"medium"``, which loses integer exactness on counts above 2048; and a
+    float32 convolution runs in TF32 whenever ``torch.backends.cudnn.allow_tf32``
+    is True, which is PyTorch's default. The wrapper sets ``"highest"`` and
+    clears ``cudnn.allow_tf32`` for the duration of the call, and restores the
+    caller's settings afterwards, also when ``fn`` raises. The settings are
+    process-wide, as they are in PyTorch.
 
     Example:
         >>> import torch
@@ -27,16 +29,23 @@ def high_precision(fn: Callable) -> Callable:
         >>> torch.get_float32_matmul_precision()
         'high'
         >>> torch.set_float32_matmul_precision("highest")
+        >>> high_precision(lambda: torch.backends.cudnn.allow_tf32)()
+        False
+        >>> torch.backends.cudnn.allow_tf32
+        True
     """
 
     @functools.wraps(fn)
     def wrapper(*args: Any, **kwargs: Any) -> Any:
         previous = torch.get_float32_matmul_precision()
+        previous_conv = torch.backends.cudnn.allow_tf32
         torch.set_float32_matmul_precision("highest")
+        torch.backends.cudnn.allow_tf32 = False
         try:
             return fn(*args, **kwargs)
         finally:
             torch.set_float32_matmul_precision(previous)
+            torch.backends.cudnn.allow_tf32 = previous_conv
 
     return wrapper
 

@@ -15,7 +15,12 @@ the partial AUROC of a batch with no negative sample (NaN); the segment
 reductions against the CPU, deterministic, their counts one bincount
 launch on both kernel paths; the retrieval grouping and a retrieval suite
 against the CPU, the suite's second ``compute()`` the same bits; the
-ranking metrics on tied scores; and regression and pairwise functions.
+ranking metrics on tied scores; and regression and pairwise functions;
+SSIM, MS-SSIM and UQI on the card against the CPU with cuDNN's TF32 switched
+on globally (the depthwise convolution must still run in float32, and the
+switch comes back on after the call); a BootStrapper drawing on the card's
+generator against a CPU twin fed the same draws; and a BootStrapper tree
+synced through NCCL in one payload collective.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -572,3 +577,79 @@ def test_regression_and_pairwise_on_the_card_equal_the_cpu(dev):
     for name in ("pairwise_manhattan_distance", "pairwise_linear_similarity", "pairwise_cosine_similarity"):
         fn = getattr(mt.functional, name)
         torch.testing.assert_close(fn(x, y).cpu(), fn(x.cpu(), y.cpu()), atol=1e-4, rtol=1e-5)
+
+
+# ------------------------------------------------------------------ wrappers and image metrics
+def test_image_metrics_run_in_float32_under_tf32(dev):
+    g = torch.Generator(device=dev).manual_seed(25)
+    preds = torch.rand(4, 3, 192, 192, generator=g, device=dev)
+    target = (preds * 0.8 + 0.1 + 0.05 * torch.randn(preds.shape, generator=g, device=dev)).clamp(0, 1)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name in ("structural_similarity_index_measure", "multiscale_structural_similarity_index_measure",
+                     "universal_image_quality_index"):
+            fn = getattr(mt.functional, name)
+            kwargs = {"data_range": 1.0} if "structural" in name else {}
+            got = fn(preds, target, **kwargs)
+            assert torch.backends.cudnn.allow_tf32, "the caller's TF32 setting was not restored"
+            # TF32 (a 10-bit mantissa) moves SSIM by about 1e-3; float32 agrees to about 1e-6
+            torch.testing.assert_close(got.cpu(), fn(preds.cpu(), target.cpu(), **kwargs), atol=1e-5, rtol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_bootstrapper_on_the_card_equals_a_cpu_twin_fed_the_same_draws(dev, monkeypatch):
+    from metrics_tpu_torch.wrappers import bootstrapping
+
+    real = bootstrapping._bootstrap_sampler
+    draws = []
+
+    def recording(size, num_bootstraps, strategy, generator):
+        out = real(size, num_bootstraps, strategy, generator)
+        draws.append([d.cpu() for d in out])
+        return out
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    batches = [(torch.softmax(torch.randn(512, 10, generator=g, device=dev), 1),
+                torch.randint(0, 10, (512,), generator=g, device=dev)) for _ in range(3)]
+    for strategy in ("poisson", "multinomial"):
+        card = mt.BootStrapper(mt.Accuracy(num_classes=10, average="macro"), num_bootstraps=16,
+                               sampling_strategy=strategy, quantile=[0.05, 0.95], raw=True)
+        assert card.generator.device.type == "cuda"
+        card.generator.manual_seed(3)
+        monkeypatch.setattr(bootstrapping, "_bootstrap_sampler", recording)
+        draws.clear()
+        for p, t in batches:
+            card.update(p, t)
+        replay = iter(list(draws))
+        monkeypatch.setattr(bootstrapping, "_bootstrap_sampler", lambda *a: next(replay))
+        cpu = mt.BootStrapper(mt.Accuracy(num_classes=10, average="macro", device="cpu"), num_bootstraps=16,
+                              sampling_strategy=strategy, quantile=[0.05, 0.95], raw=True)
+        for p, t in batches:
+            cpu.update(p.cpu(), t.cpu())
+        for a, b in zip(card.metrics, cpu.metrics):
+            for name, value in b.metric_state.items():
+                assert torch.equal(getattr(a, name).cpu(), value), (strategy, name)
+        want = cpu.compute()
+        for key, value in card.compute().items():
+            torch.testing.assert_close(value.cpu(), want[key], atol=1e-6, rtol=1e-6)
+
+
+def test_nccl_world_of_one_syncs_a_bootstrapper_in_one_payload_collective(nccl_world, dev):
+    from metrics_tpu_torch.parallel import collective_stats, reset_collective_stats
+
+    boot = mt.BootStrapper(mt.Accuracy(num_classes=100, average="macro"), num_bootstraps=50)
+    for preds, target in _batches(dev, 100, steps=2, batch=1024):
+        boot.update(preds, target)
+    local = [{k: v.clone() for k, v in m.metric_state.items()} for m in boot.metrics]
+    counts = []
+    for _ in range(2):
+        reset_collective_stats()
+        boot.sync(distributed_available=lambda: True)
+        stats = collective_stats()
+        counts.append((stats["sync_shape_collectives"], stats["sync_payload_collectives"]))
+        for m, want in zip(boot.metrics, local):
+            assert all(torch.equal(getattr(m, k), v) for k, v in want.items())
+        boot.unsync()
+    assert counts == [(1, 1), (0, 1)]

@@ -31,7 +31,11 @@ def test_port_files_exist():
     assert len(PORT_FILES) > 20
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     for module in ("ops/segments.py", "regression/advanced.py", "retrieval/base.py", "functional/pairwise/distances.py",
-                   "functional/classification/ranking.py", "functional/retrieval/kernels.py"):
+                   "functional/classification/ranking.py", "functional/retrieval/kernels.py",
+                   "wrappers/bootstrapping.py", "wrappers/classwise.py", "wrappers/minmax.py",
+                   "wrappers/multioutput.py", "wrappers/tracker.py", "functional/image/helper.py",
+                   "functional/image/psnr.py", "functional/image/ssim.py", "functional/image/spectral.py",
+                   "image/base.py", "image/psnr.py", "image/ssim.py", "image/spectral.py"):
         assert f"metrics_tpu_torch/{module}" in names
 
 
@@ -45,7 +49,8 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, metrics_tpu_torch, metrics_tpu_torch.interop, metrics_tpu_torch.ops.histogram, "
         "metrics_tpu_torch.ops.segments, metrics_tpu_torch.regression, metrics_tpu_torch.retrieval, "
-        "metrics_tpu_torch.functional.pairwise, metrics_tpu_torch.classification.ranking; "
+        "metrics_tpu_torch.functional.pairwise, metrics_tpu_torch.classification.ranking, "
+        "metrics_tpu_torch.wrappers, metrics_tpu_torch.image, metrics_tpu_torch.functional.image; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu')); "
         "assert not bad, bad"
     )
