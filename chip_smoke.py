@@ -70,8 +70,10 @@ Phases, each of which raises on failure (exit code 1):
    moments of spec None, stacked by the sync; Spearman's ``cat`` rows) and a
    retrieval suite (rows of int64 query ids in list states of spec None, which
    decline the packed lane and sync row by row, as in JAX), a BootStrapper of
-   100 Accuracy clones (a wrapper tree: 600 states in one payload) and an SSIM
-   and UQI suite (buffered image rows) synced across
+   100 Accuracy clones (a wrapper tree: 600 states in one payload), an SSIM
+   and UQI suite (buffered image rows), a MeanAveragePrecision (five list
+   states of spec None, a row an image) and a FrechetInceptionDistance (its
+   two feature buffers, spec None) synced across
    processes. First through
    NCCL in a process group of one rank, the sync forced: every state after a
    sync equals the state before it bit for bit, ``unsync`` puts the local
@@ -126,6 +128,35 @@ Phases, each of which raises on failure (exit code 1):
    their bounds; then ERGAS, SAM and D-lambda over 32 four-band 256 x 256
    pan-sharpening patches. The CPU twin takes every image only if that takes
    about ``IMAGE_CPU_TWIN_S``, else the first updates that fit.
+
+17. ``generative_ffhq256`` (after phase 16): an FID-10k evaluation of a 256 x 256
+   generator (FFHQ-256, LSUN): 10,000 real and 10,000 generated uint8 images
+   of 3 x 256 x 256 made on the card from a seed, in updates of 200, through
+   FrechetInceptionDistance(2048), KernelInceptionDistance (its defaults: 100
+   subsets of 1,000) and InceptionScore (``logits_unbiased``, 10 splits, over
+   the generated half), each InceptionV3 with the same seeded random weights
+   (``allow_random_weights=True``: published weights are not in the
+   repository); LPIPS ``alex`` over 2,000 pairs of 3 x 256 x 256 in [-1, 1]
+   (updates of 100), ``vgg`` and ``squeeze`` over 200 each; one extractor call
+   of 3 x 512 x 512 images (the antialiased downsampling). Reported: update ms,
+   extractor images/s, each ``compute()`` (first and again) with its peak extra
+   memory, host reads and copies, the InceptionV3 forward, FID's float64
+   ``eigh`` and a KID subset's products beside their bounds. The CPU twins:
+   the same weights moved to the CPU featurise ``GEN_FEATURE_TWIN`` images of
+   the first update and the 512 x 512 images (``FEATURE_RTOL`` of the scale)
+   and score each backbone's first ``LPIPS_TWIN_PAIRS`` pairs (``LPIPS_ATOL``);
+   FID, KID (``KID_CPU_SUBSETS`` subsets, against the card's KID at as many)
+   and IS run on the CPU from the card's own features (``GEN_RTOL``,
+   ``IS_RTOL`` relative; IS's spread ``IS_STD_ATOL`` absolute).
+18. ``detection_coco``: COCO val2017 bbox evaluation of a detector's top-100
+   output: 5,000 images, 80 classes, Poisson(7.36) ground-truth boxes an image
+   in COCO's small/medium/large mix, 100 scored detections an image (jittered
+   ground truth and false positives), ``xywh``, updates of 8 images,
+   ``class_metrics``; then ``iou_type="segm"`` over 100 images of 480 x 640
+   instance masks (up to 20 an image). Reported: update ms, ``compute()`` s,
+   host reads and copies, how many (image, class) IoU cells took the device.
+   The same inputs through the port on the CPU must give every value within
+   ``MAP_ATOL`` (bit for bit expected).
 
 Phases 15 and 16 report what phases 11 to 14 do, and hold every state and
 value against a CPU twin fed the same batches and the same bootstrap draws:
@@ -891,14 +922,15 @@ def curves_imagenet_batches(seed: int = 21) -> list:
     return out
 
 
-def compute_profile(fn) -> dict:
-    """One call of ``fn`` under torch.profiler, after one call in the warm-up cycle: device ms and
-    operations, and the host ops that read the device (``HOST_READ_OPS``) with their counts."""
+def compute_profile(fn, warmup_fn=None) -> dict:
+    """One call of ``fn`` under torch.profiler, after one call (of ``warmup_fn`` where it is given: a
+    slow ``fn`` runs once) in the warm-up cycle: device ms and operations, and the host ops that read
+    the device (``HOST_READ_OPS``) with their counts."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        fn()
+        (warmup_fn or fn)()
         torch.cuda.synchronize()
         prof.step()
         fn()
@@ -1009,9 +1041,10 @@ def peak_extra_bytes(fn) -> int:
     return torch.cuda.max_memory_allocated() - base
 
 
-def op_profile(fn, bytes_moved: int, ops: int) -> dict:
+def op_profile(fn, bytes_moved: int, ops: int, peak_ops_per_s: float = FP32_OPS_PER_S) -> dict:
     """Device ms per call of ``fn`` (5 calls after 2 in the warm-up cycle) beside its bound: the
-    larger of its bytes at the memory rate and its operations at the float32 rate. A session whose
+    larger of its bytes at the memory rate and its operations at ``peak_ops_per_s`` (float32's by
+    default). A session whose
     device rows the profiler lost is tried again, ``PROFILE_ATTEMPTS`` times in all; then the time
     comes from CUDA events around 5 calls (``timed_by``)."""
     for _ in range(PROFILE_ATTEMPTS):
@@ -1019,10 +1052,10 @@ def op_profile(fn, bytes_moved: int, ops: int) -> dict:
         if rows:
             break
     device_ms = sum(ms for ms, _ in rows.values()) / 5 if rows else cuda_time_ms(fn, iters=5, warmup=2)
-    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / peak_ops_per_s) * 1e3
     return {"device_ms": device_ms, "timed_by": "profiler" if rows else "cuda_events", "bytes": bytes_moved,
             "ops": ops, "bound_ms": bound_ms,
-            "bound_by": "operations" if ops / FP32_OPS_PER_S > bytes_moved / HBM_BYTES_PER_S else "bytes",
+            "bound_by": "operations" if ops / peak_ops_per_s > bytes_moved / HBM_BYTES_PER_S else "bytes",
             "share_of_bound": bound_ms / device_ms,
             "device_rows": {k[:60]: v for k, v in sorted(rows.items(), key=lambda kv: -kv[1][0])[:6]}}
 
@@ -2200,9 +2233,505 @@ def wrapper_image_paths(mt, checks, histogram, card: str) -> dict:
 
 
 
+# ------------------------------------------------------------------ phases 17 and 18
+GEN_SHAPE = (50, 200, 3, 256, 256)  # updates of each half, images an update: 10,000 real and 10,000 generated (FID-10k)
+KID_SUBSETS, KID_SUBSET_SIZE = 100, 1000  # KernelInceptionDistance's defaults
+IS_SPLITS = 10
+GEN_FEATURE_TWIN = 16  # images of the first update the CPU twin featurises (a stated cut: a CPU forward is slow)
+GEN_DOWNSAMPLE_SHAPE = (16, 3, 512, 512)  # one extractor call of 512 x 512 images: the antialiased downsampling
+KID_CPU_SUBSETS = 10  # the KID twin's subsets (a stated cut), against the card's KID recomputed at as many
+LPIPS_SHAPES = {"alex": (20, 100, 3, 256, 256), "vgg": (2, 100, 3, 256, 256), "squeeze": (2, 100, 3, 256, 256)}
+LPIPS_TWIN_PAIRS = 8  # pairs of each backbone's first batch the CPU twin scores (a stated cut)
+FEATURE_RTOL = 1e-4  # card features within this share of their mean |value| of the CPU's: float32 convs in another order
+GEN_RTOL = 1e-6  # FID and KID from the same features: float64 on both sides
+IS_RTOL = 1e-5  # InceptionScore's mean from the same logits: float32 softmax sums in another order
+IS_STD_ATOL = 1e-5  # its spread, absolute: a difference of ten float32 values near 1 (means over 1,000 rows), which
+                    # cancels, so it is held to the values' own rounding, not to a share of itself
+LPIPS_ATOL = 1e-5  # the JAX package's LPIPS parity (tests/models/test_lpips_parity.py)
+FP64_OPS_PER_S = 67e12  # H100 SXM float64 on the tensor cores (NVIDIA's data sheet; not in the float32 table)
+GEN_DEVICE = "cuda"  # where phases 17 and 18 run
+
+
+def texture_images(g, n: int, h: int, w: int, blur: int, tint: float, device) -> torch.Tensor:
+    """uint8 images (n, 3, h, w): smooth colour fields at scale ``h // blur`` with fine grain, as a
+    generator's samples or a dataset's photographs look to a random network; ``tint`` shifts the colours."""
+    coarse = torch.rand(n, 3, max(1, h // blur), max(1, w // blur), generator=g, device=device)
+    base = torch.nn.functional.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+    grain = 0.06 * torch.randn(n, 3, h, w, generator=g, device=device)
+    shift = torch.tensor([tint, 0.0, -tint], device=device).view(1, 3, 1, 1)
+    return ((base + grain + shift).clamp(0, 1) * 255).round().to(torch.uint8)
+
+
+def generative_batches(seed: int = 70, shape=None) -> tuple:
+    """FID-10k of a 256 x 256 generator (FFHQ-256, LSUN): the real half and the generated half,
+    uint8 on the card; the generated images are blurrier and tinted."""
+    steps, batch, _, h, w = shape or GEN_SHAPE
+    g = torch.Generator(device=GEN_DEVICE).manual_seed(seed)
+    real = [texture_images(g, batch, h, w, 16, 0.0, GEN_DEVICE) for _ in range(steps)]
+    fake = [texture_images(g, batch, h, w, 32, 0.04, GEN_DEVICE) for _ in range(steps)]
+    return real, fake
+
+
+def lpips_pairs(seed: int, shape) -> list:
+    """(img1, img2) pairs in [-1, 1] on the card: a reconstruction and its reference."""
+    steps, batch, _, h, w = shape
+    g = torch.Generator(device=GEN_DEVICE).manual_seed(seed)
+    out = []
+    for _ in range(steps):
+        ref = texture_images(g, batch, h, w, 16, 0.0, GEN_DEVICE).float() / 127.5 - 1
+        out.append(((ref + 0.1 * torch.randn(ref.shape, generator=g, device=GEN_DEVICE)).clamp(-1, 1), ref))
+    return out
+
+
+def inception_ops_per_image(size: int = 299) -> int:
+    """Operations of one InceptionV3 forward at ``size`` x ``size``: 2 per multiply-add of every
+    convolution and of the classifier, from the output shapes of a forward on the meta device."""
+    from metrics_tpu_torch.models import inception
+    from metrics_tpu_torch.models.manifest import meta_module
+
+    model = meta_module(inception.InceptionV3)
+    total = [0]
+
+    def hook(module, _inputs, out):
+        if isinstance(module, torch.nn.Conv2d):
+            total[0] += 2 * out.numel() * module.weight[0].numel()
+        elif isinstance(module, torch.nn.Linear):
+            total[0] += 2 * module.weight.numel()
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    with torch.no_grad():
+        model(torch.empty(1, 3, size, size, device="meta"))
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def scaled_err(got, want) -> float:
+    """max |got - want| over the mean |want| (both moved to the CPU)."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    assert got.shape == want.shape, f"{tuple(got.shape)} against {tuple(want.shape)}"
+    return float((got - want).abs().max() / (want.abs().mean() + 1e-30))
+
+
+def cpu_copies(fn):
+    """(``fn()``, how many ``Tensor.cpu()`` calls it made on device tensors): the copies to the host
+    of code that copies only that way (mAP's ``compute()``), counted at the call, which a profiler
+    session can lose."""
+    real, count = torch.Tensor.cpu, [0]
+
+    def counting(self, *args, **kwargs):
+        count[0] += self.device.type != "cpu"
+        return real(self, *args, **kwargs)
+
+    torch.Tensor.cpu = counting
+    try:
+        out = fn()
+    finally:
+        torch.Tensor.cpu = real
+    return out, count[0]
+
+
+def update_reads(fn) -> dict:
+    """The host reads and copies to the host of one call of ``fn`` (a second call in the warm-up cycle)."""
+    prof = compute_profile(fn)
+    reads = prof["host_reads"]  # ``item`` reads through ``_local_scalar_dense``: one read, two rows
+    return {"host_reads": reads["aten::_local_scalar_dense"] + reads["aten::nonzero"], "by_op": reads,
+            "device_to_host_copies": prof["device_to_host_copies"], "device_ms": prof["device_ms"]}
+
+
+def generative_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 17: FID-10k (FID 2048, KID at its defaults, IS over the generated half) of a 256 x 256
+    generator with the networks' seeded random weights, the LPIPS backbones, the extractor on 512 x 512
+    images; every network held against its CPU twin (the same weights, moved to the CPU), FID, KID and
+    IS against the CPU on the card's own features."""
+    import copy
+
+    from metrics_tpu_torch.models import inception
+
+    steps, batch, channels, h, w = GEN_SHAPE
+    real, fake = generative_batches()
+    histogram.KERNEL_LAUNCHES = 0
+    kw = dict(allow_random_weights=True, seed=0, device=GEN_DEVICE)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        fid = mt.FrechetInceptionDistance(feature=2048, **kw)
+        kid = mt.KernelInceptionDistance(feature=2048, subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, **kw)
+        iscore = mt.InceptionScore(feature="logits_unbiased", splits=IS_SPLITS, **kw)
+    members = {"fid": fid, "kid": kid, "is": iscore}
+    result = {"images": {"real": steps * batch, "generated": steps * batch}, "shape": [channels, h, w],
+              "update_images": batch, "card": card}
+    # the first update of each builds its network (seeded, on the CPU, then moved): timed apart
+    t0 = time.perf_counter()
+    fid.update(real[0], real=True)
+    kid.update(real[0], real=True)
+    iscore.update(fake[0])
+    torch.cuda.synchronize()
+    result["first_updates_s"] = time.perf_counter() - t0
+    plan = [("fid", fid, fake[0], (False,)), ("kid", kid, fake[0], (False,))]
+    for i in range(1, steps):
+        plan += [("fid", fid, real[i], (True,)), ("kid", kid, real[i], (True,)), ("fid", fid, fake[i], (False,)),
+                 ("kid", kid, fake[i], (False,)), ("is", iscore, fake[i], ())]
+    ms = {"fid": [], "kid": [], "is": []}
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for name, metric, imgs, args in plan:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(imgs, *args)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+    result["update_peak_extra_bytes"] = torch.cuda.max_memory_allocated() - base
+    result["update_ms"] = {k: median(v) for k, v in ms.items()}
+    result["update_ms_runs"] = {k: [min(v), max(v), len(v)] for k, v in ms.items()}
+    result["extractor_images_per_s"] = batch / (median(ms["is"]) / 1e3)
+    assert len(fid.real_features) == len(fid.fake_features) == steps and len(iscore.features) == steps
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        spare = mt.FrechetInceptionDistance(feature=2048, **kw)
+        spare.update(real[0], real=True)
+    result["update_reads"] = update_reads(lambda: spare.update(real[1], real=True))
+    result["update_profile"] = profile_steps(lambda x: spare.update(x, real=True), [(r,) for r in real[:6]])
+    if result["update_profile"]["device_ms_per_step"] is not None:
+        result["update_profile"]["device_idle_share"] = 1 - result["update_profile"]["device_ms_per_step"] / \
+            result["update_ms"]["fid"]
+    del spare
+
+    # every compute(): the first, again, its peak extra memory, its host reads and copies
+    values = {}
+    for name, metric in members.items():
+        r: dict = {}
+        values[name] = timed_compute({name: metric}, r)[name]
+        r["peak_extra_bytes"] = peak_extra_bytes(lambda m=metric: compute_all({"m": m}))
+        result[f"{name}_compute"] = r
+    fid_v, (kid_mean, kid_std), (is_mean, is_std) = values["fid"], values["kid"], values["is"]
+    for v in (fid_v, kid_mean, kid_std, is_mean, is_std):
+        assert v.shape == () and v.dtype == torch.float32 and torch.isfinite(v) and v.device.type == torch.device(GEN_DEVICE).type, v
+    assert float(fid_v) > 0 and float(is_mean) >= 1.0, (fid_v, is_mean)
+    result["values"] = {"fid": float(fid_v), "kid_mean": float(kid_mean), "kid_std": float(kid_std),
+                        "is_mean": float(is_mean), "is_std": float(is_std)}
+
+    # the CPU twins: the same weights moved to the CPU; the first update's first images featurised there
+    twin = copy.deepcopy(fid.inception).to("cpu")
+    for key, value in twin.params.items():
+        assert torch.equal(value, fid.inception.params[key].cpu()), f"twin weights differ: {key}"
+    err = {}
+    sample = real[0][:GEN_FEATURE_TWIN]
+    err["2048"] = scaled_err(fid.real_features[0][:GEN_FEATURE_TWIN], twin(sample.cpu()))
+    twin.feature = "logits_unbiased"
+    err["logits_unbiased"] = scaled_err(iscore.features[0][:GEN_FEATURE_TWIN], twin(fake[0][:GEN_FEATURE_TWIN].cpu()))
+    # one extractor call of 512 x 512 images: the antialiased downsampling on both sides
+    big = texture_images(torch.Generator(device=GEN_DEVICE).manual_seed(71), *GEN_DOWNSAMPLE_SHAPE[:1],
+                         *GEN_DOWNSAMPLE_SHAPE[2:], 16, 0.0, GEN_DEVICE)
+    twin.feature = "2048"
+    err["2048_from_512"] = scaled_err(fid.inception(big), twin(big.cpu()))
+    for k, e in err.items():
+        assert e < FEATURE_RTOL, f"generative: {k} features off the CPU twin by {e:.3g} of their scale"
+    result["feature_err_vs_cpu"] = err
+
+    # FID, KID (KID_CPU_SUBSETS subsets) and IS on the CPU from the card's own features
+    ident = lambda x: x  # noqa: E731
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        cpu = {"fid": mt.FrechetInceptionDistance(feature=ident, device="cpu"),
+               "kid": mt.KernelInceptionDistance(feature=ident, subsets=KID_CPU_SUBSETS,
+                                                 subset_size=KID_SUBSET_SIZE, device="cpu"),
+               "is": mt.InceptionScore(feature=ident, splits=IS_SPLITS, device="cpu")}
+    for rows_r, rows_f in zip(fid.real_features, fid.fake_features):
+        cpu["fid"].update(rows_r.cpu(), real=True)
+        cpu["fid"].update(rows_f.cpu(), real=False)
+    for rows_r, rows_f in zip(kid.real_features, kid.fake_features):
+        cpu["kid"].update(rows_r.cpu(), real=True)
+        cpu["kid"].update(rows_f.cpu(), real=False)
+    for rows in iscore.features:
+        cpu["is"].update(rows.cpu())
+    t0 = time.perf_counter()
+    want = {k: m.compute() for k, m in cpu.items()}
+    result["cpu_compute_s"] = time.perf_counter() - t0
+    kid.subsets = KID_CPU_SUBSETS
+    kid._computed = None
+    kid_cut = kid.compute()
+    kid.subsets = KID_SUBSETS
+    kid._computed = None
+    rel = {"fid": abs(float(fid_v) - float(want["fid"])) / abs(float(want["fid"])),
+           "kid_mean": abs(float(kid_cut[0]) - float(want["kid"][0])) / abs(float(want["kid"][0])),
+           "kid_std": abs(float(kid_cut[1]) - float(want["kid"][1])) / abs(float(want["kid"][1])),
+           "is_mean": abs(float(is_mean) - float(want["is"][0])) / abs(float(want["is"][0]))}
+    for k, r in rel.items():
+        assert r <= (IS_RTOL if k.startswith("is") else GEN_RTOL), f"generative: {k} off the CPU by {r:.3g} (relative)"
+    is_std_err = abs(float(is_std) - float(want["is"][1]))
+    assert is_std_err <= IS_STD_ATOL, f"generative: is_std off the CPU by {is_std_err:.3g}"
+    result["rel_err_vs_cpu"] = rel
+    result["is_std_abs_err_vs_cpu"] = is_std_err
+
+    # the network and the f64 linear algebra beside their bounds
+    ops = inception_ops_per_image()
+    x = inception._resize_bilinear(real[0].float()) / 255.0 * 2.0 - 1.0
+    fwd = op_profile(lambda: inception._apply(fid.inception.model, x), bytes_moved=x.numel() * 4, ops=ops * batch)
+    fwd["images"] = batch
+    result["inception_forward"] = fwd
+    feats = torch.cat(fid.real_features).double()
+    d = feats.shape[1]
+    cov = torch.cov(feats.T)
+    result["fid_eigh"] = op_profile(lambda: torch.linalg.eigh(cov), bytes_moved=8 * 2 * d * d,
+                                    ops=9 * d**3, peak_ops_per_s=FP64_OPS_PER_S)
+    f1 = feats[:KID_SUBSET_SIZE]
+    result["kid_subset_mmd"] = op_profile(lambda: mt.image.generative.poly_mmd(f1, f1), bytes_moved=8 * 2 * f1.numel(),
+                                          ops=3 * 2 * KID_SUBSET_SIZE**2 * d, peak_ops_per_s=FP64_OPS_PER_S)
+    del feats, cov, f1, x
+
+    # LPIPS: alex over 2,000 pairs, vgg and squeeze over 200, each against its CPU twin's first pairs
+    result["lpips"] = {}
+    for seed, (net_type, shape) in enumerate(LPIPS_SHAPES.items(), start=72):
+        pairs = lpips_pairs(seed, shape)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            metric = mt.LearnedPerceptualImagePatchSimilarity(net_type=net_type, **kw)
+        metric.update(*pairs[0])  # builds the network
+        times = []
+        for p in pairs[1:]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metric.update(*p)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        value = metric.compute()
+        assert torch.isfinite(value) and float(value) > 0, f"lpips {net_type}: {value}"
+        twin_net = copy.deepcopy(metric.net).to("cpu")
+        a, b = (t[:LPIPS_TWIN_PAIRS] for t in pairs[0])
+        got, want_l = metric.net(a, b).cpu(), twin_net(a.cpu(), b.cpu())
+        torch.testing.assert_close(got, want_l, atol=LPIPS_ATOL, rtol=0, msg=lambda m: f"lpips {net_type}: {m}")
+        reads = update_reads(lambda: metric.update(*pairs[1]))
+        result["lpips"][net_type] = {
+            "pairs": shape[0] * shape[1], "update_pairs": shape[1], "update_ms": median(times) if times else None,
+            "pairs_per_s": shape[1] / (median(times) / 1e3) if times else None, "value": float(value),
+            "max_abs_err_vs_cpu": float((got - want_l).abs().max()), "update_reads": reads}
+    result["kernel_launches"] = histogram.KERNEL_LAUNCHES
+    assert result["kernel_launches"] == 0, f"generative: {result['kernel_launches']} bincount launches"
+    log(f"generative_ffhq256 {steps * batch} real + {steps * batch} generated of {channels}x{h}x{w} in updates of "
+        f"{batch}: update ms {result['update_ms']}, extractor {result['extractor_images_per_s']:.1f} images/s, "
+        f"update peak extra {result['update_peak_extra_bytes']} bytes, reads an update {result['update_reads']}; "
+        f"compute ms fid {result['fid_compute']['compute_ms']:.1f} (again {result['fid_compute']['compute_again_ms']:.1f}),"
+        f" kid {result['kid_compute']['compute_ms']:.1f} ({result['kid_compute']['compute_again_ms']:.1f}), is "
+        f"{result['is_compute']['compute_ms']:.1f} ({result['is_compute']['compute_again_ms']:.1f}); values "
+        f"{result['values']}; features vs CPU {err}; FID/KID/IS vs CPU {rel}, IS std {is_std_err:.3g}  [{card}]")
+    log(f"generative_ffhq256 inception forward {json.dumps(fwd)}; fid eigh {json.dumps(result['fid_eigh'])}; kid "
+        f"subset {json.dumps(result['kid_subset_mmd'])}; lpips {json.dumps(result['lpips'])}  [{card}]")
+    return result
+
+
+DETECTION_IMAGES = 5000  # COCO val2017
+DETECTION_CLASSES = 80
+DETECTION_GT_MEAN = 7.36  # ground-truth boxes an image: 36,781 / 5,000 in COCO val2017
+DETECTION_AREA_MIX = (0.41, 0.34, 0.25)  # COCO's small / medium / large share of boxes
+DETECTION_TOP_K = 100  # a detector's top-100 output an image
+DETECTION_UPDATE = 8  # images an update
+DETECTION_SIZE = (640, 480)  # width, height
+SEGM_IMAGES, SEGM_MAX_INSTANCES = 100, 20
+
+
+def coco_detections(n_images: int, seed: int = 80) -> list:
+    """(preds, target) of each image, xywh float32, numpy from a seed: ground truth Poisson(7.36) an
+    image, classes Zipf-like over 80, areas in COCO's small/medium/large mix; 100 detections an image,
+    90% of the ground truth found (jittered by 10% of its size, 95% of the right class, scores
+    in [0.3, 1)), the rest false positives (60% of an image's classes, scores in [0, 0.6))."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    width, height = DETECTION_SIZE
+    class_p = 1.0 / np.arange(1, DETECTION_CLASSES + 1) ** 0.8
+    class_p /= class_p.sum()
+
+    def boxes(n):
+        cat = rng.choice(3, size=n, p=DETECTION_AREA_MIX)
+        lo = np.array([4.0**2, 32.0**2, 96.0**2])[cat]
+        hi = np.array([32.0**2, 96.0**2, 400.0**2])[cat]
+        area = np.exp(rng.uniform(np.log(lo), np.log(hi)))
+        aspect = np.exp(rng.uniform(np.log(0.5), np.log(2.0), n))
+        w = np.minimum(np.sqrt(area * aspect), width - 1)
+        h = np.minimum(np.sqrt(area / aspect), height - 1)
+        return np.stack([rng.uniform(0, width - w), rng.uniform(0, height - h), w, h], 1).astype(np.float32)
+
+    out = []
+    for _ in range(n_images):
+        n_gt = rng.poisson(DETECTION_GT_MEAN)
+        gt, gl = boxes(n_gt), rng.choice(DETECTION_CLASSES, n_gt, p=class_p)
+        found = rng.rand(n_gt) < 0.9
+        tp = gt[found] + rng.randn(found.sum(), 4).astype(np.float32) * 0.1 * np.repeat(gt[found][:, 2:], 2, 1)
+        tp[:, 2:] = np.maximum(tp[:, 2:], 1.0)
+        tl = np.where(rng.rand(found.sum()) < 0.95, gl[found], rng.choice(DETECTION_CLASSES, found.sum(), p=class_p))
+        n_fp = max(DETECTION_TOP_K - len(tp), 0)
+        own = (rng.rand(n_fp) < 0.6) & (n_gt > 0)
+        fl = np.where(own, rng.choice(gl, n_fp) if n_gt else 0, rng.choice(DETECTION_CLASSES, n_fp, p=class_p))
+        scores = np.concatenate([rng.uniform(0.3, 1.0, len(tp)), rng.uniform(0.0, 0.6, n_fp)]).astype(np.float32)
+        preds = dict(boxes=np.concatenate([tp, boxes(n_fp)])[:DETECTION_TOP_K], scores=scores[:DETECTION_TOP_K],
+                     labels=np.concatenate([tl, fl])[:DETECTION_TOP_K].astype(np.int64))
+        out.append((preds, dict(boxes=gt, labels=gl.astype(np.int64))))
+    return out
+
+
+def ellipse_masks(boxes: torch.Tensor, width: int, height: int) -> torch.Tensor:
+    """(n, height, width) boolean ellipses inscribed in xywh ``boxes``, drawn on their device."""
+    ys = torch.arange(height, device=boxes.device, dtype=torch.float32)[None, :, None]
+    xs = torch.arange(width, device=boxes.device, dtype=torch.float32)[None, None, :]
+    x, y, w, h = (boxes[:, i, None, None] for i in range(4))
+    return ((xs - x - w / 2) / (w / 2)) ** 2 + ((ys - y - h / 2) / (h / 2)) ** 2 <= 1
+
+
+def coco_masks(seed: int = 81) -> list:
+    """Instance masks of 480 x 640 images on the card: 1 to 20 ground-truth ellipses an image over 1 to
+    3 of its classes, the detections shifted copies of them (85% found) plus 5 false positives."""
+    g = torch.Generator(device=GEN_DEVICE).manual_seed(seed)
+    width, height = DETECTION_SIZE
+    out = []
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=GEN_DEVICE)
+
+    for _ in range(SEGM_IMAGES):
+        n = int(torch.randint(1, SEGM_MAX_INSTANCES + 1, (1,), generator=g, device=GEN_DEVICE))
+        classes = torch.randint(0, DETECTION_CLASSES, (3,), generator=g, device=GEN_DEVICE)
+        gl = classes[torch.randint(0, int(torch.randint(1, 4, (1,), generator=g, device=GEN_DEVICE)), (n,),
+                                   generator=g, device=GEN_DEVICE)]
+        wh = 16 + rand(n, 2) * torch.tensor([200.0, 150.0], device=GEN_DEVICE)
+        xy = rand(n, 2) * (torch.tensor([width, height], device=GEN_DEVICE) - wh)
+        gt = torch.cat([xy, wh], 1)
+        found = rand(n) < 0.85
+        det = gt[found] + torch.cat([rand(int(found.sum()), 2) * 12 - 6, torch.zeros(int(found.sum()), 2,
+                                                                                      device=GEN_DEVICE)], 1)
+        fp_wh = 16 + rand(5, 2) * 150
+        det = torch.cat([det, torch.cat([rand(5, 2) * (torch.tensor([width, height], device=GEN_DEVICE) - fp_wh),
+                                         fp_wh], 1)])
+        dl = torch.cat([gl[found], classes[torch.randint(0, 3, (5,), generator=g, device=GEN_DEVICE)]])
+        out.append((dict(masks=ellipse_masks(det, width, height), scores=rand(len(dl)), labels=dl),
+                    dict(masks=ellipse_masks(gt, width, height), labels=gl)))
+    return out
+
+
+def map_values_equal(got: dict, want: dict, label: str) -> float:
+    """Every mAP/mAR value of the card equal to the CPU's within MAP_ATOL; the largest |difference|."""
+    assert sorted(got) == sorted(want), f"{label}: keys {sorted(got)}"
+    err = 0.0
+    for key, value in want.items():
+        g = got[key].cpu()
+        assert g.dtype == value.dtype == torch.float32 and g.shape == value.shape, f"{label}: {key}"
+        err = max(err, float((g - value).abs().max()))
+    assert err <= MAP_ATOL, f"{label}: off the CPU by {err}"
+    return err
+
+
+MAP_ATOL = 1e-6  # mAP/mAR card against CPU: the same host numpy on the same IoUs; bit for bit expected
+
+
+def detection_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 18: COCO val2017 bbox evaluation of a detector's top-100 output (5,000 images, 80 classes),
+    then ``iou_type="segm"`` over 100 images of 480 x 640 instance masks; each against the port on the CPU."""
+    data = coco_detections(DETECTION_IMAGES)
+    on = lambda ds, dev: [{k: torch.as_tensor(v).to(dev) for k, v in d.items()} for d in ds]  # noqa: E731
+    batches = []
+    for i in range(0, DETECTION_IMAGES, DETECTION_UPDATE):
+        chunk = data[i : i + DETECTION_UPDATE]
+        batches.append((on([p for p, _ in chunk], GEN_DEVICE), on([t for _, t in chunk], GEN_DEVICE)))
+    torch.cuda.synchronize()
+    histogram.KERNEL_LAUNCHES = 0
+    card_map = mt.MeanAveragePrecision(box_format="xywh", class_metrics=True, device=GEN_DEVICE)
+    t0 = time.perf_counter()
+    for preds, target in batches:
+        card_map.update(preds, target)
+    torch.cuda.synchronize()
+    result = {"images": DETECTION_IMAGES, "classes": DETECTION_CLASSES, "updates": len(batches),
+              "gt_boxes": sum(len(t["labels"]) for _, t in data), "detections": sum(len(p["labels"]) for p, _ in data),
+              "update_ms": (time.perf_counter() - t0) / len(batches) * 1e3, "card": card}
+    spare = mt.MeanAveragePrecision(box_format="xywh", device=GEN_DEVICE)
+    result["update_reads"] = update_reads(lambda: spare.update(*batches[0]))
+    first: dict = {}
+
+    def first_compute():  # the one bbox compute() of the card, timed under the profiler (a slow call runs once)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first["values"], first["copies"] = cpu_copies(card_map.compute)
+        torch.cuda.synchronize()
+        first["s"] = time.perf_counter() - t0
+
+    prof = compute_profile(first_compute, warmup_fn=torch.cuda.synchronize)
+    got = first["values"]
+    result["compute_s"] = first["s"]
+    result["iou_cells"] = dict(card_map.iou_cells)
+    result["compute_reads"] = {"host_reads": prof["host_reads"], "device_to_host_copies": prof["device_to_host_copies"],
+                               "cpu_calls_on_device_tensors": first["copies"], "device_ms": prof["device_ms"],
+                               "device_idle_share": 1 - (prof["device_ms"] or 0) / 1e3 / first["s"]}
+    result["values"] = {k: float(v) for k, v in got.items() if v.numel() == 1}
+    assert 0 < result["values"]["map"] < 1 and got["map_per_class"].shape == (DETECTION_CLASSES,), result["values"]
+    cpu_map = mt.MeanAveragePrecision(box_format="xywh", class_metrics=True, device="cpu")
+    for i in range(0, DETECTION_IMAGES, DETECTION_UPDATE):
+        chunk = data[i : i + DETECTION_UPDATE]
+        cpu_map.update(on([p for p, _ in chunk], "cpu"), on([t for _, t in chunk], "cpu"))
+    t0 = time.perf_counter()
+    want = cpu_map.compute()
+    result["cpu_compute_s"] = time.perf_counter() - t0
+    result["max_abs_err_vs_cpu"] = map_values_equal(got, want, "detection bbox")
+    assert cpu_map.iou_cells == result["iou_cells"], (cpu_map.iou_cells, result["iou_cells"])
+    del batches, card_map, cpu_map, spare
+
+    # instance masks
+    masks = coco_masks()
+    seg = mt.MeanAveragePrecision(iou_type="segm", device=GEN_DEVICE)
+    t0 = time.perf_counter()
+    for i in range(0, SEGM_IMAGES, DETECTION_UPDATE):
+        chunk = masks[i : i + DETECTION_UPDATE]
+        seg.update([p for p, _ in chunk], [t for _, t in chunk])
+    torch.cuda.synchronize()
+    seg_result = {"images": SEGM_IMAGES, "shape": list(DETECTION_SIZE[::-1]),
+                  "gt_instances": sum(len(t["labels"]) for _, t in masks),
+                  "update_ms": (time.perf_counter() - t0) / -(-SEGM_IMAGES // DETECTION_UPDATE) * 1e3}
+    t0 = time.perf_counter()
+    seg_got, seg_copies = cpu_copies(seg.compute)
+    torch.cuda.synchronize()
+    seg_result["compute_s"] = time.perf_counter() - t0
+    seg_result["cpu_calls_on_device_tensors"] = seg_copies
+    seg_result["iou_cells"] = dict(seg.iou_cells)
+    assert seg.iou_cells["device"] > 0, seg.iou_cells
+    seg._computed = None
+    prof = compute_profile(lambda: seg.compute(), warmup_fn=torch.cuda.synchronize)
+    seg_result["compute_reads"] = {"host_reads": prof["host_reads"], "device_to_host_copies": prof["device_to_host_copies"],
+                                   "device_ms": prof["device_ms"]}
+    seg_result["peak_extra_bytes"] = peak_extra_bytes(lambda: (setattr(seg, "_computed", None), seg.compute()))
+    seg_cpu = mt.MeanAveragePrecision(iou_type="segm", device="cpu")
+    for i in range(0, SEGM_IMAGES, DETECTION_UPDATE):
+        chunk = masks[i : i + DETECTION_UPDATE]
+        seg_cpu.update(on([p for p, _ in chunk], "cpu"), on([t for _, t in chunk], "cpu"))
+    t0 = time.perf_counter()
+    seg_want = seg_cpu.compute()
+    seg_result["cpu_compute_s"] = time.perf_counter() - t0
+    seg_result["max_abs_err_vs_cpu"] = map_values_equal(seg_got, seg_want, "detection segm")
+    seg_result["values"] = {k: float(v) for k, v in seg_got.items() if v.numel() == 1}
+    result["segm"] = seg_result
+    result["kernel_launches"] = histogram.KERNEL_LAUNCHES
+    assert result["kernel_launches"] == 0, f"detection: {result['kernel_launches']} bincount launches"
+    log(f"detection_coco {DETECTION_IMAGES} images, {result['gt_boxes']} ground-truth boxes, {result['detections']} "
+        f"detections in {len(data) // DETECTION_UPDATE} updates: update {result['update_ms']:.4f} ms, compute "
+        f"{result['compute_s']:.3f} s (CPU twin {result['cpu_compute_s']:.3f} s), IoU cells {result['iou_cells']}, "
+        f"reads an update {result['update_reads']}, compute reads {result['compute_reads']}; values "
+        f"{result['values']}; max |err| vs CPU {result['max_abs_err_vs_cpu']}  [{card}]")
+    log(f"detection_coco segm {json.dumps(seg_result)}  [{card}]")
+    return result
+
+
+def generative_detection_paths(mt, checks, histogram, card: str) -> dict:
+    """Phases 17 and 18, each timed."""
+    out = {}
+    for label, fn in (("generative_ffhq256", generative_path), ("detection_coco", detection_path)):
+        t0 = time.perf_counter()
+        out[label] = fn(mt, checks, histogram, card)
+        out[label]["phase_s"] = time.perf_counter() - t0
+    out["kernel_launches"] = sum(out[k]["kernel_launches"] for k in ("generative_ffhq256", "detection_coco"))
+    return out
+
+
 # ------------------------------------------------------------------ phase 10
 SYNC_SUITES = ("headline", "agreement", "segmentation", "aggregators", "curves", "regression", "retrieval", "bootstrap",
-               "ssim")
+               "ssim", "map", "fid")
+SYNC_MAP_IMAGES = 4  # images of each synced mAP update on each rank (five list states of spec None, a row an image)
+SYNC_FID_SHAPE = (32, 1, 8, 8)  # the synced FID's images an update on each rank; its features the first 48 pixels
 SYNC_BOOT_CLONES = 100  # the synced BootStrapper's clones of Accuracy (macro, C=1000): 600 states
 SYNC_IMAGE_SHAPE = (4, 3, 64, 64)  # the synced SSIM suite's images an update on each rank
 SYNC_REGRESSION_ROWS = 65_536  # rows of each regression update on each rank
@@ -2237,7 +2766,29 @@ def sync_suite(mt, name: str, device: str):
     if name == "ssim":  # buffered image rows, `cat` lists shared by one compute group
         return mt.MetricCollection({"ssim": mt.StructuralSimilarityIndexMeasure(data_range=1.0, device=device),
                                     "uqi": mt.UniversalImageQualityIndex(device=device)})
+    if name == "map":  # per-image rows of boxes, scores and labels: list states of spec None
+        return mt.MetricCollection({"map": mt.MeanAveragePrecision(box_format="xywh", device=device)})
+    if name == "fid":  # the real and generated feature buffers: list states of spec None
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            return mt.MetricCollection({"fid": mt.FrechetInceptionDistance(feature=sync_features, device=device)})
     return mt.MetricCollection({n: getattr(mt, n)(device=device) for n in AGGREGATORS}, compute_groups=False)
+
+
+def sync_features(imgs):
+    """The synced FID's feature: an image's first 48 pixels (no network: the suite syncs buffers)."""
+    return imgs.reshape(imgs.shape[0], -1)[:, :48]
+
+
+def to_device(obj, device):
+    """Tensors in (nested lists, tuples and dicts of) ``obj`` moved to ``device``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: to_device(v, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_device(v, device) for v in obj)
+    return obj
 
 
 def sync_batches(name: str, rank: int, steps: int = SYNC_STEPS) -> list:
@@ -2258,6 +2809,14 @@ def sync_batches(name: str, rank: int, steps: int = SYNC_STEPS) -> list:
     if name == "bootstrap":
         return [((torch.softmax(torch.randn(1000, 1000, generator=g, device=SYNC_DEVICE) * 2, dim=1),
                   torch.randint(0, 1000, (1000,), generator=g, device=SYNC_DEVICE)), {}) for _ in range(steps)]
+    if name == "map":
+        data = coco_detections(steps * SYNC_MAP_IMAGES, seed=seed)
+        return [((to_device([{k: torch.as_tensor(v) for k, v in p.items()} for p, _ in chunk], SYNC_DEVICE),
+                  to_device([{k: torch.as_tensor(v) for k, v in t.items()} for _, t in chunk], SYNC_DEVICE)), {})
+                for chunk in (data[i : i + SYNC_MAP_IMAGES] for i in range(0, len(data), SYNC_MAP_IMAGES))]
+    if name == "fid":
+        return [((torch.rand(SYNC_FID_SHAPE, generator=g, device=SYNC_DEVICE) + 0.2 * step,), {"real": step % 2 == 0})
+                for step in range(steps)]
     if name == "ssim":
         out = []
         for _ in range(steps):
@@ -2557,16 +3116,20 @@ def sync_two_ranks(mt, card: str) -> dict:
                       for node, state in results[0][name]["local"]}
             mt.load_reference_state(reference, summed, update_count=SYNC_STEPS * len(results), mode="multi-class")
             ranks_batches = []
-        # rows in the order the sync leaves them: rank by rank, but the retrieval rows (spec None,
-        # gathered row by row) batch by batch, each batch's ranks in turn
-        if name == "retrieval":
+        # rows in the order the sync leaves them: rank by rank, but the rows of spec None (gathered
+        # row by row) row by row, each row's ranks in turn: a retrieval or FID row is an update's,
+        # an mAP row an image's
+        if name in ("retrieval", "fid"):
             order = [ranks_batches[r][b] for b in range(SYNC_STEPS) for r in range(len(results))]
+        elif name == "map":
+            order = [(tuple(part[i : i + 1] for part in ranks_batches[r][b][0]), {})
+                     for b in range(SYNC_STEPS) for i in range(SYNC_MAP_IMAGES) for r in range(len(results))]
         else:
             order = [batch for batches in ranks_batches for batch in batches]
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             for args, kwargs in order:
-                reference.update(*(a.cpu() for a in args), **{k: v.cpu() for k, v in kwargs.items()})
+                reference.update(*to_device(args, "cpu"), **to_device(kwargs, "cpu"))
             want = reference.compute()
         for rank, result in enumerate(results):
             got = result[name]["values"]
@@ -2653,6 +3216,8 @@ def main() -> int:
     curves = timed_phase("curves", curves_path, mt, checks, histogram, card)
     evaluation = timed_phase("eval_11_14", eval_paths, mt, checks, histogram, card)
     wrappers_image = timed_phase("wrappers_image_15_16", wrapper_image_paths, mt, checks, histogram, card)
+    generative_detection = timed_phase("generative_detection_17_18", generative_detection_paths, mt, checks,
+                                       histogram, card)
     sync = timed_phase("sync", sync_path, mt, histogram, card)
     log(f"phase seconds: {json.dumps(phase_s)}")
     # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, the
@@ -2660,12 +3225,14 @@ def main() -> int:
     # sync phase's updates, counted from 0 just before each
     kernel["launches"] = sum(p["first"]["kernel_launches"] for p in (main, agreement, segmentation))
     kernel["launches"] += (curves["kernel_launches"] + evaluation["kernel_launches"]
-                           + wrappers_image["kernel_launches"] + sync["kernel_launches"])
+                           + wrappers_image["kernel_launches"] + generative_detection["kernel_launches"]
+                           + sync["kernel_launches"])
 
     log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
                     "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation,
                     "curves_path": curves, "eval_paths": evaluation, "wrapper_image_paths": wrappers_image,
-                    "sync_path": sync, "phase_seconds": phase_s}))
+                    "generative_detection_paths": generative_detection, "sync_path": sync,
+                    "phase_seconds": phase_s}))
     log(json.dumps({"kernels": [kernel]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

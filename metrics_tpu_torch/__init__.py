@@ -11,7 +11,10 @@ Ported so far: the whole classification domain (the stat-score family,
 the confusion-matrix family, HammingDistance, the curve family, HingeLoss,
 KLDivergence and the ranking metrics), the regression metrics, the pairwise
 distances (functional), the retrieval metrics, the image-quality metrics
-(PSNR, SSIM, MS-SSIM, UQI, ERGAS, SAM, D-lambda), the aggregators (Max, Min,
+(PSNR, SSIM, MS-SSIM, UQI, ERGAS, SAM, D-lambda), the model-backed image
+metrics (FID, KID, InceptionScore, LPIPS, with InceptionV3 and the three LPIPS
+networks in ``metrics_tpu_torch.models``), detection (MeanAveragePrecision,
+with the box operations and the COCO RLE codec), the aggregators (Max, Min,
 Sum, Cat, Mean), MetricCollection, the arithmetic of metrics
 (CompositionalMetric) and the wrappers (BootStrapper, ClasswiseWrapper,
 MinMaxMetric, MultioutputWrapper, MetricTracker), and state sync across
@@ -52,8 +55,13 @@ from metrics_tpu_torch.classification import (
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection
+from metrics_tpu_torch.detection import MeanAveragePrecision
 from metrics_tpu_torch.image import (
     ErrorRelativeGlobalDimensionlessSynthesis,
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    LearnedPerceptualImagePatchSimilarity,
     MultiScaleStructuralSimilarityIndexMeasure,
     PeakSignalNoiseRatio,
     SpectralAngleMapper,
@@ -120,14 +128,19 @@ __all__ = [
     "ExplainedVariance",
     "F1Score",
     "FBetaScore",
+    "FrechetInceptionDistance",
     "HammingDistance",
     "HingeLoss",
+    "InceptionScore",
     "JaccardIndex",
     "KLDivergence",
+    "KernelInceptionDistance",
     "LabelRankingAveragePrecision",
     "LabelRankingLoss",
+    "LearnedPerceptualImagePatchSimilarity",
     "MatthewsCorrCoef",
     "MaxMetric",
+    "MeanAveragePrecision",
     "MeanAbsoluteError",
     "MeanAbsolutePercentageError",
     "MeanMetric",

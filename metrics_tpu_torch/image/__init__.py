@@ -1,8 +1,16 @@
 """Image module metrics (JAX counterpart: `metrics_tpu/image`).
 
-FrechetInceptionDistance, KernelInceptionDistance, InceptionScore and
-LearnedPerceptualImagePatchSimilarity, with their networks, are not ported yet.
+The image-quality metrics (PSNR, SSIM, MS-SSIM, UQI, ERGAS, SAM, D-lambda)
+and the model-backed ones (FrechetInceptionDistance, KernelInceptionDistance,
+InceptionScore, LearnedPerceptualImagePatchSimilarity), whose networks are in
+:mod:`metrics_tpu_torch.models`.
 """
+from metrics_tpu_torch.image.generative import (
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    LearnedPerceptualImagePatchSimilarity,
+)
 from metrics_tpu_torch.image.psnr import PeakSignalNoiseRatio
 from metrics_tpu_torch.image.spectral import (
     ErrorRelativeGlobalDimensionlessSynthesis,
@@ -17,6 +25,10 @@ from metrics_tpu_torch.image.ssim import (
 
 __all__ = [
     "ErrorRelativeGlobalDimensionlessSynthesis",
+    "FrechetInceptionDistance",
+    "InceptionScore",
+    "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio",
     "SpectralAngleMapper",

@@ -1,12 +1,14 @@
-"""Carry accumulated state across from the JAX package.
+"""Carry accumulated state, and the networks' weights, across from the JAX package.
 
-A metric here holds no weights, only accumulator states, so carrying a
-model across becomes carrying state: a JAX metric's ``metric_state`` (or its
+A metric holds accumulator states, so carrying a metric across is carrying
+state: a JAX metric's ``metric_state`` (or its
 ``state_dict()``), as numpy arrays, is loaded into the port's metric of the
 same configuration, and both then ``compute()`` the same value. Wrapper
 trees and compositions load child by child, under the names the JAX
 package's ``_named_child_metrics`` gives them (``metrics.3``, ``metric_a``,
-``_base_metric``), which are the port's ``state_dict`` prefixes too. This
+``_base_metric``), which are the port's ``state_dict`` prefixes too. The
+model-backed metrics' networks carry their weights across with
+:func:`inception_state_from_flax` and :func:`lpips_state_from_flax`. This
 module takes plain numpy arrays and imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -20,6 +22,9 @@ import torch
 from metrics_tpu_torch.classification.ranking import _RankingBase
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.models.inception import INCEPTION_CONVERTER, InceptionV3
+from metrics_tpu_torch.models.lpips import _BACKBONES, LPIPSNet, lpips_converter
+from metrics_tpu_torch.models.manifest import meta_module, state_from_flax
 from metrics_tpu_torch.utils.enums import DataType
 from metrics_tpu_torch.wrappers.tracker import MetricTracker
 
@@ -134,4 +139,28 @@ def load_reference_state(
     _load_metric(metric, state, update_count, mode)
 
 
-__all__ = ["load_reference_state"]
+def inception_state_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port ``InceptionV3``'s ``state_dict`` (CPU tensors) from the JAX package's weights.
+
+    ``params`` is the Flax variables tree as numpy arrays (``{"params": ...,
+    "batch_stats": ...}``, nested) or the flat ``"a/b/c"`` keys of the ``.npz``
+    that ``tools/convert_inception_weights.py`` writes. It is checked against
+    the manifest first: a missing, extra or mis-shaped key raises
+    ``ValueError`` naming it and the converter command. Kernels move from
+    Flax's HWIO and (in, out) to OIHW and (out, in); ``fc_bias`` becomes
+    ``fc.bias``; BatchNorm's ``scale``/``bias`` and ``batch_stats`` become
+    ``bn.weight``/``bn.bias`` and the running mean and variance.
+    """
+    return state_from_flax(params, meta_module(InceptionV3), INCEPTION_CONVERTER)
+
+
+def lpips_state_from_flax(params: Mapping[str, Any], net_type: str) -> Dict[str, torch.Tensor]:
+    """The port ``LPIPSNet(net_type)``'s ``state_dict`` (CPU tensors) from the JAX package's weights
+    (the Flax variables tree, or the flat keys of ``tools/convert_lpips_weights.py``'s ``.npz``),
+    checked against the manifest as :func:`inception_state_from_flax` is."""
+    if net_type not in _BACKBONES:
+        raise ValueError(f"Argument `net_type` must be one of {tuple(_BACKBONES)}, but got {net_type}.")
+    return state_from_flax(params, meta_module(LPIPSNet, net_type), lpips_converter(net_type))
+
+
+__all__ = ["inception_state_from_flax", "load_reference_state", "lpips_state_from_flax"]

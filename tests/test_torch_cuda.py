@@ -20,7 +20,11 @@ SSIM, MS-SSIM and UQI on the card against the CPU with cuDNN's TF32 switched
 on globally (the depthwise convolution must still run in float32, and the
 switch comes back on after the call); a BootStrapper drawing on the card's
 generator against a CPU twin fed the same draws; and a BootStrapper tree
-synced through NCCL in one payload collective.
+synced through NCCL in one payload collective; InceptionV3's taps and the
+three LPIPS networks on the card against the CPU with the same seeded
+weights, with TF32 left on by the caller; FID, KID and IS from the same
+features; and MeanAveragePrecision (boxes, and masks with cells on the device
+route) equal to the CPU bit for bit.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -653,3 +657,116 @@ def test_nccl_world_of_one_syncs_a_bootstrapper_in_one_payload_collective(nccl_w
             assert all(torch.equal(getattr(m, k), v) for k, v in want.items())
         boot.unsync()
     assert counts == [(1, 1), (0, 1)]
+
+
+def test_inception_taps_on_the_card_equal_the_cpu_under_tf32(dev):
+    """The same seeded weights on the card and the CPU; the caller leaves cuDNN's TF32 and the
+    matmul's TF32 on, and the network still runs in float32 (TF32 would move the taps by about 1e-3
+    of their scale)."""
+    from metrics_tpu_torch.models import inception
+
+    card = inception.InceptionV3Extractor(feature="2048", seed=3, device=dev)
+    cpu = inception.InceptionV3Extractor(feature="2048", seed=3, device="cpu")
+    imgs = torch.randint(0, 256, (4, 3, 96, 96), dtype=torch.uint8, generator=torch.Generator().manual_seed(0))
+    x = inception._resize_bilinear(imgs.float()) / 255.0 * 2.0 - 1.0
+    prev = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = inception._apply(card.model, x.to(dev))
+        assert torch.backends.cudnn.allow_tf32 and torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev[0]
+        torch.set_float32_matmul_precision(prev[1])
+    want = inception._apply(cpu.model, x)
+    for tap, value in want.items():
+        err = (got[tap].cpu() - value).abs().max() / (value.abs().mean() + 1e-12)
+        assert err < 1e-4, (tap, float(err))
+    # the extractor end to end, from the uint8 images on the card
+    torch.testing.assert_close(card(imgs.to(dev)).cpu(), cpu(imgs), rtol=1e-4, atol=1e-4 * want["2048"].abs().mean())
+
+
+@pytest.mark.parametrize("net_type", ["alex", "vgg", "squeeze"])
+def test_lpips_on_the_card_equals_the_cpu(dev, net_type):
+    from metrics_tpu_torch.models import lpips
+
+    g = torch.Generator().manual_seed(1)
+    img1, img2 = (torch.rand(3, 3, 65, 65, generator=g) * 2 - 1 for _ in range(2))
+    card = lpips.LPIPSExtractor(net_type, seed=2, device=dev)
+    cpu = lpips.LPIPSExtractor(net_type, seed=2, device="cpu")
+    torch.testing.assert_close(card(img1.to(dev), img2.to(dev)).cpu(), cpu(img1, img2), atol=1e-5, rtol=0)
+
+
+def test_fid_kid_is_on_the_card_equal_the_cpu(dev):
+    feats = lambda x: x.reshape(x.shape[0], -1)[:, :32]  # noqa: E731
+    g = torch.Generator().manual_seed(4)
+    real, fake = torch.rand(64, 1, 8, 8, generator=g), torch.rand(64, 1, 8, 8, generator=g) * 0.9 + 0.1
+    out = {}
+    for device in (dev, "cpu"):
+        fid = mt.FrechetInceptionDistance(feature=feats, device=device)
+        kid = mt.KernelInceptionDistance(feature=feats, subsets=5, subset_size=32, device=device)
+        iscore = mt.InceptionScore(feature=feats, splits=4, device=device)
+        for m in (fid, kid):
+            m.update(real.to(device), real=True)
+            m.update(fake.to(device), real=False)
+        iscore.update(fake.to(device))
+        out[str(device)] = [fid.compute(), *kid.compute(), *iscore.compute()]
+    # FID and KID in float64: 1e-6 relative; IS in float32: its mean within 1e-5 relative, its
+    # spread (a difference of float32 values near 1, which cancels) within 1e-6 absolute
+    tolerances = [(1e-6, 1e-12)] * 3 + [(1e-5, 0.0), (0.0, 1e-6)]
+    for got, want, (rtol, atol) in zip(out[str(dev)], out["cpu"], tolerances):
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=atol)
+
+
+def _detection_scene(n_images, seed, masks=False, n_classes=3):
+    g = torch.Generator().manual_seed(seed)
+    preds, targets = [], []
+    for _ in range(n_images):
+        n_gt = int(torch.randint(0, 8, (1,), generator=g))
+        xy = torch.rand(n_gt, 2, generator=g) * 400
+        wh = torch.rand(n_gt, 2, generator=g) * 120 + 4
+        gt = torch.cat([xy, wh], 1)
+        n_det = int(torch.randint(0, 12, (1,), generator=g))
+        det = torch.cat([torch.rand(n_det, 2, generator=g) * 400, torch.rand(n_det, 2, generator=g) * 120 + 4], 1)
+        det[: min(n_gt, n_det)] = gt[: min(n_gt, n_det)] + torch.randn(min(n_gt, n_det), 4, generator=g) * 3
+        det[:, 2:] = det[:, 2:].clamp(min=1)
+        gl = torch.randint(0, n_classes, (n_gt,), generator=g)
+        dl = torch.cat([gl[:n_det], torch.randint(0, n_classes, (max(n_det - n_gt, 0),), generator=g)])
+        scores = torch.rand(n_det, generator=g)
+        if masks:  # boxes drawn as masks on a 512 x 512 canvas: cells of 17 pairs or more take the device
+            def draw(b):
+                grid = torch.arange(512.0)
+                x0, y0, w, h = b.unbind(-1)
+                return (((grid[None, :, None] >= y0[:, None, None]) & (grid[None, :, None] < (y0 + h)[:, None, None]))
+                        & ((grid[None, None, :] >= x0[:, None, None]) & (grid[None, None, :] < (x0 + w)[:, None, None])))
+            preds.append(dict(masks=draw(det), scores=scores, labels=dl))
+            targets.append(dict(masks=draw(gt), labels=gl))
+        else:
+            preds.append(dict(boxes=det, scores=scores, labels=dl))
+            targets.append(dict(boxes=gt, labels=gl))
+    return preds, targets
+
+
+@pytest.mark.parametrize("iou_type", ["bbox", "segm"])
+def test_map_on_the_card_equals_the_cpu(dev, iou_type):
+    preds, targets = _detection_scene(24, seed=5, masks=iou_type == "segm", n_classes=3 if iou_type == "bbox" else 1)
+    kwargs = dict(iou_type=iou_type, class_metrics=True, **({"box_format": "xywh"} if iou_type == "bbox" else {}))
+    card = mt.MeanAveragePrecision(**kwargs)
+    cpu = mt.MeanAveragePrecision(device="cpu", **kwargs)
+    on = lambda ds: [{k: v.to(dev) for k, v in d.items()} for d in ds]  # noqa: E731
+    for i in range(0, 24, 8):
+        card.update(on(preds[i : i + 8]), on(targets[i : i + 8]))
+        cpu.update(preds[i : i + 8], targets[i : i + 8])
+    prev = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # mask IoU stays exact under the caller's TF32
+    try:
+        got = card.compute()
+    finally:
+        torch.set_float32_matmul_precision(prev[1])
+    want = cpu.compute()
+    assert card.iou_cells == cpu.iou_cells
+    if iou_type == "segm":
+        assert card.iou_cells["device"] > 0
+    for key, value in want.items():
+        assert got[key].device.type == "cuda" and torch.equal(got[key].cpu(), value), key

@@ -35,7 +35,10 @@ def test_port_files_exist():
                    "wrappers/bootstrapping.py", "wrappers/classwise.py", "wrappers/minmax.py",
                    "wrappers/multioutput.py", "wrappers/tracker.py", "functional/image/helper.py",
                    "functional/image/psnr.py", "functional/image/ssim.py", "functional/image/spectral.py",
-                   "image/base.py", "image/psnr.py", "image/ssim.py", "image/spectral.py"):
+                   "image/base.py", "image/psnr.py", "image/ssim.py", "image/spectral.py",
+                   "models/__init__.py", "models/inception.py", "models/lpips.py", "models/manifest.py",
+                   "image/generative.py", "functional/detection/__init__.py", "functional/detection/box_ops.py",
+                   "functional/detection/rle.py", "detection/__init__.py", "detection/mean_ap.py"):
         assert f"metrics_tpu_torch/{module}" in names
 
 
@@ -50,8 +53,10 @@ def test_importing_the_port_loads_no_jax():
         "import sys, metrics_tpu_torch, metrics_tpu_torch.interop, metrics_tpu_torch.ops.histogram, "
         "metrics_tpu_torch.ops.segments, metrics_tpu_torch.regression, metrics_tpu_torch.retrieval, "
         "metrics_tpu_torch.functional.pairwise, metrics_tpu_torch.classification.ranking, "
-        "metrics_tpu_torch.wrappers, metrics_tpu_torch.image, metrics_tpu_torch.functional.image; "
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu')); "
+        "metrics_tpu_torch.wrappers, metrics_tpu_torch.image, metrics_tpu_torch.functional.image, "
+        "metrics_tpu_torch.models, metrics_tpu_torch.models.manifest, metrics_tpu_torch.image.generative, "
+        "metrics_tpu_torch.detection, metrics_tpu_torch.functional.detection; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'metrics_tpu')); "
         "assert not bad, bad"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
