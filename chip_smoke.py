@@ -72,8 +72,10 @@ Phases, each of which raises on failure (exit code 1):
    decline the packed lane and sync row by row, as in JAX), a BootStrapper of
    100 Accuracy clones (a wrapper tree: 600 states in one payload), an SSIM
    and UQI suite (buffered image rows), a MeanAveragePrecision (five list
-   states of spec None, a row an image) and a FrechetInceptionDistance (its
-   two feature buffers, spec None) synced across
+   states of spec None, a row an image), a FrechetInceptionDistance (its
+   two feature buffers, spec None), a text suite (WER and BLEU float32 sums,
+   chrF's packed uint8 sentences, ROUGE's rows of spec None) and an audio
+   suite (PIT and SDR sums) synced across
    processes. First through
    NCCL in a process group of one rank, the sync forced: every state after a
    sync equals the state before it bit for bit, ``unsync`` puts the local
@@ -157,6 +159,29 @@ Phases, each of which raises on failure (exit code 1):
    host reads and copies, how many (image, class) IoU cells took the device.
    The same inputs through the port on the CPU must give every value within
    ``MAP_ATOL`` (bit for bit expected).
+19. ``text_eval`` (after phase 18): the host text library built from
+   ``csrc/text_kernels.cpp`` (timed), then, every input made from a seed:
+   ASR at LibriSpeech test-clean shape (2,620 utterances of about 20 words,
+   10% edits; WER, CER, MER, WIL, WIP in updates of 32); MT at WMT14
+   newstest2014 en-de shape (3,003 sentences of about 27 words; BLEU-4,
+   SacreBLEU 13a, chrF++, TER, EED in updates of 64); ROUGE-1/2/L/Lsum at
+   CNN/DailyMail test shape (11,490 pairs of 3 to 4 sentences, cut to
+   ``SUMM_CUT_PAIRS`` if all would take more than ``SUMM_FULL_S``); SQuAD v1.1
+   dev shape (10,570 questions); Perplexity at GPT-2 small's shape (16
+   updates of 8 x 1024 x 50,257 float32 logits, 5% ignored, then one bfloat16
+   batch) beside its bytes bound and ``F.cross_entropy``; BERTScore over the
+   3,003 MT pairs through a seeded 1,024-wide word table; InfoLM over 256
+   pairs through a seeded stub masked LM (not a transformer). Each family
+   against its CPU twin (``TEXT_HOST_RTOL``, ``TEXT_DEVICE_RTOL``; states bit
+   for bit), with update and ``compute()`` ms, host reads and copies, the
+   library's dynamic programs, and 0 bincount launches.
+20. ``audio_separation``: PIT(SI-SDR) with SI-SNR and SNR of the permuted
+   estimates at WSJ0-2mix shape (3,000 mixtures of 2 x 32,000 samples) and
+   WSJ0-3mix (500), every permutation the true one and the CPU's; SDR (512
+   taps) over 500 clips by the solve and by 10 conjugate-gradient steps, 50
+   clips in float64, the solve and the FFTs beside their bounds; STOI over 100
+   clips of 3 s at 16 kHz and ESTOI over 20; PESQ's ``ModuleNotFoundError``
+   where ``pesq`` is absent. Tolerances in dB beside their constants.
 
 Phases 15 and 16 report what phases 11 to 14 do, and hold every state and
 value against a CPU twin fed the same batches and the same bootstrap draws:
@@ -190,6 +215,7 @@ import time
 import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
@@ -947,6 +973,9 @@ def compute_profile(fn, warmup_fn=None) -> dict:
         "host_reads": {k: counts.get(k, 0) for k in HOST_READ_OPS},
         # every copy to the host, ``item`` and ``tolist`` alike, as the device timeline shows it
         "device_to_host_copies": sum(e.count for e in device if "DtoH" in e.key),
+        "host_to_device_copies": sum(e.count for e in device if "HtoD" in e.key),
+        # the copy calls as the host makes them, which a session that loses device rows still records
+        "memcpy_calls": sum(e.count for e in rows if e.key in ("cudaMemcpyAsync", "cudaMemcpy")),
         "top_device_ms": {e.key[:60]: [device_us(e) / 1e3, e.count]
                           for e in sorted(device, key=lambda e: -device_us(e))[:8]},
     }
@@ -1053,7 +1082,9 @@ def op_profile(fn, bytes_moved: int, ops: int, peak_ops_per_s: float = FP32_OPS_
             break
     device_ms = sum(ms for ms, _ in rows.values()) / 5 if rows else cuda_time_ms(fn, iters=5, warmup=2)
     bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / peak_ops_per_s) * 1e3
-    return {"device_ms": device_ms, "timed_by": "profiler" if rows else "cuda_events", "bytes": bytes_moved,
+    # CUDA events around 5 calls as well: a session can lose some device rows and still keep others
+    return {"device_ms": device_ms, "timed_by": "profiler" if rows else "cuda_events",
+            "event_ms": cuda_time_ms(fn, iters=5, warmup=1), "bytes": bytes_moved,
             "ops": ops, "bound_ms": bound_ms,
             "bound_by": "operations" if ops / peak_ops_per_s > bytes_moved / HBM_BYTES_PER_S else "bytes",
             "share_of_bound": bound_ms / device_ms,
@@ -1867,7 +1898,9 @@ def assert_values_close(got, want, label: str, atol: float, rtol: float) -> floa
         assert sorted(got) == sorted(want), f"{label}: keys differ"
         return max((assert_values_close(got[k], w, f"{label} {k}", atol, rtol) for k, w in want.items()), default=0.0)
     if isinstance(want, (list, tuple)):
+        assert len(got) == len(want), f"{label}: {len(got)} values, not {len(want)}"
         return max((assert_values_close(g, w, label, atol, rtol) for g, w in zip(got, want)), default=0.0)
+    got, want = torch.as_tensor(got), torch.as_tensor(want)  # Python numbers (BERTScore's lists) as tensors
     exact = not want.is_floating_point()
     return assert_curve_close(got, want, label, atol=0.0 if exact else atol, rtol=0.0 if exact else rtol)
 
@@ -2336,7 +2369,9 @@ def update_reads(fn) -> dict:
     prof = compute_profile(fn)
     reads = prof["host_reads"]  # ``item`` reads through ``_local_scalar_dense``: one read, two rows
     return {"host_reads": reads["aten::_local_scalar_dense"] + reads["aten::nonzero"], "by_op": reads,
-            "device_to_host_copies": prof["device_to_host_copies"], "device_ms": prof["device_ms"]}
+            "device_to_host_copies": prof["device_to_host_copies"],
+            "host_to_device_copies": prof["host_to_device_copies"], "memcpy_calls": prof["memcpy_calls"],
+            "device_ms": prof["device_ms"]}
 
 
 def generative_path(mt, checks, histogram, card: str) -> dict:
@@ -2727,9 +2762,758 @@ def generative_detection_paths(mt, checks, histogram, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phases 19 and 20
+TEXT_DEVICE = "cuda"  # where phases 19 and 20 run
+ASR_SHAPE = (2620, 20, 10_000, 32)  # utterances, mean words, vocabulary, utterances an update: LibriSpeech test-clean
+MT_SHAPE = (3003, 27, 10_000, 64)  # sentences, mean words, vocabulary, sentences an update: WMT14 newstest2014 en-de
+SUMM_SHAPE = (11_490, 56, 64)  # pairs, words a summary (3 to 4 sentences), pairs an update: CNN/DailyMail test
+SUMM_CUT_PAIRS = 2000  # pairs the summarisation family keeps when all of them would take more than SUMM_FULL_S
+SUMM_FULL_S = 60.0
+QA_SHAPE = (10_570, 256)  # questions (1 to 3 answers each), questions an update: SQuAD v1.1 dev
+LM_SHAPE = (16, 8, 1024, 50_257)  # updates, sequences an update, tokens, vocabulary: GPT-2 small's evaluation
+LM_IGNORED = 0.05  # share of positions with the target -100 (ignore_index)
+LM_CPU_UPDATES = 2  # float32 updates the CPU twin takes (a stated cut), beside the bfloat16 one
+BERT_SHAPE = (1024, 64, 64)  # embedding width (roberta-large's), tokens at most, pairs a block (batch_size)
+INFOLM_SHAPE = (256, 32, 30_522, 768, 64)  # pairs, max_length, vocabulary and width (bert-base's), batch_size
+INFOLM_CPU_PAIRS = 8  # pairs the CPU twin scores, against the card on the same pairs (a stated cut: a CPU forward)
+TEXT_HOST_RTOL = 1e-6  # host-computed scores, rounded to float32 on each side; reductions of float32 on the device
+TEXT_DEVICE_RTOL = 1e-5  # Perplexity, BERTScore, InfoLM: float32 sums over the vocabulary or the width
+PIT_SHAPE = (3000, 2, 32_000, 50)  # mixtures, speakers, samples (4 s at 8 kHz), mixtures an update: WSJ0-2mix test
+PIT3_SHAPE = (500, 3, 32_000, 50)  # WSJ0-3mix shape
+SDR_SHAPE = (500, 32_000, 50, 512)  # clips, samples, clips an update, filter_length
+SDR_F64_CLIPS = 50
+STOI_SHAPE = (100, 48_000, 16_000, 20)  # clips, samples (3 s at 16 kHz), rate, clips an update
+ESTOI_CLIPS = 20
+SNR_ATOL_DB = 1e-4  # SNR, SI-SNR, SI-SDR: float32 sums over 32,000 samples in another order
+SDR_F32_ATOL_DB = 5e-3  # the float32 solve of a 512 x 512 Toeplitz system: cuSOLVER and LAPACK round differently
+SDR_CG_ATOL_DB = 1e-3  # ten conjugate-gradient steps: cuFFT and the CPU's FFT round differently
+SDR_F64_ATOL_DB = 1e-9
+STOI_ATOL = 1e-6  # the same float64 numpy on both sides; the float32 sums of the clips' scores
+
+
+def word_vocab(rng, size: int) -> list:
+    """``size`` distinct lowercase words of 2 to 9 letters."""
+    out, seen = [], set()
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    while len(out) < size:
+        w = "".join(rng.choice(letters, rng.randint(2, 10)))
+        if w not in seen:
+            seen.add(w)
+            out.append(w)
+    return out
+
+
+def zipf_words(rng, vocab: list, n: int, probs) -> list:
+    return [vocab[i] for i in rng.choice(len(vocab), n, p=probs)]
+
+
+def zipf_probs(size: int):
+    p = 1.0 / np.arange(1, size + 1) ** 1.1
+    return p / p.sum()
+
+
+def edit_words(rng, words: list, vocab: list, rate: float) -> list:
+    """About ``rate`` of the words deleted, substituted or followed by an inserted word, a third each."""
+    out = []
+    for w in words:
+        r = rng.rand()
+        if r < rate / 3:
+            continue
+        out.append(vocab[rng.randint(len(vocab))] if r < 2 * rate / 3 else w)
+        if 2 * rate / 3 <= r < rate:
+            out.append(vocab[rng.randint(len(vocab))])
+    return out
+
+
+def asr_corpus(seed: int = 90) -> tuple:
+    """LibriSpeech test-clean shape: 2,620 lowercase utterances of about 20 words from a 10,000-word
+    Zipf vocabulary, hypotheses with about 10% substitutions, insertions and deletions."""
+    n, mean_words, vocab_size, _ = ASR_SHAPE
+    rng = np.random.RandomState(seed)
+    vocab, probs = word_vocab(rng, vocab_size), zipf_probs(vocab_size)
+    refs, hyps = [], []
+    for length in np.clip(rng.poisson(mean_words, n), 2, None):
+        words = zipf_words(rng, vocab, int(length), probs)
+        refs.append(" ".join(words))
+        hyps.append(" ".join(edit_words(rng, words, vocab, 0.10)))
+    return hyps, refs
+
+
+def mt_sentence(rng, vocab, probs, length: int) -> list:
+    words = zipf_words(rng, vocab, length, probs)
+    words[0] = words[0].capitalize()
+    for i in range(1, length - 1):
+        r = rng.rand()
+        if r < 0.06:
+            words[i] += ","
+        elif r < 0.09:
+            words[i] = str(rng.randint(1, 3000))
+        elif r < 0.12:
+            words[i] = words[i].capitalize()
+    words[-1] += "."
+    return words
+
+
+def mt_corpus(seed: int = 91, n: int = 0) -> tuple:
+    """WMT14 newstest2014 en-de shape: 3,003 sentences of about 27 words (capitals, numbers, commas,
+    a full stop), one reference each; hypotheses about 10% edited, one in five with a block of 2 to 4
+    words moved (TER's shifts)."""
+    n = n or MT_SHAPE[0]
+    _, mean_words, vocab_size, _ = MT_SHAPE
+    rng = np.random.RandomState(seed)
+    vocab, probs = word_vocab(rng, vocab_size), zipf_probs(vocab_size)
+    refs, hyps = [], []
+    for length in np.clip(rng.poisson(mean_words, n), 4, None):
+        words = mt_sentence(rng, vocab, probs, int(length))
+        refs.append(" ".join(words))
+        hyp = edit_words(rng, words, vocab, 0.10)
+        if rng.rand() < 0.2 and len(hyp) > 8:
+            start, size = rng.randint(0, len(hyp) - 4), rng.randint(2, 5)
+            block, rest = hyp[start : start + size], hyp[:start] + hyp[start + size :]
+            at = rng.randint(0, len(rest) + 1)
+            hyp = rest[:at] + block + rest[at:]
+        hyps.append(" ".join(hyp))
+    return hyps, refs
+
+
+def summ_corpus(seed: int = 92, n: int = 0) -> tuple:
+    """CNN/DailyMail test shape: 11,490 pairs of 3 to 4 sentences (split by "\\n") of about 56 words in
+    all; the system summary shares about 60% of the reference's sentences' words."""
+    n = n or SUMM_SHAPE[0]
+    rng = np.random.RandomState(seed)
+    vocab, probs = word_vocab(rng, 10_000), zipf_probs(10_000)
+    preds, refs = [], []
+    for _ in range(n):
+        k = rng.randint(3, 5)
+        ref_sents = [mt_sentence(rng, vocab, probs, max(4, int(rng.poisson(SUMM_SHAPE[1] / k)))) for _ in range(k)]
+        pred_sents = [edit_words(rng, s, vocab, 0.4) for s in ref_sents if rng.rand() < 0.85] or [ref_sents[0]]
+        refs.append("\n".join(" ".join(s) for s in ref_sents))
+        preds.append("\n".join(" ".join(s) for s in pred_sents))
+    return preds, refs
+
+
+def squad_corpus(seed: int = 93) -> tuple:
+    """SQuAD v1.1 dev shape: 10,570 questions with 1 to 3 gold answers of 1 to 4 words; a prediction is a
+    gold answer (half of them with an article or a full stop added), a part of one, or other words."""
+    n, _ = QA_SHAPE
+    rng = np.random.RandomState(seed)
+    vocab, probs = word_vocab(rng, 10_000), zipf_probs(10_000)
+    preds, target = [], []
+    for i in range(n):
+        answers = [" ".join(zipf_words(rng, vocab, rng.randint(1, 5), probs)) for _ in range(rng.randint(1, 4))]
+        r = rng.rand()
+        if r < 0.55:
+            pred = answers[rng.randint(len(answers))]
+            pred = ("the " + pred) if rng.rand() < 0.3 else (pred + "." if rng.rand() < 0.3 else pred)
+        elif r < 0.8:
+            words = answers[0].split()
+            pred = " ".join(words[: max(1, len(words) - 1)] + zipf_words(rng, vocab, 1, probs))
+        else:
+            pred = " ".join(zipf_words(rng, vocab, rng.randint(1, 5), probs))
+        preds.append({"prediction_text": pred, "id": f"q{i}"})
+        target.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": f"q{i}"})
+    return preds, target
+
+
+def chunks(seq, size: int) -> list:
+    return [seq[i : i + size] for i in range(0, len(seq), size)]
+
+
+def states_equal(card: dict, cpu: dict, label: str) -> None:
+    """Every state of every member on the card bit for bit the CPU twin's (lists concatenated)."""
+    for name, cpu_m in cpu.items():
+        for state, want in cpu_m.metric_state.items():
+            got = getattr(card[name], state)
+            got = torch.cat(got) if isinstance(got, list) else got
+            want = torch.cat(want) if isinstance(want, list) else want
+            assert got.device.type == torch.device(TEXT_DEVICE).type, f"{label}: {name}.{state} on {got.device}"
+            assert got.dtype == want.dtype and torch.equal(got.cpu(), want), f"{label}: {name}.{state} differs"
+
+
+def run_text_family(label: str, make, update_args, batches, card: str, rtol: float = TEXT_HOST_RTOL) -> dict:
+    """One text family: the members made by ``make(device)`` fed every batch on the card (each update
+    timed, ending in a synchronise), one update's host reads and copies (on a spare set), every
+    ``compute()`` timed first and again with its reads and copies, then the CPU twin fed the same
+    batches: every state bit for bit, every value within ``rtol``."""
+    from metrics_tpu_torch.ops import text_native
+
+    members = make(TEXT_DEVICE)
+    dp0, calls0 = text_native.DP_CALLS, text_native.LIBRARY_CALLS
+    ms = {name: [] for name in members}
+    t_family = time.perf_counter()
+    for batch in batches:
+        for name, m in members.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.update(*update_args(name, batch))
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    result = {"updates": len(batches), "card": card,
+              "update_ms": {k: median(v) for k, v in ms.items()},
+              "update_ms_total": {k: sum(v) for k, v in ms.items()},
+              "dp_calls": text_native.DP_CALLS - dp0, "library_calls": text_native.LIBRARY_CALLS - calls0}
+    spare = make(TEXT_DEVICE)
+    result["update_reads"] = {name: update_reads(lambda m=m, name=name: m.update(*update_args(name, batches[0])))
+                              for name, m in spare.items()}
+    del spare
+    values, computes = {}, {}
+    for name, m in members.items():
+        r: dict = {}
+        values[name] = timed_compute({name: m}, r)[name]
+        computes[name] = {"compute_ms": r["compute_ms"], "compute_again_ms": r["compute_again_ms"],
+                          "host_reads": r["compute_profile"]["host_reads"],
+                          "device_to_host_copies": r["compute_profile"]["device_to_host_copies"],
+                          "host_to_device_copies": r["compute_profile"]["host_to_device_copies"],
+                          "memcpy_calls": r["compute_profile"]["memcpy_calls"],
+                          "device_ms": r["compute_profile"]["device_ms"]}
+    result["compute"] = computes
+    result["card_s"] = time.perf_counter() - t_family
+    t0 = time.perf_counter()
+    twin = make("cpu")
+    for batch in batches:
+        for name, m in twin.items():
+            m.update(*update_args(name, batch))
+    want = {name: m.compute() for name, m in twin.items()}
+    result["cpu_twin_s"] = time.perf_counter() - t0
+    states_equal(members, twin, label)
+    result["max_abs_err_vs_cpu"] = assert_values_close(values, want, label, atol=0.0, rtol=rtol)
+    result["values"] = {k: (float(v) if isinstance(v, torch.Tensor) and v.numel() == 1 else
+                            {kk: float(vv) for kk, vv in v.items()} if isinstance(v, dict) else str(type(v)))
+                        for k, v in values.items()}
+    log(f"text_eval {label}: {json.dumps(result)}  [{card}]")
+    return result
+
+
+def text_asr(mt, card: str) -> dict:
+    hyps, refs = asr_corpus()
+    size = ASR_SHAPE[3]
+    batches = list(zip(chunks(hyps, size), chunks(refs, size)))
+
+    def make(device):
+        return {n: getattr(mt, n)(device=device) for n in
+                ("WordErrorRate", "CharErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved")}
+
+    out = run_text_family("asr_librispeech", make, lambda name, b: b, batches, card)
+    out["utterances"], out["words"] = len(refs), sum(len(r.split()) for r in refs)
+    return out
+
+
+def text_mt(mt, card: str, hyps, refs) -> dict:
+    size = MT_SHAPE[3]
+    batches = list(zip(chunks(hyps, size), chunks([[r] for r in refs], size)))
+
+    def make(device):
+        return {"bleu": mt.BLEUScore(device=device), "sacrebleu_13a": mt.SacreBLEUScore(tokenize="13a", device=device),
+                "chrf++": mt.CHRFScore(n_word_order=2, device=device), "ter": mt.TranslationEditRate(device=device),
+                "eed": mt.ExtendedEditDistance(device=device)}
+
+    out = run_text_family("mt_wmt14", make, lambda name, b: b, batches, card)
+    out["sentences"] = len(refs)
+    return out
+
+
+def text_summ(mt, card: str) -> dict:
+    """ROUGE-1/2/L/Lsum over the CNN/DM pairs; all 11,490 if a timed first 500 say that takes at most
+    SUMM_FULL_S on the card and its twin together, else SUMM_CUT_PAIRS (a stated cut)."""
+    preds, refs = summ_corpus()
+    size = SUMM_SHAPE[2]
+    probe = mt.ROUGEScore(device="cpu")
+    t0 = time.perf_counter()
+    probe.update(preds[:500], refs[:500])
+    per_pair_s = (time.perf_counter() - t0) / 500
+    n = len(preds) if 2 * per_pair_s * len(preds) <= SUMM_FULL_S else SUMM_CUT_PAIRS
+    batches = list(zip(chunks(preds[:n], size), chunks(refs[:n], size)))
+    out = run_text_family("summ_cnndm", lambda device: {"rouge": mt.ROUGEScore(device=device)},
+                          lambda name, b: b, batches, card)
+    out.update(pairs=n, pairs_in_dataset=len(preds), host_s_per_pair=per_pair_s)
+    return out
+
+
+def text_squad(mt, card: str) -> dict:
+    preds, target = squad_corpus()
+    size = QA_SHAPE[1]
+    batches = list(zip(chunks(preds, size), chunks(target, size)))
+    out = run_text_family("qa_squad", lambda device: {"squad": mt.SQuAD(device=device)},
+                          lambda name, b: b, batches, card)
+    out["questions"] = len(preds)
+    return out
+
+
+def lm_batch(g, shape, device):
+    """(logits, target) of one update: float32 logits from a seeded generator on the card, targets drawn
+    from the softmax-sharpened logits' top ids half of the time, ``LM_IGNORED`` of them -100."""
+    batch, seq, vocab = shape
+    logits = torch.randn(batch, seq, vocab, generator=g, device=device) * 2.0
+    target = torch.randint(0, vocab, (batch, seq), generator=g, device=device)
+    top = logits.argmax(-1)
+    target = torch.where(torch.rand(batch, seq, generator=g, device=device) < 0.5, top, target)
+    target = torch.where(torch.rand(batch, seq, generator=g, device=device) < LM_IGNORED, -100, target)
+    return logits, target
+
+
+def text_lm(mt, card: str) -> dict:
+    """Perplexity at GPT-2 small's evaluation shape, 16 updates of 8 x 1024 x 50,257 float32 logits, then
+    one bfloat16 batch; the update beside its bytes bound and one ``F.cross_entropy``; the CPU twin on
+    ``LM_CPU_UPDATES`` updates and the bfloat16 one, against a card metric fed the same."""
+    from metrics_tpu_torch.functional.text.perplexity import _perplexity_update
+
+    steps, batch, seq, vocab = LM_SHAPE
+    g = torch.Generator(device=TEXT_DEVICE).manual_seed(94)
+    metric = mt.Perplexity(ignore_index=-100, device=TEXT_DEVICE)
+    ms, kept = [], []
+    for i in range(steps):
+        logits, target = lm_batch(g, (batch, seq, vocab), TEXT_DEVICE)
+        if i < LM_CPU_UPDATES:
+            kept.append((logits.cpu(), target.cpu()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(logits, target)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    logits, target = lm_batch(g, (batch, seq, vocab), TEXT_DEVICE)
+    half = logits.to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metric.update(half, target)
+    torch.cuda.synchronize()
+    bf16_ms = (time.perf_counter() - t0) * 1e3
+    value = metric.compute()
+    assert torch.isfinite(value) and float(value) > 1.0, value
+    result = {"updates": steps, "logits_shape": [batch, seq, vocab], "card": card, "update_ms": median(ms),
+              "update_ms_runs": [min(ms), max(ms)], "bf16_update_ms": bf16_ms, "value": float(value),
+              "tokens_counted": float(metric.count)}
+    # the update beside its bound: the logits read once (the float32 copy of a float32 input is the input)
+    nbytes = logits.numel() * 4 + target.numel() * 8
+    result["update_device"] = op_profile(lambda: _perplexity_update(logits, target, -100), bytes_moved=nbytes,
+                                         ops=logits.numel() * 4)
+    flat_logits, flat_target = logits.view(-1, vocab), target.view(-1)
+    result["cross_entropy_device"] = op_profile(
+        lambda: torch.nn.functional.cross_entropy(flat_logits, flat_target, reduction="sum", ignore_index=-100),
+        bytes_moved=nbytes, ops=logits.numel() * 4)
+    result["update_peak_extra_bytes"] = peak_extra_bytes(lambda: _perplexity_update(logits, target, -100))
+    result["update_reads"] = update_reads(lambda: metric.update(logits, target))
+    r: dict = {}
+    timed_compute({"ppl": metric}, r)
+    result["compute"] = {k: r[k] for k in ("compute_ms", "compute_again_ms")}
+    # the CPU twin: the kept float32 updates and the bfloat16 one, against a card metric fed the same
+    card_twin = mt.Perplexity(ignore_index=-100, device=TEXT_DEVICE)
+    cpu_twin = mt.Perplexity(ignore_index=-100, device="cpu")
+    t0 = time.perf_counter()
+    for x, t in kept + [(half.cpu(), target.cpu())]:
+        card_twin.update(x.to(TEXT_DEVICE), t.to(TEXT_DEVICE))
+        cpu_twin.update(x, t)
+    want = cpu_twin.compute()
+    result["cpu_twin_s"] = time.perf_counter() - t0
+    got = card_twin.compute()
+    assert torch.equal(card_twin.count.cpu(), cpu_twin.count), "perplexity: the counted tokens differ"
+    result["max_abs_err_vs_cpu"] = assert_values_close(
+        {"ppl": got, "nll": card_twin.total_log_probs}, {"ppl": want, "nll": cpu_twin.total_log_probs},
+        "perplexity", atol=0.0, rtol=TEXT_DEVICE_RTOL)
+    del logits, half, flat_logits, kept
+    log(f"text_eval lm_gpt2: {json.dumps(result)}  [{card}]")
+    return result
+
+
+class WordTable:
+    """BERTScore's forward for the card phase: a seeded embedding table of roberta-large's width looked
+    up by word (no transformer), with a [CLS]-like first and a [SEP]-like last position, at most
+    ``BERT_SHAPE[1]`` tokens; the ids are made on the host and copied once a call."""
+
+    def __init__(self, vocab: list, width: int, device):
+        g = torch.Generator(device="cpu").manual_seed(95)
+        self.ids = {w: i + 3 for i, w in enumerate(vocab)}
+        self.table = (torch.randn(len(vocab) + 3, width, generator=g) / width**0.5).to(device)
+
+    def __call__(self, sentences):
+        max_tokens = BERT_SHAPE[1]
+        ids = np.zeros((len(sentences), max_tokens), np.int64)
+        mask = np.zeros((len(sentences), max_tokens), np.float32)
+        for i, s in enumerate(sentences):
+            row = [1] + [self.ids.get(w.lower().strip(",."), 0) for w in s.split()][: max_tokens - 2] + [2]
+            ids[i, : len(row)] = row
+            mask[i, : len(row)] = 1.0
+        both = torch.from_numpy(np.concatenate([ids, mask.astype(np.int64)], axis=1)).to(self.table.device)
+        return self.table[both[:, :max_tokens]], both[:, max_tokens:].to(torch.float32)
+
+    def to(self, device):
+        twin = WordTable.__new__(WordTable)
+        twin.ids, twin.table = self.ids, self.table.to(device)
+        return twin
+
+
+def text_bert(mt, card: str, hyps, refs, vocab) -> dict:
+    from metrics_tpu_torch.functional.text.bert import _greedy_layerwise_scores
+
+    width, _, block = BERT_SHAPE
+    forward = WordTable(vocab, width, TEXT_DEVICE)
+    metric = mt.BERTScore(user_forward_fn=forward, batch_size=block, device=TEXT_DEVICE)
+    ms = []
+    for p, r in zip(chunks(hyps, MT_SHAPE[3]), chunks(refs, MT_SHAPE[3])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metric.update(p, r)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    result = {"pairs": len(hyps), "card": card, "update_ms": median(ms), "width": width, "block": block}
+    spare = mt.BERTScore(user_forward_fn=forward, device=TEXT_DEVICE)
+    result["update_reads"] = update_reads(lambda: spare.update(hyps[:block], refs[:block]))
+    r: dict = {}
+    got = timed_compute({"bert": metric}, r)["bert"]
+    result["compute"] = {k: r[k] for k in ("compute_ms", "compute_again_ms")}
+    result["compute"].update({k: r["compute_profile"][k] for k in ("host_reads", "device_to_host_copies",
+                                                                  "host_to_device_copies", "memcpy_calls",
+                                                                  "device_ms")})
+    result["compute_peak_extra_bytes"] = peak_extra_bytes(lambda: compute_all({"bert": metric}))
+    # the matcher on one block of pairs, beside its bound: two (block, 64, width) inputs read, (3, block) written
+    emb = forward(hyps[:block])[0][:, None]
+    emb2 = forward(refs[:block])[0][:, None]
+    scale = torch.full((block, BERT_SHAPE[1]), 1.0 / BERT_SHAPE[1], device=TEXT_DEVICE)
+    tokens = BERT_SHAPE[1]
+    result["matcher_device"] = op_profile(lambda: _greedy_layerwise_scores(emb, scale, emb2, scale),
+                                          bytes_moved=2 * emb.numel() * 4, ops=2 * block * tokens * tokens * width)
+    t0 = time.perf_counter()
+    twin = mt.BERTScore(user_forward_fn=forward.to("cpu"), batch_size=block, device="cpu")
+    for p, r_ in zip(chunks(hyps, MT_SHAPE[3]), chunks(refs, MT_SHAPE[3])):
+        twin.update(p, r_)
+    want = twin.compute()
+    result["cpu_twin_s"] = time.perf_counter() - t0
+    states_equal({"bert": metric}, {"bert": twin}, "bertscore")
+    result["max_abs_err_vs_cpu"] = assert_values_close(got, want, "bertscore", atol=1e-6, rtol=TEXT_DEVICE_RTOL)
+    result["f1_mean"] = float(np.mean(got["f1"]))
+    log(f"text_eval bertscore_wmt14: {json.dumps(result)}  [{card}]")
+    return result
+
+
+class StubMLM(torch.nn.Module):
+    """InfoLM's masked LM for the card phase, NOT a transformer: a seeded embedding of bert-base's
+    30,522 ids and width 768, plus the mean of the sentence's embeddings, into a linear head over the
+    vocabulary. It has the call contract of a transformers masked LM."""
+
+    class Config:
+        max_length = INFOLM_SHAPE[1]
+
+    class Output:
+        def __init__(self, logits):
+            self.logits = logits
+
+    config = Config()
+
+    def __init__(self):
+        super().__init__()
+        _, _, vocab, width, _ = INFOLM_SHAPE
+        g = torch.Generator(device="cpu").manual_seed(96)
+        self.emb = torch.nn.Parameter(torch.randn(vocab, width, generator=g) / width**0.5)
+        self.head = torch.nn.Parameter(torch.randn(width, vocab, generator=g) / width**0.5 * 4)
+
+    def forward(self, input_ids, attention_mask):
+        h = self.emb[input_ids]
+        m = attention_mask.to(h.dtype)[..., None]
+        ctx = (h * m).sum(1, keepdim=True) / m.sum(1, keepdim=True).clamp(min=1.0)
+        return self.Output((h + ctx) @ self.head)
+
+
+class WhitespaceTokenizer:
+    """Whitespace words hashed (crc32) to ids 1,000 to 30,521, with bert-base's [PAD] 0, [UNK] 100,
+    [CLS] 101, [SEP] 102 and [MASK] 103, under the transformers call contract."""
+
+    pad_token_id, cls_token_id, sep_token_id, mask_token_id = 0, 101, 102, 103
+
+    def __call__(self, sentences, padding="max_length", max_length=32, truncation=True, return_tensors="np"):
+        import zlib
+
+        ids = np.zeros((len(sentences), max_length), np.int64)
+        mask = np.zeros((len(sentences), max_length), np.int64)
+        for i, s in enumerate(sentences):
+            row = [101] + [1000 + zlib.crc32(w.lower().encode()) % (INFOLM_SHAPE[2] - 1000) for w in s.split()]
+            row = row[: max_length - 1] + [102]
+            ids[i, : len(row)] = row
+            mask[i, : len(row)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def text_infolm(mt, card: str, hyps, refs) -> dict:
+    import copy
+
+    pairs, max_length, _, _, block = INFOLM_SHAPE
+    model = StubMLM().to(TEXT_DEVICE)
+    tok = WhitespaceTokenizer()
+    kw = dict(model=model, user_tokenizer=tok, idf=True, max_length=max_length, batch_size=block,
+              information_measure="kl_divergence", return_sentence_level_score=True)
+    metric = mt.InfoLM(**kw, device=TEXT_DEVICE)
+    metric.update(hyps[:pairs], refs[:pairs])
+    r: dict = {}
+    mean, scores = timed_compute({"infolm": metric}, r)["infolm"]
+    assert scores.shape == (pairs,) and torch.isfinite(scores).all(), scores
+    result = {"pairs": pairs, "card": card, "model": "stub masked LM (embedding + context mean + linear head),"
+              " not a transformer", "compute": {k: r[k] for k in ("compute_ms", "compute_again_ms")},
+              "forwards_per_compute": None, "value": float(mean)}
+    result["compute"].update({k: r["compute_profile"][k] for k in ("host_reads", "device_to_host_copies",
+                                                                  "host_to_device_copies", "memcpy_calls",
+                                                                  "device_ms")})
+    calls = [0]
+    real_forward = model.forward
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real_forward(*a, **k)
+
+    model.forward = counted
+    compute_all({"infolm": metric})
+    model.forward = real_forward
+    result["forwards_per_compute"] = calls[0]
+    # every forward a full chunk's (block, max_length, width) x (width, vocab) product: the compute's bound
+    _, _, vocab, width, _ = INFOLM_SHAPE
+    ops = calls[0] * 2 * block * max_length * width * vocab
+    result["forward_bound_ms"] = ops / FP32_OPS_PER_S * 1e3
+    if result["compute"]["device_ms"]:
+        result["share_of_bound"] = result["forward_bound_ms"] / result["compute"]["device_ms"]
+    result["compute_peak_extra_bytes"] = peak_extra_bytes(lambda: compute_all({"infolm": metric}))
+    n = INFOLM_CPU_PAIRS
+    card_twin = mt.InfoLM(**kw, device=TEXT_DEVICE)
+    card_twin.update(hyps[:n], refs[:n])
+    cpu_kw = dict(kw, model=copy.deepcopy(model).to("cpu"))
+    t0 = time.perf_counter()
+    cpu_twin = mt.InfoLM(**cpu_kw, device="cpu")
+    cpu_twin.update(hyps[:n], refs[:n])
+    want = cpu_twin.compute()
+    result["cpu_twin_s"] = time.perf_counter() - t0
+    result["cpu_twin_pairs"] = n
+    result["max_abs_err_vs_cpu"] = assert_values_close(card_twin.compute(), want, "infolm", atol=1e-6,
+                                                       rtol=TEXT_DEVICE_RTOL)
+    log(f"text_eval infolm: {json.dumps(result)}  [{card}]")
+    return result
+
+
+def text_path(mt, histogram, card: str) -> dict:
+    """Phase 19, ``text_eval``: ASR, MT, summarisation, QA, LM, BERTScore and InfoLM families, each
+    held against its CPU twin; the host text library built first (timed); 0 bincount launches."""
+    from metrics_tpu_torch.ops import text_native
+
+    t0 = time.perf_counter()
+    path = text_native.build()
+    out = {"library": {"path": str(path.relative_to(HERE)), "build_s": time.perf_counter() - t0}}
+    histogram.KERNEL_LAUNCHES = 0
+    dp0 = text_native.DP_CALLS
+    hyps, refs = mt_corpus()
+    for label, fn, args in (("asr_librispeech", text_asr, ()), ("mt_wmt14", text_mt, (hyps, refs)),
+                            ("summ_cnndm", text_summ, ()), ("qa_squad", text_squad, ()), ("lm_gpt2", text_lm, ()),
+                            ("bertscore_wmt14", text_bert, (hyps, refs, word_vocab(np.random.RandomState(91), MT_SHAPE[2]))),
+                            ("infolm", text_infolm, (hyps, refs))):
+        t1 = time.perf_counter()
+        out[label] = fn(mt, card, *args)
+        out[label]["family_s"] = time.perf_counter() - t1
+    out["library"]["dp_calls"] = text_native.DP_CALLS - dp0
+    out["kernel_launches"] = histogram.KERNEL_LAUNCHES
+    assert out["kernel_launches"] == 0, f"text_eval: {out['kernel_launches']} bincount launches"
+    return out
+
+
+def separation_batches(seed: int, shape, device) -> list:
+    """(preds, target, true permutation) of each update, on the card: sources of speech-like envelope,
+    the estimates the sources in a random order per mixture plus white noise at 10 dB."""
+    n, spk, samples, size = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    t = torch.linspace(0, 1, samples, device=device)
+    out = []
+    for start in range(0, n, size):
+        b = min(size, n - start)
+        rate = 2 + 6 * torch.rand(b, spk, 1, generator=g, device=device)
+        envelope = 0.6 + 0.4 * torch.sin(2 * torch.pi * rate * t)
+        target = torch.randn(b, spk, samples, generator=g, device=device) * envelope
+        perm = torch.argsort(torch.rand(b, spk, generator=g, device=device), dim=1)
+        preds = torch.gather(target, 1, perm[:, :, None].expand(-1, -1, samples))
+        preds = preds + torch.randn(b, spk, samples, generator=g, device=device) * preds.pow(2).mean(-1, keepdim=True).div(10).sqrt()
+        out.append((preds, target, perm))
+    return out
+
+
+def timed_updates(update, batches) -> list:
+    ms = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update(*b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def pit_family(mt, F, label: str, shape, seed: int, card: str) -> dict:
+    """PIT(SI-SDR, "max") over the mixtures; SI-SNR and SNR of the estimates in the permutation found.
+    The permutations must be the true ones and the CPU twin's; the values within ``SNR_ATOL_DB``."""
+    batches = separation_batches(seed, shape, TEXT_DEVICE)
+
+    def make(device):
+        return {"pit": mt.PermutationInvariantTraining(F.scale_invariant_signal_distortion_ratio, "max", device=device),
+                "si_snr": mt.ScaleInvariantSignalNoiseRatio(device=device), "snr": mt.SignalNoiseRatio(device=device)}
+
+    def feed(members, perms, preds, target):
+        members["pit"].update(preds, target)
+        _, perm = F.permutation_invariant_training(preds, target, F.scale_invariant_signal_distortion_ratio, "max")
+        permuted = F.pit_permutate(preds, perm)
+        members["si_snr"].update(permuted, target)
+        members["snr"].update(permuted, target)
+        perms.append(perm)
+
+    card_m, card_perms = make(TEXT_DEVICE), []
+    ms = timed_updates(lambda p, t, _: feed(card_m, card_perms, p, t), batches)
+    result = {"mixtures": shape[0], "speakers": shape[1], "samples": shape[2], "update_mixtures": shape[3],
+              "card": card, "update_ms": median(ms)}
+    spare = make(TEXT_DEVICE)
+    result["update_reads"] = update_reads(lambda: feed(spare, [], *batches[0][:2]))
+    found = torch.cat(card_perms)
+    # preds[b, i] = target[b, perm[b, i]]: target j is matched by the prediction at argsort(perm)[b, j]
+    truth = torch.cat([torch.argsort(p, dim=1) for _, _, p in batches])
+    wrong = int((found != truth).any(dim=1).sum())
+    assert wrong == 0, f"{label}: {wrong} mixtures with a permutation that is not the true one"
+    values = compute_all(card_m)
+    t0 = time.perf_counter()
+    cpu_m, cpu_perms = make("cpu"), []
+    for preds, target, _ in batches:
+        feed(cpu_m, cpu_perms, preds.cpu(), target.cpu())
+    want = compute_all(cpu_m)
+    result["cpu_twin_s"] = time.perf_counter() - t0
+    assert torch.equal(found.cpu(), torch.cat(cpu_perms)), f"{label}: the permutations differ from the CPU's"
+    assert all(torch.equal(card_m[k].total.cpu(), cpu_m[k].total) for k in card_m), f"{label}: counts differ"
+    result["max_abs_err_db_vs_cpu"] = max(float((values[k].cpu() - want[k]).abs()) for k in want)
+    assert result["max_abs_err_db_vs_cpu"] <= SNR_ATOL_DB, f"{label}: {values} against {want}"
+    result["values_db"] = {k: float(v) for k, v in values.items()}
+    log(f"audio_separation {label}: {json.dumps(result)}  [{card}]")
+    return result
+
+
+def sdr_family(mt, F, card: str) -> dict:
+    """SDR (filter_length 512) over 500 clips of 32,000 samples in updates of 50, by the solve and by 10
+    conjugate-gradient steps, then 50 clips in float64; the solve and the FFTs beside their bounds."""
+    from metrics_tpu_torch.functional.audio import sdr as sdr_mod
+
+    n, samples, size, taps = SDR_SHAPE
+    g = torch.Generator(device=TEXT_DEVICE).manual_seed(97)
+    batches = []
+    for _ in range(n // size):
+        target = torch.randn(size, samples, generator=g, device=TEXT_DEVICE)
+        smooth = torch.nn.functional.avg_pool1d(target[:, None], 5, 1, 2)[:, 0]  # a filtered target
+        batches.append((smooth + 0.3 * torch.randn(size, samples, generator=g, device=TEXT_DEVICE), target))
+    result = {"clips": n, "samples": samples, "update_clips": size, "filter_length": taps, "card": card}
+    for variant, kwargs, atol in (("solve", {}, SDR_F32_ATOL_DB), ("cg10", {"use_cg_iter": 10}, SDR_CG_ATOL_DB)):
+        metric = mt.SignalDistortionRatio(filter_length=taps, device=TEXT_DEVICE, **kwargs)
+        ms = timed_updates(metric.update, batches)
+        got = metric.compute()
+        per_clip_card = torch.cat([F.signal_distortion_ratio(p, t, filter_length=taps, **kwargs) for p, t in batches[:2]])
+        t0 = time.perf_counter()
+        per_clip_cpu = torch.cat([F.signal_distortion_ratio(p.cpu(), t.cpu(), filter_length=taps, **kwargs)
+                                  for p, t in batches[:2]])
+        twin = mt.SignalDistortionRatio(filter_length=taps, device="cpu", **kwargs)
+        for p, t in batches:
+            twin.update(p.cpu(), t.cpu())
+        want = twin.compute()
+        err = float((per_clip_card.cpu() - per_clip_cpu).abs().max())
+        assert err <= atol and abs(float(got) - float(want)) <= atol, f"sdr {variant}: {err} dB per clip"
+        result[variant] = {"update_ms": median(ms), "value_db": float(got), "max_abs_err_db_vs_cpu": err,
+                           "mean_abs_err_db_vs_cpu": abs(float(got) - float(want)),
+                           "cpu_twin_s": time.perf_counter() - t0,
+                           "update_reads": update_reads(lambda m=metric: m.update(*batches[0]))}
+    p64, t64 = (x[:SDR_F64_CLIPS].double() for x in batches[0])
+    got64 = F.signal_distortion_ratio(p64, t64, filter_length=taps)
+    want64 = F.signal_distortion_ratio(p64.cpu(), t64.cpu(), filter_length=taps)
+    assert got64.dtype == torch.float64
+    result["float64"] = {"clips": SDR_F64_CLIPS, "max_abs_err_db_vs_cpu": float((got64.cpu() - want64).abs().max())}
+    assert result["float64"]["max_abs_err_db_vs_cpu"] <= SDR_F64_ATOL_DB, result["float64"]
+    # the solve and the FFTs of one update beside their bounds
+    preds, target = batches[0]
+    tn = target / sdr_mod._l2_norm(target, dim=-1, keepdim=True)
+    pn = preds / sdr_mod._l2_norm(preds, dim=-1, keepdim=True)
+    r_0, b = sdr_mod._compute_autocorr_crosscorr(tn, pn, taps)
+    system = sdr_mod._symmetric_toeplitz(r_0)
+    n_fft = 2 ** int(np.ceil(np.log2(2 * samples - 1)))
+    # four real FFTs of n_fft points a clip (two forward, two inverse), 2.5 n log2 n operations each
+    fft_ops = 4 * size * int(2.5 * n_fft * np.log2(n_fft))
+    result["ffts_device"] = op_profile(lambda: sdr_mod._compute_autocorr_crosscorr(tn, pn, taps),
+                                       bytes_moved=2 * tn.numel() * 4 + 2 * size * taps * 4, ops=fft_ops)
+    # LU of each 512 x 512 system (2/3 n^3) and its two triangular solves (2 n^2)
+    solve_ops = size * int(2 / 3 * taps**3 + 2 * taps**2)
+    result["solve_device"] = op_profile(lambda: torch.linalg.solve_ex(system, b[..., None]),
+                                        bytes_moved=system.numel() * 4 + 2 * b.numel() * 4, ops=solve_ops)
+    log(f"audio_separation sdr: {json.dumps(result)}  [{card}]")
+    return result
+
+
+def stoi_family(mt, card: str) -> dict:
+    """STOI over 100 clips of 3 s at 16 kHz (resampled to 10 kHz on the host) in updates of 20, ESTOI
+    over 20; PESQ's ``ModuleNotFoundError`` where ``pesq`` is absent, else PESQ over 20 clips."""
+    from metrics_tpu_torch.utils.imports import _PESQ_AVAILABLE
+
+    n, samples, fs, size = STOI_SHAPE
+    g = torch.Generator(device=TEXT_DEVICE).manual_seed(98)
+    t = torch.arange(samples, device=TEXT_DEVICE) / fs
+    batches = []
+    for _ in range(n // size):
+        f0 = 100 + 200 * torch.rand(size, 1, generator=g, device=TEXT_DEVICE)
+        envelope = (torch.sin(2 * torch.pi * 3 * t) > -0.3).float() * (0.5 + 0.5 * torch.rand(size, 1, generator=g, device=TEXT_DEVICE))
+        clean = (torch.sin(2 * torch.pi * f0 * t) + 0.3 * torch.randn(size, samples, generator=g, device=TEXT_DEVICE)) * envelope
+        batches.append((clean + 0.5 * torch.randn(size, samples, generator=g, device=TEXT_DEVICE), clean))
+    result = {"clips": n, "samples": samples, "fs": fs, "card": card}
+    for label, extended, use in (("stoi", False, batches), ("estoi", True, batches[: ESTOI_CLIPS // size])):
+        metric = mt.ShortTimeObjectiveIntelligibility(fs, extended, device=TEXT_DEVICE)
+        ms = timed_updates(metric.update, use)
+        got = metric.compute()
+        twin = mt.ShortTimeObjectiveIntelligibility(fs, extended, device="cpu")
+        for p, c in use:
+            twin.update(p.cpu(), c.cpu())
+        want = twin.compute()
+        err = abs(float(got) - float(want))
+        assert err <= STOI_ATOL and 0 < float(got) <= 1, (label, float(got), float(want))
+        result[label] = {"clips": sum(len(p) for p, _ in use), "update_ms": median(ms), "value": float(got),
+                         "abs_err_vs_cpu": err, "update_reads": update_reads(lambda m=metric, b=use[0]: m.update(*b))}
+    if _PESQ_AVAILABLE:
+        metric = mt.PerceptualEvaluationSpeechQuality(fs, "wb", device=TEXT_DEVICE)
+        metric.update(*batches[0])
+        result["pesq"] = {"available": True, "clips": size, "value": float(metric.compute())}
+    else:
+        try:
+            mt.PerceptualEvaluationSpeechQuality(fs, "wb", device=TEXT_DEVICE)
+        except ModuleNotFoundError as err:
+            result["pesq"] = {"available": False, "error": str(err)}
+        else:
+            raise AssertionError("PESQ without the pesq package did not raise ModuleNotFoundError")
+    log(f"audio_separation stoi: {json.dumps(result)}  [{card}]")
+    return result
+
+
+def audio_path(mt, histogram, card: str) -> dict:
+    """Phase 20, ``audio_separation``: PIT at WSJ0-2mix and WSJ0-3mix shape, SDR, STOI/ESTOI and PESQ,
+    each against its CPU twin; 0 bincount launches."""
+    import metrics_tpu_torch.functional as F
+
+    histogram.KERNEL_LAUNCHES = 0
+    out = {}
+    for label, fn in (("pit_wsj0_2mix", lambda: pit_family(mt, F, "pit_wsj0_2mix", PIT_SHAPE, 99, card)),
+                      ("pit_wsj0_3mix", lambda: pit_family(mt, F, "pit_wsj0_3mix", PIT3_SHAPE, 100, card)),
+                      ("sdr", lambda: sdr_family(mt, F, card)), ("stoi", lambda: stoi_family(mt, card))):
+        t0 = time.perf_counter()
+        out[label] = fn()
+        out[label]["family_s"] = time.perf_counter() - t0
+    out["kernel_launches"] = histogram.KERNEL_LAUNCHES
+    assert out["kernel_launches"] == 0, f"audio_separation: {out['kernel_launches']} bincount launches"
+    return out
+
+
+def text_audio_paths(mt, histogram, card: str) -> dict:
+    """Phases 19 and 20, each timed."""
+    out = {}
+    for label, fn in (("text_eval", text_path), ("audio_separation", audio_path)):
+        t0 = time.perf_counter()
+        out[label] = fn(mt, histogram, card)
+        out[label]["phase_s"] = time.perf_counter() - t0
+    out["kernel_launches"] = out["text_eval"]["kernel_launches"] + out["audio_separation"]["kernel_launches"]
+    return out
+
+
 # ------------------------------------------------------------------ phase 10
 SYNC_SUITES = ("headline", "agreement", "segmentation", "aggregators", "curves", "regression", "retrieval", "bootstrap",
-               "ssim", "map", "fid")
+               "ssim", "map", "fid", "text", "audio")
+SYNC_TEXT_SENTENCES = 32  # sentences of each synced text update on each rank
+SYNC_AUDIO_SHAPE = (8, 2, 4000)  # mixtures, speakers, samples of each synced audio update on each rank
 SYNC_MAP_IMAGES = 4  # images of each synced mAP update on each rank (five list states of spec None, a row an image)
 SYNC_FID_SHAPE = (32, 1, 8, 8)  # the synced FID's images an update on each rank; its features the first 48 pixels
 SYNC_BOOT_CLONES = 100  # the synced BootStrapper's clones of Accuracy (macro, C=1000): 600 states
@@ -2772,6 +3556,18 @@ def sync_suite(mt, name: str, device: str):
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
             return mt.MetricCollection({"fid": mt.FrechetInceptionDistance(feature=sync_features, device=device)})
+    if name == "text":  # float32 sums, packed uint8 `cat` sentences (chrF), per-sentence rows of spec None (ROUGE)
+        return mt.MetricCollection({"wer": mt.WordErrorRate(device=device), "bleu": mt.BLEUScore(device=device),
+                                    "chrf": mt.CHRFScore(device=device),
+                                    "rouge": mt.ROUGEScore(rouge_keys=("rouge1", "rougeL"), device=device)},
+                                   compute_groups=False)
+    if name == "audio":  # the float32 sums and int32 counts of PIT and SDR
+        import metrics_tpu_torch.functional as F
+
+        return mt.MetricCollection({"pit": mt.PermutationInvariantTraining(F.scale_invariant_signal_distortion_ratio,
+                                                                           "max", device=device),
+                                    "sdr": mt.SignalDistortionRatio(filter_length=32, device=device)},
+                                   compute_groups=False)
     return mt.MetricCollection({n: getattr(mt, n)(device=device) for n in AGGREGATORS}, compute_groups=False)
 
 
@@ -2805,6 +3601,13 @@ def sync_batches(name: str, rank: int, steps: int = SYNC_STEPS) -> list:
         return [(b, {}) for b in regression_batches(seed, shape=(steps, SYNC_REGRESSION_ROWS))]
     if name == "retrieval":  # the ranks hold rows of the same queries
         return [(b, {}) for b in retrieval_batches(seed, steps=steps)]
+    if name == "text":
+        hyps, refs = mt_corpus(seed, n=steps * SYNC_TEXT_SENTENCES)
+        return [((p, r), {}) for p, r in zip(chunks(hyps, SYNC_TEXT_SENTENCES), chunks(refs, SYNC_TEXT_SENTENCES))]
+    if name == "audio":
+        mixtures, spk, samples = SYNC_AUDIO_SHAPE
+        return [((p, t), {}) for p, t, _ in separation_batches(seed, (steps * mixtures, spk, samples, mixtures),
+                                                                SYNC_DEVICE)]
     g = torch.Generator(device=SYNC_DEVICE).manual_seed(seed)
     if name == "bootstrap":
         return [((torch.softmax(torch.randn(1000, 1000, generator=g, device=SYNC_DEVICE) * 2, dim=1),
@@ -2945,21 +3748,24 @@ def sync_profile(suite, protocol: str, syncs: int = 3) -> dict:
     }
 
 
-def assert_sync_counts(label: str, result: dict, n_states: int, has_cat: bool, row_gathers: int = 0) -> None:
+def assert_sync_counts(label: str, result: dict, n_states: int, has_cat: bool, row_gathers: int = 0,
+                       row_states: int = 0) -> None:
     """A coalesced sync is one payload collective (plus one metadata collective for ``cat`` states),
-    the per-state protocol two collectives a state. List states of spec None (the retrieval rows,
-    ``row_gathers`` rows in all) decline the packed lane in both packages: two collectives a row."""
+    the per-state protocol two collectives a state. List states of spec None (``row_states`` of the
+    ``n_states``, ``row_gathers`` rows in all: the retrieval, mAP and FID rows, ROUGE's sentences)
+    decline the packed lane in both packages: two collectives a row, in both protocols."""
     co, ps = result["coalesced"]["counts"], result["per_state"]["counts"]
-    if row_gathers:
+    if row_gathers and row_states == n_states:
         for counts in (co, ps):
             assert counts["sync_shape_collectives"] == counts["sync_payload_collectives"] == row_gathers, (
                 f"{label}: {counts} for {row_gathers} buffered rows")
         return
-    assert co["sync_payload_collectives"] == 1, f"{label}: {co} payload collectives per coalesced sync"
-    assert co["sync_shape_collectives"] == int(has_cat), f"{label}: {co} metadata collectives per coalesced sync"
-    assert co["sync_states_coalesced"] == n_states, f"{label}: {co['sync_states_coalesced']} of {n_states} states packed"
-    assert ps["sync_shape_collectives"] == ps["sync_payload_collectives"] == n_states, (
-        f"{label}: the per-state protocol issued {ps} for {n_states} states")
+    packed = n_states - row_states
+    assert co["sync_payload_collectives"] == 1 + row_gathers, f"{label}: {co} payload collectives per coalesced sync"
+    assert co["sync_shape_collectives"] == int(has_cat) + row_gathers, f"{label}: {co} metadata collectives per coalesced sync"
+    assert co["sync_states_coalesced"] == packed, f"{label}: {co['sync_states_coalesced']} of {packed} states packed"
+    assert ps["sync_shape_collectives"] == ps["sync_payload_collectives"] == packed + row_gathers, (
+        f"{label}: the per-state protocol issued {ps} for {packed} states and {row_gathers} rows")
 
 
 def sync_world_of_one(mt, histogram, name: str, card: str) -> dict:
@@ -2982,8 +3788,9 @@ def sync_world_of_one(mt, histogram, name: str, card: str) -> dict:
         assert all(r.ndim == 1 for m in members.values() for r in m.preds + m.target), "rows not canonicalised"
     local = {(m, s): v for m, member in members.items() for s, v in member.metric_state.items()}
     want = {k: v.clone() for k, v in suite_states(suite).items()}
-    has_cat = any(isinstance(v, list) for v in local.values())
+    has_cat = any(isinstance(v, list) and members[m]._reduction_specs[s] == "cat" for (m, s), v in local.items())
     row_gathers = sum(len(v) for (m, s), v in local.items() if isinstance(v, list) and members[m]._reduction_specs[s] is None)
+    row_states = sum(1 for (m, s), v in local.items() if isinstance(v, list) and members[m]._reduction_specs[s] is None)
 
     def check(synced):
         for (m, s), value in want.items():
@@ -3000,7 +3807,7 @@ def sync_world_of_one(mt, histogram, name: str, card: str) -> dict:
     for (m, s), value in local.items():  # unsync put back the very same local states
         got = getattr(members[m], s)
         assert (got == value) if isinstance(value, list) else (got is value), f"sync {name}: {m}.{s} not restored"
-    assert_sync_counts(f"sync {name} (NCCL, world of one)", result, len(want), has_cat, row_gathers)
+    assert_sync_counts(f"sync {name} (NCCL, world of one)", result, len(want), has_cat, row_gathers, row_states)
     # the first update of a collection runs every member: each confusion-matrix member launches once
     expected = {"headline": SYNC_STEPS, "agreement": 3 + SYNC_STEPS - 1, "segmentation": SYNC_STEPS}.get(name, 0)
     assert launches == expected, f"sync {name}: {launches} bincount launches in {SYNC_STEPS} updates, not {expected}"
@@ -3054,16 +3861,17 @@ def gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
             stats = collective_stats()
             suite.unsync()  # the retrieval members leave compute() synced, as in JAX
             n_states = len(suite_states(suite))
-            row_gathers = sum(len(getattr(m, s)) for m in suite_nodes(suite).values()
-                              for s, spec in m._reduction_specs.items() if spec is None and isinstance(getattr(m, s), list))
+            row_lists = [getattr(m, s) for m in suite_nodes(suite).values()
+                         for s, spec in m._reduction_specs.items() if spec is None and isinstance(getattr(m, s), list)]
             result[name] = {
                 "values": {k: v.cpu() for k, v in values.items()},
                 "compute_ms": compute_ms,
                 "compute_counts": {k: stats[k] for k in ("sync_shape_collectives", "sync_payload_collectives",
                                                          "sync_bytes_gathered")},
                 "states": n_states,
-                "has_cat": name in ("aggregators", "curves", "regression", "ssim"),
-                "row_gathers": row_gathers,
+                "has_cat": name in ("aggregators", "curves", "regression", "ssim", "text"),
+                "row_gathers": sum(len(rows) for rows in row_lists),
+                "row_states": len(row_lists),
                 **sync_trials(suite),
             }
             if name == "bootstrap":  # the draws differ by rank: the reference is the sum of the local states
@@ -3142,7 +3950,7 @@ def sync_two_ranks(mt, card: str) -> dict:
                 else:
                     assert g.dtype == value.dtype and torch.equal(g, value), f"sync {name}, rank {rank}: {key} differs"
             assert_sync_counts(f"sync {name} (Gloo, rank {rank})", result[name], result[name]["states"],
-                               result[name]["has_cat"], result[name]["row_gathers"])
+                               result[name]["has_cat"], result[name]["row_gathers"], result[name]["row_states"])
         r0 = results[0][name]
         out[name] = {k: [r[name][k] for r in results] for k in ("compute_ms", "compute_counts")}
         out[name].update({p: [r[name][p] for r in results] for p in ("coalesced", "per_state", "first_sync_counts")})
@@ -3218,6 +4026,7 @@ def main() -> int:
     wrappers_image = timed_phase("wrappers_image_15_16", wrapper_image_paths, mt, checks, histogram, card)
     generative_detection = timed_phase("generative_detection_17_18", generative_detection_paths, mt, checks,
                                        histogram, card)
+    text_audio = timed_phase("text_audio_19_20", text_audio_paths, mt, histogram, card)
     sync = timed_phase("sync", sync_path, mt, histogram, card)
     log(f"phase seconds: {json.dumps(phase_s)}")
     # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, the
@@ -3226,12 +4035,13 @@ def main() -> int:
     kernel["launches"] = sum(p["first"]["kernel_launches"] for p in (main, agreement, segmentation))
     kernel["launches"] += (curves["kernel_launches"] + evaluation["kernel_launches"]
                            + wrappers_image["kernel_launches"] + generative_detection["kernel_launches"]
-                           + sync["kernel_launches"])
+                           + text_audio["kernel_launches"] + sync["kernel_launches"])
 
     log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
                     "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation,
                     "curves_path": curves, "eval_paths": evaluation, "wrapper_image_paths": wrappers_image,
-                    "generative_detection_paths": generative_detection, "sync_path": sync,
+                    "generative_detection_paths": generative_detection, "text_audio_paths": text_audio,
+                    "sync_path": sync,
                     "phase_seconds": phase_s}))
     log(json.dumps({"kernels": [kernel]}))
     log(card)

@@ -1,6 +1,8 @@
 """Functional image metrics (JAX counterpart: `metrics_tpu/functional/image`).
 
-FID, KID, IS and LPIPS, with their networks, are not ported yet.
+FID, KID, IS and LPIPS are ported as modules under ``image/``
+(``image/generative.py``, their networks in ``models/``), as in the JAX
+package, which has no functional form of them.
 """
 from metrics_tpu_torch.functional.image.psnr import peak_signal_noise_ratio
 from metrics_tpu_torch.functional.image.spectral import (

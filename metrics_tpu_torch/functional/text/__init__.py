@@ -1,0 +1,41 @@
+"""Functional text metrics (JAX counterpart: `metrics_tpu/functional/text`).
+
+String inputs carry no device: each function takes a keyword-only ``device``
+(None: the card) for its result, except ``perplexity`` (its logits' device)
+and ``bert_score``/``infolm`` (their ``device`` argument).
+"""
+from metrics_tpu_torch.functional.text.bert import bert_score
+from metrics_tpu_torch.functional.text.bleu import bleu_score
+from metrics_tpu_torch.functional.text.chrf import chrf_score
+from metrics_tpu_torch.functional.text.eed import extended_edit_distance
+from metrics_tpu_torch.functional.text.infolm import infolm
+from metrics_tpu_torch.functional.text.perplexity import perplexity
+from metrics_tpu_torch.functional.text.rouge import rouge_score
+from metrics_tpu_torch.functional.text.sacre_bleu import sacre_bleu_score
+from metrics_tpu_torch.functional.text.squad import squad
+from metrics_tpu_torch.functional.text.ter import translation_edit_rate
+from metrics_tpu_torch.functional.text.wer import (
+    char_error_rate,
+    match_error_rate,
+    word_error_rate,
+    word_information_lost,
+    word_information_preserved,
+)
+
+__all__ = [
+    "bert_score",
+    "bleu_score",
+    "char_error_rate",
+    "chrf_score",
+    "extended_edit_distance",
+    "infolm",
+    "match_error_rate",
+    "perplexity",
+    "rouge_score",
+    "sacre_bleu_score",
+    "squad",
+    "translation_edit_rate",
+    "word_error_rate",
+    "word_information_lost",
+    "word_information_preserved",
+]

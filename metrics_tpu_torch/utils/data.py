@@ -14,6 +14,8 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 from torch import Tensor
 
+import numpy as np
+
 from metrics_tpu_torch.ops.histogram import fused_bincount
 
 TensorOrList = Union[Tensor, List[Tensor]]
@@ -158,6 +160,52 @@ def allclose(x: Tensor, y: Tensor, rtol: float = 1e-5, atol: float = 1e-8) -> bo
     return bool(torch.allclose(x, y, rtol=rtol, atol=atol))
 
 
+# --------------------------------------------------------------- string states
+# JAX counterpart `metrics_tpu/utils/data.py:195-216`. Text metrics that keep
+# their sentences pack them into 1-D uint8 arrays, each string followed by the
+# byte 0xFF (record separator) and each group of strings by 0xFE (group
+# separator): neither byte occurs in UTF-8, so they never collide with text.
+# Packed arrays are closed under concatenation, cat(pack(a), pack(b)) ==
+# pack(a + b), which is the contract of a ``cat`` state: the module keeps them
+# as uint8 tensors on its device, and the sync gathers them as any other.
+_REC_SEP = 0xFF
+_GRP_SEP = 0xFE
+
+
+def _as_bytes(arr: Union[Tensor, np.ndarray]) -> bytes:
+    if isinstance(arr, Tensor):
+        arr = arr.detach().cpu().numpy()  # one copy to the host for a tensor on the card
+    return np.asarray(arr, dtype=np.uint8).tobytes()
+
+
+def pack_strings(strings: Sequence[str]) -> np.ndarray:
+    """The strings as one uint8 array on the host (writable, so ``torch.from_numpy`` takes it as is)."""
+    data = bytearray()
+    for s in strings:
+        data += s.encode("utf-8") + bytes([_REC_SEP])
+    return np.frombuffer(data, dtype=np.uint8)
+
+
+def unpack_strings(arr: Union[Tensor, np.ndarray]) -> List[str]:
+    return [chunk.decode("utf-8") for chunk in _as_bytes(arr).split(bytes([_REC_SEP]))[:-1]]
+
+
+def pack_string_groups(groups: Sequence[Sequence[str]]) -> np.ndarray:
+    data = bytearray()
+    for group in groups:
+        for s in group:
+            data += s.encode("utf-8") + bytes([_REC_SEP])
+        data += bytes([_GRP_SEP])
+    return np.frombuffer(data, dtype=np.uint8)
+
+
+def unpack_string_groups(arr: Union[Tensor, np.ndarray]) -> List[List[str]]:
+    return [
+        [chunk.decode("utf-8") for chunk in group.split(bytes([_REC_SEP]))[:-1]]
+        for group in _as_bytes(arr).split(bytes([_GRP_SEP]))[:-1]
+    ]
+
+
 __all__ = [
     "dim_zero_cat",
     "dim_zero_cat_ravel",
@@ -170,4 +218,8 @@ __all__ = [
     "to_categorical",
     "apply_to_collection",
     "allclose",
+    "pack_strings",
+    "unpack_strings",
+    "pack_string_groups",
+    "unpack_string_groups",
 ]

@@ -24,7 +24,10 @@ synced through NCCL in one payload collective; InceptionV3's taps and the
 three LPIPS networks on the card against the CPU with the same seeded
 weights, with TF32 left on by the caller; FID, KID and IS from the same
 features; and MeanAveragePrecision (boxes, and masks with cells on the device
-route) equal to the CPU bit for bit.
+route) equal to the CPU bit for bit; Perplexity (float32 and bfloat16 logits),
+BERTScore's matcher under TF32 settings, SDR (the solve and conjugate
+gradient) and PIT on the card against the CPU; and the text metrics' states
+(float32 counts, packed uint8 sentences) on the card equal to the CPU's.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -770,3 +773,85 @@ def test_map_on_the_card_equals_the_cpu(dev, iou_type):
         assert card.iou_cells["device"] > 0
     for key, value in want.items():
         assert got[key].device.type == "cuda" and torch.equal(got[key].cpu(), value), key
+
+
+def test_perplexity_on_the_card_equals_the_cpu(dev):
+    g = torch.Generator().manual_seed(0)
+    logits = torch.randn(2, 64, 5000, generator=g) * 3
+    target = torch.randint(0, 5000, (2, 64), generator=g)
+    target[0, :5] = -100
+    for dtype in (torch.float32, torch.bfloat16):
+        card, cpu = mt.Perplexity(ignore_index=-100), mt.Perplexity(ignore_index=-100, device="cpu")
+        card.update(logits.to(dtype).to(dev), target.to(dev))
+        cpu.update(logits.to(dtype), target)
+        assert torch.equal(card.count.cpu(), cpu.count)
+        torch.testing.assert_close(card.compute().cpu(), cpu.compute(), rtol=1e-5, atol=0)
+
+
+def test_bert_score_matcher_on_the_card_equals_the_cpu_under_tf32(dev):
+    from metrics_tpu_torch.functional.text.bert import _greedy_layerwise_scores
+
+    g = torch.Generator().manual_seed(1)
+    a, b = torch.randn(8, 1, 20, 256, generator=g), torch.randn(8, 1, 24, 256, generator=g)
+    sa, sb = torch.full((8, 20), 0.05), torch.full((8, 24), 1 / 24)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")  # the matcher keeps float32 under the caller's TF32
+    try:
+        got = _greedy_layerwise_scores(a.to(dev), sa.to(dev), b.to(dev), sb.to(dev))
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    want = _greedy_layerwise_scores(a, sa, b, sb)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x.cpu(), y, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"use_cg_iter": 10}, {"load_diag": 1e-3, "zero_mean": True}])
+def test_sdr_on_the_card_equals_the_cpu(dev, kwargs):
+    import metrics_tpu_torch.functional as F
+
+    g = torch.Generator().manual_seed(2)
+    target = torch.randn(4, 8000, generator=g)
+    preds = target + 0.3 * torch.randn(4, 8000, generator=g)
+    got = F.signal_distortion_ratio(preds.to(dev), target.to(dev), filter_length=128, **kwargs)
+    want = F.signal_distortion_ratio(preds, target, filter_length=128, **kwargs)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, atol=2e-3, rtol=0)  # dB: the float32 solve rounds differently
+    got64 = F.signal_distortion_ratio(preds.double().to(dev), target.double().to(dev), filter_length=128, **kwargs)
+    want64 = F.signal_distortion_ratio(preds.double(), target.double(), filter_length=128, **kwargs)
+    torch.testing.assert_close(got64.cpu(), want64, atol=1e-9, rtol=0)
+
+
+@pytest.mark.parametrize("spk", [2, 3, 8])
+def test_pit_on_the_card_equals_the_cpu(dev, spk):
+    import metrics_tpu_torch.functional as F
+
+    g = torch.Generator().manual_seed(3)
+    target = torch.randn(6, spk, 2000, generator=g)
+    perm = torch.argsort(torch.rand(6, spk, generator=g), dim=1)
+    preds = torch.gather(target, 1, perm[:, :, None].expand(-1, -1, 2000)) + 0.3 * torch.randn(6, spk, 2000, generator=g)
+    best, best_perm = F.permutation_invariant_training(preds.to(dev), target.to(dev),
+                                                       F.scale_invariant_signal_distortion_ratio)
+    want, want_perm = F.permutation_invariant_training(preds, target, F.scale_invariant_signal_distortion_ratio)
+    assert best_perm.is_cuda and torch.equal(best_perm.cpu(), want_perm)
+    assert torch.equal(want_perm, torch.argsort(perm, dim=1))
+    torch.testing.assert_close(best.cpu(), want, atol=1e-4, rtol=0)
+    assert torch.equal(F.pit_permutate(preds.to(dev), best_perm).cpu(), F.pit_permutate(preds, want_perm))
+
+
+def test_text_states_on_the_card_equal_the_cpu(dev):
+    preds = ["the cat sat on the mat", "a dog ran, fast.", "hello there world"]
+    target = [["the cat is on the mat"], ["a dog runs fast."], ["hello world"]]
+    for make in (lambda d: mt.BLEUScore(device=d), lambda d: mt.CHRFScore(device=d),
+                 lambda d: mt.TranslationEditRate(return_sentence_level_score=True, device=d),
+                 lambda d: mt.ExtendedEditDistance(device=d), lambda d: mt.ROUGEScore(device=d)):
+        card, cpu = make(dev), make("cpu")
+        card.update(preds, target)
+        cpu.update(preds, target)
+        for name, want in cpu.metric_state.items():
+            got = getattr(card, name)
+            got, want = (torch.cat(got), torch.cat(want)) if isinstance(want, list) else (got, want)
+            assert got.is_cuda and got.dtype == want.dtype and torch.equal(got.cpu(), want), name
+        got, want = card.compute(), cpu.compute()
+        flat = lambda v: list(v.values()) if isinstance(v, dict) else list(v) if isinstance(v, tuple) else [v]  # noqa: E731
+        for x, y in zip(flat(got), flat(want)):
+            torch.testing.assert_close(x.cpu(), y, rtol=1e-6, atol=0)

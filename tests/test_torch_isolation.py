@@ -38,7 +38,14 @@ def test_port_files_exist():
                    "image/base.py", "image/psnr.py", "image/ssim.py", "image/spectral.py",
                    "models/__init__.py", "models/inception.py", "models/lpips.py", "models/manifest.py",
                    "image/generative.py", "functional/detection/__init__.py", "functional/detection/box_ops.py",
-                   "functional/detection/rle.py", "detection/__init__.py", "detection/mean_ap.py"):
+                   "functional/detection/rle.py", "detection/__init__.py", "detection/mean_ap.py",
+                   "utils/imports.py", "ops/text_native.py", "functional/text/helper.py", "functional/text/wer.py",
+                   "functional/text/bleu.py", "functional/text/sacre_bleu.py", "functional/text/chrf.py",
+                   "functional/text/ter.py", "functional/text/eed.py", "functional/text/rouge.py",
+                   "functional/text/squad.py", "functional/text/perplexity.py", "functional/text/bert.py",
+                   "functional/text/infolm.py", "text/basic.py", "text/advanced.py", "functional/audio/snr.py",
+                   "functional/audio/sdr.py", "functional/audio/pit.py", "functional/audio/stoi.py",
+                   "functional/audio/host.py", "audio/metrics.py"):
         assert f"metrics_tpu_torch/{module}" in names
 
 
@@ -55,7 +62,9 @@ def test_importing_the_port_loads_no_jax():
         "metrics_tpu_torch.functional.pairwise, metrics_tpu_torch.classification.ranking, "
         "metrics_tpu_torch.wrappers, metrics_tpu_torch.image, metrics_tpu_torch.functional.image, "
         "metrics_tpu_torch.models, metrics_tpu_torch.models.manifest, metrics_tpu_torch.image.generative, "
-        "metrics_tpu_torch.detection, metrics_tpu_torch.functional.detection; "
+        "metrics_tpu_torch.detection, metrics_tpu_torch.functional.detection, metrics_tpu_torch.text, "
+        "metrics_tpu_torch.functional.text, metrics_tpu_torch.ops.text_native, metrics_tpu_torch.audio, "
+        "metrics_tpu_torch.functional.audio; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'metrics_tpu')); "
         "assert not bad, bad"
     )
