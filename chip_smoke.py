@@ -97,7 +97,10 @@ Phases, each of which raises on failure (exit code 1):
    in one collection over 64 updates of 262,144 rows (2**24; targets >= 0
    with 30% zeros, preds > 0), one ``compute()`` (Spearman sorts 2**24 twice);
    then R2Score, ExplainedVariance and MeanSquaredError per output over 16
-   updates of (65,536, 16).
+   updates of (65,536, 16). Spearman's ranks (one sort and its runs) are timed
+   beside the two ``searchsorted`` passes they replaced (equal on these rows),
+   and with every 97th prediction NaN the card's ranks equal the CPU twin's
+   bit for bit and the coefficient is within ``SPEARMAN_ATOL``.
 13. ``pairwise_embeddings``: the four pairwise functions on x (4096, 768)
    against y (8192, 768), reduction None and "mean", then x against itself
    (zero diagonal); Manhattan in row blocks under 256 MiB. The CPU twin
@@ -182,6 +185,27 @@ Phases, each of which raises on failure (exit code 1):
    clips in float64, the solve and the FFTs beside their bounds; STOI over 100
    clips of 3 s at 16 kHz and ESTOI over 20; PESQ's ``ModuleNotFoundError``
    where ``pesq`` is absent. Tolerances in dB beside their constants.
+
+21. ``observability_journal`` (after the sync): the headline suite of phase 3
+   with telemetry armed and disarmed (``set_telemetry``), alternating for 3
+   trials: ms/step of each, spans per step by site, none when disarmed, one
+   bincount launch a ConfusionMatrix update, states equal to the CPU twin bit
+   for bit. The state journal at real sizes: (a) that suite, (b) phase 9's
+   ImageNet curves suite after all 50,000 x 1000 rows, (c) phase 15's
+   BootStrapper of 100 clones: save and load ms, record bytes and the copy
+   calls of each (one device-to-host copy a save, one host-to-device copy a
+   load); every state of the restored tree byte for byte, its ``compute()``
+   equal to the uninterrupted run, the record loaded into a CPU twin (equal to
+   the CPU run for (a)), and for (c) 5 more updates after the restore drawing
+   what the uninterrupted BootStrapper draws. Fault drills: ``sync-pack``
+   injected into the suite and its members in a NCCL world of one (the sync
+   falls back to the per-state protocol, two collectives a state, with the
+   coalesced sync's states, and re-promotes to one payload collective after
+   ``recovery_steps()`` clean syncs); ``journal-write`` (the generation ring
+   byte-identical); ``journal-load`` and a flipped byte in the newest
+   generation (each restores generation 1, one load demotion). Then
+   ``prometheus_text()`` and ``export_trace()`` timed, with their bytes. Under
+   60 s.
 
 Phases 15 and 16 report what phases 11 to 14 do, and hold every state and
 value against a CPU twin fed the same batches and the same bootstrap draws:
@@ -465,16 +489,17 @@ def make_suite(mt, num_classes: int, device: str):
     )
 
 
-def make_batches(batch: int, num_classes: int, steps: int, seed: int, signal: float = 0.0, spatial=()):
+def make_batches(batch: int, num_classes: int, steps: int, seed: int, signal: float = 0.0, spatial=(),
+                 device: str = "cuda"):
     """Softmax preds (B, C, *spatial) and int64 targets (B, *spatial); ``signal`` is
     added to the target's logit, so that preds agree with targets more than by chance."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
+    g = torch.Generator(device=device).manual_seed(seed)
     out = []
     for _ in range(steps):
-        logits = torch.randn((batch, num_classes) + tuple(spatial), generator=g, device="cuda")
-        target = torch.randint(0, num_classes, (batch,) + tuple(spatial), generator=g, device="cuda")
+        logits = torch.randn((batch, num_classes) + tuple(spatial), generator=g, device=device)
+        target = torch.randint(0, num_classes, (batch,) + tuple(spatial), generator=g, device=device)
         if signal:
-            logits.scatter_add_(1, target.unsqueeze(1), torch.full(target.unsqueeze(1).shape, signal, device="cuda"))
+            logits.scatter_add_(1, target.unsqueeze(1), torch.full(target.unsqueeze(1).shape, signal, device=device))
         out.append((torch.softmax(logits, dim=1), target))
         del logits
     return out
@@ -1559,6 +1584,10 @@ def regression_path(mt, checks, histogram, card: str) -> dict:
     all_preds = torch.cat([p for p, _ in batches])
     result["spearman_sort"] = op_profile(lambda: torch.sort(all_preds), bytes_moved=(4 + 4 + 8) * n, ops=0)
     result["spearman_rank"] = op_profile(lambda: _rank_data(all_preds), bytes_moved=(4 + 4) * n, ops=0)
+    result["spearman_rank_searchsorted"] = op_profile(lambda: searchsorted_ranks(all_preds), bytes_moved=(4 + 4) * n,
+                                                      ops=0)
+    assert torch.equal(_rank_data(all_preds), searchsorted_ranks(all_preds)), "regression: the two rankings differ"
+    result["spearman_nan"] = spearman_nan_case(mt, all_preds, torch.cat([t for _, t in batches]))
 
     cpu = regression_suite(mt, "cpu")
     t0 = time.perf_counter()
@@ -1601,8 +1630,35 @@ def regression_path(mt, checks, histogram, card: str) -> dict:
         f"{result['multioutput_max_abs_err_vs_cpu']}  [{card}]")
     log(f"regression_2p24 profiles: update {json.dumps(result['update_profile'])}; compute "
         f"{json.dumps(result['compute_profile'])}; sort {json.dumps(result['spearman_sort'])}; ranks "
-        f"{json.dumps(result['spearman_rank'])}  [{card}]")
+        f"{json.dumps(result['spearman_rank'])}; ranks by searchsorted {json.dumps(result['spearman_rank_searchsorted'])}"
+        f"; NaN case {json.dumps(result['spearman_nan'])}  [{card}]")
     return result
+
+
+def searchsorted_ranks(data):
+    """Average-tie ranks by one sort and two ``searchsorted`` passes, the form the ranks took before
+    (and take in the JAX package): timed beside the sort-run ranks; they agree where there is no NaN."""
+    sorted_data = torch.sort(data).values
+    lower = torch.searchsorted(sorted_data, data, side="left")
+    upper = torch.searchsorted(sorted_data, data, side="right")
+    return (lower + upper - 1) / 2.0 + 1.0
+
+
+def spearman_nan_case(mt, preds, target) -> dict:
+    """Spearman over the 2**24 rows with every 97th prediction NaN: the card's ranks equal the CPU
+    twin's bit for bit, and the coefficient is finite and within ``SPEARMAN_ATOL`` of the CPU's."""
+    from metrics_tpu_torch.functional.regression.correlation import _rank_data
+
+    nan_preds = preds.clone()
+    nan_preds[::97] = float("nan")
+    ranks = _rank_data(nan_preds)
+    assert torch.equal(ranks.cpu(), _rank_data(nan_preds.cpu())), "spearman NaN: the card's ranks differ from the CPU's"
+    got = mt.functional.spearman_corrcoef(nan_preds, target)
+    want = mt.functional.spearman_corrcoef(nan_preds.cpu(), target.cpu())
+    err = assert_curve_close(got, want, "spearman NaN", atol=SPEARMAN_ATOL)
+    assert torch.isfinite(got), "spearman NaN: not finite"
+    return {"nan_rows": int(torch.isnan(nan_preds).sum()), "value": float(got), "cpu_value": float(want),
+            "abs_err": err, "ranks_bit_equal": True}
 
 
 # ---- phase 13: pairwise_embeddings
@@ -2059,7 +2115,9 @@ def wrappers_path(mt, checks, histogram, card: str) -> dict:
         run_tracker(cpu_tracker, [tuple(t.cpu() for t in b) for b in batches])
     finally:
         tracker_draws.restore()
-    for step, (a, b) in enumerate(zip(tracker._history, cpu_tracker._history)):
+    assert tracker.n_steps == cpu_tracker.n_steps == TRACKER_EPOCHS
+    for step in range(tracker.n_steps):  # a finished step is a packed journal record: read it back
+        a, b = tracker._step_metric(step), cpu_tracker._step_metric(step)
         for (name, m), (_, m_cpu) in zip(a.items(keep_base=True, copy_state=False),
                                          b.items(keep_base=True, copy_state=False)):
             assert_tree_close(m, m_cpu, f"tracker step {step} {name}")
@@ -3985,6 +4043,305 @@ def sync_path(mt, histogram, card: str) -> dict:
     return result
 
 
+# ---- phase 21: observability_journal
+OBS_DEVICE = "cuda"  # where phase 21 runs
+OBS_SHAPE = (8192, 128, 5, 50)  # the headline suite's batch, classes, warm-up and timed steps (phase 3's)
+OBS_TRIALS = 3  # armed and disarmed runs, alternating
+OBS_BOOT_STEPS = (10, 5)  # the BootStrapper's updates before the save, and after the restore
+OBS_DRILL_SYNCS = 12  # at most this many syncs after the sync-pack drill, until the suite's lane re-promotes
+
+
+def journal_copies(fn) -> dict:
+    """One call of ``fn`` under torch.profiler (nothing in the warm-up cycle): its copy calls."""
+    prof = compute_profile(fn, warmup_fn=lambda: None)
+    return {k: prof[k] for k in ("memcpy_calls", "device_to_host_copies", "host_to_device_copies")}
+
+
+def host_ms(fn) -> tuple:
+    """(ms on the host clock of one call of ``fn``, ending in a synchronise; its return value)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def assert_states_bit_equal(got_suite, want_suite, label: str) -> int:
+    """Every state of two suites (or metric trees), byte for byte after a move to the CPU; returns the bytes compared."""
+    tree = lambda x: {"m": x} if hasattr(x, "_named_child_metrics") else x  # noqa: E731 - a metric, or a collection
+    got, want = suite_states(tree(got_suite)), suite_states(tree(want_suite))
+    assert got.keys() == want.keys(), f"{label}: the trees differ"
+    nbytes = 0
+    for key, w in want.items():
+        g, w = (got[key].cpu(), w.cpu()) if not isinstance(w, list) else (got[key], w)
+        if isinstance(w, list):
+            assert g == w == [], f"{label} {key}: rows on one side only"
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, f"{label} {key}: {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}"
+        assert torch.equal(g.reshape(-1).view(torch.uint8) if g.dtype != torch.bool else g, w.reshape(-1).view(
+            torch.uint8) if w.dtype != torch.bool else w), f"{label} {key}: the bytes differ"
+        nbytes += w.numel() * w.element_size()
+    return nbytes
+
+
+def journal_tree(label: str, make_card, make_cpu, live, path: str, cpu_run=None, extra_steps=None) -> dict:
+    """Phase 21's journal round trip of one tree: save ``live`` (timed, copies counted), load into a fresh
+    card instance (timed, copies counted) and into a CPU twin; every state byte for byte, ``compute()``
+    equal to the uninterrupted run, the twin equal to ``cpu_run`` where one is given (else to the card's
+    states). ``extra_steps(metric)`` runs after the restore on both the live and the restored tree."""
+    from metrics_tpu_torch.ops import journal
+
+    save_ms, nbytes = host_ms(lambda: live.save_state(path))
+    save_copies = journal_copies(lambda: live.save_state(path))
+    restored = make_card()
+    load_ms, gen = host_ms(lambda: restored.load_state(path))
+    assert gen == 0, f"{label}: restored generation {gen}"
+    load_copies = journal_copies(lambda: restored.load_state(path))
+    for copies, what in ((save_copies, "save"), (load_copies, "load")):
+        assert copies["memcpy_calls"] == 1, f"{label}: {copies['memcpy_calls']} copy calls in a {what}"
+    state_bytes = assert_states_bit_equal(restored, live, f"journal {label} (card)")
+    twin = make_cpu()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # a BootStrapper's card generator does not fit the CPU twin's: it says so
+        twin_ms, _ = host_ms(lambda: twin.load_state(path))
+    assert_states_bit_equal(twin, cpu_run if cpu_run is not None else live, f"journal {label} (CPU twin)")
+    if extra_steps is not None:
+        extra_steps(live)
+        extra_steps(restored)
+        assert_states_bit_equal(restored, live, f"journal {label} after the restore's own updates")
+    compute_ms, want = host_ms(live.compute)
+    assert_values_close(restored.compute(), to_device(want, "cpu"), f"journal {label} compute", atol=0.0, rtol=0.0)
+    if cpu_run is not None:
+        assert_values_close(twin.compute(), cpu_run.compute(), f"journal {label} CPU twin compute", atol=0.0, rtol=0.0)
+    out = {"record_bytes": nbytes, "state_bytes": state_bytes, "save_ms": save_ms, "load_ms": load_ms,
+           "cpu_twin_load_ms": twin_ms, "compute_ms": compute_ms, "save_copies": save_copies,
+           "load_copies": load_copies, "bit_exact": True}
+    assert os.path.getsize(path) == nbytes and journal.journal_generations() >= 1
+    return out
+
+
+def telemetry_cost(mt, checks, histogram, card: str) -> tuple:
+    """The headline suite with telemetry armed and disarmed, alternating: ms/step, spans by site, launches."""
+    from metrics_tpu_torch.ops import telemetry
+
+    batch, num_classes, warmup, timed = OBS_SHAPE
+    batches = make_batches(batch, num_classes, warmup + timed, seed=0, device=OBS_DEVICE)
+    checks.set_validation_mode("first")
+    reference = make_suite(mt, num_classes, "cpu")
+    for preds, target in batches:
+        reference.update(preds.cpu(), target.cpu())
+    runs = {"armed": [], "disarmed": []}
+    result = {"batch": batch, "num_classes": num_classes, "timed_steps": timed, "trials": OBS_TRIALS}
+    kept = None
+    for trial in range(OBS_TRIALS):
+        for mode in ("armed", "disarmed"):
+            telemetry.set_telemetry(mode == "armed")
+            telemetry.clear_spans()
+            suite = make_suite(mt, num_classes, OBS_DEVICE)
+            histogram.KERNEL_LAUNCHES = 0
+            runs[mode].append(run_suite(suite, batches, warmup) / timed * 1e3)
+            launches = histogram.KERNEL_LAUNCHES
+            confmat_updates = dict(suite.items(keep_base=True, copy_state=False))["confmat"].update_count
+            assert launches == confmat_updates == warmup + timed, f"telemetry {mode}: {launches} launches"
+            spans = telemetry.spans()
+            if mode == "disarmed":
+                assert spans == [] and telemetry.telemetry_stats()["spans_recorded"] == 0, "a disarmed run emitted"
+            else:
+                by_site = {}
+                for r in spans:
+                    by_site[r["site"]] = by_site.get(r["site"], 0) + 1
+                assert by_site == {"suite-step": warmup + timed}, f"telemetry: spans {by_site}"
+                if trial == 0:
+                    result["spans_per_step"] = {k: v / (warmup + timed) for k, v in by_site.items()}
+                    result["kernel_launches"] = launches
+                    kept = suite
+            if trial == 0:
+                assert_suites_equal(suite, reference, f"telemetry {mode}")
+                gpu_res, cpu_res = suite.compute(), reference.compute()
+                result.setdefault("values_bit_equal_to_cpu", {})[mode] = all(
+                    torch.equal(gpu_res[k].cpu(), cpu_res[k]) for k in cpu_res)
+    telemetry.set_telemetry(True)
+    for mode, per_step in runs.items():
+        result[f"{mode}_ms_per_step_runs"] = per_step
+        result[f"{mode}_ms_per_step"] = median(per_step)
+    result["armed_minus_disarmed_ms_per_step"] = result["armed_ms_per_step"] - result["disarmed_ms_per_step"]
+    log(f"observability telemetry: armed {result['armed_ms_per_step']:.4f} ms/step, disarmed "
+        f"{result['disarmed_ms_per_step']:.4f} ms/step (medians of {OBS_TRIALS}: {runs}); spans per step "
+        f"{result['spans_per_step']}; {result['kernel_launches']} bincount launches for as many ConfusionMatrix "
+        f"updates; values bit-equal to the CPU twin {result['values_bit_equal_to_cpu']}  [{card}]")
+    return result, kept, reference, batches
+
+
+def sync_pack_drill(mt, suite, card: str) -> dict:
+    """The ``sync-pack`` fault drill in a NCCL world of one: the injected pack failures demote the suite
+    and its members to the per-state protocol (two collectives a state) with the coalesced sync's
+    states; clean syncs re-promote them, back to one payload collective."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.ops import faults
+    from metrics_tpu_torch.parallel import bucketing, collective_stats
+
+    members = len(suite)
+    steps = faults.recovery_steps()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    out = {"recovery_steps": steps}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}", rank=0,
+                                world_size=1)
+        try:
+            bucketing._MANIFEST_CACHE.clear()
+            timed_sync(suite, "coalesced")  # the first sync of the layout checks it once
+            suite.unsync()
+            coalesced = []
+            for _ in range(3):
+                ms, counts = timed_sync(suite, "coalesced")
+                assert (counts["sync_shape_collectives"], counts["sync_payload_collectives"]) == (0, 1), counts
+                coalesced.append(ms)
+                want = {k: v.clone() for k, v in suite_states(suite).items()}
+                suite.unsync()
+            n_states = len(want)
+            with warnings.catch_warnings(record=True) as record:
+                warnings.simplefilter("always")
+                with faults.inject_faults("sync-pack", members + 1) as plan:
+                    drill_ms, counts = timed_sync(suite, "coalesced")
+            warned = sum("Coalesced" in str(w.message) for w in record)
+            assert plan.fired == members + 1 and warned == members + 1, (plan.fired, warned)
+            assert counts["sync_shape_collectives"] == counts["sync_payload_collectives"] == n_states, counts
+            assert collective_stats()["sync_pack_fallbacks"] == members + 1
+            for key, value in suite_states(suite).items():
+                assert torch.equal(value, want[key]), f"sync-pack drill: {key} differs from the coalesced sync"
+            suite.unsync()
+            after = []
+            for _ in range(OBS_DRILL_SYNCS):
+                ms, counts = timed_sync(suite, "coalesced")
+                suite.unsync()
+                after.append({"ms": ms, "shape": counts["sync_shape_collectives"],
+                              "payload": counts["sync_payload_collectives"]})
+                if (counts["sync_shape_collectives"], counts["sync_payload_collectives"]) == (0, 1):
+                    break
+            assert after[-1]["payload"] == 1 and after[-1]["shape"] == 0, f"the suite did not re-promote: {after}"
+            assert not suite.__dict__["_fault_ladders"]["sync-pack"].demoted
+        finally:
+            dist.destroy_process_group()
+    demoted = [a["ms"] for a in after if a["shape"] == n_states]
+    out.update(states=n_states, coalesced_ms_runs=coalesced, coalesced_ms=median(coalesced), drill_sync_ms=drill_ms,
+               drill_collectives={"shape": n_states, "payload": n_states}, syncs_after_drill=after,
+               demoted_per_state_ms=median(demoted) if demoted else None,
+               syncs_to_repromote=len(after) - 1, warnings=warned)
+    log(f"observability sync-pack drill ({n_states} states, {members} members, recovery_steps {steps}): coalesced "
+        f"{out['coalesced_ms']:.3f} ms (1 payload); the drill's sync {drill_ms:.3f} ms ({n_states} shape + "
+        f"{n_states} payload collectives, {warned} warnings); demoted per-state syncs {out['demoted_per_state_ms']} "
+        f"ms; syncs after the drill {[(a['shape'], a['payload']) for a in after]}  [{card}]")
+    return out
+
+
+def journal_drills(suite, make_card, batch, path: str) -> dict:
+    """``journal-write`` keeps the ring byte-identical; ``journal-load`` and a flipped byte in the newest
+    generation each restore generation 1, with one demotion."""
+    from metrics_tpu_torch.ops import faults, journal
+    from metrics_tpu_torch.utils.exceptions import JournalFault
+
+    suite.save_state(path)
+    gen1 = make_card()
+    gen1.load_state(path)
+    suite.update(*batch)  # the newest generation differs from generation 1
+    suite.save_state(path)
+    ring = {p: open(p, "rb").read() for p in (path, path + ".g1")}
+    with faults.inject_faults("journal-write") as plan:
+        try:
+            suite.save_state(path)
+            raise AssertionError("journal-write: the injected save did not raise")
+        except JournalFault:
+            pass
+    assert plan.fired == 1 and {p: open(p, "rb").read() for p in ring} == ring, "journal-write: the ring changed"
+    assert not os.path.exists(path + ".tmp")
+    out = {"journal_write_ring_identical": True}
+    for drill in ("journal_load", "flipped_byte"):
+        before = journal.journal_stats()["journal_load_demotions"]
+        fresh = make_card()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            if drill == "journal_load":
+                with faults.inject_faults("journal-load"):
+                    gen = fresh.load_state(path)
+            else:
+                data = bytearray(ring[path])
+                data[len(data) // 2] ^= 0xFF
+                with open(path, "wb") as fh:
+                    fh.write(bytes(data))
+                gen = fresh.load_state(path)
+        demotions = journal.journal_stats()["journal_load_demotions"] - before
+        assert gen == 1 and demotions == 1, f"{drill}: generation {gen}, {demotions} demotions"
+        assert_states_bit_equal(fresh, gen1, f"{drill}: generation 1")
+        out[drill] = {"generation": gen, "journal_load_demotions": demotions}
+    return out
+
+
+def observability_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 21: the telemetry's cost on the headline suite, the journal at real sizes, the fault drills and the
+    exports. The suite's states equal the CPU twin's bit for bit; its float values within atol 1e-6 (phase 3's
+    contract; ``values_bit_equal_to_cpu`` says whether they were bit-equal too)."""
+    from metrics_tpu_torch.ops import telemetry
+
+    t_phase = time.perf_counter()
+    result, suite, reference, batches = telemetry_cost(mt, checks, histogram, card)
+    num_classes = OBS_SHAPE[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        journal_rows = {}
+        journal_rows["headline"] = journal_tree(
+            "headline", lambda: make_suite(mt, num_classes, OBS_DEVICE), lambda: make_suite(mt, num_classes, "cpu"),
+            suite, os.path.join(tmp, "headline.journal"), cpu_run=reference)
+
+        c = CURVES_IMAGENET_SHAPE[2]
+        curves = curves_imagenet_suite(mt, OBS_DEVICE, c)
+        for preds, target in curves_imagenet_batches():
+            curves.update(preds, target)
+        journal_rows["curves_imagenet"] = journal_tree(
+            "curves_imagenet", lambda: curves_imagenet_suite(mt, OBS_DEVICE, c),
+            lambda: curves_imagenet_suite(mt, "cpu", c), curves, os.path.join(tmp, "curves.journal"))
+        del curves
+
+        boot_batches = wrapper_batches()
+        before, after = OBS_BOOT_STEPS
+        make_boot = lambda device: wrapper_member(mt, "boot_poisson", device)  # noqa: E731
+        boot = make_boot(OBS_DEVICE)
+        for b in boot_batches[:before]:
+            boot.update(*b)
+
+        def more_updates(metric):
+            for b in boot_batches[before:before + after]:
+                metric.update(*b)
+
+        journal_rows["bootstrap"] = journal_tree(
+            "bootstrap", lambda: make_boot(OBS_DEVICE), lambda: make_boot("cpu"), boot,
+            os.path.join(tmp, "boot.journal"), extra_steps=more_updates)
+        result["journal"] = journal_rows
+        for label, row in journal_rows.items():
+            log(f"observability journal {label}: record {row['record_bytes']} bytes ({row['state_bytes']} of "
+                f"states), save {row['save_ms']:.2f} ms, load {row['load_ms']:.2f} ms (CPU twin "
+                f"{row['cpu_twin_load_ms']:.2f} ms), copies save {row['save_copies']} load {row['load_copies']}, "
+                f"bit-exact  [{card}]")
+
+        result["sync_pack_drill"] = sync_pack_drill(mt, suite, card)
+        result["journal_drills"] = journal_drills(suite, lambda: make_suite(mt, num_classes, OBS_DEVICE),
+                                                  batches[0], os.path.join(tmp, "drill.journal"))
+        log(f"observability journal drills: {json.dumps(result['journal_drills'])}  [{card}]")
+
+        prom_ms, text = host_ms(telemetry.prometheus_text)
+        trace_path = os.path.join(tmp, "trace.json")
+        trace_ms, events = host_ms(lambda: telemetry.export_trace(trace_path))
+        result["exports"] = {"prometheus_ms": prom_ms, "prometheus_bytes": len(text.encode()),
+                             "export_trace_ms": trace_ms, "trace_bytes": os.path.getsize(trace_path),
+                             "trace_events": events, "spans_retained": telemetry.telemetry_stats()["spans_retained"]}
+        assert text.startswith("# TYPE metrics_tpu_") and events > 0
+        json.loads(open(trace_path).read())
+    log(f"observability exports: {json.dumps(result['exports'])}  [{card}]")
+    result["phase_s"] = time.perf_counter() - t_phase
+    assert result["phase_s"] < 60.0, f"phase 21 took {result['phase_s']:.1f} s"
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4028,6 +4385,7 @@ def main() -> int:
                                        histogram, card)
     text_audio = timed_phase("text_audio_19_20", text_audio_paths, mt, histogram, card)
     sync = timed_phase("sync", sync_path, mt, histogram, card)
+    observability = timed_phase("observability_journal", observability_path, mt, checks, histogram, card)
     log(f"phase seconds: {json.dumps(phase_s)}")
     # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, the
     # retrieval path's first compute() and graded NDCG, the wrapper phase's first timed runs, and the
@@ -4035,13 +4393,14 @@ def main() -> int:
     kernel["launches"] = sum(p["first"]["kernel_launches"] for p in (main, agreement, segmentation))
     kernel["launches"] += (curves["kernel_launches"] + evaluation["kernel_launches"]
                            + wrappers_image["kernel_launches"] + generative_detection["kernel_launches"]
-                           + text_audio["kernel_launches"] + sync["kernel_launches"])
+                           + text_audio["kernel_launches"] + sync["kernel_launches"]
+                           + observability["kernel_launches"])
 
     log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
                     "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation,
                     "curves_path": curves, "eval_paths": evaluation, "wrapper_image_paths": wrappers_image,
                     "generative_detection_paths": generative_detection, "text_audio_paths": text_audio,
-                    "sync_path": sync,
+                    "sync_path": sync, "observability_journal": observability,
                     "phase_seconds": phase_s}))
     log(json.dumps({"kernels": [kernel]}))
     log(card)

@@ -24,7 +24,11 @@ Sum, Cat, Mean), MetricCollection, the arithmetic of metrics
 MinMaxMetric, MultioutputWrapper, MetricTracker), and state sync across
 processes (``metrics_tpu_torch.parallel``): ``compute()`` reduces the states
 over the ``torch.distributed`` process group, a whole suite, wrapper trees
-included, in one collective.
+included, in one collective. The fault, telemetry and journal planes
+(``metrics_tpu_torch.ops``): classified faults with degradation ladders,
+spans and latency histograms with a Prometheus and a Perfetto export, and a
+crash-consistent state journal (``save_state``/``load_state``,
+``MetricCollection.journal``).
 """
 from metrics_tpu_torch import functional, parallel
 from metrics_tpu_torch.__about__ import __version__
@@ -136,6 +140,14 @@ from metrics_tpu_torch.wrappers import (
     MultioutputWrapper,
 )
 
+# the monitoring surface: one merged snapshot, its Prometheus text, the Perfetto trace
+from metrics_tpu_torch.ops.telemetry import (  # noqa: E402
+    export_trace,
+    prometheus_text,
+    set_telemetry,
+    telemetry_snapshot,
+)
+
 __all__ = [
     "AUC",
     "AUROC",
@@ -235,7 +247,11 @@ __all__ = [
     "WordInfoLost",
     "WordInfoPreserved",
     "__version__",
+    "export_trace",
     "functional",
     "load_reference_state",
     "parallel",
+    "prometheus_text",
+    "set_telemetry",
+    "telemetry_snapshot",
 ]

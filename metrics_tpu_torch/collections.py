@@ -16,7 +16,17 @@ As in TorchMetrics, the collection is an ``nn.ModuleDict``, so ``.to()`` and
 Suite sync (`metrics_tpu/collections.py` ``_partition_sync_members`` `:1144`,
 ``sync`` `:1362`, ``unsync`` `:1489`, ``_auto_sync_context`` `:1533`): with
 more than one process, ``compute()`` syncs the whole suite in one payload
-collective before its members compute, then restores their local states.
+collective before its members compute, then restores their local states. A
+pack or unpack failure demotes the suite's ``sync-pack`` lane and replays
+the sync member by member, bit for bit; clean suite steps and syncs
+re-promote it.
+
+Journal (`metrics_tpu/collections.py` ``save_state``/``load_state``/
+``journal``/``_journal_tick`` `:1616-1700`): the whole suite is one record;
+``journal(path, every_n)`` saves every ``every_n`` update or forward calls,
+and a failed write demotes the suite's ``journal`` lane instead of breaking
+the update. Each ``update``/``forward`` emits a ``suite-step`` span and each
+sync a ``suite-sync`` span.
 """
 from __future__ import annotations
 
@@ -27,6 +37,8 @@ import torch
 from torch import nn
 
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.ops import faults as _faults
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.parallel import bucketing as _bucketing
 from metrics_tpu_torch.parallel.sync import distributed_available as _distributed_available
 from metrics_tpu_torch.utils.data import _flatten_dict, allclose
@@ -83,30 +95,45 @@ class MetricCollection(nn.ModuleDict):
     # ----------------------------------------------------------- call surface
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Call ``forward`` on every metric, kwargs filtered per update signature."""
-        res = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items(keep_base=True, copy_state=False)}
-        res = _flatten_dict(res)
-        return {self._set_name(k): v for k, v in res.items()}
+        t_step = _telemetry.now() if _telemetry.armed else 0.0
+        try:
+            res = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items(keep_base=True, copy_state=False)}
+            res = _flatten_dict(res)
+            self._fault_note_clean()
+            self._journal_tick()
+            return {self._set_name(k): v for k, v in res.items()}
+        finally:
+            if t_step and _telemetry.armed:
+                _telemetry.emit("suite-step", self, "suite", t_step, _telemetry.now() - t_step, {"api": "forward"})
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update every metric, or once the groups are known, every group's leader."""
-        if self._groups_checked:
-            for cg in self._groups.values():
-                m0 = self._modules[cg[0]]
-                m0.update(*args, **m0._filter_kwargs(**kwargs))
-                for name in cg[1:]:
-                    mi = self._modules[name]
-                    mi._update_count = m0._update_count
-                    mi._computed = None  # the leader's update invalidates the members' caches
-            if self._state_is_copy:
-                self._compute_groups_create_state_ref()
-                self._state_is_copy = False
-        else:
-            for _, m in self.items(keep_base=True, copy_state=False):
-                m.update(*args, **m._filter_kwargs(**kwargs))
-            if self._enable_compute_groups:
-                self._merge_compute_groups()
-                self._compute_groups_create_state_ref()
-                self._groups_checked = True
+        t_step = _telemetry.now() if _telemetry.armed else 0.0
+        try:
+            if self._groups_checked:
+                for cg in self._groups.values():
+                    m0 = self._modules[cg[0]]
+                    m0.update(*args, **m0._filter_kwargs(**kwargs))
+                    for name in cg[1:]:
+                        mi = self._modules[name]
+                        mi._update_count = m0._update_count
+                        mi._computed = None  # the leader's update invalidates the members' caches
+                if self._state_is_copy:
+                    self._compute_groups_create_state_ref()
+                    self._state_is_copy = False
+            else:
+                for _, m in self.items(keep_base=True, copy_state=False):
+                    m.update(*args, **m._filter_kwargs(**kwargs))
+                if self._enable_compute_groups:
+                    self._merge_compute_groups()
+                    self._compute_groups_create_state_ref()
+                    self._groups_checked = True
+            # a clean suite step: demoted suite lanes count it toward their recovery edge
+            self._fault_note_clean()
+            self._journal_tick()
+        finally:
+            if t_step and _telemetry.armed:
+                _telemetry.emit("suite-step", self, "suite", t_step, _telemetry.now() - t_step, {"api": "update"})
 
     def compute(self) -> Dict[str, Any]:
         ctx = self._auto_sync_context()
@@ -143,18 +170,22 @@ class MetricCollection(nn.ModuleDict):
     ) -> Tuple[List[Tuple[str, Metric]], List[Tuple[Metric, List[Metric]]], List[Metric], Any]:
         """Split the members into those whose trees pack into the suite's one
         payload collective and those that sync on their own (a custom gather,
-        states that cannot be packed, another process group). Returns
+        states that cannot be packed, another process group, a demoted
+        ``sync-pack`` lane of the suite or of the member). Returns
         ``(members, coalesced, individual, group)``; raises when a member is
         already synced."""
         members = list(self.items(keep_base=True, copy_state=False))
         if any(m._is_synced for _, m in members):
             raise MetricsUserError("The Metric has already been synced.")
+        suite_lad = self.__dict__.get("_fault_ladders", {}).get("sync-pack")
+        suite_ok = dist_sync_fn is None and not (suite_lad is not None and suite_lad.demoted)
         coalesced: List[Tuple[Metric, List[Metric]]] = []
         individual: List[Metric] = []
         anchor_group: Any = _UNSET_GROUP
         for _, m in members:
             nodes: List[Metric] = []
-            eligible = dist_sync_fn is None and m.dist_sync_fn is None
+            lad = m.__dict__.get("_fault_ladders", {}).get("sync-pack")
+            eligible = suite_ok and m.dist_sync_fn is None and not (lad is not None and lad.demoted)
             if eligible:
                 nodes = _bucketing.tree_nodes(m)
                 for n in nodes:
@@ -189,36 +220,70 @@ class MetricCollection(nn.ModuleDict):
         layout depends only on how the suite was built, never on which compute
         groups this process's data formed: every process builds the same one.
         Members that cannot be packed sync through their own :meth:`Metric.sync`.
-        On any failure every member's local states are restored and the error
-        is raised.
+        A pack or unpack failure demotes the suite's ``sync-pack`` lane, warns
+        once and syncs the members one by one instead, bit for bit. On any
+        other failure every member's local states are restored and the error
+        is counted and raised.
         """
         if not should_sync:
             return
         if not (distributed_available() if callable(distributed_available) else None):
             return
+        t_suite = _telemetry.now() if _telemetry.armed else 0.0
         members, coalesced, individual, group = self._partition_sync_members(dist_sync_fn, process_group)
         try:
             if coalesced:
                 nodes = [n for _, tree in coalesced for n in tree]
                 snaps = [(n, n._state_snapshot()) for n in nodes]
                 try:
-                    _bucketing.coalesced_sync_nodes(nodes, group=None if group is _UNSET_GROUP else group)
+                    _bucketing.coalesced_sync_nodes(nodes, group=None if group is _UNSET_GROUP else group, owner=self)
+                except _bucketing.CoalesceError as err:
+                    if not _bucketing.should_fallback(err):
+                        # one process alone cannot switch protocols in a live world: raise classified
+                        for n, snap in snaps:
+                            n._restore_state(snap)
+                        raise err.original from err
+                    _bucketing.handle_coalesce_failure(
+                        self,
+                        snaps,
+                        err,
+                        warn=(
+                            "Coalesced suite sync failed; falling back to member-wise syncs (bit-exact;"
+                            " each member may still coalesce its own tree, per-state only if its own pack"
+                            " also fails)."
+                        ),
+                    )
+                    individual = [m for m, _ in coalesced] + individual
                 except Exception:
                     for n, snap in snaps:
                         n._restore_state(snap)
                     raise
-                for n, snap in snaps:
-                    n._cache = snap
-                    n._is_synced = True
+                else:
+                    for n, snap in snaps:
+                        n._cache = snap
+                        n._is_synced = True
             for m in individual:
                 m.sync(dist_sync_fn, process_group, True, distributed_available)
-        except Exception:
+            if not coalesced:
+                # a member-wise suite sync is a clean step toward the suite lane's recovery edge
+                lad = self.__dict__.get("_fault_ladders", {}).get("sync-pack")
+                if lad is not None and lad.demoted and lad.note_clean():
+                    lad.promote()
+        except Exception as exc:
             # no member may stay synced while another holds its local states
             for _, m in members:
                 if m._is_synced:
                     m.unsync()
             self._relink_groups()
+            _faults.note_fault(_faults.classify(exc, "sync"), site="sync", owner=self, error=exc)
             raise
+        if t_suite and _telemetry.armed:
+            _telemetry.emit(
+                "suite-sync", self, "sync", t_suite, _telemetry.now() - t_suite,
+                {"members": len(members), "coalesced": len(coalesced), "individual": len(individual)},
+            )
+        if process_group is None:
+            _faults.tick()  # a completed suite sync over the whole world is one monotonic event
 
     def unsync(self, should_unsync: bool = True) -> None:
         """Restore every member's local states; group members share the leader's states again."""
@@ -277,6 +342,95 @@ class MetricCollection(nn.ModuleDict):
         if any(m._is_synced or not m._to_sync or not m._should_unsync or m.dist_sync_fn is not None for m in members):
             return None
         return self.sync_context()
+
+    # ---------------------------------------------------------------- journal
+    def _fault_note_clean(self, n: int = 1) -> None:
+        """A clean suite step: every demoted suite lane counts it toward its recovery edge."""
+        ladders = self.__dict__.get("_fault_ladders")
+        if not ladders:
+            return
+        for lad in ladders.values():
+            if lad.demoted and lad.note_clean(n):
+                lad.promote()
+
+    def _journal_nodes(self) -> List[Metric]:
+        """Every member tree's nodes, member by member in suite order: the walk
+        the coalesced sync packs, so the record's layout depends only on how
+        the suite was built."""
+        return [n for _, m in self.items(keep_base=True, copy_state=False) for n in _bucketing.tree_nodes(m)]
+
+    def save_state(self, path: str) -> int:
+        """Save the whole suite as one record of the crash-consistent journal at
+        ``path`` (:mod:`metrics_tpu_torch.ops.journal`); returns its bytes."""
+        from metrics_tpu_torch.ops import journal as _journal
+
+        return _journal.save_nodes(self, self._journal_nodes(), path)
+
+    def load_state(self, path: str) -> int:
+        """Restore the whole suite from the newest good generation at ``path``;
+        returns the generation restored (0 the newest). All or nothing."""
+        from metrics_tpu_torch.ops import journal as _journal
+
+        gen = _journal.load_nodes(self, self._journal_nodes(), path)
+        self._relink_groups()  # group members share the restored leader states again
+        return gen
+
+    def journal(self, path: Optional[str], every_n: int = 1) -> None:
+        """Save the suite to ``path`` every ``every_n`` ``update``/``forward``
+        calls (``path=None`` stops). A failed write never breaks the update: it
+        demotes the suite's ``journal`` lane (warned once, saves skipped) until
+        clean steps reach the recovery edge and saving resumes.
+
+        Example:
+            >>> import os, tempfile, torch
+            >>> from metrics_tpu_torch import MeanMetric, MetricCollection
+            >>> path = os.path.join(tempfile.mkdtemp(), "suite.journal")
+            >>> suite = MetricCollection({"mean": MeanMetric(device="cpu")})
+            >>> suite.journal(path, every_n=2)
+            >>> for x in (1.0, 3.0):
+            ...     suite.update(torch.tensor([x]))
+            >>> fresh = MetricCollection({"mean": MeanMetric(device="cpu")})
+            >>> fresh.load_state(path)
+            0
+            >>> fresh.compute()
+            {'mean': tensor(2.)}
+        """
+        if path is None:
+            self.__dict__.pop("_journal_cfg", None)
+            return
+        if int(every_n) < 1:
+            raise ValueError(f"journal every_n must be >= 1, got {every_n}")
+        object.__setattr__(self, "_journal_cfg", {"path": str(path), "every_n": int(every_n), "count": 0})
+
+    def _journal_tick(self, n: int = 1) -> None:
+        """One state-changing suite call: save when it crosses the ``every_n`` cadence."""
+        cfg = self.__dict__.get("_journal_cfg")
+        if cfg is None:
+            return
+        before = cfg["count"]
+        cfg["count"] = before + n
+        if cfg["count"] // cfg["every_n"] == before // cfg["every_n"]:
+            return
+        lad = self.__dict__.get("_fault_ladders", {}).get("journal")
+        if lad is not None and lad.demoted:
+            return  # degraded: clean steps advance the recovery edge
+        try:
+            self.save_state(cfg["path"])
+        except Exception as exc:  # noqa: BLE001 - a failed save must not break the update
+            _faults.demote(
+                self,
+                "journal",
+                exc,
+                default_domain="journal",
+                tier="host",
+                site="journal-write",
+                count=False,  # save_nodes counted it where it was raised
+                warn=(
+                    "Suite auto-journaling failed; journaling is DEGRADED (snapshots "
+                    "skipped) until the journal lane's recovery edge re-probes the disk. "
+                    "The on-disk generation ring is intact."
+                ),
+            )
 
     # ---------------------------------------------------------- compute groups
     def _merge_compute_groups(self) -> None:

@@ -5,9 +5,12 @@ JAX counterpart: `metrics_tpu/functional/regression/correlation.py`
 `:56`, ``_rank_data`` `:106`); reference
 `functional/regression/{pearson,spearman,cosine_similarity}.py`.
 
-Spearman's average-tie ranks are one sort and two ``searchsorted`` passes,
-as in JAX. The ranks are float32: above 2**23 rows an average of two
-integer positions is no longer exact, in either package.
+Spearman's average-tie ranks come from one sort: its permutation places
+each value, and the boundaries of the runs of equal sorted values give each
+run its average position. NaN sorts last and all NaNs form one run, so the
+ranks equal JAX's two ``searchsorted`` passes on every input, NaN included.
+The ranks are float32: above 2**23 rows an average of two integer positions
+is no longer exact, in either package.
 """
 from __future__ import annotations
 
@@ -110,11 +113,27 @@ def pearson_corrcoef(preds: Tensor, target: Tensor) -> Tensor:
 
 # ---------------------------------------------------------------- spearman
 def _rank_data(data: Tensor) -> Tensor:
-    """1-based ranks, ties given their average rank: one sort and two ``searchsorted`` passes."""
-    sorted_data = torch.sort(data).values
-    lower = torch.searchsorted(sorted_data, data, side="left")
-    upper = torch.searchsorted(sorted_data, data, side="right")
-    return (lower + upper - 1) / 2.0 + 1.0
+    """1-based ranks of a 1-d tensor, ties given their average rank.
+
+    One stable sort; a run of equal sorted values (every NaN equal to every
+    other, ``-0.0`` equal to ``0.0``) spans positions ``[lower, upper)``, and
+    each of its values ranks ``(lower + upper - 1) / 2 + 1``, the average of
+    the JAX package's ``searchsorted`` left and right positions. A cumsum
+    numbers the runs and ``nonzero_static`` lists their first positions (the
+    unused tail filled with ``n``, the end of the last run), so nothing is read
+    back to the host.
+    """
+    if data.ndim != 1:
+        raise ValueError(f"Spearman ranks need a 1-d tensor of rows, got {data.ndim} dims (a single row squeezes to 0)")
+    n = data.shape[0]
+    sorted_data, perm = torch.sort(data, stable=True)
+    same = (sorted_data[1:] == sorted_data[:-1]) | (torch.isnan(sorted_data[1:]) & torch.isnan(sorted_data[:-1]))
+    starts = torch.ones(n, dtype=torch.bool, device=data.device)  # a run starts here
+    starts[1:] = ~same
+    run = torch.cumsum(starts, 0) - 1
+    first = torch.nonzero_static(starts, size=n + 1, fill_value=n).squeeze(1)
+    ranks_sorted = (first[run] + first[run + 1] - 1) / 2.0 + 1.0
+    return torch.empty_like(ranks_sorted).scatter_(0, perm, ranks_sorted)
 
 
 def _spearman_corrcoef_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:

@@ -26,11 +26,19 @@ that registration in its order, and sync (``_sync_children``), ``persistent``,
 and moved. The operators (`metric.py:2793-2890`) build a
 :class:`CompositionalMetric`; metrics hash by identity (`:2731`).
 
+Faults and the journal (`metrics_tpu/metric.py` ``_sync_coalesced``
+`:1857`, ``_sync_note_clean`` `:1921`, ``save_state``/``load_state``
+`:2281-2315`): a coalesced sync whose pack or unpack fails demotes the
+metric's ``sync-pack`` ladder lane and replays the per-state protocol; clean
+per-state syncs re-promote it. A failed sync is classified in the fault
+counters and leaves the local states intact. :meth:`Metric.save_state` and
+:meth:`Metric.load_state` write and read the tree's states as one record of
+the crash-consistent journal (:mod:`metrics_tpu_torch.ops.journal`).
+
 Left for later slices of the port: the dispatch engine and fused programs,
-deferred dispatch, ``update_many``/``forward_many``, the fault ladders,
-telemetry, the state journal, ``as_functions``, ``compute_on_cpu``, and the
-sync planes beyond the core (retries, deadlines, membership, degraded tiers,
-``sync_async``).
+deferred dispatch, ``update_many``/``forward_many``, ``as_functions``,
+``compute_on_cpu``, and the sync planes beyond the core (retries,
+deadlines, membership, degraded tiers, ``sync_async``).
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 import torch
 from torch import Tensor, nn
 
+from metrics_tpu_torch.ops import faults as _faults
 from metrics_tpu_torch.parallel import bucketing as _bucketing
 from metrics_tpu_torch.parallel import sync as _psync
 from metrics_tpu_torch.parallel.reductions import resolve_reduction
@@ -396,10 +405,15 @@ class Metric(nn.Module, ABC):
 
     def _sync_coalesced(self, dist_sync_fn: Callable, process_group: Optional[Any]) -> bool:
         """Sync this metric's tree with the coalesced protocol; False when it
-        takes the per-state protocol instead (a custom gather, or states that
-        cannot be packed). Children are marked synced with their own snapshots."""
+        takes the per-state protocol instead (a custom gather, states that
+        cannot be packed, a demoted ``sync-pack`` lane, or a pack or unpack
+        failure, which demotes the lane). Children are marked synced with
+        their own snapshots. A failed collective raises to the caller."""
         if dist_sync_fn is not gather_all_tensors:
             return False
+        lad = self.__dict__.get("_fault_ladders", {}).get("sync-pack")
+        if lad is not None and lad.demoted:
+            return False  # clean per-state syncs advance the recovery edge
         nodes = _bucketing.tree_nodes(self)
         if any(n._is_synced for n in nodes[1:]):
             return False
@@ -411,8 +425,25 @@ class Metric(nn.Module, ABC):
         for n in nodes[1:]:
             n._canonicalize_list_states()
             snaps.append((n, n._state_snapshot()))
+        group = process_group if process_group is not None else self.process_group
         try:
-            _bucketing.coalesced_sync_nodes(nodes, group=process_group if process_group is not None else self.process_group)
+            _bucketing.coalesced_sync_nodes(nodes, group=group, owner=self)
+        except _bucketing.CoalesceError as err:
+            if not _bucketing.should_fallback(err):
+                # one process alone cannot switch protocols in a live world: raise classified
+                for n, snap in snaps:
+                    n._restore_state(snap)
+                raise err.original from err
+            _bucketing.handle_coalesce_failure(
+                self,
+                snaps,
+                err,
+                warn=(
+                    f"Coalesced sync failed for {type(self).__name__}; falling back to the"
+                    " per-state gather protocol (bit-exact, one collective pair per state)."
+                ),
+            )
+            return False
         except Exception:
             for n, snap in snaps:
                 n._restore_state(snap)
@@ -421,6 +452,12 @@ class Metric(nn.Module, ABC):
             n._cache = snap
             n._is_synced = True
         return True
+
+    def _sync_note_clean(self) -> None:
+        """One clean per-state sync: a step toward the ``sync-pack`` lane's recovery edge."""
+        lad = self.__dict__.get("_fault_ladders", {}).get("sync-pack")
+        if lad is not None and lad.demoted and lad.note_clean():
+            lad.promote()
 
     def sync(
         self,
@@ -434,7 +471,8 @@ class Metric(nn.Module, ABC):
         A no-op unless ``distributed_available()`` is true: by default, while
         more than one process is in the default group. Pass
         ``distributed_available=lambda: True`` to sync a world of one. On any
-        failure the local states are restored and the error is raised.
+        failure the local states are restored, the failure is counted in its
+        fault domain, and it is raised.
         """
         if self._is_synced and should_sync:
             raise MetricsUserError("The Metric has already been synced.")
@@ -450,8 +488,9 @@ class Metric(nn.Module, ABC):
                 self._sync_dist(dist_sync_fn, process_group=process_group)
                 for child in self._sync_children():
                     child.sync(dist_sync_fn, process_group, should_sync, distributed_available)
+                self._sync_note_clean()
             self._is_synced = True
-        except Exception:
+        except Exception as exc:
             # a failed sync leaves the local states intact: no state half-reduced
             self._restore_state(self._cache)
             self._cache = None
@@ -459,7 +498,10 @@ class Metric(nn.Module, ABC):
             for child in self._sync_children():
                 if child._is_synced:
                     child.unsync()
+            _faults.note_fault(_faults.classify(exc, "sync"), site="sync", owner=self, error=exc)
             raise
+        if process_group is None and self.process_group is None:
+            _faults.tick()  # a completed sync over the whole world is one monotonic event
 
     def unsync(self, should_unsync: bool = True) -> None:
         """Restore the local states from before :meth:`sync` (reference `metric.py:452-472`)."""
@@ -511,6 +553,49 @@ class Metric(nn.Module, ABC):
             should_sync=should_sync,
             distributed_available=distributed_available,
         )
+
+    # ---------------------------------------------------------------- journal
+    def save_state(self, path: str) -> int:
+        """Save this metric tree's states to the crash-consistent journal at
+        ``path`` (one CRC-checked record, written atomically into a ring of
+        generations; :mod:`metrics_tpu_torch.ops.journal`). Returns the
+        record's bytes. One device-to-host copy.
+
+        Example:
+            >>> import os, tempfile, torch
+            >>> from metrics_tpu_torch import SumMetric
+            >>> path = os.path.join(tempfile.mkdtemp(), "sum.journal")
+            >>> m = SumMetric(device="cpu")
+            >>> m.update(torch.tensor([1.0, 2.0]))
+            >>> m.save_state(path) > 0
+            True
+            >>> fresh = SumMetric(device="cpu")
+            >>> fresh.load_state(path)
+            0
+            >>> fresh.compute()
+            tensor(3.)
+        """
+        from metrics_tpu_torch.ops import journal as _journal
+
+        return _journal.save_nodes(self, _bucketing.tree_nodes(self), path)
+
+    def load_state(self, path: str) -> int:
+        """Restore this metric tree from the newest good generation of the journal
+        at ``path``, onto this metric's device; returns the generation restored
+        (0 the newest). A bad generation is counted, warned once and skipped
+        for the one before it; the restore is all or nothing."""
+        from metrics_tpu_torch.ops import journal as _journal
+
+        return _journal.load_nodes(self, _bucketing.tree_nodes(self), path)
+
+    def _journal_extra(self) -> Optional[Dict[str, Any]]:
+        """JSON-serialisable host state, beyond the states and public scalar
+        attributes, that a restore needs to behave as the saved instance
+        would (a sampler's generator). Default: nothing."""
+        return None
+
+    def _journal_restore_extra(self, extra: Dict[str, Any]) -> None:
+        """Apply what :meth:`_journal_extra` recorded. Default: nothing."""
 
     # ------------------------------------------------------------- lifecycle
     def reset(self) -> None:

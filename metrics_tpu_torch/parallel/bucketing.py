@@ -32,6 +32,20 @@ for each state) costs two collectives a state. This one:
 A tree that cannot be packed (a node overriding ``_sync_dist``, a list state
 whose spec is not ``cat``, a dtype outside :data:`_DTYPES`, states on more
 than one device) takes the per-state protocol; :func:`coalescible` decides.
+
+Failures (JAX ``CoalesceError`` `:95`, ``should_fallback`` `:114`,
+``handle_coalesce_failure`` `:1126`): a failure in the pack or the unpack
+raises :class:`CoalesceError`, and the callers (``Metric.sync``,
+``MetricCollection.sync``) demote their ``sync-pack`` ladder lane, warn once
+and replay the per-state protocol, bit for bit; clean syncs re-promote the
+lane after ``faults.recovery_steps()``. The ``sync-pack`` fault site fires
+at the pack's entry, before any collective. In a live world of more than
+one process only a failure every process meets alike may fall back
+(:func:`should_fallback`); another raises classified, since one process's
+per-state collectives could not pair with the others' payload collective.
+A failed collective raises :class:`SyncFault` as it is. Each phase emits
+its span (``sync-pack``, ``sync-metadata``, ``sync-payload-gather``,
+``sync-unpack``).
 """
 from __future__ import annotations
 
@@ -40,9 +54,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.ops import faults as _faults
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.utils.data import _flatten, dim_zero_cat
-from metrics_tpu_torch.utils.exceptions import SyncConfigFault
+from metrics_tpu_torch.utils.exceptions import SyncConfigFault, SyncFault
 
 ALIGN = 16  # byte alignment of every packed entry: a multiple of every dtype's size
 _MAX_NDIM = 8  # dims a `cat` row may have: its metadata record has room for this many
@@ -68,6 +84,34 @@ _DYN_RECORD = 2 + _MAX_NDIM  # [ndim (-1: empty here), dtype code, dims padded w
 # call; a process that joins a group later than its peers finds a cache they do not share.
 _MANIFEST_CACHE: Dict[tuple, bool] = {}
 _MANIFEST_CACHE_CAP = 512
+
+
+class CoalesceError(Exception):
+    """A failure inside the pack or the unpack of the coalesced protocol, never
+    in a collective. ``original`` is the exception to classify;
+    ``rank_symmetric`` marks a failure every process meets alike, the only
+    kind that may fall back in a live world (:func:`should_fallback`)."""
+
+    def __init__(self, original: BaseException, rank_symmetric: bool = False):
+        super().__init__(f"{type(original).__name__}: {original}")
+        self.original = original
+        self.rank_symmetric = rank_symmetric
+
+
+def should_fallback(err: CoalesceError) -> bool:
+    """Whether a caller may demote and replay the per-state protocol for ``err``:
+    always in a world of one process; in a live world of more, only for a
+    failure every process meets alike."""
+    return err.rank_symmetric or not _sync.distributed_available()
+
+
+def handle_coalesce_failure(owner: Any, snaps: Sequence[Tuple[Any, Any]], err: CoalesceError, warn: str) -> None:
+    """Restore every node's snapshot, count the fallback, classify the failure
+    and demote ``owner``'s ``sync-pack`` lane, warning once per owner and domain."""
+    for node, snap in snaps:
+        node._restore_state(snap)
+    _sync._bump("sync_pack_fallbacks")
+    _faults.demote(owner, "sync-pack", err.original, default_domain="runtime", tier="eager", site="sync-pack", warn=warn)
 
 
 # ------------------------------------------------------------------ tree walk
@@ -260,37 +304,77 @@ def _dyn_layouts(entries: Sequence[_Entry], row: List[int]) -> List[Optional[tup
 
 
 # ------------------------------------------------------------------ protocol
-def coalesced_sync_nodes(nodes: Sequence[Any], group: Optional[Any] = None) -> None:
+def coalesced_sync_nodes(nodes: Sequence[Any], group: Optional[Any] = None, owner: Any = None) -> None:
     """Sync every state of ``nodes`` with one payload collective (plus one
     metadata collective where a ``cat`` list state is packed).
 
     Every process of ``group`` must call it with the same metrics. States are
     set only after the whole unpack succeeds, so a failure leaves every
-    node's local state as it was. Raises :class:`SyncFault` when a collective
-    fails and :class:`SyncConfigFault` when the processes' layouts differ.
+    node's local state as it was. Raises :class:`CoalesceError` when the pack
+    or the unpack fails, :class:`SyncFault` when a collective fails and
+    :class:`SyncConfigFault` when the processes' layouts differ. ``owner``
+    names the spans (the first node by default).
     """
-    entries, values = _collect(nodes)
-    if not entries:
-        return
-    device = next((v.device for v in values if v is not None), nodes[0].device)
-    packed, meta, static_total = _pack(entries, values, device)
+    owner = owner if owner is not None else nodes[0]
+    t_pack = _telemetry.now() if _telemetry.armed else 0.0
+    try:
+        if _faults.armed:
+            _faults.maybe_fail("sync-pack")
+        entries, values = _collect(nodes)
+        if not entries:
+            return
+        device = next((v.device for v in values if v is not None), nodes[0].device)
+        packed, meta, static_total = _pack(entries, values, device)
+    except SyncFault:
+        raise
+    except Exception as exc:  # noqa: BLE001 - classified by the caller's ladder
+        raise CoalesceError(exc) from exc
+    if t_pack and _telemetry.armed:
+        _telemetry.emit(
+            "sync-pack", owner, "sync", t_pack, _telemetry.now() - t_pack,
+            {"states": len(entries), "bytes": int(packed.numel())},
+        )
+    if _faults.armed:
+        _faults.maybe_fail("sync-gather")
     local_total = meta[-1]
     dyn_entries = [e for e in entries if e.kind == "dyn"]
     rank_dyn = None
+    t_meta = _telemetry.now() if _telemetry.armed else 0.0
     if dyn_entries:
         rows = _exchange_meta(meta, device, group)
         rank_dyn = [_dyn_layouts(entries, row) for row in rows]
         max_total = max(row[-1] for row in rows)
+        _sync._bump("sync_fastlane_misses")
+        meta_attrs = {"dims": len(meta)}
     else:
         key = (group, _layout_key(entries))
-        if key not in _MANIFEST_CACHE and _sync._live():
-            _exchange_meta(meta, device, group)  # once per layout: every process packed the same bytes
+        meta_attrs = None
+        if key in _MANIFEST_CACHE:
+            _sync._bump("sync_fastlane_hits")
+        else:
+            _sync._bump("sync_fastlane_misses")
+            if _sync._live():
+                _exchange_meta(meta, device, group)  # once per layout: every process packed the same bytes
+                meta_attrs = {"cross_check": True}
         max_total = local_total
+    if t_meta and meta_attrs is not None and _telemetry.armed:
+        _telemetry.emit("sync-metadata", owner, "sync", t_meta, _telemetry.now() - t_meta, meta_attrs)
     if max_total > local_total:
         packed = torch.cat([packed, packed.new_zeros(max_total - local_total)])
+    t_gather = _telemetry.now() if _telemetry.armed else 0.0
     gathered = _payload_allgather(packed, group)
     _sync.note_collective("payload", nbytes=gathered.numel())
+    if t_gather and _telemetry.armed:
+        _telemetry.emit(
+            "sync-payload-gather", owner, "sync", t_gather, _telemetry.now() - t_gather,
+            {"bytes": int(gathered.numel()), "world": int(gathered.shape[0]),
+             "seq": _sync._counters["sync_payload_collectives"]},
+        )
+    t_unpack = _telemetry.now() if _telemetry.armed else 0.0
     _finish(nodes, entries, gathered, static_total, rank_dyn)
+    if t_unpack and _telemetry.armed:
+        _telemetry.emit("sync-unpack", owner, "sync", t_unpack, _telemetry.now() - t_unpack, {"states": len(entries)})
+    _sync.note_sync_success(group)
     if not dyn_entries:
         _MANIFEST_CACHE[key] = True
         while len(_MANIFEST_CACHE) > _MANIFEST_CACHE_CAP:
@@ -306,7 +390,26 @@ def _finish(
     static_total: int,
     rank_dyn: Optional[List[List[Optional[tuple]]]],
 ) -> None:
-    """Unpack, reduce and apply; every ``setattr`` after the whole unpack."""
+    """Unpack, reduce and apply; every ``setattr`` after the whole unpack. A
+    failure before the ``setattr`` raises :class:`CoalesceError` (a
+    ``cat`` dtype that differs across processes raises :class:`SyncConfigFault`)."""
+    try:
+        results = _unpack(nodes, entries, gathered, static_total, rank_dyn)
+    except SyncFault:
+        raise
+    except Exception as exc:  # noqa: BLE001 - classified by the caller's ladder
+        raise CoalesceError(exc) from exc
+    for node, name, value in results:
+        setattr(node, name, value)
+
+
+def _unpack(
+    nodes: Sequence[Any],
+    entries: Sequence[_Entry],
+    gathered: Tensor,
+    static_total: int,
+    rank_dyn: Optional[List[List[Optional[tuple]]]],
+) -> List[Tuple[Any, str, Any]]:
     world = int(gathered.shape[0])
     results: List[Tuple[Any, str, Any]] = []
     off = 0
@@ -336,8 +439,7 @@ def _finish(
             parts.append(_from_bytes(gathered[r, o : o + n], shape, dtype))
         fn = nodes[e.node_idx]._reductions[e.name]
         results.append((nodes[e.node_idx], e.name, (fn(parts) if fn is not None else parts) if parts else []))
-    for node, name, value in results:
-        setattr(node, name, value)
+    return results
 
 
 # --------------------------------------------------- per-state gather apply
@@ -368,8 +470,11 @@ def apply_gathered_states(metric: Any, output_dict: Dict[str, Any]) -> None:
 
 __all__ = [
     "ALIGN",
+    "CoalesceError",
     "apply_gathered_states",
     "coalesced_sync_nodes",
     "coalescible",
+    "handle_coalesce_failure",
+    "should_fallback",
     "tree_nodes",
 ]

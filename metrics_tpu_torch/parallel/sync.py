@@ -13,6 +13,11 @@ tensors). Only the members of a group call a collective over it, and each
 member receives every member's entry in group rank order. With no process
 group initialised, a gather returns the caller's own entry (a world of one).
 
+Faults and telemetry (`metrics_tpu/parallel/sync.py` ``note_sync_success``
+`:933`, ``_gather_once`` `:1106`): the ``sync-gather`` fault site fires
+before a gather's collectives, each gather emits a ``sync-gather`` span, and
+a completed sync over the whole world stamps :func:`last_good_sync_step`.
+
 Left for a later slice of the port: retries and backoff, the deadline
 watchdog, membership and epochs, the degraded and quorum tiers, and the
 asynchronous lane (``sync_async``/``SyncFuture``).
@@ -25,6 +30,8 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
+from metrics_tpu_torch.ops import faults as _faults
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.utils.exceptions import SyncFault
 
 _counters: Dict[str, int] = {
@@ -38,7 +45,14 @@ _counters: Dict[str, int] = {
     # the coalesced protocol: syncs that packed, and the states they carried
     "sync_coalesced_payloads": 0,
     "sync_states_coalesced": 0,
+    # static-lane syncs whose layout was known (no metadata exchange), and the others
+    "sync_fastlane_hits": 0,
+    "sync_fastlane_misses": 0,
+    # coalesced syncs that failed in the pack or unpack and replayed the per-state protocol
+    "sync_pack_fallbacks": 0,
 }
+# the monotonic fault/sync step of the last sync completed over the whole world
+_last_good_sync_step: List[Optional[int]] = [None]
 
 
 def _live() -> bool:
@@ -91,6 +105,21 @@ def reset_collective_stats() -> None:
         _counters[key] = 0
 
 
+_telemetry.register_reset("sync", reset_collective_stats)
+
+
+def note_sync_success(group: Optional[Any] = None) -> None:
+    """Record one completed collective protocol; one over the whole world
+    (``group`` None) stamps :func:`last_good_sync_step`."""
+    if group is None:
+        _last_good_sync_step[0] = _faults.current_step()
+
+
+def last_good_sync_step() -> Optional[int]:
+    """The monotonic step of the last sync completed over the whole world; None before any."""
+    return _last_good_sync_step[0]
+
+
 def _all_gather(tensor: Tensor, group: Optional[Any] = None) -> Tensor:
     """``(world, *tensor.shape)``: every member's ``tensor`` (equal shapes), in group rank order.
 
@@ -114,24 +143,39 @@ def gather_all_tensors(result: Tensor, group: Optional[Any] = None) -> List[Tens
     entry per member, in group rank order; every member receives them all.
     Every process must have the same number of dimensions. Two collectives a
     call, each counted by :func:`collective_stats`, as a call with no process
-    group initialised is too (it returns ``[result]``).
+    group initialised is too (it returns ``[result]``). The ``sync-gather``
+    fault site fires before the collectives.
     """
+    if _faults.armed:
+        _faults.maybe_fail("sync-gather")
+    t0 = _telemetry.now() if _telemetry.armed else 0.0
     if not _live():
         note_collective("shape")
-        note_collective("payload", nbytes=result.numel() * result.element_size())
-        return [result]
-    x = result.reshape(1) if result.ndim == 0 else result
-    note_collective("shape")
-    shapes = _all_gather(torch.tensor(x.shape, dtype=torch.int64, device=x.device), group).tolist()
-    max_shape = [max(s[d] for s in shapes) for d in range(x.ndim)]
-    if list(x.shape) != max_shape:
-        padded = x.new_zeros(max_shape)
-        padded[tuple(slice(0, d) for d in x.shape)] = x
-        x = padded
-    note_collective("payload", nbytes=x.numel() * x.element_size() * len(shapes))
-    gathered = _all_gather(x, group)
-    out = [gathered[r][tuple(slice(0, d) for d in shape)] for r, shape in enumerate(shapes)]
-    return [o.reshape(()) for o in out] if result.ndim == 0 else out
+        nbytes = result.numel() * result.element_size()
+        note_collective("payload", nbytes=nbytes)
+        out = [result]
+    else:
+        x = result.reshape(1) if result.ndim == 0 else result
+        note_collective("shape")
+        shapes = _all_gather(torch.tensor(x.shape, dtype=torch.int64, device=x.device), group).tolist()
+        max_shape = [max(s[d] for s in shapes) for d in range(x.ndim)]
+        if list(x.shape) != max_shape:
+            padded = x.new_zeros(max_shape)
+            padded[tuple(slice(0, d) for d in x.shape)] = x
+            x = padded
+        nbytes = x.numel() * x.element_size() * len(shapes)
+        note_collective("payload", nbytes=nbytes)
+        gathered = _all_gather(x, group)
+        out = [gathered[r][tuple(slice(0, d) for d in shape)] for r, shape in enumerate(shapes)]
+        if result.ndim == 0:
+            out = [o.reshape(()) for o in out]
+    note_sync_success(group)
+    if t0 and _telemetry.armed:
+        _telemetry.emit(
+            "sync-gather", None, "sync", t0, _telemetry.now() - t0,
+            {"bytes": int(nbytes), "collectives": 2, "seq": _counters["sync_payload_collectives"]},
+        )
+    return out
 
 
 def reduce(x: Tensor, reduction: str) -> Tensor:
@@ -172,7 +216,9 @@ __all__ = [
     "collective_stats",
     "distributed_available",
     "gather_all_tensors",
+    "last_good_sync_step",
     "note_collective",
+    "note_sync_success",
     "reduce",
     "reset_collective_stats",
     "world_size",

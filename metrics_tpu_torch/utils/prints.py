@@ -1,10 +1,13 @@
-"""Rank-zero-gated warnings (reference `src/torchmetrics/utilities/prints.py:22-50`)."""
+"""Rank-zero-gated warnings and log lines (reference `src/torchmetrics/utilities/prints.py:22-50`)."""
 from __future__ import annotations
 
+import logging
 import os
 import warnings
 from functools import wraps
 from typing import Any, Callable
+
+log = logging.getLogger(__name__)
 
 
 def _process_index() -> int:
@@ -35,4 +38,14 @@ def rank_zero_warn(message: str, *args: Any, stacklevel: int = 4, **kwargs: Any)
     warnings.warn(message, *args, stacklevel=stacklevel, **kwargs)
 
 
-__all__ = ["rank_zero_only", "rank_zero_warn"]
+@rank_zero_only
+def rank_zero_info(message: str, *args: Any, **kwargs: Any) -> None:
+    log.info(message, *args, **kwargs)
+
+
+@rank_zero_only
+def rank_zero_debug(message: str, *args: Any, **kwargs: Any) -> None:
+    log.debug(message, *args, **kwargs)
+
+
+__all__ = ["rank_zero_debug", "rank_zero_info", "rank_zero_only", "rank_zero_warn"]

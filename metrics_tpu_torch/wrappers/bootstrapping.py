@@ -12,6 +12,12 @@ sums, read on the host once per update, size one ``repeat_interleave`` that
 realises every clone's indices. The JAX package's one-program clone fan-out
 and its power-of-two chunks of a Poisson draw (which bound XLA's compile
 cache) are not ported: each clone takes its resampled batch in one update.
+
+A journal record (``save_state``) carries the generator's state
+(``_journal_extra``), so a restored BootStrapper draws what the saved one
+would have drawn next. The state of a CUDA generator does not fit a CPU
+generator: a record loaded onto another device type keeps the new
+instance's own draws, and says so once.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from torch import Tensor, nn
 
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.ops import faults as _faults
 from metrics_tpu_torch.utils.data import apply_to_collection
 
 
@@ -138,6 +145,24 @@ class BootStrapper(Metric):
         for m in self.metrics:
             m.reset()
         super().reset()
+
+    def _journal_extra(self) -> Dict[str, Any]:
+        return {
+            "generator_device": self.generator.device.type,
+            "generator_state": self.generator.get_state().numpy().tobytes().hex(),
+        }
+
+    def _journal_restore_extra(self, extra: Dict[str, Any]) -> None:
+        if extra.get("generator_device") != self.generator.device.type:
+            _faults.warn_fault(
+                self,
+                "journal",
+                f"The journal record's bootstrap generator lives on {extra.get('generator_device')!r} and this"
+                f" BootStrapper's on {self.generator.device.type!r}; its draws continue from its own generator.",
+            )
+            return
+        state = bytes.fromhex(extra["generator_state"])
+        self.generator.set_state(torch.frombuffer(bytearray(state), dtype=torch.uint8))
 
     def _apply(self, fn: Callable, recurse: bool = True) -> "BootStrapper":
         super()._apply(fn, recurse)

@@ -5,7 +5,10 @@ in the buffer; a suite sync on the static lane is one payload collective and
 no shape collective, and ``cat`` states add one metadata collective; the
 coalesced states equal the per-state protocol's bit for bit; a tree that
 cannot be packed takes the per-state protocol; processes whose layouts
-differ raise. Counts come from the port's own ``collective_stats()``; the
+differ raise; a pack or unpack failure demotes the ``sync-pack`` ladder lane
+and replays the per-state protocol bit for bit, clean syncs re-promote it,
+and a failed gather leaves the state intact. Counts come from the port's own
+``collective_stats()``; the
 world of N processes is stood in for the two collectives
 (``tests/helpers/torch_sync.install_world``), and is marked live where the
 test needs the first-sync layout check.
@@ -17,7 +20,8 @@ import metrics_tpu_torch as tmt
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.parallel import bucketing, collective_stats, gather_all_tensors, reset_collective_stats
 from metrics_tpu_torch.parallel import sync as psync
-from metrics_tpu_torch.utils.exceptions import SyncConfigFault
+from metrics_tpu_torch.ops import faults
+from metrics_tpu_torch.utils.exceptions import RuntimeFault, SyncConfigFault, SyncFault
 from tests.helpers.torch_sync import TorchFakeGather, headline_suite, install_world, suite_batches
 
 DIST_ON = lambda: True  # noqa: E731
@@ -346,3 +350,170 @@ def test_retrieval_rows_decline_the_packed_lane():
     assert stats["sync_coalesced_payloads"] == 0
     assert stats["sync_payload_collectives"] == stats["sync_shape_collectives"] == 3 * 2  # 3 states, 2 rows
     assert torch.equal(metric.compute(), before)
+
+
+# ------------------------------------------------ the sync-pack fault ladder
+# JAX counterpart: tests/parallel/test_coalesced_sync.py ``TestFaultIntegration`` and
+# tests/parallel/test_sync_faults.py ``TestSyncLeavesStateIntact``, on the port's planes.
+@pytest.fixture
+def recovery_steps():
+    def set_steps(n):
+        faults.set_recovery_policy(steps=n)
+
+    yield set_steps
+    faults.set_recovery_policy(steps=8)
+
+
+@pytest.mark.parametrize("failure", ["injected", "unpack"])
+def test_sync_pack_failure_demotes_falls_back_and_repromotes(failure, recovery_steps, monkeypatch):
+    # threshold 2: the fallback's own per-state sync is clean step 1
+    recovery_steps(2)
+    m = tmt.MeanMetric(device="cpu")
+    m.update(torch.tensor([2.0, 4.0]))
+    before = _snapshot(m)
+    s0 = collective_stats()
+    if failure == "injected":
+        ctx = faults.inject_faults("sync-pack")
+    else:
+        monkeypatch.setattr(bucketing, "_unpack", lambda *a: 1 / 0)
+        ctx = _no_plan()
+    with ctx:
+        with pytest.warns(UserWarning, match="Coalesced sync failed") as record:
+            m.sync(distributed_available=DIST_ON)
+    assert len(record) == 1
+    monkeypatch.undo()
+    for name, value in before.items():  # the world of one: the per-state sync is the identity
+        assert _bit_equal(getattr(m, name), value)
+    lad = m.__dict__["_fault_ladders"]["sync-pack"]
+    assert lad.demoted and lad.domain == "runtime"
+    s1 = collective_stats()
+    assert s1["sync_pack_fallbacks"] - s0["sync_pack_fallbacks"] == 1
+    assert s1["sync_coalesced_payloads"] == s0["sync_coalesced_payloads"]
+    assert s1["sync_shape_collectives"] - s0["sync_shape_collectives"] == 2  # two states, a pair each
+    m.unsync()
+    m.sync(distributed_available=DIST_ON)  # still per-state: clean step 2
+    m.unsync()
+    assert not lad.demoted
+    s2 = collective_stats()
+    m.sync(distributed_available=DIST_ON)
+    assert collective_stats()["sync_coalesced_payloads"] - s2["sync_coalesced_payloads"] == 1
+    m.unsync()
+    assert m.compute() == 3.0
+
+
+class _no_plan:
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_suite_pack_fault_falls_back_member_wise_bit_exact(recovery_steps):
+    recovery_steps(1)
+    suites = [headline_suite(tmt, num_classes=6) for _ in range(2)]
+    for suite in suites:
+        for preds, target in suite_batches(3, 2, num_classes=6):
+            suite.update(torch.from_numpy(preds), torch.from_numpy(target))
+    suites[1].sync(distributed_available=DIST_ON)
+    coalesced = {k: _snapshot(m) for k, m in suites[1].items(keep_base=True, copy_state=False)}
+    suites[1].unsync()
+    with faults.inject_faults("sync-pack") as plan:
+        with pytest.warns(UserWarning, match="Coalesced suite sync failed"):
+            suites[0].sync(distributed_available=DIST_ON)
+    assert plan.fired == 1
+    for name, m in suites[0].items(keep_base=True, copy_state=False):
+        for state, value in coalesced[name].items():
+            assert _bit_equal(getattr(m, state), value)
+    suites[0].unsync()
+    lad = suites[0].__dict__["_fault_ladders"]["sync-pack"]
+    assert lad.demoted
+    reset_collective_stats()
+    suites[0].sync(distributed_available=DIST_ON)  # member-wise, each member one payload: a clean step
+    suites[0].unsync()
+    assert collective_stats()["sync_coalesced_payloads"] == 4 and not lad.demoted
+    reset_collective_stats()
+    suites[0].sync(distributed_available=DIST_ON)
+    suites[0].unsync()
+    assert collective_stats()["sync_coalesced_payloads"] == 1
+    _equal_results(suites[0].compute(), suites[1].compute())
+
+
+def _equal_results(got, want):
+    assert got.keys() == want.keys()
+    for k in want:
+        assert _bit_equal(got[k], want[k])
+
+
+def test_rank_local_pack_failure_in_a_live_world_raises_classified(monkeypatch):
+    """In a live world of several processes one process cannot switch
+    protocols alone: the failure raises classified and the state is intact."""
+    m = tmt.SumMetric(device="cpu")
+    m.update(torch.tensor([5.0]))
+    monkeypatch.setattr(psync, "distributed_available", lambda: True)
+    before = faults.fault_stats()["fault_runtime"]
+    with faults.inject_faults("sync-pack") as plan:
+        with pytest.raises(RuntimeFault):
+            m.sync(distributed_available=DIST_ON)
+    assert plan.fired == 1
+    lad = m.__dict__.get("_fault_ladders", {}).get("sync-pack")
+    assert lad is None or not lad.demoted
+    assert not m._is_synced and m.value == 5.0
+    assert faults.fault_stats()["fault_runtime"] - before == 1
+
+
+@pytest.mark.parametrize("owner", ["metric", "suite"])
+def test_failed_gather_leaves_the_state_intact_and_retryable(owner):
+    if owner == "metric":
+        obj = tmt.MeanMetric(device="cpu")
+        obj.update(torch.tensor([2.0, 4.0]))
+        trees = [obj]
+    else:
+        obj = tmt.MetricCollection({"mean": tmt.MeanMetric(device="cpu"), "mse": tmt.MeanSquaredError(device="cpu"),
+                                    "mae": tmt.MeanAbsoluteError(device="cpu")})
+        obj.update(torch.tensor([0.2, 0.8]), torch.tensor([0.0, 1.0]))
+        trees = list(obj.values(copy_state=False))
+    before = [_snapshot(m) for m in trees]
+    sync_faults = faults.fault_stats()["fault_sync"]
+    with faults.inject_faults("sync-gather", count=100) as plan:
+        with pytest.raises(SyncFault):
+            obj.sync(distributed_available=DIST_ON)
+    assert plan.fired >= 1 and faults.fault_stats()["fault_sync"] > sync_faults
+    for m, snap in zip(trees, before):
+        assert not m._is_synced and m._cache is None
+        for name, value in snap.items():
+            assert getattr(m, name) is value
+    obj.sync(distributed_available=DIST_ON)  # the retry succeeds
+    obj.unsync()
+
+
+def test_failed_per_state_gather_mid_walk_restores_every_state():
+    m = tmt.MeanMetric(device="cpu")
+    m.update(torch.tensor([1.0, 3.0]))
+    before = _snapshot(m)
+    calls = {"n": 0}
+
+    def flaky_gather(x, group=None):
+        calls["n"] += 1
+        if calls["n"] == 2:
+            raise SyncFault("second state gather died", site="sync-gather")
+        return [x * 2]  # a visibly wrong merged value
+
+    with pytest.raises(SyncFault):
+        m.sync(dist_sync_fn=flaky_gather, distributed_available=DIST_ON)
+    for name, value in before.items():
+        assert getattr(m, name) is value
+    assert not m._is_synced
+
+
+def test_compute_after_a_failed_sync_raises_classified(monkeypatch):
+    m = tmt.MeanMetric(device="cpu")
+    m.update(torch.tensor([2.0, 4.0]))
+    monkeypatch.setattr(psync, "_live", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+    with faults.inject_faults("sync-gather", count=100):
+        with pytest.raises(SyncFault):
+            m.compute()  # the sync inside compute fails before any collective
+    monkeypatch.undo()
+    assert m._computed is None and not m._is_synced
+    assert m.compute() == 3.0

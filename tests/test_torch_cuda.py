@@ -27,7 +27,11 @@ features; and MeanAveragePrecision (boxes, and masks with cells on the device
 route) equal to the CPU bit for bit; Perplexity (float32 and bfloat16 logits),
 BERTScore's matcher under TF32 settings, SDR (the solve and conjugate
 gradient) and PIT on the card against the CPU; and the text metrics' states
-(float32 counts, packed uint8 sentences) on the card equal to the CPU's.
+(float32 counts, packed uint8 sentences) on the card equal to the CPU's; a
+journal round trip on the card, into a CPU twin and back; a restored
+BootStrapper continuing its draws on the card; the ``sync-pack`` fault drill
+in a NCCL world of one; and Spearman's ranks with NaN on the card against the
+CPU.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -855,3 +859,115 @@ def test_text_states_on_the_card_equal_the_cpu(dev):
         flat = lambda v: list(v.values()) if isinstance(v, dict) else list(v) if isinstance(v, tuple) else [v]  # noqa: E731
         for x, y in zip(flat(got), flat(want)):
             torch.testing.assert_close(x.cpu(), y, rtol=1e-6, atol=0)
+
+
+# ------------------------------------------- the journal, the sync-pack drill
+def _headline(device, num_classes=64):
+    return mt.MetricCollection({
+        "acc": mt.Accuracy(num_classes=num_classes, average="macro", device=device),
+        "f1": mt.F1Score(num_classes=num_classes, average="macro", device=device),
+        "confmat": mt.ConfusionMatrix(num_classes=num_classes, device=device),
+        "precision": mt.Precision(num_classes=num_classes, average="macro", device=device),
+    })
+
+
+def _suite_states(suite):
+    return {(name, state): value for name, m in suite.items(keep_base=True, copy_state=False)
+            for state, value in m.metric_state.items()}
+
+
+def test_journal_round_trip_on_the_card_and_into_a_cpu_twin(dev, tmp_path):
+    from metrics_tpu_torch.ops import journal
+
+    path = str(tmp_path / "suite.journal")
+    card, cpu = _headline(dev), _headline("cpu")
+    for preds, target in _batches(dev, 64, steps=4, batch=1024):
+        card.update(preds, target)
+        cpu.update(preds.cpu(), target.cpu())
+    before = journal.journal_stats()
+    card.save_state(path)
+    restored, twin = _headline(dev), _headline("cpu")
+    assert restored.load_state(path) == 0 and twin.load_state(path) == 0
+    assert journal.journal_stats()["journal_loads"] - before["journal_loads"] == 2
+    want, want_cpu = _suite_states(card), _suite_states(cpu)
+    for key, value in _suite_states(restored).items():
+        assert value.is_cuda and value.dtype == want[key].dtype and torch.equal(value, want[key]), key
+    for key, value in _suite_states(twin).items():
+        assert value.device.type == "cpu" and torch.equal(value, want_cpu[key]), key
+    for got, ref in ((restored.compute(), card.compute()), (twin.compute(), cpu.compute())):
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+    # and the reverse: a record written on the CPU loads onto the card
+    cpu.save_state(path)
+    back = _headline(dev)
+    back.load_state(path)
+    for key, value in _suite_states(back).items():
+        assert value.is_cuda and torch.equal(value.cpu(), want_cpu[key]), key
+
+
+def test_restored_bootstrapper_on_the_card_continues_its_draws(dev, tmp_path):
+    path = str(tmp_path / "boot.journal")
+    batches = _batches(dev, 10, steps=6, batch=256, seed=3)
+    make = lambda: mt.BootStrapper(mt.Accuracy(num_classes=10, average="macro", device=dev),  # noqa: E731
+                                   num_bootstraps=8, raw=True)
+    live = make()
+    for preds, target in batches[:3]:
+        live.update(preds, target)
+    live.save_state(path)
+    restored = make()
+    restored.load_state(path)
+    for preds, target in batches[3:]:
+        live.update(preds, target)
+        restored.update(preds, target)
+    assert torch.equal(restored.compute()["raw"], live.compute()["raw"])
+
+
+def test_sync_pack_drill_in_a_nccl_world_of_one(nccl_world):
+    import warnings
+
+    from metrics_tpu_torch.ops import faults
+    from metrics_tpu_torch.parallel import collective_stats, reset_collective_stats
+
+    suite = _headline(torch.device("cuda"))
+    for preds, target in _batches(torch.device("cuda"), 64, steps=3, batch=1024):
+        suite.update(preds, target)
+    local = {k: v.clone() for k, v in _suite_states(suite).items()}
+    faults.set_recovery_policy(steps=2)
+    try:
+        with warnings.catch_warnings(record=True) as record:
+            warnings.simplefilter("always")
+            with faults.inject_faults("sync-pack", 5) as plan:
+                reset_collective_stats()
+                suite.sync(distributed_available=lambda: True)
+        assert plan.fired == 5 and sum("Coalesced" in str(w.message) for w in record) == 5
+        stats = collective_stats()
+        assert stats["sync_coalesced_payloads"] == 0 and stats["sync_pack_fallbacks"] == 5
+        assert stats["sync_shape_collectives"] == stats["sync_payload_collectives"] == len(local)
+        for key, value in _suite_states(suite).items():
+            assert torch.equal(value, local[key]), key
+        suite.unsync()
+        payloads = []
+        for _ in range(3):
+            reset_collective_stats()
+            suite.sync(distributed_available=lambda: True)
+            payloads.append(collective_stats()["sync_coalesced_payloads"])
+            suite.unsync()
+        # members re-promote after their second clean sync, the suite after its second
+        assert payloads == [0, 4, 1], payloads
+    finally:
+        faults.set_recovery_policy(steps=8)
+
+
+def test_spearman_with_nan_on_the_card_equals_the_cpu(dev):
+    from metrics_tpu_torch.functional.regression.correlation import _rank_data
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.round(torch.rand(100_000, generator=g, device=dev) * 512) / 512
+    x[torch.rand(100_000, generator=g, device=dev) < 0.01] = float("nan")
+    y = x + torch.rand(100_000, generator=g, device=dev) * 0.1
+    assert torch.equal(_rank_data(x).cpu(), _rank_data(x.cpu()))
+    got = mt.functional.spearman_corrcoef(x, y)
+    want = mt.functional.spearman_corrcoef(x.cpu(), y.cpu())
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError):
+        mt.functional.spearman_corrcoef(x[:1], y[:1])

@@ -45,7 +45,8 @@ def test_port_files_exist():
                    "functional/text/squad.py", "functional/text/perplexity.py", "functional/text/bert.py",
                    "functional/text/infolm.py", "text/basic.py", "text/advanced.py", "functional/audio/snr.py",
                    "functional/audio/sdr.py", "functional/audio/pit.py", "functional/audio/stoi.py",
-                   "functional/audio/host.py", "audio/metrics.py"):
+                   "functional/audio/host.py", "audio/metrics.py", "ops/faults.py", "ops/telemetry.py",
+                   "ops/journal.py"):
         assert f"metrics_tpu_torch/{module}" in names
 
 
@@ -64,7 +65,8 @@ def test_importing_the_port_loads_no_jax():
         "metrics_tpu_torch.models, metrics_tpu_torch.models.manifest, metrics_tpu_torch.image.generative, "
         "metrics_tpu_torch.detection, metrics_tpu_torch.functional.detection, metrics_tpu_torch.text, "
         "metrics_tpu_torch.functional.text, metrics_tpu_torch.ops.text_native, metrics_tpu_torch.audio, "
-        "metrics_tpu_torch.functional.audio; "
+        "metrics_tpu_torch.functional.audio, metrics_tpu_torch.ops.faults, metrics_tpu_torch.ops.telemetry, "
+        "metrics_tpu_torch.ops.journal; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'metrics_tpu')); "
         "assert not bad, bad"
     )

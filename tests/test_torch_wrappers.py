@@ -368,7 +368,7 @@ def test_tracker_of_a_metric(maximize, jax_deepcopy_history):
     assert_same(j.best_metric(), t.best_metric())
     assert_same(j.best_metric(return_step=True), t.best_metric(return_step=True))
     t.reset_all()
-    assert all(step.update_count == 0 for step in t._history)
+    assert all(t._step_metric(i).update_count == 0 for i in range(t.n_steps))
 
 
 @pytest.mark.parametrize("maximize", [True, [False, True]], ids=["scalar", "list"])
