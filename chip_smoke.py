@@ -206,6 +206,35 @@ Phases, each of which raises on failure (exit code 1):
    generation (each restores generation 1, one load demotion). Then
    ``prometheus_text()`` and ``export_trace()`` timed, with their bytes. Under
    60 s.
+22. ``sync_planes`` (after phase 21), under 90 s: (a) phase 3's headline suite
+   (C=128, B=8192) in a NCCL world of one: the ``sync-gather`` retry drill
+   (two injected faults under ``METRICS_TPU_SYNC_RETRIES=3``, states bit-equal
+   to the clean sync); the deadline drill (the payload seam slowed past
+   ``METRICS_TPU_SYNC_DEADLINE_MS``, without touching NCCL, raises
+   ``SyncTimeoutFault``, the states stay, the next sync is clean); the
+   ``local`` degraded tier (``compute()`` serves the local values,
+   ``sync_health()`` reads degraded, the suite re-promotes on its
+   ``recovery_steps()``-th ``compute()``); ``sync_async`` with 5 updates in
+   flight (the forced states bit-equal to a blocking sync at dispatch, the
+   updates back after ``unsync``; blocking and async ms and the share of the
+   wire hidden); the bf16 and int8 tiers on phase 12's regression and
+   multi-output suites (bytes shipped against the exact lane, integer states
+   exact, values within ``PLANES_QUANT_ATOL``/``PLANES_QUANT_RTOL``) and both
+   encodes of 2**24 floats beside their byte bounds. (b) Three spawned Gloo
+   ranks with CUDA tensors on the one card, uneven batches: a
+   ``checkpoint_barrier`` stamps one (epoch, barrier_step) in every manifest;
+   rank 2 stops (its heartbeat file goes, it parks without closing its
+   sockets); the survivors' ``compute()`` times out twice, the prober
+   declares rank 2 dead, and the ``quorum`` tier's values equal one CPU suite
+   fed ranks 0 and 1 (counts bit-exact, floats within atol 1e-6 and rtol
+   1e-5); a fresh process ``rejoin``s from rank 2's record into the epoch the
+   survivors reach. (c) Four spawned Gloo ranks, two a node
+   (``METRICS_TPU_SYNC_HIER=2``, seams bound to ``dist.new_subgroups`` and a
+   group of the node leaders): the headline suite's integer states on the
+   psum lane bit-equal to the flat gather with half its inter-node bytes.
+   (d) Phase 9's 2**24 binary scores through AUROC and AveragePrecision with
+   ``compute_on_cpu=True`` and without: peak device memory of the updates
+   and of ``compute()``, ms an update, the values bit-equal.
 
 Phases 15 and 16 report what phases 11 to 14 do, and hold every state and
 value against a CPU twin fed the same batches and the same bootstrap draws:
@@ -230,6 +259,7 @@ Without a CUDA device it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -4342,6 +4372,584 @@ def observability_path(mt, checks, histogram, card: str) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 22
+PLANES_DEVICE = "cuda"  # where phase 22 runs
+PLANES_SHAPE = (8192, 128, 5)  # phase 3's headline suite: rows a batch, classes, updates before each drill
+PLANES_DEADLINE_MS = 200  # the deadline drill's deadline; its slowed seam sleeps PLANES_SLOW_S
+PLANES_SLOW_S = 0.5
+PLANES_QUANT_ATOL = 2e-2  # float values under a quantized tier (tests/parallel/test_async_sync.py:498)
+PLANES_QUANT_RTOL = 2**-8  # and of a value above 1 (MAPE's near 2.6e5), bfloat16's 8 bits of mantissa, rounded once
+PLANES_QUANT_SHAPE = (4, 65_536)  # phase 12's suites: updates, rows an update
+PLANES_ENCODE_N = 2**24  # floats of the timed int8 and bf16 encodes (a 64 MiB float32 state)
+PLANES_RANK_BATCH = 2048  # rows of each batch of the spawned worlds; rank r takes 2 + r batches
+PLANES_GLOO_TIMEOUT_S = 30  # init_process_group(timeout=): a peer gone for good raises instead of hanging
+PLANES_QUORUM_ENV = {"METRICS_TPU_SYNC_DEGRADED": "quorum", "METRICS_TPU_SYNC_DEADLINE_MS": "2000",
+                     "METRICS_TPU_SYNC_RETRIES": "1", "METRICS_TPU_SYNC_DEAD_AFTER": "2",
+                     "METRICS_TPU_SYNC_BACKOFF_MS": "0"}
+PLANES_WORLD_S = 120  # wall-clock limit of each spawned world
+PLANES_PHASE_S = 90.0
+PLANES_ENV = ("METRICS_TPU_SYNC_RETRIES", "METRICS_TPU_SYNC_BACKOFF_MS", "METRICS_TPU_SYNC_DEADLINE_MS",
+              "METRICS_TPU_SYNC_DEGRADED", "METRICS_TPU_SYNC_QUANT", "METRICS_TPU_SYNC_HIER")
+
+
+def states_bit_equal(got: dict, want: dict, label: str) -> None:
+    assert sorted(got) == sorted(want), f"{label}: states {sorted(got)}"
+    for key, value in want.items():
+        g = got[key]
+        assert g.dtype == value.dtype and g.shape == value.shape and torch.equal(g, value), f"{label}: {key} differs"
+
+
+def clone_states(suite) -> dict:
+    return {k: v.clone() for k, v in suite_states(suite).items()}
+
+
+def planes_world_of_one(mt, histogram, card: str) -> dict:
+    """Phase 22 (a): the headline suite in a NCCL world of one: the sync-gather retry drill, the deadline drill,
+    the local degraded tier and its re-promotion, the asynchronous lane with updates in flight, then the
+    quantized tiers on phase 12's suites and the encodes' times beside their byte bounds."""
+    import torch.distributed as dist
+
+    import metrics_tpu_torch.metric as metric_mod
+    from metrics_tpu_torch.ops import faults, telemetry
+    from metrics_tpu_torch.parallel import bucketing, collective_stats, reset_collective_stats
+    from metrics_tpu_torch.parallel import sync as psync
+    from metrics_tpu_torch.utils.exceptions import SyncTimeoutFault
+
+    batch, num_classes, steps = PLANES_SHAPE
+    batches = make_batches(batch, num_classes, 2 * steps, seed=220, signal=2.0, device=PLANES_DEVICE)
+    sync_on = lambda: True  # noqa: E731 - a world of one syncs all the same (its gather is the identity)
+    out: dict = {"card": card}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}", rank=0,
+                                world_size=1)
+        try:
+            histogram.KERNEL_LAUNCHES = 0
+            suite, twin = make_suite(mt, num_classes, PLANES_DEVICE), make_suite(mt, num_classes, PLANES_DEVICE)
+            for preds, target in batches[:steps]:
+                suite.update(preds, target)
+                twin.update(preds, target)
+            local_values = suite.compute()  # a world of one: no sync
+            bucketing._MANIFEST_CACHE.clear()
+            timed_sync(suite, "coalesced")  # the layout's first sync
+            suite.unsync()
+            blocking = []
+            for _ in range(3):
+                ms, counts = timed_sync(suite, "coalesced")
+                blocking.append(ms)
+                want = clone_states(suite)
+                suite.unsync()
+            local = suite_states(suite)
+            out["blocking_sync_ms"] = median(blocking)
+
+            # the sync-gather retry drill
+            os.environ.update({"METRICS_TPU_SYNC_RETRIES": "3", "METRICS_TPU_SYNC_BACKOFF_MS": "0"})
+            with faults.inject_faults("sync-gather", 2) as plan:
+                ms, counts = timed_sync(suite, "coalesced")
+            assert plan.fired == 2, plan.fired
+            states_bit_equal(suite_states(suite), want, "sync-gather retry drill")
+            suite.unsync()
+            out["retry_drill"] = {"injected": 2, "retries": 3, "sync_ms": ms, "collectives": counts}
+
+            # the deadline drill: the payload seam slowed past the deadline (it never reaches NCCL)
+            os.environ.update({"METRICS_TPU_SYNC_RETRIES": "0", "METRICS_TPU_SYNC_DEADLINE_MS": str(PLANES_DEADLINE_MS)})
+            real_payload = bucketing._payload_allgather
+
+            def slowed(packed, group):
+                time.sleep(PLANES_SLOW_S)
+                raise RuntimeError("the slowed transport, abandoned by the watchdog")
+
+            timeouts = collective_stats()["sync_deadline_timeouts"]
+            bucketing._payload_allgather = slowed
+            try:
+                t0 = time.perf_counter()
+                try:
+                    suite.sync(distributed_available=sync_on)
+                    raise AssertionError("deadline drill: the slowed sync did not time out")
+                except SyncTimeoutFault:
+                    timeout_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                bucketing._payload_allgather = real_payload
+            assert collective_stats()["sync_deadline_timeouts"] == timeouts + 1
+            assert not any(m._is_synced for m in suite.values(copy_state=False))
+            assert all(suite_states(suite)[k] is v for k, v in local.items()), "deadline drill: states moved"
+            ms, counts = timed_sync(suite, "coalesced")  # the next sync is clean, the deadline still armed
+            states_bit_equal(suite_states(suite), want, "after the deadline drill")
+            suite.unsync()
+            out["deadline_drill"] = {"deadline_ms": PLANES_DEADLINE_MS, "raised_after_ms": timeout_ms,
+                                     "next_sync_ms": ms}
+
+            # the local degraded tier: compute() serves the local value, then re-promotes
+            os.environ["METRICS_TPU_SYNC_DEGRADED"] = "local"
+            metric_mod._dist_available = sync_on
+            try:
+                bucketing._payload_allgather = slowed
+                try:
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        served = fresh_compute(suite)
+                finally:
+                    bucketing._payload_allgather = real_payload
+                health = suite.sync_health()
+                assert health["degraded"] and health["degraded_serves"] == 1, health
+                for key, value in local_values.items():
+                    assert torch.equal(served[key], value), f"degraded serve: {key}"
+                serves = []
+                for _ in range(faults.recovery_steps() + 1):
+                    reset_collective_stats()
+                    fresh_compute(suite)
+                    serves.append(collective_stats()["sync_payload_collectives"])
+                    if serves[-1]:
+                        break
+                health_after = suite.sync_health()
+                assert serves[-1] == 1 and len(serves) == faults.recovery_steps(), serves
+                assert not health_after["degraded"] and health_after["last_good_sync_step"] is not None
+            finally:
+                metric_mod._dist_available = psync.distributed_available
+                os.environ.pop("METRICS_TPU_SYNC_DEGRADED")
+            out["degraded_local"] = {"served_local": True, "serves_before_promotion": len(serves) - 1,
+                                     "recovery_steps": faults.recovery_steps(),
+                                     "health": {k: health[k] for k in ("degraded", "degraded_tier",
+                                                                       "degraded_serves")}}
+
+            # the asynchronous lane: dispatch, 5 updates in flight, force
+            armed = telemetry.armed
+            telemetry.set_telemetry(True)
+            telemetry.clear_spans()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fut = suite.sync_async(distributed_available=sync_on)
+                dispatch_ms = (time.perf_counter() - t0) * 1e3
+                for preds, target in batches[steps:]:
+                    suite.update(preds, target)
+                t0 = time.perf_counter()
+                fut.wait()
+                torch.cuda.synchronize()
+                force_ms = (time.perf_counter() - t0) * 1e3
+                rows = telemetry.spans()
+            finally:
+                telemetry.set_telemetry(armed)
+            states_bit_equal(suite_states(suite), want, "async: the forced states")
+            suite.unsync()
+            for preds, target in batches[steps:]:
+                twin.update(preds, target)
+            states_bit_equal(suite_states(suite), suite_states(twin), "async: the updates in flight after unsync")
+            wire = sum(r["dur"] for r in rows if r["site"] == "sync-payload-gather" and (r["attrs"] or {}).get("overlapped"))
+            waited = sum((r["attrs"] or {}).get("waited_s", 0.0) for r in rows if r["site"] == "sync-force")
+            out["async"] = {"dispatch_ms": dispatch_ms, "force_ms": force_ms, "async_ms": dispatch_ms + force_ms,
+                            "blocking_ms": out["blocking_sync_ms"], "wire_ms": wire * 1e3, "waited_ms": waited * 1e3,
+                            "hidden_share": max(0.0, 1.0 - waited / wire) if wire else None,
+                            "updates_in_flight": len(batches) - steps}
+            torch.cuda.synchronize()
+            out["kernel_launches"] = histogram.KERNEL_LAUNCHES
+            expected = 2 * len(batches)  # one ConfusionMatrix launch an update, both suites
+            assert out["kernel_launches"] == expected, (out["kernel_launches"], expected)
+
+            out["quant"] = planes_quant(mt, sync_on)
+        finally:
+            for name in PLANES_ENV:
+                os.environ.pop(name, None)
+            dist.destroy_process_group()
+    a = out["async"]
+    log(f"sync planes (NCCL, world of one, headline C={num_classes} B={batch}): blocking sync "
+        f"{out['blocking_sync_ms']:.4f} ms; retry drill 2 injected faults absorbed, bit-exact; deadline drill raised "
+        f"after {out['deadline_drill']['raised_after_ms']:.1f} ms, next sync clean; local tier served, re-promoted "
+        f"after {out['degraded_local']['serves_before_promotion']} serves; async dispatch {a['dispatch_ms']:.4f} + force "
+        f"{a['force_ms']:.4f} ms, wire {a['wire_ms']:.4f} ms, hidden share {a['hidden_share']}  [{card}]")
+    return out
+
+
+def planes_quant(mt, sync_on) -> dict:
+    """The bf16 and int8 tiers on phase 12's regression and multi-output suites: bytes shipped against the
+    exact lane, integer states exact, float values within ``PLANES_QUANT_ATOL``; then the encodes timed."""
+    from metrics_tpu_torch.parallel import bucketing, collective_stats, reset_collective_stats
+
+    suites = {"regression": (regression_suite, regression_batches(seed=222, shape=PLANES_QUANT_SHAPE)),
+              "multioutput": (multioutput_suite,
+                              regression_batches(seed=223, shape=PLANES_QUANT_SHAPE + (MULTIOUTPUT_SHAPE[2],)))}
+    out: dict = {}
+    for label, (make, rows) in suites.items():
+        runs = {}
+        for tier in (None, "bf16", "int8"):
+            if tier is None:
+                os.environ.pop("METRICS_TPU_SYNC_QUANT", None)
+            else:
+                os.environ["METRICS_TPU_SYNC_QUANT"] = tier
+            suite = make(mt, PLANES_DEVICE)
+            for preds, target in rows:
+                suite.update(preds, target)
+            reset_collective_stats()
+            suite.sync(distributed_available=sync_on)
+            stats = collective_stats()
+            runs[tier] = (clone_states(suite), {k: v.clone() for k, v in suite.compute().items()}, stats)
+            suite.unsync()
+        os.environ.pop("METRICS_TPU_SYNC_QUANT", None)
+        exact_states, exact_values, exact_stats = runs[None]
+        out[label] = {"exact_bytes": exact_stats["sync_bytes_gathered"]}
+        for tier in ("bf16", "int8"):
+            states, values, stats = runs[tier]
+            worst_state = 0.0
+            for key, value in exact_states.items():
+                got = states[key]
+                if value.is_floating_point():
+                    worst_state = max(worst_state, float((got.double() - value.double()).abs().max()))
+                else:
+                    assert torch.equal(got, value), f"quant {tier} {label}: integer state {key} not exact"
+            worst = worst_rel = 0.0
+            for key, value in exact_values.items():
+                torch.testing.assert_close(values[key], value, atol=PLANES_QUANT_ATOL, rtol=PLANES_QUANT_RTOL,
+                                           msg=f"quant {tier} {label}: {key}")
+                err = (values[key].double() - value.double()).abs()
+                worst = max(worst, float(err.max()))
+                worst_rel = max(worst_rel, float((err / value.double().abs().clamp(min=1.0)).max()))
+            out[label][tier] = {"bytes": stats["sync_bytes_gathered"], "lossy_states": stats["sync_quant_lossy_states"],
+                                "exact_states": stats["sync_quant_exact_states"],
+                                "bytes_saved_logical": stats["sync_quant_bytes_saved"],
+                                "max_abs_value_err": worst, "max_rel_value_err": worst_rel,
+                                "max_abs_state_err": worst_state}
+    x = torch.randn(PLANES_ENCODE_N, device=PLANES_DEVICE, generator=torch.Generator(device=PLANES_DEVICE).manual_seed(224))
+    encodes = {}
+    for tier, wire in (("int8", PLANES_ENCODE_N + 4), ("bf16", 2 * PLANES_ENCODE_N)):
+        moved = 4 * PLANES_ENCODE_N + wire  # the state read once, its wire form written once
+        encodes[tier] = {"n": PLANES_ENCODE_N, "ms": cuda_time_ms(lambda: bucketing._quant_bytes(x, tier), 50, 5),
+                         "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": moved}
+    out["encode"] = encodes
+    log(f"sync planes quant: {json.dumps(out)}")
+    return out
+
+
+def planes_rank_batches(rank: int, device: str) -> list:
+    """Rank ``rank``'s uneven share of the spawned worlds' batches: 2 + rank batches of ``PLANES_RANK_BATCH``."""
+    return make_batches(PLANES_RANK_BATCH, PLANES_SHAPE[1], 2 + rank, seed=230 + rank, signal=2.0, device=device)
+
+
+def _planes_init(rank: int, world: int, init_method: str, device: str):
+    import datetime
+
+    import torch.distributed as dist
+
+    if str(HERE) not in sys.path:
+        sys.path.insert(0, str(HERE))
+    torch.set_num_threads(1)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=PLANES_GLOO_TIMEOUT_S))
+    return dist
+
+
+def planes_quorum_rank(rank: int, world: int, init_method: str, out_dir: str, device: str) -> None:
+    """One rank of phase 22 (b). Every rank journals at the barrier; the last rank then stops: its heartbeat
+    file goes, and it parks without closing its sockets (a hung host, which a collective waits for) until the
+    survivors are done. The survivors' compute() times out, the prober reads the heartbeats and declares the
+    rank dead, and the quorum tier serves the merge over the survivors; they then take the rank back."""
+    import traceback
+
+    result: dict = {}
+    code = 0
+    alive = lambda r: os.path.join(out_dir, f"alive{r}")  # noqa: E731
+    try:
+        _planes_init(rank, world, init_method, device)
+        import metrics_tpu_torch as mt
+        from metrics_tpu_torch.parallel import sync as psync
+
+        open(alive(rank), "w").close()
+        suite = make_suite(mt, PLANES_SHAPE[1], device)
+        for preds, target in planes_rank_batches(rank, device):
+            suite.update(preds, target)
+        result["barrier"] = suite.checkpoint_barrier(os.path.join(out_dir, f"rank{rank}.journal"))
+        if rank == world - 1:
+            torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
+            os.remove(alive(rank))
+            while not os.path.exists(os.path.join(out_dir, "survivors-done")):
+                time.sleep(0.01)
+            os._exit(0)
+        while os.path.exists(alive(world - 1)):
+            time.sleep(0.01)
+        os.environ.update(PLANES_QUORUM_ENV)
+        psync.set_expected_world(world)
+        psync.set_peer_prober(lambda: [r for r in range(world) if not os.path.exists(alive(r))])
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            values = suite.compute()
+        result["compute_s"] = time.perf_counter() - t0
+        result["values"] = {k: v.cpu() for k, v in values.items()}
+        health = suite.sync_health()
+        result["health"] = {k: health[k] for k in ("degraded", "degraded_tier", "quorum_serves", "degraded_serves",
+                                                   "epoch")}
+        result["world"] = {k: health["world"][k] for k in ("dead_ranks", "surviving_ranks", "epoch", "transitions")}
+        result["epoch_after_rejoin"] = psync.rejoin_rank(world - 1)  # the coordinator's watch: the rank is back
+    except BaseException:  # noqa: BLE001 - reported to the parent, which fails the phase
+        result["error"] = traceback.format_exc()
+        code = 1
+    finally:
+        torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
+        # no destroy_process_group: the parked peer's collectives are still pending in the default group
+        os._exit(code)
+
+
+def planes_rejoin_rank(out_dir: str, world: int, device: str) -> None:
+    """Phase 22 (b)'s fresh process for the stopped rank: restore its barrier record and rejoin."""
+    import traceback
+
+    result: dict = {}
+    code = 0
+    try:
+        if str(HERE) not in sys.path:
+            sys.path.insert(0, str(HERE))
+        import metrics_tpu_torch as mt
+        from metrics_tpu_torch.parallel import sync as psync
+
+        psync.set_expected_world(world)
+        psync.mark_peer_dead(world - 1, reason="restarted")  # how the world last saw this rank
+        suite = make_suite(mt, PLANES_SHAPE[1], device)
+        result["rejoin"] = suite.rejoin(os.path.join(out_dir, f"rank{world - 1}.journal"), rank=world - 1)
+        result["values"] = {k: v.cpu() for k, v in suite.compute().items()}
+        result["states"] = {k: v.cpu() for k, v in suite_states(suite).items()}
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result["error"] = traceback.format_exc()
+        code = 1
+    finally:
+        torch.save(result, os.path.join(out_dir, "rejoin.pt"))
+        os._exit(code)
+
+
+def run_planes_world(target, world: int, out_dir: str, device: str, extra=()) -> list:
+    """Spawn ``world`` processes of ``target`` in one Gloo world; kill them at ``PLANES_WORLD_S`` seconds."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    init_method = f"file://{os.path.join(out_dir, 'rendezvous')}"
+    procs = [ctx.Process(target=target, args=(rank, world, init_method, out_dir, device) + tuple(extra))
+             for rank in range(world)]
+    return _join_planes(procs, out_dir, [f"{rank}.pt" for rank in range(world)])
+
+
+def _join_planes(procs, out_dir: str, files: list, done_file: str = "", wait_for=()) -> list:
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PLANES_WORLD_S
+    for p in wait_for or procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    if done_file:
+        open(os.path.join(out_dir, done_file), "w").close()
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+    for p in procs:
+        p.join(30)
+    results = [torch.load(os.path.join(out_dir, f)) if os.path.exists(os.path.join(out_dir, f)) else {} for f in files]
+    errors = [r["error"] for r in results if "error" in r]
+    if hung or errors or any(p.exitcode for p in procs):
+        raise RuntimeError(f"phase 22 world: exit codes {[p.exitcode for p in procs]}, {len(hung)} killed at "
+                           f"{PLANES_WORLD_S} s\n" + "\n".join(errors))
+    return results
+
+
+def planes_quorum(mt, card: str, device: str = PLANES_DEVICE) -> dict:
+    """Phase 22 (b): three spawned ranks over Gloo, CUDA tensors on the one card, uneven batches."""
+    import multiprocessing as mp
+
+    from metrics_tpu_torch.ops import journal
+
+    world = 3
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_method = f"file://{os.path.join(tmp, 'rendezvous')}"
+        procs = [ctx.Process(target=planes_quorum_rank, args=(rank, world, init_method, tmp, device))
+                 for rank in range(world)]
+        t0 = time.perf_counter()
+        results = _join_planes(procs, tmp, [f"{rank}.pt" for rank in range(world)], done_file="survivors-done",
+                               wait_for=procs[:-1])
+        world_s = time.perf_counter() - t0
+        manifests = [journal.read_record(os.path.join(tmp, f"rank{r}.journal"))[0] for r in range(world)]
+        stamps = {(m["epoch"], m["barrier_step"], m["world_size"]) for m in manifests}
+        assert len(stamps) == 1 and all(m["barrier"] is True for m in manifests), stamps
+        assert all(r["barrier"]["barrier_step"] == manifests[0]["barrier_step"] for r in results)
+        proc = ctx.Process(target=planes_rejoin_rank, args=(tmp, world, device))
+        rejoined = _join_planes([proc], tmp, ["rejoin.pt"])[0]
+    batches = [[(p.cpu(), t.cpu()) for p, t in planes_rank_batches(r, device)] for r in range(world)]
+
+    def cpu_suite(ranks):
+        s = make_suite(mt, PLANES_SHAPE[1], "cpu")
+        for r in ranks:
+            for preds, target in batches[r]:
+                s.update(preds, target)
+        return s
+
+    want = cpu_suite([0, 1]).compute()
+    for rank, result in enumerate(results[:-1]):
+        assert result["health"]["degraded"] and result["health"]["quorum_serves"] == 1, result["health"]
+        assert result["world"]["dead_ranks"] == [world - 1] and result["world"]["surviving_ranks"] == [0, 1]
+        for key, value in want.items():
+            got = result["values"][key]
+            if value.is_floating_point():
+                torch.testing.assert_close(got, value, atol=1e-6, rtol=1e-5, msg=f"quorum rank {rank}: {key}")
+            else:
+                assert got.dtype == value.dtype and torch.equal(got, value), f"quorum rank {rank}: {key}"
+    alone = cpu_suite([world - 1])
+    states_bit_equal(rejoined["states"], {k: v.cpu() for k, v in suite_states(alone).items()}, "rejoined rank")
+    assert rejoined["rejoin"]["generation"] == 0 and rejoined["rejoin"]["epoch"] == results[0]["epoch_after_rejoin"]
+    out = {"world": world, "world_s": world_s, "barrier": {"epoch": manifests[0]["epoch"],
+                                                          "barrier_step": manifests[0]["barrier_step"]},
+           "quorum_compute_s": [r["compute_s"] for r in results[:-1]],
+           "epoch_after_death": results[0]["world"]["epoch"], "epoch_after_rejoin": results[0]["epoch_after_rejoin"],
+           "rejoin": rejoined["rejoin"], "card": card}
+    log(f"sync planes quorum (Gloo, {world} ranks on one card): barrier (epoch, step) "
+        f"{tuple(out['barrier'].values())} on every rank; rank {world - 1} stopped; quorum compute() "
+        f"{[round(s, 3) for s in out['quorum_compute_s']]} s equal to the CPU fed ranks 0 and 1; the fresh rank "
+        f"rejoined at epoch {out['epoch_after_rejoin']}  [{card}]")
+    return out
+
+
+def planes_hier_rank(rank: int, world: int, init_method: str, out_dir: str, device: str) -> None:
+    """One rank of phase 22 (c): the headline suite synced flat, then on the hierarchical psum lane with the
+    seams bound to the node's subgroup (two ranks a node) and a group of the node leaders."""
+    import traceback
+
+    result: dict = {}
+    code = 0
+    try:
+        dist = _planes_init(rank, world, init_method, device)
+        import metrics_tpu_torch as mt
+        from metrics_tpu_torch.parallel import bucketing, collective_stats, reset_collective_stats
+
+        node_group, _ = dist.new_subgroups(group_size=2)
+        leaders = dist.new_group(list(range(0, world, 2)))
+        leader = rank - rank % 2
+
+        def intranode(packed):
+            rows = torch.empty((2,) + tuple(packed.shape), dtype=packed.dtype, device=packed.device)
+            dist.all_gather(list(rows.unbind(0)), packed.contiguous(), group=node_group)
+            return rows
+
+        def internode(block):
+            rows = torch.empty((world // 2,) + tuple(block.shape), dtype=block.dtype, device=block.device)
+            if rank == leader:
+                dist.all_gather(list(rows.unbind(0)), block.contiguous(), group=leaders)
+            dist.broadcast(rows, src=leader, group=node_group)
+            return rows
+
+        suite = make_suite(mt, PLANES_SHAPE[1], device)
+        for preds, target in planes_rank_batches(rank, device):
+            suite.update(preds, target)
+        suite.sync()  # the layout's first sync checks it once
+        suite.unsync()
+        for lane in ("flat", "hier"):
+            if lane == "hier":
+                bucketing._intranode_allgather, bucketing._internode_allgather = intranode, internode
+                os.environ["METRICS_TPU_SYNC_HIER"] = "2"
+            reset_collective_stats()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            suite.sync()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            result[f"{lane}_ms"] = (time.perf_counter() - t0) * 1e3
+            result[lane] = {k: v.cpu() for k, v in suite_states(suite).items()}
+            stats = collective_stats()
+            result[f"{lane}_stats"] = {k: stats[k] for k in ("sync_bytes_gathered", "sync_payload_collectives",
+                                                             "sync_hier_intranode_collectives",
+                                                             "sync_hier_internode_collectives",
+                                                             "sync_hier_node_reduces")}
+            suite.unsync()
+        dist.barrier()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result["error"] = traceback.format_exc()
+        code = 1
+    finally:
+        torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
+        os._exit(code)
+
+
+def planes_hier(card: str, device: str = PLANES_DEVICE) -> dict:
+    """Phase 22 (c): four spawned Gloo ranks, two a node: the psum lane bit-exact against the flat gather,
+    with half its inter-node bytes."""
+    world = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        results = run_planes_world(planes_hier_rank, world, tmp, device)
+    for rank, r in enumerate(results):
+        states_bit_equal(r["hier"], r["flat"], f"hierarchical lane, rank {rank}")
+        assert r["hier_stats"]["sync_hier_node_reduces"] == 1, r["hier_stats"]
+        assert 2 * r["hier_stats"]["sync_bytes_gathered"] == r["flat_stats"]["sync_bytes_gathered"], r
+    out = {"world": world, "node_size": 2, "flat_ms": [r["flat_ms"] for r in results],
+           "hier_ms": [r["hier_ms"] for r in results], "flat_bytes": results[0]["flat_stats"]["sync_bytes_gathered"],
+           "internode_bytes": results[0]["hier_stats"]["sync_bytes_gathered"], "card": card}
+    log(f"sync planes hierarchical (Gloo, 4 ranks, 2 a node): psum lane bit-exact against the flat gather; "
+        f"inter-node bytes {out['internode_bytes']} against {out['flat_bytes']}; sync ms flat {out['flat_ms']}, "
+        f"hierarchical {out['hier_ms']}  [{card}]")
+    return out
+
+
+def planes_compute_on_cpu(mt, card: str) -> dict:
+    """Phase 22 (d): phase 9's 2**24 binary scores through AUROC and AveragePrecision, with and without
+    ``compute_on_cpu``: peak device memory of the updates and of compute(), ms an update, the values."""
+    steps, batch = CURVES_BINARY_SHAPE
+    runs = {}
+    for offload in (False, True):
+        suite = mt.MetricCollection({
+            "auroc": mt.AUROC(pos_label=1, compute_on_cpu=offload, device=PLANES_DEVICE),
+            "ap": mt.AveragePrecision(pos_label=1, compute_on_cpu=offload, device=PLANES_DEVICE),
+        })
+        g = torch.Generator(device=PLANES_DEVICE).manual_seed(20)  # phase 9's scores, made an update at a time
+        gc.collect()  # a metric's wrapped methods hold it in a cycle: the last run's rows go only now
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        update_s = 0.0
+        for _ in range(steps):
+            target = (torch.rand(batch, generator=g, device=PLANES_DEVICE) < 0.03).to(torch.int64)
+            logits = torch.randn(batch, generator=g, device=PLANES_DEVICE) + 2.0 * target - 1.5
+            preds = torch.round(torch.sigmoid(logits) * 4096) / 4096
+            del logits
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            suite.update(preds, target)
+            torch.cuda.synchronize()
+            update_s += time.perf_counter() - t0
+            del preds, target
+        peak_updates = torch.cuda.max_memory_allocated() - base
+        held = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        values = suite.compute()
+        torch.cuda.synchronize()
+        runs[offload] = {"update_ms": update_s / steps * 1e3, "peak_update_bytes": peak_updates,
+                         "held_bytes": held, "compute_ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_compute_bytes": torch.cuda.max_memory_allocated() - base,
+                         "values": {k: float(v) for k, v in values.items()}}
+        if offload:
+            assert all(r.device.type == "cpu" for _, m in suite.items(keep_base=True, copy_state=False)
+                       for r in m.preds + m.target), "compute_on_cpu: rows not on the host after compute()"
+        del suite, values
+    assert runs[True]["values"] == runs[False]["values"], runs
+    out = {"on_card": runs[False], "compute_on_cpu": runs[True], "card": card}
+    log(f"sync planes compute_on_cpu (2**24 binary scores, AUROC + AP): {json.dumps(out)}")
+    return out
+
+
+def sync_planes_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 22: the sync planes beyond the core, parts (a) to (d); under PLANES_PHASE_S seconds."""
+    t_phase = time.perf_counter()
+    result = {"world_of_one": planes_world_of_one(mt, histogram, card)}
+    result["kernel_launches"] = result["world_of_one"]["kernel_launches"]
+    result["quorum"] = planes_quorum(mt, card)
+    result["hierarchical"] = planes_hier(card)
+    result["compute_on_cpu"] = planes_compute_on_cpu(mt, card)
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"sync planes: phase 22 took {result['phase_s']:.1f} s  [{card}]")
+    assert result["phase_s"] < PLANES_PHASE_S, f"phase 22 took {result['phase_s']:.1f} s"
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4386,6 +4994,7 @@ def main() -> int:
     text_audio = timed_phase("text_audio_19_20", text_audio_paths, mt, histogram, card)
     sync = timed_phase("sync", sync_path, mt, histogram, card)
     observability = timed_phase("observability_journal", observability_path, mt, checks, histogram, card)
+    sync_planes = timed_phase("sync_planes", sync_planes_path, mt, checks, histogram, card)
     log(f"phase seconds: {json.dumps(phase_s)}")
     # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, the
     # retrieval path's first compute() and graded NDCG, the wrapper phase's first timed runs, and the
@@ -4394,13 +5003,13 @@ def main() -> int:
     kernel["launches"] += (curves["kernel_launches"] + evaluation["kernel_launches"]
                            + wrappers_image["kernel_launches"] + generative_detection["kernel_launches"]
                            + text_audio["kernel_launches"] + sync["kernel_launches"]
-                           + observability["kernel_launches"])
+                           + observability["kernel_launches"] + sync_planes["kernel_launches"])
 
     log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
                     "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation,
                     "curves_path": curves, "eval_paths": evaluation, "wrapper_image_paths": wrappers_image,
                     "generative_detection_paths": generative_detection, "text_audio_paths": text_audio,
-                    "sync_path": sync, "observability_journal": observability,
+                    "sync_path": sync, "observability_journal": observability, "sync_planes": sync_planes,
                     "phase_seconds": phase_s}))
     log(json.dumps({"kernels": [kernel]}))
     log(card)

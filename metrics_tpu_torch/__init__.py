@@ -147,6 +147,7 @@ from metrics_tpu_torch.ops.telemetry import (  # noqa: E402
     set_telemetry,
     telemetry_snapshot,
 )
+from metrics_tpu_torch.parallel.sync import world_health  # noqa: E402
 
 __all__ = [
     "AUC",
@@ -254,4 +255,5 @@ __all__ = [
     "prometheus_text",
     "set_telemetry",
     "telemetry_snapshot",
+    "world_health",
 ]

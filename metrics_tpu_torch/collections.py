@@ -27,6 +27,15 @@ Journal (`metrics_tpu/collections.py` ``save_state``/``load_state``/
 and a failed write demotes the suite's ``journal`` lane instead of breaking
 the update. Each ``update``/``forward`` emits a ``suite-step`` span and each
 sync a ``suite-sync`` span.
+
+The sync planes beyond the core (`metrics_tpu/collections.py` ``compute``
+`:1039`, ``sync_async`` `:1198`, ``sync`` `:1362`, ``sync_health`` `:1569`,
+``checkpoint_barrier`` `:1702`, ``rejoin`` `:1754`): the suite degrades and
+re-promotes as one (its own ``sync-degrade`` lane), dispatches its one
+payload collective with :meth:`MetricCollection.sync_async`, journals every
+process at one agreed step with :meth:`MetricCollection.checkpoint_barrier`,
+and a restarted process re-enters the world with
+:meth:`MetricCollection.rejoin`.
 """
 from __future__ import annotations
 
@@ -36,11 +45,20 @@ from typing import Any, Dict, Hashable, Iterable, List, Optional, Sequence, Tupl
 import torch
 from torch import nn
 
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import (
+    Metric,
+    _degradable_sync_failure,
+    _distributed_available,
+    _enter_degraded,
+    _inflight_block,
+    _note_degraded_serve,
+    _note_quorum_serve,
+    _stamp_last_good,
+)
 from metrics_tpu_torch.ops import faults as _faults
 from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.parallel import bucketing as _bucketing
-from metrics_tpu_torch.parallel.sync import distributed_available as _distributed_available
+from metrics_tpu_torch.parallel import sync as _psync
 from metrics_tpu_torch.utils.data import _flatten_dict, allclose
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -135,18 +153,94 @@ class MetricCollection(nn.ModuleDict):
             if t_step and _telemetry.armed:
                 _telemetry.emit("suite-step", self, "suite", t_step, _telemetry.now() - t_step, {"api": "update"})
 
+    def _compute_members(self) -> Dict[str, Any]:
+        return {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
+
     def compute(self) -> Dict[str, Any]:
+        # compute() forces the suite's sync in flight; a fault there takes the degraded tier
+        pending = self.__dict__.get("_pending_sync")
+        if pending is not None:
+            pending_tier = _psync.sync_degraded_tier()
+            forced = False
+            try:
+                pending.wait()
+                _psync._bump("sync_async_auto_forces")
+                forced = True
+            except Exception as exc:  # noqa: BLE001 - degradable sync faults only
+                if pending_tier is None or not _degradable_sync_failure(exc):
+                    raise
+                _enter_degraded(self, exc, pending_tier)
+            if forced:
+                try:
+                    res = self._compute_members()
+                finally:
+                    self.unsync()
+                return {self._set_name(k): v for k, v in _flatten_dict(res).items()}
         ctx = self._auto_sync_context()
-        if ctx is not None:
-            # the whole suite synced up front: every member computes presynced
-            with ctx:
-                res = {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
+        # while the suite's sync-degrade lane is down: local values, or the survivors' merge;
+        # each serve is a clean step, and the recovery edge tries the full suite sync on this call
+        degraded_tier = _psync.sync_degraded_tier() if ctx is not None else None
+        serve_degraded = False
+        if degraded_tier is not None:
+            lad = self.__dict__.get("_fault_ladders", {}).get("sync-degrade")
+            if lad is not None and lad.demoted:
+                if lad.note_clean():
+                    lad.promote()
+                else:
+                    serve_degraded = True
+        if serve_degraded:
+            res = self._compute_degraded(degraded_tier)
+        elif ctx is not None:
+            try:
+                # the whole suite synced up front: every member computes presynced
+                with ctx:
+                    res = self._compute_members()
+            except Exception as exc:  # noqa: BLE001 - only degradable sync faults are served
+                if degraded_tier is None or not _degradable_sync_failure(exc):
+                    raise
+                _enter_degraded(self, exc, degraded_tier)
+                res = self._compute_degraded(degraded_tier)
         else:
-            res = {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
+            res = self._compute_members()
         res = _flatten_dict(res)
         return {self._set_name(k): v for k, v in res.items()}
 
+    def _compute_degraded(self, tier: str) -> Dict[str, Any]:
+        """One degraded serve: on the ``quorum`` tier with known survivors the
+        suite syncs over them (one coalesced sync of the subgroup); otherwise,
+        or when that fails too, every member's local value."""
+        if tier == "quorum":
+            survivors = _psync.surviving_members()
+            if survivors is not None:
+                try:
+                    with self.sync_context(process_group=survivors):
+                        res = self._compute_members()
+                    _note_quorum_serve(self, survivors)
+                    return res
+                except Exception as exc:  # noqa: BLE001 - only degradable sync faults are served
+                    if not _degradable_sync_failure(exc):
+                        raise
+                    _enter_degraded(self, exc, tier)
+        _note_degraded_serve(self)
+        return self._compute_local()
+
+    def _compute_local(self) -> Dict[str, Any]:
+        """Every member's compute with its own sync off (its flag put back after)."""
+        members = list(self.items(keep_base=True, copy_state=False))
+        saved = [(m, m._to_sync) for _, m in members]
+        try:
+            for m, _ in saved:
+                m._to_sync = False
+            return {k: m.compute() for k, m in members}
+        finally:
+            for m, flag in saved:
+                m._to_sync = flag
+
     def reset(self) -> None:
+        fut = self.__dict__.get("_pending_sync")
+        if fut is not None:  # its rows must not land on the reset states
+            fut.cancel()
+            object.__setattr__(self, "_pending_sync", None)
         for _, m in self.items(keep_base=True, copy_state=False):
             m.reset()
         if self._enable_compute_groups and self._groups_checked:
@@ -185,7 +279,9 @@ class MetricCollection(nn.ModuleDict):
         for _, m in members:
             nodes: List[Metric] = []
             lad = m.__dict__.get("_fault_ladders", {}).get("sync-pack")
-            eligible = suite_ok and m.dist_sync_fn is None and not (lad is not None and lad.demoted)
+            # a member whose rows are offloaded to the host syncs through its own Metric.sync, which lifts them
+            eligible = (suite_ok and m.dist_sync_fn is None and not m.compute_on_cpu
+                        and not (lad is not None and lad.demoted))
             if eligible:
                 nodes = _bucketing.tree_nodes(m)
                 for n in nodes:
@@ -229,6 +325,11 @@ class MetricCollection(nn.ModuleDict):
             return
         if not (distributed_available() if callable(distributed_available) else None):
             return
+        if self.__dict__.get("_pending_sync") is not None:
+            raise MetricsUserError(
+                "A suite sync is already in flight (sync_async); force it with wait() or compute() before syncing again."
+            )
+        _psync.drain_inflight()  # other owners' syncs in flight land before this one packs
         t_suite = _telemetry.now() if _telemetry.armed else 0.0
         members, coalesced, individual, group = self._partition_sync_members(dist_sync_fn, process_group)
         try:
@@ -282,13 +383,103 @@ class MetricCollection(nn.ModuleDict):
                 "suite-sync", self, "sync", t_suite, _telemetry.now() - t_suite,
                 {"members": len(members), "coalesced": len(coalesced), "individual": len(individual)},
             )
-        if process_group is None:
-            _faults.tick()  # a completed suite sync over the whole world is one monotonic event
+        # a suite sync over the whole world is the last good one of the suite and of every member's tree
+        if _psync.is_full_world_group(process_group):
+            self._stamp_last_good(members, _faults.tick())
+
+    def _stamp_last_good(self, members: List[Tuple[str, Metric]], step: int) -> None:
+        _stamp_last_good([self] + [n for _, m in members for n in _bucketing.tree_nodes(m)], step)
+
+    def sync_async(
+        self,
+        dist_sync_fn: Optional[Any] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Any] = _distributed_available,
+    ) -> Optional[Any]:
+        """Dispatch the whole suite's sync without waiting for it: the members
+        the suite packs go in one payload collective in flight; the others sync
+        blocking here. Returns a :class:`~metrics_tpu_torch.parallel.sync.SyncFuture`
+        (force it with ``wait()``, or let :meth:`compute` force it), or None when
+        there is nothing to sync. A failed force leaves every member's local
+        states intact."""
+        if self.__dict__.get("_pending_sync") is not None:
+            raise MetricsUserError(
+                "A suite sync is already in flight; force it with wait() or compute() before dispatching another."
+            )
+        if not should_sync or not (distributed_available() if callable(distributed_available) else None):
+            return None
+        members, coalesced, individual, anchor_group = self._partition_sync_members(dist_sync_fn, process_group)
+        group = None if anchor_group is _UNSET_GROUP else anchor_group
+        all_nodes = [n for _, nodes in coalesced for n in nodes]
+
+        def _rollback() -> None:
+            for _, m in members:
+                if m._is_synced:
+                    m.unsync()
+            self._relink_groups()
+
+        def _replay(err: _bucketing.CoalesceError, where: str) -> None:
+            _bucketing.handle_coalesce_failure(
+                self, [(n, n._state_snapshot()) for n in all_nodes], err,
+                warn=f"Async coalesced suite sync failed at {where}; replaying member-wise blocking syncs (bit-exact).",
+            )
+            for m, _ in coalesced:
+                m.sync(dist_sync_fn, process_group, True, distributed_available)
+
+        try:
+            for m in individual:  # they cannot ride the one buffer in flight
+                m.sync(dist_sync_fn, process_group, True, distributed_available)
+            if individual:
+                _psync._bump("sync_async_fallbacks")
+            try:
+                disp = _bucketing.dispatch_coalesced_sync(all_nodes, group=group, owner=self) if all_nodes else None
+            except _bucketing.CoalesceError as err:
+                if not _bucketing.should_fallback(err):
+                    raise err.original from err
+                _replay(err, "dispatch")
+                disp = None
+        except Exception as exc:
+            _rollback()
+            _faults.note_fault(_faults.classify(exc, "sync"), site="sync", owner=self, error=exc)
+            raise
+        if disp is None:
+            # whatever could sync has synced blocking: a completed future, registered so compute() unsyncs
+            done_fut = _psync.SyncFuture.completed(self)
+            object.__setattr__(self, "_pending_sync", done_fut)
+            return done_fut
+
+        def _force() -> None:
+            object.__setattr__(self, "_pending_sync", None)
+            try:
+                try:
+                    snaps = _bucketing.force_coalesced_sync(disp)
+                except _bucketing.CoalesceError as err:
+                    if not _bucketing.should_fallback(err):
+                        raise err.original from err
+                    _replay(err, "force")
+                else:
+                    for n, snap in snaps:
+                        n._cache = snap
+                        n._is_synced = True
+            except Exception as exc:
+                _rollback()
+                _faults.note_fault(_faults.classify(exc, "sync"), site="sync", owner=self, error=exc)
+                raise
+            if _psync.is_full_world_group(process_group):
+                self._stamp_last_good(members, _faults.tick())
+
+        fut = _psync.SyncFuture(self, _force, done=disp.done, quant_tier=disp.ctx.quant_tier)
+        object.__setattr__(self, "_pending_sync", fut)
+        return fut
 
     def unsync(self, should_unsync: bool = True) -> None:
         """Restore every member's local states; group members share the leader's states again."""
         if not should_unsync:
             return
+        fut = self.__dict__.get("_pending_sync")
+        if fut is not None and (fut._forced or fut._cancelled):
+            object.__setattr__(self, "_pending_sync", None)  # a spent future must not block the next sync
         for _, m in self.items(keep_base=True, copy_state=False):
             if m._is_synced:
                 m.unsync()
@@ -342,6 +533,109 @@ class MetricCollection(nn.ModuleDict):
         if any(m._is_synced or not m._to_sync or not m._should_unsync or m.dist_sync_fn is not None for m in members):
             return None
         return self.sync_context()
+
+    # ----------------------------------------------------------- durability
+    def sync_health(self) -> Dict[str, Any]:
+        """The suite's staleness block (see :meth:`Metric.sync_health`), each
+        member's, and the world's membership (``world``): ``degraded`` when the
+        suite or any member serves a degraded value."""
+        lad = self.__dict__.get("_fault_ladders", {}).get("sync-degrade")
+        members = {k: m.sync_health() for k, m in self.items(keep_base=True, copy_state=False)}
+        return {
+            "degraded": bool(lad is not None and lad.demoted) or any(h["degraded"] for h in members.values()),
+            "degraded_tier": _psync.sync_degraded_tier(),
+            "epoch": _psync.world_epoch(),
+            "last_good_sync_step": self.__dict__.get("_last_good_sync_step"),
+            "degraded_since_step": self.__dict__.get("_degraded_since_step"),
+            "degraded_serves": self.__dict__.get("_degraded_serves", 0),
+            "quorum_serves": self.__dict__.get("_quorum_serves", 0),
+            "inflight": _inflight_block(self.__dict__.get("_pending_sync")),
+            "members": members,
+            "world": _psync.world_health(),
+        }
+
+    def checkpoint_barrier(self, path: str) -> Dict[str, Any]:
+        """Journal every process at one agreed step: the coordinated
+        :meth:`save_state`. Every process calls it. One small exchange
+        (epoch-fenced, under the deadline and the retry budget) agrees the
+        largest of the processes' next monotonic steps, and every record's
+        manifest carries it with the epoch and the world size, so a restore
+        can check that every process's record comes from one cut. Returns
+        ``{path, epoch, barrier_step, world_size, bytes}``."""
+        from metrics_tpu_torch.ops import journal as _journal
+
+        t0 = _telemetry.now() if _telemetry.armed else 0.0
+        nodes = self._journal_nodes()
+        agreement = _bucketing.agree_step(self, _faults.tick(), site="checkpoint-barrier", device=nodes[0].device)
+        agreed, world, fence = agreement["agreed"], agreement["world"], agreement["epoch"]
+        nbytes = _journal.save_nodes(
+            self, nodes, path,
+            manifest_extra={"epoch": fence, "barrier_step": agreed, "world_size": world, "barrier": True},
+        )
+        if t0 and _telemetry.armed:
+            _telemetry.emit("checkpoint-barrier", self, "sync", t0, _telemetry.now() - t0,
+                            {"barrier_step": agreed, "epoch": fence, "world": world, "bytes": nbytes})
+        return {"path": path, "epoch": fence, "barrier_step": agreed, "world_size": world, "bytes": nbytes}
+
+    def rejoin(self, path: str, handoff: Optional[Any] = None, rank: Optional[int] = None) -> Dict[str, Any]:
+        """Re-enter the world after a restart.
+
+        1. Restore the newest good generation of the journal at ``path`` (as
+           :meth:`load_state`).
+        2. With a ``handoff`` callable (a survivor's copy of this process's
+           newest barrier record), call it with the restored manifest's stamps;
+           a record it returns that is strictly newer (by ``barrier_step``, else
+           ``monotonic_step``) replaces the restore, all or nothing. A record
+           that fails to decode is counted as a ``journal`` fault, warned once,
+           and the local restore stands.
+        3. Enter the next epoch (:func:`~metrics_tpu_torch.parallel.sync.rejoin_rank`):
+           protocols in flight fence, and the suite's ``sync-degrade`` lane is
+           re-promoted.
+
+        Returns ``{generation, epoch, handoff, restored_step, rank}``.
+        """
+        from metrics_tpu_torch.ops import journal as _journal
+
+        t0 = _telemetry.now() if _telemetry.armed else 0.0
+        gen = self.load_state(path)
+        meta = _journal.restored_meta(self)
+
+        def _stamp(m: Dict[str, Any]) -> Optional[int]:
+            step = m.get("barrier_step")
+            return step if step is not None else m.get("monotonic_step")
+
+        handoff_used = False
+        if handoff is not None:
+            try:
+                record = handoff(dict(meta))
+                if record:
+                    manifest, payload = _journal.decode_record(record, origin="<rejoin-handoff>")
+                    theirs, mine = _stamp(manifest), _stamp(meta)
+                    if theirs is not None and (mine is None or theirs > mine):
+                        _journal.restore_nodes(self._journal_nodes(), manifest, payload)
+                        self._relink_groups()
+                        meta = _journal.manifest_meta(manifest)
+                        object.__setattr__(self, "_journal_meta", dict(meta))
+                        handoff_used = True
+            except Exception as exc:  # noqa: BLE001 - the local restore stands
+                _faults.note_fault(_faults.classify(exc, "journal"), site="journal-load", owner=self, error=exc)
+                _faults.warn_fault(
+                    self, "journal",
+                    f"Rejoin handoff record failed verification ({type(exc).__name__}: {exc}); "
+                    "continuing with the locally-restored journal generation.",
+                )
+        live_rank = rank
+        if live_rank is None:
+            live_rank = torch.distributed.get_rank() if _psync.distributed_available() else 0
+        epoch = _psync.rejoin_rank(int(live_rank))
+        lad = self.__dict__.get("_fault_ladders", {}).get("sync-degrade")
+        if lad is not None and lad.demoted:
+            lad.promote()  # a fresh epoch: nothing stale is served
+        out = {"generation": gen, "epoch": epoch, "handoff": handoff_used, "restored_step": _stamp(meta),
+               "rank": int(live_rank)}
+        if t0 and _telemetry.armed:
+            _telemetry.emit("rank-rejoin", self, "sync", t0, _telemetry.now() - t0, dict(out))
+        return out
 
     # ---------------------------------------------------------------- journal
     def _fault_note_clean(self, n: int = 1) -> None:

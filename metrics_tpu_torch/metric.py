@@ -35,10 +35,31 @@ counters and leaves the local states intact. :meth:`Metric.save_state` and
 :meth:`Metric.load_state` write and read the tree's states as one record of
 the crash-consistent journal (:mod:`metrics_tpu_torch.ops.journal`).
 
+The sync planes beyond the core (`metrics_tpu/metric.py` `:105-180`,
+``sync`` `:1928`, ``sync_async`` `:2021`, ``sync_health`` `:2240`, the
+compute wrapper `:2315-2440`): a sync first forces every asynchronous sync
+in flight; a sync over the whole world stamps ``_last_good_sync_step`` on
+every node of the tree. With ``METRICS_TPU_SYNC_DEGRADED`` set, a sync that
+fails past its retries (a transport fault, a timeout, a fenced epoch; never
+a configuration fault) demotes the metric's ``sync-degrade`` lane, and
+``compute()`` serves the local value (``local``), or the merge over the
+surviving ranks while peers are declared dead (``quorum``), until clean
+serves reach the recovery edge and the full sync is tried again.
+:meth:`Metric.sync_async` dispatches the sync and returns a
+:class:`~metrics_tpu_torch.parallel.sync.SyncFuture`; ``compute()`` forces a
+pending one, and ``reset()`` cancels it.
+
+``compute_on_cpu`` (`metrics_tpu/metric.py` `:249-285`, `:590`, `:629-680`):
+after each update the list states' rows move to host memory (one copy a
+row; a failed move demotes the metric's ``host`` ladder lane, fault site
+``host-offload``, and the rows stay on the device until clean updates
+re-promote it). ``sync()`` and ``compute()`` bring the rows back to the
+metric's device first (NCCL gathers no CPU tensors), merge and compute
+there, and leave the host rows in place again afterwards. ``forward``
+computes its batch value with the offload off.
+
 Left for later slices of the port: the dispatch engine and fused programs,
-deferred dispatch, ``update_many``/``forward_many``, ``as_functions``,
-``compute_on_cpu``, and the sync planes beyond the core (retries,
-deadlines, membership, degraded tiers, ``sync_async``).
+deferred dispatch, ``update_many``/``forward_many`` and ``as_functions``.
 """
 from __future__ import annotations
 
@@ -52,15 +73,25 @@ import torch
 from torch import Tensor, nn
 
 from metrics_tpu_torch.ops import faults as _faults
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.parallel import bucketing as _bucketing
 from metrics_tpu_torch.parallel import sync as _psync
 from metrics_tpu_torch.parallel.reductions import resolve_reduction
-from metrics_tpu_torch.parallel.sync import distributed_available as _distributed_available
 from metrics_tpu_torch.parallel.sync import gather_all_tensors
 from metrics_tpu_torch.utils import checks as _checks
 from metrics_tpu_torch.utils.data import _flatten, apply_to_collection, dim_zero_cat
-from metrics_tpu_torch.utils.exceptions import MetricsUserError
+from metrics_tpu_torch.utils.exceptions import MetricsUserError, SyncConfigFault, SyncFault
 from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+
+#: What ``sync()``, ``compute()`` and a suite's ``compute()`` ask, by default, before they sync: more than
+#: one process. Looked up at each call, so a caller may replace it, as the JAX package's tests replace its
+#: ``metric._dist_available``, to make a world of one sync (its gather is the identity).
+_dist_available = _psync.distributed_available
+
+
+def _distributed_available() -> bool:
+    return _dist_available()
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -86,6 +117,79 @@ def _squeeze_scalar(value: Any) -> Any:
     return value
 
 
+def _degradable_sync_failure(exc: BaseException) -> bool:
+    """Whether a failed sync may drop to the degraded tier: a transport fault,
+    a timeout or a fenced epoch may; a configuration fault never does."""
+    return isinstance(exc, SyncFault) and not isinstance(exc, SyncConfigFault)
+
+
+def _note_degraded_serve(owner: Any) -> None:
+    """Count one local-only value served while ``owner``'s ``sync-degrade`` lane is down."""
+    object.__setattr__(owner, "_degraded_serves", owner.__dict__.get("_degraded_serves", 0) + 1)
+    _psync.note_degraded_serve("local")
+    if _telemetry.armed:
+        _telemetry.emit("sync-degrade-serve", owner, "sync", attrs={"serves": owner.__dict__["_degraded_serves"]})
+
+
+def _note_quorum_serve(owner: Any, survivors: List[int]) -> None:
+    """Count one value merged over the surviving ranks while ``owner``'s ``sync-degrade`` lane is down."""
+    object.__setattr__(owner, "_quorum_serves", owner.__dict__.get("_quorum_serves", 0) + 1)
+    _psync.note_degraded_serve("quorum")
+    if _telemetry.armed:
+        _telemetry.emit(
+            "sync-quorum-serve", owner, "sync",
+            attrs={"serves": owner.__dict__["_quorum_serves"], "epoch": _psync.world_epoch(),
+                   "survivors": list(survivors)},
+        )
+
+
+def _enter_degraded(owner: Any, exc: BaseException, tier: str = "local") -> None:
+    """Demote ``owner``'s ``sync-degrade`` lane (the failure was counted where
+    it was raised), stamp the onset for ``sync_health()`` and warn once."""
+    serves = (
+        "the surviving-QUORUM aggregate (the subgroup of ranks still alive; local-only if no quorum is known)"
+        if tier == "quorum"
+        else "the LOCAL-ONLY value"
+    )
+    _faults.demote(
+        owner,
+        "sync-degrade",
+        exc,
+        default_domain="sync",
+        tier="eager",
+        site="sync-degrade",
+        count=False,
+        warn=(
+            f"Distributed sync failed for `{type(owner).__name__}` and METRICS_TPU_SYNC_DEGRADED={tier} is set: "
+            f"compute() now serves {serves} (staleness metadata in sync_health()) until the sync-degrade lane's "
+            "recovery edge re-probes the transport."
+        ),
+    )
+    object.__setattr__(owner, "_degraded_since_step", _faults.current_step())
+
+
+def _stamp_last_good(nodes: List[Any], step: int) -> None:
+    """A sync over the whole world: every node's last good step, and no degradation onset."""
+    for n in nodes:
+        object.__setattr__(n, "_last_good_sync_step", step)
+        if n.__dict__.get("_degraded_since_step") is not None:
+            object.__setattr__(n, "_degraded_since_step", None)
+
+
+def _inflight_block(fut: Any) -> Optional[Dict[str, Any]]:
+    if fut is None:
+        return None
+    return {"age_steps": fut.age_steps(), "dispatch_epoch": fut.dispatch_epoch, "dispatch_step": fut.dispatch_step,
+            "quant_tier": fut.quant_tier, "done": fut.done()}
+
+
+def _fault_domain_counts() -> Dict[str, int]:
+    counts: Dict[str, int] = {}
+    for entry in _faults.fault_stats()["failure_log"]:
+        counts[entry["domain"]] = counts.get(entry["domain"], 0) + 1
+    return counts
+
+
 class Metric(nn.Module, ABC):
     """Base class for all metrics.
 
@@ -97,6 +201,9 @@ class Metric(nn.Module, ABC):
     Args:
         device: where the states live. ``None`` means the current CUDA device,
             and raises when there is none; pass ``"cpu"`` to run on the CPU.
+        compute_on_cpu: move the list states' rows to host memory after each
+            update, to free device memory; ``sync()`` and ``compute()`` bring
+            them back to ``device`` first.
         dist_sync_on_step: sync the batch state across processes in ``forward``.
         process_group: the ``torch.distributed.ProcessGroup`` to sync over;
             None means the default group.
@@ -132,6 +239,7 @@ class Metric(nn.Module, ABC):
         self,
         *,
         device: Union[str, torch.device, None] = None,
+        compute_on_cpu: bool = False,
         dist_sync_on_step: bool = False,
         process_group: Optional[Any] = None,
         dist_sync_fn: Optional[Callable] = None,
@@ -141,12 +249,15 @@ class Metric(nn.Module, ABC):
         super().__init__()
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {sorted(kwargs)}")
+        if not isinstance(compute_on_cpu, bool):
+            raise ValueError(f"Expected `compute_on_cpu` to be a bool, got {compute_on_cpu}")
         if not isinstance(dist_sync_on_step, bool):
             raise ValueError(f"Expected `dist_sync_on_step` to be a bool, got {dist_sync_on_step}")
         if dist_sync_fn is not None and not callable(dist_sync_fn):
             raise ValueError(f"Expected `dist_sync_fn` to be callable or None, got {dist_sync_fn}")
         if not isinstance(sync_on_compute, bool):
             raise ValueError(f"Expected `sync_on_compute` to be a bool, got {sync_on_compute}")
+        self.compute_on_cpu = compute_on_cpu
         self.dist_sync_on_step = dist_sync_on_step
         self.process_group = _psync.check_group(process_group)
         self.dist_sync_fn = dist_sync_fn
@@ -253,8 +364,68 @@ class Metric(nn.Module, ABC):
                     update(*args, **kwargs)
             finally:
                 _checks._check_owner = prev_owner
+            if not (self.compute_on_cpu and self._move_list_states_to_host()):
+                self._fault_note_clean()  # a clean update: a step toward every demoted lane's recovery edge
 
         return wrapped
+
+    # host offload health: its own ladder lane, a failed move keeps the rows on the device
+    _host_offload_ok: bool = True
+
+    def _move_list_states_to_host(self) -> bool:
+        """Move every list state's rows to host memory (``compute_on_cpu``).
+
+        Staged: every row is copied before any state is set, so a failure
+        leaves no state half moved. A failure (fault site ``host-offload``)
+        demotes the ``host`` lane: the rows stay on the device and clean
+        updates re-promote it. Returns True when this call demoted the lane."""
+        if not self._host_offload_ok:
+            return False
+        try:
+            if _faults.armed:
+                _faults.maybe_fail("host-offload")
+            moved = {name: [v.cpu() for v in getattr(self, name)]
+                     for name in self._defaults if isinstance(getattr(self, name), list)}
+        except Exception as exc:  # noqa: BLE001 - classified; the states untouched
+            _faults.demote(
+                self,
+                "host",
+                exc,
+                default_domain="host",
+                site="host-offload",
+                warn=(
+                    f"Host offload (compute_on_cpu) for `{type(self).__name__}` raised {type(exc).__name__}: {exc}."
+                    " Keeping list states on device for this instance; the degradation ladder re-probes the"
+                    " offload after clean steps."
+                ),
+            )
+            self._host_offload_ok = False
+            return True
+        for name, rows in moved.items():
+            setattr(self, name, rows)
+        return False
+
+    def _fault_note_clean(self, n: int = 1) -> None:
+        """``n`` clean steps for every demoted lane; the lanes whose recovery edge fires are promoted
+        (JAX `metric.py:783`). One dict lookup when no lane was ever demoted."""
+        ladders = self.__dict__.get("_fault_ladders")
+        if not ladders:
+            return
+        for lane, lad in list(ladders.items()):
+            if lad.demoted and lad.note_clean(n):
+                lad.promote()
+                if lane == "host":
+                    self._host_offload_ok = True
+
+    def _lift_host_rows(self) -> None:
+        """Bring list-state rows held on the host (``compute_on_cpu``) back to this
+        metric's device, for a sync or a compute there."""
+        if not self.compute_on_cpu or self._device.type == "cpu":
+            return
+        for name in self._defaults:
+            value = getattr(self, name)
+            if isinstance(value, list) and any(v.device != self._device for v in value):
+                setattr(self, name, [v.to(self._device) for v in value])
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
@@ -267,13 +438,74 @@ class Metric(nn.Module, ABC):
                 )
             if self._computed is not None:
                 return self._computed
-            # synced for this call only: the local states come back on exit
-            with self.sync_context(
-                dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
-            ):
-                with torch.no_grad():
-                    self._computed = _squeeze_scalar(compute(*args, **kwargs))
-            return self._computed
+            # compute() forces an in-flight sync; a fault there takes the degraded tier a blocking sync's would
+            pending = self.__dict__.get("_pending_sync")
+            forced_async = False
+            if pending is not None:
+                pending_tier = _psync.sync_degraded_tier()
+                try:
+                    pending.wait()
+                    _psync._bump("sync_async_auto_forces")
+                    forced_async = self._is_synced
+                except Exception as exc:  # noqa: BLE001 - degradable sync faults only
+                    if not (pending_tier is not None and _degradable_sync_failure(exc) and not self._is_synced):
+                        raise
+                    _enter_degraded(self, exc, pending_tier)
+            should_sync = self._to_sync
+            # while the sync-degrade lane is down: the local value, or the survivors' merge;
+            # each serve is a clean step, and the recovery edge tries the full world on this call
+            degraded_tier = _psync.sync_degraded_tier() if should_sync else None
+            quorum_group: Optional[List[int]] = None
+            if degraded_tier is not None:
+                lad = self.__dict__.get("_fault_ladders", {}).get("sync-degrade")
+                if lad is not None and lad.demoted:
+                    if lad.note_clean():
+                        lad.promote()
+                    else:
+                        quorum_group = _psync.surviving_members() if degraded_tier == "quorum" else None
+                        if quorum_group is None:
+                            should_sync = False
+                            _note_degraded_serve(self)
+
+            def _compute_under_sync(do_sync: bool, group: Optional[List[int]] = None) -> Any:
+                # synced for this call only: the local states come back on exit
+                with self.sync_context(dist_sync_fn=self.dist_sync_fn, process_group=group, should_sync=do_sync,
+                                       should_unsync=self._should_unsync):
+                    with torch.no_grad():
+                        self._computed = _squeeze_scalar(compute(*args, **kwargs))
+                return self._computed
+
+            host_rows = self._state_snapshot() if self.compute_on_cpu else None
+            self._lift_host_rows()
+            try:
+                try:
+                    value = _compute_under_sync(should_sync, quorum_group)
+                    if quorum_group is not None:
+                        _note_quorum_serve(self, quorum_group)
+                    if forced_async and self._should_unsync and self._is_synced:
+                        self.unsync()  # as the blocking auto-sync leaves it: the local states back
+                    return value
+                except Exception as exc:  # noqa: BLE001 - only degradable sync faults are served
+                    if not (degraded_tier is not None and should_sync and _degradable_sync_failure(exc)
+                            and not self._is_synced):
+                        raise
+                    _enter_degraded(self, exc, degraded_tier)
+                    if quorum_group is None and degraded_tier == "quorum":
+                        survivors = _psync.surviving_members()
+                        if survivors is not None:
+                            try:
+                                value = _compute_under_sync(True, survivors)
+                                _note_quorum_serve(self, survivors)
+                                return value
+                            except Exception as exc2:  # noqa: BLE001 - degradable only
+                                if not (_degradable_sync_failure(exc2) and not self._is_synced):
+                                    raise
+                                _enter_degraded(self, exc2, degraded_tier)
+                    _note_degraded_serve(self)
+                    return _compute_under_sync(False)
+            finally:
+                if host_rows is not None and not self._is_synced:
+                    self._restore_state(host_rows)
 
         return wrapped
 
@@ -298,11 +530,13 @@ class Metric(nn.Module, ABC):
         """Two updates: for metrics whose update reads the state it accumulates into."""
         entry_state = self._state_snapshot()
         entry_count = self._update_count
+        compute_on_cpu = self.compute_on_cpu
         try:
             self.update(*args, **kwargs)
             update_count = self._update_count
             self._to_sync = self.dist_sync_on_step
             self._should_unsync = False
+            self.compute_on_cpu = False  # the batch value's rows stay where they are made
             cache = self._state_snapshot()
             self.reset()
             self.update(*args, **kwargs)
@@ -320,6 +554,7 @@ class Metric(nn.Module, ABC):
             self._should_unsync = True
             self._to_sync = self.sync_on_compute
             self._computed = None
+            self.compute_on_cpu = compute_on_cpu
         return batch_val
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
@@ -329,6 +564,7 @@ class Metric(nn.Module, ABC):
         self.reset()
         self._to_sync = self.dist_sync_on_step
         self._should_unsync = False
+        compute_on_cpu, self.compute_on_cpu = self.compute_on_cpu, False
         try:
             self.update(*args, **kwargs)
             batch_val = self.compute()
@@ -344,6 +580,7 @@ class Metric(nn.Module, ABC):
             self._should_unsync = True
             self._to_sync = self.sync_on_compute
             self._computed = None
+            self.compute_on_cpu = compute_on_cpu
         return batch_val
 
     def _reduce_states(self, incoming_state: Dict[str, Any]) -> None:
@@ -474,6 +711,14 @@ class Metric(nn.Module, ABC):
         failure the local states are restored, the failure is counted in its
         fault domain, and it is raised.
         """
+        if should_sync and self.__dict__.get("_pending_sync") is not None:
+            raise MetricsUserError(
+                "A sync is already in flight for this Metric (sync_async); force it with wait() or compute() before"
+                " syncing again."
+            )
+        if should_sync:
+            # collectives pair by issue order: other owners' syncs in flight land before this one packs
+            _psync.drain_inflight()
         if self._is_synced and should_sync:
             raise MetricsUserError("The Metric has already been synced.")
         is_distributed = distributed_available() if callable(distributed_available) else None
@@ -481,8 +726,12 @@ class Metric(nn.Module, ABC):
             return
         if dist_sync_fn is None:
             dist_sync_fn = self.dist_sync_fn or gather_all_tensors
+        group = process_group if process_group is not None else self.process_group
+        if isinstance(group, (list, tuple)):
+            _psync.validate_group_live(group)  # a list of ranks (the quorum tier's survivors)
         self._canonicalize_list_states()
         self._cache = self._state_snapshot()
+        self._lift_host_rows()  # the snapshot keeps the host rows for unsync
         try:
             if not self._sync_coalesced(dist_sync_fn, process_group):
                 self._sync_dist(dist_sync_fn, process_group=process_group)
@@ -500,13 +749,120 @@ class Metric(nn.Module, ABC):
                     child.unsync()
             _faults.note_fault(_faults.classify(exc, "sync"), site="sync", owner=self, error=exc)
             raise
-        if process_group is None and self.process_group is None:
-            _faults.tick()  # a completed sync over the whole world is one monotonic event
+        # a sync over the whole world is the tree's last good sync; a subgroup's (the quorum
+        # tier's) stamps nothing: its values still leave out the dead ranks
+        if _psync.is_full_world_group(group):
+            _stamp_last_good(_bucketing.tree_nodes(self), _faults.tick())
+
+    def sync_async(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = _distributed_available,
+    ) -> Optional["_psync.SyncFuture"]:
+        """Dispatch this metric tree's sync without waiting for it.
+
+        The packed payload collective runs on the dispatcher thread while the
+        caller goes on updating; the pack is a copy of the states at dispatch.
+        Returns a :class:`~metrics_tpu_torch.parallel.sync.SyncFuture`: force it
+        with ``wait()``, or let ``compute()`` force it. The forced states are
+        those a blocking sync at dispatch would give; updates made in flight
+        stay local and come back with ``unsync()``. The force checks the epoch
+        fence again: a future from a world that changed raises
+        :class:`EpochFault`. None when there is nothing to sync. A tree the
+        packed protocol cannot carry (a custom gather, a demoted ``sync-pack``
+        lane, states it cannot pack) syncs blocking here and returns a
+        completed future."""
+        if self.__dict__.get("_pending_sync") is not None:
+            raise MetricsUserError(
+                "A sync is already in flight for this Metric; force it with wait() or compute() before"
+                " dispatching another."
+            )
+        if self._is_synced and should_sync:
+            raise MetricsUserError("The Metric has already been synced.")
+        is_distributed = distributed_available() if callable(distributed_available) else None
+        if not should_sync or not is_distributed:
+            return None
+        resolved_fn = dist_sync_fn or self.dist_sync_fn or gather_all_tensors
+        lad = self.__dict__.get("_fault_ladders", {}).get("sync-pack")
+        nodes = _bucketing.tree_nodes(self)
+        group = process_group if process_group is not None else self.process_group
+        eligible = (
+            resolved_fn is gather_all_tensors
+            and not (lad is not None and lad.demoted)
+            and not any(n._is_synced or n.compute_on_cpu for n in nodes)  # host rows sync blocking
+            and (process_group is not None or not any(n.process_group is not self.process_group for n in nodes[1:]))
+        )
+        if eligible:
+            for n in nodes:
+                n._canonicalize_list_states()
+            eligible = _bucketing.coalescible(nodes)
+
+        def _blocking_fallback() -> "_psync.SyncFuture":
+            # registered like a live future, so that compute() unsyncs after serving
+            _psync._bump("sync_async_fallbacks")
+            self.sync(dist_sync_fn=dist_sync_fn, process_group=process_group, should_sync=should_sync,
+                      distributed_available=distributed_available)
+            done_fut = _psync.SyncFuture.completed(self)
+            object.__setattr__(self, "_pending_sync", done_fut)
+            return done_fut
+
+        if not eligible:
+            return _blocking_fallback()
+        try:
+            disp = _bucketing.dispatch_coalesced_sync(nodes, group=group, owner=self)
+        except _bucketing.CoalesceError as err:
+            if not _bucketing.should_fallback(err):
+                _faults.note_fault(_faults.classify(err.original, "sync"), site="sync", owner=self, error=err.original)
+                raise err.original from err
+            _bucketing.handle_coalesce_failure(
+                self, [(n, n._state_snapshot()) for n in nodes], err,
+                warn=(f"Async coalesced sync failed at dispatch for {type(self).__name__}; the blocking per-state"
+                      " protocol runs instead (bit-exact)."),
+            )
+            return _blocking_fallback()
+        if disp is None:
+            return _psync.SyncFuture.completed(self)
+
+        def _force() -> None:
+            object.__setattr__(self, "_pending_sync", None)
+            try:
+                snaps = _bucketing.force_coalesced_sync(disp)
+            except _bucketing.CoalesceError as err:
+                if not _bucketing.should_fallback(err):
+                    _faults.note_fault(_faults.classify(err.original, "sync"), site="sync", owner=self,
+                                       error=err.original)
+                    raise err.original from err
+                _bucketing.handle_coalesce_failure(
+                    self, [(n, n._state_snapshot()) for n in nodes], err,
+                    warn=(f"Async coalesced sync failed at force for {type(self).__name__}; replaying the"
+                          " blocking per-state protocol (bit-exact)."),
+                )
+                self.sync(dist_sync_fn=dist_sync_fn, process_group=process_group, should_sync=True,
+                          distributed_available=distributed_available)
+                return
+            except Exception as exc:
+                _faults.note_fault(_faults.classify(exc, "sync"), site="sync", owner=self, error=exc)
+                raise
+            # the states from just before the apply (updates made in flight) become the unsync caches
+            for n, snap in snaps:
+                n._cache = snap
+                n._is_synced = True
+            if _psync.is_full_world_group(group):
+                _stamp_last_good(nodes, _faults.tick())
+
+        fut = _psync.SyncFuture(self, _force, done=disp.done, quant_tier=disp.ctx.quant_tier)
+        object.__setattr__(self, "_pending_sync", fut)
+        return fut
 
     def unsync(self, should_unsync: bool = True) -> None:
         """Restore the local states from before :meth:`sync` (reference `metric.py:452-472`)."""
         if not should_unsync:
             return
+        fut = self.__dict__.get("_pending_sync")
+        if fut is not None and (fut._forced or fut._cancelled):
+            object.__setattr__(self, "_pending_sync", None)  # a spent future must not block the next sync
         if not self._is_synced:
             raise MetricsUserError("The Metric has already been un-synced.")
         if self._cache is None:
@@ -526,6 +882,10 @@ class Metric(nn.Module, ABC):
             self._presynced = False
 
         def __enter__(self) -> "Metric":
+            # syncs in flight land first: a member computing while its collection's sync is in
+            # flight then finds itself synced by the suite's rows
+            if self.kwargs.get("should_sync", True):
+                _psync.drain_inflight()
             # a metric synced before (by its collection's suite sync) computes on
             # the synced states and leaves the unsync to whoever synced it
             self._presynced = self.metric._is_synced
@@ -553,6 +913,26 @@ class Metric(nn.Module, ABC):
             should_sync=should_sync,
             distributed_available=distributed_available,
         )
+
+    def sync_health(self) -> Dict[str, Any]:
+        """How stale this metric's distributed value may be: whether it serves
+        a degraded value, the tier, the world epoch, the monotonic step of the
+        last sync over the whole world (None before any) and of the
+        degradation's onset, the serves of each tier, the sync in flight (its
+        age, dispatch epoch and step, quantization tier, whether it landed)
+        and the failure log's faults by domain."""
+        lad = self.__dict__.get("_fault_ladders", {}).get("sync-degrade")
+        return {
+            "degraded": bool(lad is not None and lad.demoted),
+            "degraded_tier": _psync.sync_degraded_tier(),
+            "epoch": _psync.world_epoch(),
+            "last_good_sync_step": self.__dict__.get("_last_good_sync_step"),
+            "degraded_since_step": self.__dict__.get("_degraded_since_step"),
+            "degraded_serves": self.__dict__.get("_degraded_serves", 0),
+            "quorum_serves": self.__dict__.get("_quorum_serves", 0),
+            "inflight": _inflight_block(self.__dict__.get("_pending_sync")),
+            "fault_domain_counts": _fault_domain_counts(),
+        }
 
     # ---------------------------------------------------------------- journal
     def save_state(self, path: str) -> int:
@@ -599,7 +979,12 @@ class Metric(nn.Module, ABC):
 
     # ------------------------------------------------------------- lifecycle
     def reset(self) -> None:
-        """Reset every state to its default (reference `metric.py:547-562`)."""
+        """Reset every state to its default (reference `metric.py:547-562`). A
+        sync in flight is cancelled: its rows must not land on the reset states."""
+        fut = self.__dict__.get("_pending_sync")
+        if fut is not None:
+            fut.cancel()
+            object.__setattr__(self, "_pending_sync", None)
         self._update_count = 0
         self._forward_cache = None
         self._computed = None
@@ -616,7 +1001,7 @@ class Metric(nn.Module, ABC):
         # the wrapped bound methods close over this instance: re-wrapped on restore;
         # pickled rows are canonical, as in a checkpoint
         self._canonicalize_list_states()
-        return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute")}
+        return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute", "_pending_sync")}
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         super().__setstate__(state)

@@ -51,6 +51,7 @@ from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 __all__ = [
     "FAULT_SITES",
+    "INSTRUMENTED_SITES",
     "Ladder",
     "TIERS",
     "armed",
@@ -78,9 +79,12 @@ TIERS = ("fused", "chunked", "eager", "host")
 #: The named injection sites, as in the JAX package. The port instruments
 #: ``sync-pack`` (the entry of the coalesced sync's pack phase, before any
 #: collective), ``sync-gather`` (before a gather's collectives),
+#: ``epoch-fence`` (the epoch check before each collective),
+#: ``host-offload`` (before ``compute_on_cpu`` moves rows to the host),
 #: ``journal-write`` (before a record's temporary file is written) and
 #: ``journal-load`` (before a stored record is read). The others belong to
 #: planes not ported yet (``ROADMAP.md`` names each one's plane).
+#: Instrumented in the port: :data:`INSTRUMENTED_SITES`.
 FAULT_SITES = (
     "probe",
     "compile",
@@ -98,6 +102,8 @@ FAULT_SITES = (
     "ingest-shed",
     "autotune-sweep",
 )
+
+INSTRUMENTED_SITES = ("sync-gather", "sync-pack", "epoch-fence", "host-offload", "journal-write", "journal-load")
 
 _SITE_DEFAULT_EXC = {
     "probe": TraceFault,

@@ -38,6 +38,12 @@ makes one host-to-device copy onto the metrics' own device, and the restored
 states are views into that one buffer. A record carries no device, so a
 record written from CUDA states loads into CPU metrics and the reverse.
 
+World stamps (JAX ``world_meta``/``restored_meta`` `:480-502`): every saved
+manifest carries the world epoch, the owner's last good sync step and the
+monotonic step; ``MetricCollection.checkpoint_barrier`` adds the agreed
+``barrier_step``, ``world_size`` and ``barrier``. A load keeps the stamps of
+the record it restored for ``MetricCollection.rejoin`` (:func:`restored_meta`).
+
 Fault sites: ``journal-write`` fires before the temporary file is written
 (the ring stays byte-identical), ``journal-load`` before a stored record is
 read. ``MetricCollection.journal(path, every_n)`` saves every ``every_n``
@@ -70,9 +76,11 @@ __all__ = [
     "pack_record",
     "read_record",
     "restore_nodes",
+    "restored_meta",
     "save_nodes",
     "stage_states",
     "unpack_raw_record",
+    "world_meta",
     "write_record",
 ]
 
@@ -428,14 +436,45 @@ def read_record(path: str) -> Tuple[Dict[str, Any], bytes]:
 
 
 # ---------------------------------------------------------------- owner-level
+#: The manifest stamps a rejoin reads back.
+_META_KEYS = ("epoch", "last_good_sync_step", "monotonic_step", "barrier_step", "world_size", "barrier")
+
+
+def world_meta(owner: Any) -> Dict[str, Any]:
+    """The membership stamps of one save: the world epoch, the owner's last
+    good sync step and the monotonic step."""
+    from metrics_tpu_torch.parallel import sync as _sync
+
+    return {
+        "epoch": _sync.world_epoch(),
+        "last_good_sync_step": owner.__dict__.get("_last_good_sync_step"),
+        "monotonic_step": _faults.current_step(),
+    }
+
+
+def manifest_meta(manifest: Dict[str, Any]) -> Dict[str, Any]:
+    """The membership stamps a manifest carries."""
+    return {k: manifest[k] for k in _META_KEYS if k in manifest}
+
+
+def restored_meta(owner: Any) -> Dict[str, Any]:
+    """The membership stamps of the record ``owner`` last restored (empty before any load)."""
+    return dict(owner.__dict__.get("_journal_meta") or {})
+
+
 def save_nodes(owner: Any, nodes: Sequence[Any], path: str, manifest_extra: Optional[Dict[str, Any]] = None) -> int:
     """Save ``nodes`` to ``path``, rotating the ring; returns the record's bytes.
-    A failure is counted and raised as :class:`JournalFault`, the ring intact."""
+    The manifest carries :func:`world_meta`'s stamps, and ``manifest_extra``,
+    which wins where they overlap. A failure is counted and raised as
+    :class:`JournalFault`, the ring intact."""
     t0 = _telemetry.now() if _telemetry.armed else 0.0
     try:
         for n in nodes:
             n._canonicalize_list_states()
-        data = pack_record(nodes, manifest_extra=manifest_extra)
+        extra = world_meta(owner)
+        if manifest_extra:
+            extra.update(manifest_extra)
+        data = pack_record(nodes, manifest_extra=extra)
         write_record(path, data)
     except Exception as exc:  # noqa: BLE001 - classified and raised
         _faults.note_fault(_faults.classify(exc, "journal"), site="journal-write", owner=owner, error=exc)
@@ -466,6 +505,7 @@ def load_nodes(owner: Any, nodes: Sequence[Any], path: str) -> int:
         try:
             manifest, payload = read_record(gpath)
             restore_nodes(nodes, manifest, payload)
+            object.__setattr__(owner, "_journal_meta", manifest_meta(manifest))
         except Exception as exc:  # noqa: BLE001 - demote to the previous generation
             last = exc
             _counters["journal_load_demotions"] += 1

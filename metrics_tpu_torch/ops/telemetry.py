@@ -25,12 +25,12 @@ deployment configures and scrapes both packages the same way. Three layers:
 
 Faces: :func:`snapshot` (alias ``telemetry_snapshot``), one merged dict of
 the planes the port has (faults, collectives, journal, recorder, latency,
-SLO, and a ``sync_health`` block); :func:`prometheus_text`, its Prometheus
-text exposition; :func:`trace_events` and :func:`export_trace`, the ring as
+SLO, and a ``sync_health`` block with world membership and the syncs in
+flight); :func:`prometheus_text`, its Prometheus text exposition;
+:func:`trace_events` and :func:`export_trace`, the ring as
 Chrome-trace/Perfetto JSON. Keys of the JAX snapshot that belong to planes
-not ported yet (the dispatch engine and its program ledger, in-flight async
-syncs, world membership, streaming, ingestion) are absent; ``ROADMAP.md``
-lists them.
+not ported yet (the dispatch engine and its program ledger, streaming,
+ingestion) are absent; ``ROADMAP.md`` lists them.
 """
 from __future__ import annotations
 
@@ -86,9 +86,9 @@ SPAN_SITES = {
     "sync-payload-gather": "coalesced payload all-gather",
     "sync-unpack": "coalesced unpack + reduce",
     "sync-gather": "per-state gather_all_tensors exchange (shape + payload)",
-    "sync-dispatch": "async sync dispatched (not ported yet)",
-    "sync-force": "async sync forced (not ported yet)",
-    "sync-quantize": "quantized payload lane encode (not ported yet)",
+    "sync-dispatch": "async sync dispatched: pack + handoff to the dispatcher thread",
+    "sync-force": "async sync forced: wait-for-wire + fence re-check + apply",
+    "sync-quantize": "quantized payload lane encode (METRICS_TPU_SYNC_QUANT)",
     "sync-timeout": "a blocking collective hit the watchdog deadline (instant)",
     "sync-degrade-serve": "compute() served a local-only degraded value (instant)",
     "sync-quorum-serve": "compute() served the surviving-quorum aggregate (instant)",
@@ -147,6 +147,7 @@ SYNC_PHASE_SITES = (
 armed: bool = os.environ.get("METRICS_TPU_TELEMETRY", "1") not in ("0", "false", "off")
 
 _DEFAULT_CAP = 4096
+_TRANSITIONS_CAP = 32  # membership transitions a snapshot's sync_health carries
 
 
 class _TelemetryWarnOwner:
@@ -581,7 +582,9 @@ def snapshot() -> Dict[str, Any]:
         >>> snap["snapshot_schema"]
         1
         >>> sorted(snap["sync_health"])  # doctest: +NORMALIZE_WHITESPACE
-        ['fault_domain_counts', 'last_good_sync_step', 'monotonic_step', 'slo_violations']
+        ['consecutive_timeouts', 'dead_ranks', 'degraded', 'epoch', 'fault_domain_counts', 'inflight',
+         'last_good_sync_step', 'monotonic_step', 'slo_violations', 'sync_deadline_timeouts',
+         'sync_degraded_serves', 'sync_quorum_serves', 'transitions']
     """
     from metrics_tpu_torch.ops import faults as _faults
     from metrics_tpu_torch.ops import journal as _journal
@@ -597,13 +600,24 @@ def snapshot() -> Dict[str, Any]:
     domain_counts: Dict[str, int] = {}
     for entry in out.get("failure_log", ()):
         domain_counts[entry["domain"]] = domain_counts.get(entry["domain"], 0) + 1
-    last_good = _psync.last_good_sync_step()
+    wh = _psync.world_health()
+    last_good = wh["last_good_sync_step"]
     out["sync_health"] = {
         "monotonic_step": _step_provider(),
+        "degraded": bool(wh["degraded"]),
+        "epoch": int(wh["epoch"]),
+        "dead_ranks": len(wh["dead_ranks"]),
+        "consecutive_timeouts": int(wh["consecutive_timeouts"]),
         # -1: no sync has completed yet (None would drop out of the exposition)
         "last_good_sync_step": -1 if last_good is None else int(last_good),
+        "sync_degraded_serves": out.get("sync_degraded_serves", 0),
+        "sync_quorum_serves": out.get("sync_quorum_serves", 0),
+        "sync_deadline_timeouts": out.get("sync_deadline_timeouts", 0),
         "slo_violations": sum(_slo_violations.values()),
         "fault_domain_counts": domain_counts,
+        "inflight": _psync.inflight_stats(),
+        # the membership transitions, each with its monotonic step, newest _TRANSITIONS_CAP
+        "transitions": [dict(t) for t in wh["transitions"][-_TRANSITIONS_CAP:]],
     }
     out["sync_phase_stats"] = sync_phase_stats()
     out[_HIST_SNAPSHOT_KEY] = latency_stats()

@@ -2,20 +2,24 @@
 from metrics_tpu_torch.parallel.collectives import sync_array, sync_pytree
 from metrics_tpu_torch.parallel.reductions import resolve_reduction
 from metrics_tpu_torch.parallel.sync import (
+    SyncFuture,
     class_reduce,
     collective_stats,
     distributed_available,
     gather_all_tensors,
+    inflight_stats,
     reduce,
     reset_collective_stats,
     world_size,
 )
 
 __all__ = [
+    "SyncFuture",
     "class_reduce",
     "collective_stats",
     "distributed_available",
     "gather_all_tensors",
+    "inflight_stats",
     "reduce",
     "reset_collective_stats",
     "resolve_reduction",

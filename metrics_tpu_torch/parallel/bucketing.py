@@ -2,10 +2,13 @@
 
 JAX counterpart: `metrics_tpu/parallel/bucketing.py` (``tree_nodes`` `:132`,
 ``coalescible`` `:152`, ``_collect`` `:237`, ``_to_bytes``/``_from_bytes``
-`:276-295`, ``_pack`` `:503`, ``_pack_phase`` `:606`, the flat
-``_payload_exchange`` `:702`, ``_finish`` `:852`, ``coalesced_sync_nodes``
-`:959`, ``apply_gathered_states`` `:1148`), without its opt-in lanes
-(asynchronous dispatch, quantized and hierarchical payloads).
+`:276-295`, the quantized wire ``_entry_nbytes``/``_decode_static``/
+``_quant_encode`` `:297-395`, the seams `:402-500`, ``agree_step`` `:420`,
+``_pack`` `:503`, ``_ProtocolCtx``/``_guarded``/``_pack_phase``/
+``_node_reduce``/``_payload_exchange``/``_make_attempt``/``_finish``
+`:581-958`, ``coalesced_sync_nodes`` `:959`, the asynchronous
+``dispatch_coalesced_sync``/``force_coalesced_sync`` `:1007-1123`,
+``apply_gathered_states`` `:1148`).
 
 The per-state protocol (:func:`metrics_tpu_torch.parallel.sync.gather_all_tensors`
 for each state) costs two collectives a state. This one:
@@ -14,7 +17,8 @@ for each state) costs two collectives a state. This one:
   exact for every dtype) into one flat ``uint8`` buffer on the states'
   device. Each entry starts at a multiple of ``ALIGN`` bytes, so its slice
   of the gathered buffer can be viewed back as any dtype. The layout is
-  built on the host from shapes and dtypes alone.
+  built on the host from shapes and dtypes alone. ``torch.cat`` makes the
+  buffer a copy, so the states may change while it is in flight.
 - **Exchanges** the buffer in one ``all_gather``. Tensor states have the same
   shape on every process, so their byte ranges follow from the layout: no
   shape exchange (the static lane). In a live process group the first sync
@@ -28,6 +32,30 @@ for each state) costs two collectives a state. This one:
   back to its dtype and applies the same reduction callable as the
   per-state path, to the same contiguous stack, so the two agree bit for
   bit. Every state is set only after the whole unpack has succeeded.
+
+The collective phase is one retried closure (:func:`_make_attempt`): it
+checks the epoch fence, fires the ``sync-gather`` fault site and runs each
+exchange under the deadline; a disagreement of layouts leaves it as a value,
+so that it is never retried, and raises :class:`SyncConfigFault`.
+
+Three lanes ride the packed protocol:
+
+- **Asynchronous** (:func:`dispatch_coalesced_sync`, :func:`force_coalesced_sync`):
+  the pack runs on the caller, the retried collective on the dispatcher
+  thread, on the caller's CUDA stream, and the unpack at the force, which
+  checks the epoch fence again first.
+- **Quantized** (``METRICS_TPU_SYNC_QUANT=bf16|int8``): float tensor states
+  travel as bfloat16, or as int8 with one float32 scale after the values
+  (``max(|x|, 1e-30) / 127``, round half to even), byte for byte the JAX
+  package's wire form; integer, bool and ``cat`` states, and any state
+  whose wire form would not shrink, travel exact.
+- **Hierarchical** (``METRICS_TPU_SYNC_HIER=<processes a node>``): the
+  payload goes through ``_intranode_allgather`` and then only node blocks
+  through ``_internode_allgather``; a layout of integer ``sum`` states is
+  summed within the node first (:func:`_node_reduce`), so the inter-node
+  stage carries one row a node. The seams default to a world of one; in a
+  live world of several processes the lane warns once and takes the flat
+  gather unless both are bound.
 
 A tree that cannot be packed (a node overriding ``_sync_dist``, a list state
 whose spec is not ``cat``, a dtype outside :data:`_DTYPES`, states on more
@@ -43,9 +71,9 @@ at the pack's entry, before any collective. In a live world of more than
 one process only a failure every process meets alike may fall back
 (:func:`should_fallback`); another raises classified, since one process's
 per-state collectives could not pair with the others' payload collective.
-A failed collective raises :class:`SyncFault` as it is. Each phase emits
-its span (``sync-pack``, ``sync-metadata``, ``sync-payload-gather``,
-``sync-unpack``).
+Each phase emits its span (``sync-pack``, ``sync-quantize``,
+``sync-metadata``, ``sync-payload-gather``, ``sync-unpack``,
+``sync-dispatch``, ``sync-force``).
 """
 from __future__ import annotations
 
@@ -58,7 +86,7 @@ from metrics_tpu_torch.ops import faults as _faults
 from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.utils.data import _flatten, dim_zero_cat
-from metrics_tpu_torch.utils.exceptions import SyncConfigFault, SyncFault
+from metrics_tpu_torch.utils.exceptions import EpochFault, SyncConfigFault, SyncFault
 
 ALIGN = 16  # byte alignment of every packed entry: a multiple of every dtype's size
 _MAX_NDIM = 8  # dims a `cat` row may have: its metadata record has room for this many
@@ -84,6 +112,8 @@ _DYN_RECORD = 2 + _MAX_NDIM  # [ndim (-1: empty here), dtype code, dims padded w
 # call; a process that joins a group later than its peers finds a cache they do not share.
 _MANIFEST_CACHE: Dict[tuple, bool] = {}
 _MANIFEST_CACHE_CAP = 512
+#: Carried out of the retried closure when the processes' layouts disagree: never retried.
+_LAYOUT_MISMATCH = object()
 
 
 class CoalesceError(Exception):
@@ -150,9 +180,11 @@ def coalescible(nodes: Sequence[Any]) -> bool:
 class _Entry:
     """One packed state: ``kind`` "static" (a tensor state: same shape on every
     process) or "dyn" (a ``cat`` list state, pre-concatenated; ``shape`` None
-    when this process holds no row)."""
+    when this process holds no row). ``quant`` is a static float state's
+    wire encoding under the quantized lane (None: its exact bytes), and
+    ``wire_nbytes`` its bytes on the wire."""
 
-    __slots__ = ("node_idx", "name", "kind", "spec", "dtype", "shape")
+    __slots__ = ("node_idx", "name", "kind", "spec", "dtype", "shape", "quant", "wire_nbytes")
 
     def __init__(self, node_idx: int, name: str, kind: str, spec: Optional[str], dtype=None, shape=None):
         self.node_idx = node_idx
@@ -161,10 +193,12 @@ class _Entry:
         self.spec = spec
         self.dtype = dtype
         self.shape = shape
+        self.quant: Optional[str] = None
+        self.wire_nbytes: Optional[int] = None
 
     def sig(self) -> tuple:
         if self.kind == "static":
-            return (self.node_idx, self.name, self.kind, self.spec, str(self.dtype), self.shape)
+            return (self.node_idx, self.name, self.kind, self.spec, str(self.dtype), self.shape, self.quant)
         return (self.node_idx, self.name, self.kind, self.spec)
 
 
@@ -177,6 +211,11 @@ def _nbytes(shape: tuple, dtype: torch.dtype) -> int:
     for d in shape:
         n *= int(d)
     return n * dtype.itemsize
+
+
+def _entry_nbytes(e: _Entry) -> int:
+    """A static entry's bytes on the wire: its quantized length, or its raw length."""
+    return int(e.wire_nbytes) if e.quant is not None else _nbytes(e.shape, e.dtype)
 
 
 def _collect(nodes: Sequence[Any]) -> Tuple[List[_Entry], List[Optional[Tensor]]]:
@@ -219,6 +258,73 @@ def _from_bytes(seg: Tensor, shape: tuple, dtype: torch.dtype) -> Tensor:
     return seg.view(dtype).reshape(shape)
 
 
+# ---------------------------------------------------------- quantized wire
+def _quant_bytes(x: Tensor, tier: str) -> Tensor:
+    """One float state's wire bytes: bfloat16 values, or int8 values then their
+    float32 scale, ``max(|x|, 1e-30) / 127`` (JAX `bucketing.py:368-380`)."""
+    if tier == "bf16":
+        return _to_bytes(x.to(torch.bfloat16))
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().max(), min=1e-30) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127.0, 127.0).to(torch.int8)
+    return torch.cat([_to_bytes(q), _to_bytes(scale.reshape(1))])
+
+
+def _decode_static(seg: Tensor, e: _Entry, world: int) -> Tensor:
+    """``(world, *shape)``: a static entry's rows of the gathered buffer,
+    decoded to its dtype (exact bytes; bfloat16 widened; int8 times its scale)."""
+    shape = (world,) + e.shape
+    if e.quant is None:
+        # contiguous, as the per-state path's torch.stack is: the same reduction on the same layout
+        return _from_bytes(seg, shape, e.dtype).contiguous()
+    n = 1
+    for d in e.shape:
+        n *= int(d)
+    if e.quant == "bf16":
+        return _from_bytes(seg[:, : 2 * n], shape, torch.bfloat16).to(e.dtype)
+    q = _from_bytes(seg[:, :n], shape, torch.int8)
+    # the scale follows the values at any offset: copied out before it is viewed as float32
+    scale = seg[:, n : n + 4].contiguous().view(torch.float32).reshape((world,) + (1,) * len(e.shape))
+    return (q.to(torch.float32) * scale).to(e.dtype)
+
+
+def _quant_encode(entries: Sequence[_Entry], values: List[Optional[Tensor]], tier: str, owner: Any) -> None:
+    """Encode, in place, the values of the static float states whose wire form
+    shrinks under ``tier``, marking their entries; every other state stays exact."""
+    lossy: List[int] = []
+    exact = orig_bytes = wire_bytes = 0
+    for i, (e, v) in enumerate(zip(entries, values)):
+        if v is None:
+            continue
+        if e.kind != "static" or not e.dtype.is_floating_point:
+            exact += 1
+            continue
+        full = _nbytes(e.shape, e.dtype)
+        n = full // e.dtype.itemsize
+        wire = 2 * n if tier == "bf16" else n + 4
+        if wire >= full:
+            exact += 1
+            continue
+        e.quant, e.wire_nbytes = tier, wire
+        lossy.append(i)
+        orig_bytes += full
+        wire_bytes += wire
+    _sync._bump("sync_quant_exact_states", exact)
+    if not lossy:
+        return
+    t0 = _telemetry.now() if _telemetry.armed else 0.0
+    for i in lossy:
+        values[i] = _quant_bytes(values[i], tier)
+    _sync._bump("sync_quant_payloads")
+    _sync._bump("sync_quant_lossy_states", len(lossy))
+    _sync._bump("sync_quant_bytes_saved", orig_bytes - wire_bytes)
+    if t0 and _telemetry.armed:
+        _telemetry.emit(
+            "sync-quantize", owner, "sync", t0, _telemetry.now() - t0,
+            {"tier": tier, "states": len(lossy), "bytes_before": orig_bytes, "bytes_after": wire_bytes},
+        )
+
+
 def _pack(entries: Sequence[_Entry], values: Sequence[Optional[Tensor]], device: torch.device):
     """Every value into one aligned ``uint8`` buffer.
 
@@ -232,7 +338,7 @@ def _pack(entries: Sequence[_Entry], values: Sequence[Optional[Tensor]], device:
     pad = None
     for e, v in zip(entries, values):
         if e.kind == "static":
-            static_total = _align(off + _nbytes(e.shape, e.dtype))
+            static_total = _align(off + _entry_nbytes(e))
         if v is None:
             continue
         b = _to_bytes(v)
@@ -259,7 +365,7 @@ def _pack(entries: Sequence[_Entry], values: Sequence[Optional[Tensor]], device:
 
 # ---------------------------------------------------------------- transport
 # Module-level hooks, so that tests can stand in an N-process world for the
-# two collectives; row 0 of what they return is then the caller's own.
+# collectives; row 0 of what they return is then the caller's own.
 def _host_allgather(vec: Tensor, group: Optional[Any]) -> Tensor:
     """Metadata exchange: one small int64 vector from every process, ``(world, k)``."""
     return _sync._all_gather(vec, group) if _sync._live() else vec[None]
@@ -270,17 +376,54 @@ def _payload_allgather(packed: Tensor, group: Optional[Any]) -> Tensor:
     return _sync._all_gather(packed, group) if _sync._live() else packed[None]
 
 
-def _exchange_meta(meta: List[int], device: torch.device, group: Optional[Any]) -> List[List[int]]:
-    rows = _host_allgather(torch.tensor(meta, dtype=torch.int64, device=device), group).tolist()
-    _sync.note_collective("shape")
-    statics = {row[-2] for row in rows}
-    if len(statics) != 1:
-        raise SyncConfigFault(
-            f"the packed layouts of the metric states differ across processes (static bytes {sorted(statics)});"
-            " every process must sync the same metrics, built the same way",
-            site="sync-pack",
-        )
-    return rows
+def _intranode_allgather(packed: Tensor) -> Tensor:
+    """The hierarchical lane's first stage: the buffer from every process of
+    this node, ``(node_size, bytes)``, row 0 the caller's. The default is a
+    node of one; a deployment binds it to its node's group."""
+    return packed[None]
+
+
+def _internode_allgather(block: Tensor) -> Tensor:
+    """The second stage: one block a node, ``(n_nodes, block_bytes)``. A
+    deployment binds it to a gather among node leaders whose result every
+    process of a node receives; the default is the flat payload collective,
+    right only in a world of one."""
+    return _payload_allgather(block, None)
+
+
+_default_intranode_allgather = _intranode_allgather
+_default_internode_allgather = _internode_allgather
+
+
+class _HierWarnOwner:
+    """Warn-once anchor for the hierarchical lane's refusal of unbound seams."""
+
+
+_HIER_FALLBACK_WARN_OWNER = _HierWarnOwner()
+
+
+def agree_step(owner: Any, local_step: int, *, site: str, device: torch.device) -> Dict[str, int]:
+    """Agree one monotonic step across the world: every process calls it, and
+    the largest ``local_step`` is the agreed one. The exchange is
+    epoch-fenced (inside the retried closure and again after it), runs under
+    the deadline and the retry budget. Returns ``{"agreed", "world", "epoch"}``."""
+    fence = _sync.world_epoch()
+    vec_local = torch.tensor([int(local_step)], dtype=torch.int64, device=device)
+
+    def _exchange():
+        _sync.check_epoch(fence, site=site, owner=owner)
+        return _sync.run_with_deadline(lambda: _host_allgather(vec_local, None), site=site)
+
+    vec = _faults.retry_with_backoff(
+        _exchange, attempts=_sync.sync_retries(), base_delay_s=_sync.sync_backoff_s(), owner=owner, site=site
+    )
+    _sync.note_collective("shape", epoch=fence)
+    agreed = int(vec.max())
+    world = int(vec.shape[0])
+    # the cohort answered; while peers are declared dead that is not the full world healing
+    _sync.note_sync_success(world=world, members=_sync.surviving_members())
+    _sync.check_epoch(fence, site=site, owner=owner)
+    return {"agreed": agreed, "world": world, "epoch": fence}
 
 
 def _dyn_layouts(entries: Sequence[_Entry], row: List[int]) -> List[Optional[tuple]]:
@@ -304,26 +447,46 @@ def _dyn_layouts(entries: Sequence[_Entry], row: List[int]) -> List[Optional[tup
 
 
 # ------------------------------------------------------------------ protocol
-def coalesced_sync_nodes(nodes: Sequence[Any], group: Optional[Any] = None, owner: Any = None) -> None:
-    """Sync every state of ``nodes`` with one payload collective (plus one
-    metadata collective where a ``cat`` list state is packed).
+class _ProtocolCtx:
+    """What one protocol instance carries from its pack to its collectives to
+    its unpack: the seam the asynchronous split rides."""
 
-    Every process of ``group`` must call it with the same metrics. States are
-    set only after the whole unpack succeeds, so a failure leaves every
-    node's local state as it was. Raises :class:`CoalesceError` when the pack
-    or the unpack fails, :class:`SyncFault` when a collective fails and
-    :class:`SyncConfigFault` when the processes' layouts differ. ``owner``
-    names the spans (the first node by default).
-    """
+    __slots__ = ("nodes", "owner", "members", "transport", "fence", "entries", "packed", "meta", "meta_vec",
+                 "static_total", "key", "has_dyn", "async_mode", "quant_tier", "node_reducible")
+
+
+def _guarded(ctx: _ProtocolCtx, fn, site: str = "sync-gather"):
+    """One exchange under the guard of its mode: the per-call watchdog when
+    blocking, none on the dispatcher thread (the force is guarded)."""
+    if ctx.async_mode:
+        return _sync.run_inflight(fn, site=site)
+    return _sync.run_with_deadline(fn, site=site)
+
+
+def _group_key(ctx: _ProtocolCtx) -> Any:
+    return tuple(ctx.members) if isinstance(ctx.transport, list) else ctx.transport
+
+
+def _pack_phase(nodes: Sequence[Any], group: Optional[Any], owner: Any = None,
+                async_mode: bool = False) -> Optional[_ProtocolCtx]:
+    """Validate the group, stamp the epoch fence and pack (fault site
+    ``sync-pack``). None when the tree holds no state. Raises
+    :class:`SyncConfigFault` for an invalid group, :class:`CoalesceError`
+    when the pack fails."""
     owner = owner if owner is not None else nodes[0]
+    members = _sync.validate_group_live(group)
+    fence = _sync.world_epoch()
     t_pack = _telemetry.now() if _telemetry.armed else 0.0
     try:
         if _faults.armed:
             _faults.maybe_fail("sync-pack")
         entries, values = _collect(nodes)
         if not entries:
-            return
+            return None
         device = next((v.device for v in values if v is not None), nodes[0].device)
+        quant_tier = _sync.sync_quant_tier()
+        if quant_tier is not None:
+            _quant_encode(entries, values, quant_tier, owner)
         packed, meta, static_total = _pack(entries, values, device)
     except SyncFault:
         raise
@@ -334,73 +497,161 @@ def coalesced_sync_nodes(nodes: Sequence[Any], group: Optional[Any] = None, owne
             "sync-pack", owner, "sync", t_pack, _telemetry.now() - t_pack,
             {"states": len(entries), "bytes": int(packed.numel())},
         )
-    if _faults.armed:
-        _faults.maybe_fail("sync-gather")
-    local_total = meta[-1]
-    dyn_entries = [e for e in entries if e.kind == "dyn"]
-    rank_dyn = None
-    t_meta = _telemetry.now() if _telemetry.armed else 0.0
-    if dyn_entries:
-        rows = _exchange_meta(meta, device, group)
-        rank_dyn = [_dyn_layouts(entries, row) for row in rows]
-        max_total = max(row[-1] for row in rows)
-        _sync._bump("sync_fastlane_misses")
-        meta_attrs = {"dims": len(meta)}
-    else:
-        key = (group, _layout_key(entries))
-        meta_attrs = None
-        if key in _MANIFEST_CACHE:
+    ctx = _ProtocolCtx()
+    ctx.nodes, ctx.owner, ctx.members, ctx.fence = list(nodes), owner, members, fence
+    ctx.transport = _sync.transport_group(group, members)
+    ctx.entries, ctx.packed, ctx.meta, ctx.static_total = entries, packed, meta, static_total
+    ctx.meta_vec = torch.tensor(meta, dtype=torch.int64, device=device)
+    ctx.key = (_group_key(ctx), _layout_key(entries))
+    ctx.has_dyn = any(e.kind == "dyn" for e in entries)
+    ctx.async_mode, ctx.quant_tier = async_mode, quant_tier
+    # the psum lane: integer `sum` states add up exactly in any order
+    ctx.node_reducible = not ctx.has_dyn and all(
+        e.spec == "sum" and e.quant is None and not e.dtype.is_floating_point and not e.dtype.is_complex
+        and e.dtype != torch.bool
+        for e in entries
+    )
+    return ctx
+
+
+def _node_reduce(ctx: _ProtocolCtx, intra: Tensor) -> Tensor:
+    """Sum one node's packed rows of integer ``sum`` states into one row of the same layout."""
+    parts: List[Tensor] = []
+    off = 0
+    k = int(intra.shape[0])
+    for e in ctx.entries:
+        n = _nbytes(e.shape, e.dtype)
+        rows = _from_bytes(intra[:, off : off + n], (k,) + e.shape, e.dtype)
+        parts.append(_to_bytes(rows.sum(0).to(e.dtype)))
+        gap = _align(off + n) - (off + n)
+        if gap:
+            parts.append(intra.new_zeros(gap))
+        off = _align(off + n)
+    return torch.cat(parts)
+
+
+def _payload_exchange(ctx: _ProtocolCtx, padded: Tensor) -> Tuple[Tensor, bool]:
+    """The payload collective: flat, or hierarchical over the whole world
+    (``METRICS_TPU_SYNC_HIER``). Returns the gathered rows and whether they are
+    node partials (the psum lane)."""
+    node_size = _sync.sync_hier_node_size()
+    if node_size > 1 and ctx.members is None:
+        seams_unbound = (
+            _intranode_allgather is _default_intranode_allgather
+            or _internode_allgather is _default_internode_allgather
+        )
+        if seams_unbound and _sync.distributed_available():
+            _faults.warn_fault(
+                _HIER_FALLBACK_WARN_OWNER,
+                "sync",
+                f"METRICS_TPU_SYNC_HIER={node_size} is set but the hierarchical transport seams are not (both) "
+                "bound (bucketing._intranode_allgather / _internode_allgather); the payload collective rides the "
+                "flat gather instead of double-counting node blocks.",
+            )
+        else:
+            intra = _guarded(ctx, lambda: _intranode_allgather(padded))
+            _sync._bump("sync_hier_intranode_collectives")
+            if ctx.node_reducible:
+                block = _node_reduce(ctx, intra)
+                _sync._bump("sync_hier_node_reduces")
+            else:
+                block = intra.reshape(-1)
+            inter = _guarded(ctx, lambda: _internode_allgather(block))
+            _sync._bump("sync_hier_internode_collectives")
+            _sync.note_collective("payload", nbytes=inter.numel(), epoch=ctx.fence)
+            if ctx.node_reducible:
+                return inter, True
+            return inter.reshape(-1, padded.numel()), False
+    gathered = _guarded(ctx, lambda: _payload_allgather(padded, ctx.transport))
+    _sync.note_collective("payload", nbytes=gathered.numel(), epoch=ctx.fence)
+    return gathered, False
+
+
+def _make_attempt(ctx: _ProtocolCtx):
+    """The retried collective closure of one protocol instance. A layout
+    disagreement comes out as ``(_LAYOUT_MISMATCH, static totals, False)``."""
+
+    def _attempt():
+        _sync.check_epoch(ctx.fence, site="sync-gather", owner=ctx.owner)
+        if _faults.armed:
+            _faults.maybe_fail("sync-gather")
+        local_total = ctx.meta[-1]
+        rank_dyn = None
+        rows = None
+        t_meta = _telemetry.now() if _telemetry.armed else 0.0
+        meta_attrs: Optional[dict] = None
+        if ctx.has_dyn:
+            rows = _guarded(ctx, lambda: _host_allgather(ctx.meta_vec, ctx.transport)).tolist()
+            _sync.note_collective("shape", epoch=ctx.fence)
+            _sync._bump("sync_fastlane_misses")
+            meta_attrs = {"dims": len(ctx.meta)}
+        elif ctx.key in _MANIFEST_CACHE:
             _sync._bump("sync_fastlane_hits")
         else:
             _sync._bump("sync_fastlane_misses")
-            if _sync._live():
-                _exchange_meta(meta, device, group)  # once per layout: every process packed the same bytes
+            if _sync._live():  # once per layout: every process packed the same static bytes
+                rows = _guarded(ctx, lambda: _host_allgather(ctx.meta_vec, ctx.transport)).tolist()
+                _sync.note_collective("shape", epoch=ctx.fence)
                 meta_attrs = {"cross_check": True}
+        if t_meta and meta_attrs is not None and _telemetry.armed:
+            if ctx.async_mode:
+                meta_attrs["overlapped"] = True
+            _telemetry.emit("sync-metadata", ctx.owner, "sync", t_meta, _telemetry.now() - t_meta, meta_attrs)
         max_total = local_total
-    if t_meta and meta_attrs is not None and _telemetry.armed:
-        _telemetry.emit("sync-metadata", owner, "sync", t_meta, _telemetry.now() - t_meta, meta_attrs)
-    if max_total > local_total:
-        packed = torch.cat([packed, packed.new_zeros(max_total - local_total)])
-    t_gather = _telemetry.now() if _telemetry.armed else 0.0
-    gathered = _payload_allgather(packed, group)
-    _sync.note_collective("payload", nbytes=gathered.numel())
-    if t_gather and _telemetry.armed:
-        _telemetry.emit(
-            "sync-payload-gather", owner, "sync", t_gather, _telemetry.now() - t_gather,
-            {"bytes": int(gathered.numel()), "world": int(gathered.shape[0]),
-             "seq": _sync._counters["sync_payload_collectives"]},
-        )
-    t_unpack = _telemetry.now() if _telemetry.armed else 0.0
-    _finish(nodes, entries, gathered, static_total, rank_dyn)
-    if t_unpack and _telemetry.armed:
-        _telemetry.emit("sync-unpack", owner, "sync", t_unpack, _telemetry.now() - t_unpack, {"states": len(entries)})
-    _sync.note_sync_success(group)
-    if not dyn_entries:
-        _MANIFEST_CACHE[key] = True
-        while len(_MANIFEST_CACHE) > _MANIFEST_CACHE_CAP:
-            _MANIFEST_CACHE.pop(next(iter(_MANIFEST_CACHE)))
-    _sync._bump("sync_states_coalesced", len(entries))
-    _sync._bump("sync_coalesced_payloads")
+        if rows is not None:
+            statics = sorted({row[-2] for row in rows})
+            if len(statics) != 1:
+                return _LAYOUT_MISMATCH, statics, False
+            if ctx.has_dyn:
+                rank_dyn = [_dyn_layouts(ctx.entries, row) for row in rows]
+                max_total = max(row[-1] for row in rows)
+        padded = ctx.packed
+        if max_total > local_total:
+            padded = torch.cat([padded, padded.new_zeros(max_total - local_total)])
+        t_gather = _telemetry.now() if _telemetry.armed else 0.0
+        gathered, node_reduced = _payload_exchange(ctx, padded)
+        if t_gather and _telemetry.armed:
+            attrs = {"bytes": int(gathered.numel()), "world": int(gathered.shape[0]), "epoch": ctx.fence,
+                     "seq": _sync._counters["sync_payload_collectives"]}
+            if ctx.async_mode:
+                attrs["overlapped"] = True
+            _telemetry.emit("sync-payload-gather", ctx.owner, "sync", t_gather, _telemetry.now() - t_gather, attrs)
+        return gathered, rank_dyn, node_reduced
+
+    return _attempt
 
 
-def _finish(
-    nodes: Sequence[Any],
-    entries: Sequence[_Entry],
-    gathered: Tensor,
-    static_total: int,
-    rank_dyn: Optional[List[List[Optional[tuple]]]],
-) -> None:
+def _raise_mismatch(statics: List[int]) -> None:
+    raise SyncConfigFault(
+        f"the packed layouts of the metric states differ across processes (static bytes {statics});"
+        " every process must sync the same metrics, built the same way",
+        site="sync-pack",
+    )
+
+
+def _finish(ctx: _ProtocolCtx, gathered: Tensor, rank_dyn: Optional[list], node_reduced: bool) -> None:
     """Unpack, reduce and apply; every ``setattr`` after the whole unpack. A
-    failure before the ``setattr`` raises :class:`CoalesceError` (a
-    ``cat`` dtype that differs across processes raises :class:`SyncConfigFault`)."""
+    failure before the ``setattr`` raises :class:`CoalesceError` (a ``cat``
+    dtype that differs across processes raises :class:`SyncConfigFault`).
+    Node partials (``node_reduced``) sum to the flat sum exactly."""
+    t_unpack = _telemetry.now() if _telemetry.armed else 0.0
     try:
-        results = _unpack(nodes, entries, gathered, static_total, rank_dyn)
+        results = _unpack(ctx.nodes, ctx.entries, gathered, ctx.static_total, rank_dyn)
     except SyncFault:
         raise
     except Exception as exc:  # noqa: BLE001 - classified by the caller's ladder
         raise CoalesceError(exc) from exc
     for node, name, value in results:
         setattr(node, name, value)
+    if t_unpack and _telemetry.armed:
+        _telemetry.emit("sync-unpack", ctx.owner, "sync", t_unpack, _telemetry.now() - t_unpack,
+                        {"states": len(ctx.entries)})
+    if not ctx.has_dyn:
+        _MANIFEST_CACHE[ctx.key] = True
+        while len(_MANIFEST_CACHE) > _MANIFEST_CACHE_CAP:
+            _MANIFEST_CACHE.pop(next(iter(_MANIFEST_CACHE)))
+    _sync._bump("sync_states_coalesced", len(ctx.entries))
+    _sync._bump("sync_coalesced_payloads")
 
 
 def _unpack(
@@ -416,9 +667,8 @@ def _unpack(
     for e in entries:
         if e.kind != "static":
             continue
-        n = _nbytes(e.shape, e.dtype)
-        # contiguous, as the per-state path's torch.stack is: the same reduction on the same layout
-        stacked = _from_bytes(gathered[:, off : off + n], (world,) + e.shape, e.dtype).contiguous()
+        n = _entry_nbytes(e)
+        stacked = _decode_static(gathered[:, off : off + n], e, world)
         fn = nodes[e.node_idx]._reductions[e.name]
         results.append((nodes[e.node_idx], e.name, fn(stacked) if fn is not None else stacked))
         off = _align(off + n)
@@ -440,6 +690,106 @@ def _unpack(
         fn = nodes[e.node_idx]._reductions[e.name]
         results.append((nodes[e.node_idx], e.name, (fn(parts) if fn is not None else parts) if parts else []))
     return results
+
+
+def coalesced_sync_nodes(nodes: Sequence[Any], group: Optional[Any] = None, owner: Any = None) -> None:
+    """Sync every state of ``nodes`` with one payload collective (plus one
+    metadata collective where a ``cat`` list state is packed).
+
+    Every process of ``group`` must call it with the same metrics. States are
+    set only after the whole unpack succeeds, so a failure leaves every
+    node's local state as it was. Raises :class:`CoalesceError` when the pack
+    or the unpack fails, :class:`SyncFault` when a collective fails past its
+    retries and :class:`SyncConfigFault` when the group is invalid or the
+    processes' layouts differ. ``owner`` names the spans (the first node by
+    default). In-flight asynchronous syncs are forced by the callers, at
+    their protocol's entry, before anything is packed.
+    """
+    ctx = _pack_phase(nodes, group, owner)
+    if ctx is None:
+        return
+    gathered, rank_dyn, node_reduced = _faults.retry_with_backoff(
+        _make_attempt(ctx), attempts=_sync.sync_retries(), base_delay_s=_sync.sync_backoff_s(), site="sync-gather"
+    )
+    if gathered is _LAYOUT_MISMATCH:
+        _raise_mismatch(rank_dyn)
+    # node partials count nodes, not processes: they teach nothing of the world's size
+    _sync.note_sync_success(world=None if node_reduced else int(gathered.shape[0]), members=ctx.members)
+    _finish(ctx, gathered, rank_dyn, node_reduced)
+
+
+# ----------------------------------------------------- async dispatch / force
+class _Dispatched:
+    """One coalesced protocol in flight: its context and the dispatcher's result slot."""
+
+    __slots__ = ("ctx", "box", "done", "t_dispatch")
+
+    def __init__(self, ctx: _ProtocolCtx, box: dict, done: Any, t_dispatch: float):
+        self.ctx = ctx
+        self.box = box
+        self.done = done
+        self.t_dispatch = t_dispatch
+
+
+def dispatch_coalesced_sync(nodes: Sequence[Any], group: Optional[Any] = None,
+                            owner: Any = None) -> Optional[_Dispatched]:
+    """Pack now (a copy: the caller may go on updating), gather in flight on
+    the dispatcher thread. None when the tree holds no state. Raises like the
+    pack phase of :func:`coalesced_sync_nodes`."""
+    t0 = _telemetry.now() if _telemetry.armed else 0.0
+    t_dispatch = _telemetry.now()
+    ctx = _pack_phase(nodes, group, owner=owner, async_mode=True)
+    if ctx is None:
+        return None
+    attempt = _make_attempt(ctx)
+    attempts, backoff = _sync.sync_retries(), _sync.sync_backoff_s()
+    box, done = _sync.submit_async(
+        lambda: _faults.retry_with_backoff(attempt, attempts=attempts, base_delay_s=backoff, site="sync-gather")
+    )
+    disp = _Dispatched(ctx, box, done, t_dispatch)
+    if t0 and _telemetry.armed:
+        _telemetry.emit(
+            "sync-dispatch", ctx.owner, "sync", t0, _telemetry.now() - t0,
+            {"states": len(ctx.entries), "bytes": int(ctx.packed.numel()), "epoch": ctx.fence,
+             "quant": ctx.quant_tier or "off"},
+        )
+    return disp
+
+
+def force_coalesced_sync(disp: _Dispatched) -> List[Tuple[Any, Any]]:
+    """Complete one protocol in flight: wait (under the deadline), check the
+    epoch fence again (a membership change in flight raises
+    :class:`EpochFault`, the rows discarded), then unpack and apply. Returns
+    each node's state from just before the apply (its ``unsync`` cache, which
+    holds the updates made in flight). Every failure leaves the states intact."""
+    ctx = disp.ctx
+    t0 = _telemetry.now() if _telemetry.armed else 0.0
+    t_wait = _telemetry.now()
+    _sync.wait_with_deadline(disp.done, site="sync-force", owner=ctx.owner)
+    waited = _telemetry.now() - t_wait
+    if "error" in disp.box:
+        err = disp.box["error"]
+        if isinstance(err, EpochFault):
+            _sync._bump("sync_async_stale_futures")
+        raise err
+    gathered, rank_dyn, node_reduced = disp.box["value"]
+    if gathered is _LAYOUT_MISMATCH:
+        _raise_mismatch(rank_dyn)
+    try:
+        _sync.check_epoch(ctx.fence, site="sync-force", owner=ctx.owner)
+    except EpochFault:
+        _sync._bump("sync_async_stale_futures")
+        raise
+    snaps = [(n, n._state_snapshot()) for n in ctx.nodes]
+    _sync.note_sync_success(world=None if node_reduced else int(gathered.shape[0]), members=ctx.members)
+    _finish(ctx, gathered, rank_dyn, node_reduced)
+    if t0 and _telemetry.armed:
+        _telemetry.emit(
+            "sync-force", ctx.owner, "sync", t0, _telemetry.now() - t0,
+            {"waited_s": waited, "epoch": ctx.fence, "states": len(ctx.entries),
+             "inflight_s": max(0.0, t_wait - disp.t_dispatch)},
+        )
+    return snaps
 
 
 # --------------------------------------------------- per-state gather apply
@@ -471,9 +821,12 @@ def apply_gathered_states(metric: Any, output_dict: Dict[str, Any]) -> None:
 __all__ = [
     "ALIGN",
     "CoalesceError",
+    "agree_step",
     "apply_gathered_states",
     "coalesced_sync_nodes",
     "coalescible",
+    "dispatch_coalesced_sync",
+    "force_coalesced_sync",
     "handle_coalesce_failure",
     "should_fallback",
     "tree_nodes",

@@ -6,7 +6,9 @@
 - :func:`install_world`: stands an N-process world in for the coalesced
   protocol's two collectives (``bucketing._host_allgather`` and
   ``_payload_allgather``); the other ranks' trees are packed by the same
-  layout and pack code the syncing rank uses.
+  layout and pack code the syncing rank uses (:func:`pack_tree`).
+- :class:`ElasticWorld`: the same, with one rank dead until the membership
+  registry declares it (the port's twin of JAX's ``_ElasticWorld``).
 - :func:`run_world`: a real ``torch.distributed`` world of processes
   (spawned, Gloo, rendezvous through a file), each running a module-level
   function, with a wall-clock limit after which every process is killed.
@@ -99,34 +101,76 @@ def tree_of(obj: Any) -> List[Metric]:
     return bucketing.tree_nodes(obj)
 
 
+def pack_tree(obj: Any):
+    """``(packed, meta)`` of a metric's or collection's tree, as its own sync packs it (the quantized
+    lane's encoding included, when ``METRICS_TPU_SYNC_QUANT`` is set)."""
+    from metrics_tpu_torch.parallel import sync as psync
+
+    nodes = tree_of(obj)
+    for node in nodes:  # as each rank's own sync does before it packs
+        node._canonicalize_list_states()
+    entries, values = bucketing._collect(nodes)
+    tier = psync.sync_quant_tier()
+    if tier is not None:
+        bucketing._quant_encode(entries, values, tier, nodes[0])
+    device = next((v.device for v in values if v is not None), nodes[0].device)
+    packed, meta, _ = bucketing._pack(entries, values, device)
+    return packed, torch.tensor(meta, dtype=torch.int64, device=device)
+
+
+def _padded_rows(x: torch.Tensor, packs: list) -> torch.Tensor:
+    rows = [x]
+    for packed, _ in packs:
+        assert packed.numel() <= x.numel()
+        rows.append(torch.cat([packed, packed.new_zeros(x.numel() - packed.numel())]))
+    return torch.stack(rows)
+
+
 def install_world(monkeypatch, others: Sequence[Any]) -> None:
     """Make the coalesced protocol's collectives return the caller's row, then one row per metric
     (or collection) of ``others``, each packed when the collective runs."""
 
-    def packs():
-        out = []
-        for obj in others:
-            nodes = tree_of(obj)
-            for node in nodes:  # as each rank's own sync does before it packs
-                node._canonicalize_list_states()
-            entries, values = bucketing._collect(nodes)
-            device = next((v.device for v in values if v is not None), nodes[0].device)
-            packed, meta, _ = bucketing._pack(entries, values, device)
-            out.append((packed, torch.tensor(meta, dtype=torch.int64, device=device)))
-        return out
-
     def host(vec, group):
-        return torch.stack([vec] + [meta for _, meta in packs()])
+        return torch.stack([vec] + [meta for _, meta in map(pack_tree, others)])
 
     def payload(x, group):
-        rows = [x]
-        for packed, _ in packs():
-            assert packed.numel() <= x.numel()
-            rows.append(torch.cat([packed, packed.new_zeros(x.numel() - packed.numel())]))
-        return torch.stack(rows)
+        return _padded_rows(x, [pack_tree(obj) for obj in others])
 
     monkeypatch.setattr(bucketing, "_host_allgather", host)
     monkeypatch.setattr(bucketing, "_payload_allgather", payload)
+
+
+class ElasticWorld:
+    """A world of ranks 0..n-1 with one killed rank, stood in for the coalesced protocol's collectives
+    (rank 0 is the caller). While the killed rank is not declared dead, a full-world collective hangs
+    for ``hang_s`` and then raises (the dead peer never shows up); once the membership registry
+    declares it dead, the collectives are the survivors' group, their rows in ascending rank order;
+    after :meth:`revive` (the restarted process is back) the full world answers again."""
+
+    def __init__(self, monkeypatch, others: Sequence[Any], hang_s: float = 1.0) -> None:
+        from metrics_tpu_torch.parallel import sync as psync
+
+        self.others, self.killed, self.hang_s, self.psync = list(others), True, hang_s, psync
+        monkeypatch.setattr(bucketing, "_host_allgather", self._host)
+        monkeypatch.setattr(bucketing, "_payload_allgather", self._payload)
+
+    def revive(self) -> None:
+        self.killed = False
+
+    def _rows(self):
+        if not self.killed:
+            return self.others
+        alive = self.psync.surviving_members()
+        if alive is None:
+            time.sleep(self.hang_s)
+            raise RuntimeError("abandoned hung collective (dead peer)")
+        return [self.others[r - 1] for r in alive if r != 0]
+
+    def _host(self, vec, group):
+        return torch.stack([vec] + [meta for _, meta in map(pack_tree, self._rows())])
+
+    def _payload(self, x, group):
+        return _padded_rows(x, [pack_tree(obj) for obj in self._rows()])
 
 
 # ------------------------------------------------------------ real processes
@@ -305,7 +349,8 @@ def gloo_world_worker(rank: int, world: int, seed: int) -> dict:
     for _ in range(2):
         reset_collective_stats()
         suite.sync()
-        counts.append({k: v for k, v in collective_stats().items() if k.endswith("_collectives")})
+        counts.append({k: v for k, v in collective_stats().items()
+                       if k in ("sync_shape_collectives", "sync_payload_collectives")})
         suite.unsync()
     curves = curve_suite(tmt)
     for preds, target in curve_rows(seed, rank):
@@ -345,10 +390,12 @@ def gloo_world_worker(rank: int, world: int, seed: int) -> dict:
 
 
 __all__ = [
+    "ElasticWorld",
     "TorchFakeGather",
     "curve_rows",
     "curve_suite",
     "install_world",
+    "pack_tree",
     "regression_rows",
     "regression_suite",
     "retrieval_rows",

@@ -292,6 +292,7 @@ def test_live_world_checks_a_static_layout_once(monkeypatch):
             suite.update(torch.from_numpy(preds), torch.from_numpy(target))
     install_world(monkeypatch, suites[1:])
     monkeypatch.setattr(psync, "_live", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)  # the live world's size
     monkeypatch.setattr(bucketing, "_MANIFEST_CACHE", {})
     counts = []
     for _ in range(3):

@@ -30,8 +30,11 @@ gradient) and PIT on the card against the CPU; and the text metrics' states
 (float32 counts, packed uint8 sentences) on the card equal to the CPU's; a
 journal round trip on the card, into a CPU twin and back; a restored
 BootStrapper continuing its draws on the card; the ``sync-pack`` fault drill
-in a NCCL world of one; and Spearman's ranks with NaN on the card against the
-CPU.
+in a NCCL world of one; Spearman's ranks with NaN on the card against the
+CPU; the asynchronous sync with updates in flight equal to a blocking sync;
+the bf16 and int8 wire bytes on the card equal to the CPU's; and
+``compute_on_cpu`` rows on the host after an update and on the card at the
+sync.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -971,3 +974,63 @@ def test_spearman_with_nan_on_the_card_equals_the_cpu(dev):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
     with pytest.raises(ValueError):
         mt.functional.spearman_corrcoef(x[:1], y[:1])
+
+
+def test_async_sync_with_updates_in_flight_equals_a_blocking_sync(nccl_world):
+    """The packed buffer is a copy made at dispatch: updates on the compute stream while the collective is in
+    flight change neither the forced states (those of a blocking sync at dispatch) nor come back wrong at unsync."""
+    from metrics_tpu_torch.parallel import collective_stats, reset_collective_stats
+
+    dev = torch.device("cuda")
+    batches = _batches(dev, 64, steps=8, batch=2048)
+    suite, twin = _headline(dev), _headline(dev)
+    for preds, target in batches[:3]:
+        suite.update(preds, target)
+        twin.update(preds, target)
+    twin.sync(distributed_available=lambda: True)
+    want = {k: v.clone() for k, v in _suite_states(twin).items()}
+    twin.unsync()
+    reset_collective_stats()
+    fut = suite.sync_async(distributed_available=lambda: True)
+    for preds, target in batches[3:]:  # in flight
+        suite.update(preds, target)
+    tail = {k: v.clone() for k, v in _suite_states(suite).items()}
+    fut.wait()
+    assert collective_stats()["sync_async_forces"] == 1 and collective_stats()["sync_payload_collectives"] == 1
+    for key, value in _suite_states(suite).items():
+        assert torch.equal(value, want[key]), key
+    suite.unsync()
+    for key, value in _suite_states(suite).items():
+        assert torch.equal(value, tail[key]), key
+
+
+@pytest.mark.parametrize("tier", ["bf16", "int8"])
+@pytest.mark.parametrize("shape", [(1,), (3,), (1000,), (128, 128)])
+def test_quantized_wire_bytes_on_the_card_equal_the_cpu(dev, tier, shape):
+    from metrics_tpu_torch.parallel import bucketing
+
+    g = torch.Generator().manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g) * 37.5
+    got = bucketing._quant_bytes(x.to(dev), tier)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), bucketing._quant_bytes(x, tier))
+
+
+def test_compute_on_cpu_rows_on_the_host_after_update_on_the_card_at_sync(nccl_world):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    batches = [(torch.rand(4096, generator=g, device=dev), torch.randint(0, 2, (4096,), generator=g, device=dev))
+               for _ in range(3)]
+    offloaded, on_card = mt.AUROC(pos_label=1, compute_on_cpu=True, device=dev), mt.AUROC(pos_label=1, device=dev)
+    for preds, target in batches:
+        offloaded.update(preds, target)
+        on_card.update(preds, target)
+    assert all(r.device.type == "cpu" for r in offloaded.preds + offloaded.target)
+    host_rows = list(offloaded.preds)
+    offloaded.sync(distributed_available=lambda: True)
+    synced = offloaded.preds if isinstance(offloaded.preds, list) else [offloaded.preds]
+    assert all(r.device.type == "cuda" for r in synced)
+    offloaded.unsync()
+    assert all(a is b for a, b in zip(offloaded.preds, host_rows))
+    assert torch.equal(offloaded.compute().cpu(), on_card.compute().cpu())
+    assert all(r.device.type == "cpu" for r in offloaded.preds)

@@ -307,3 +307,47 @@ def test_retry_with_backoff_like_the_reference():
         with pytest.raises(exc_mod.EpochFault):
             pkg.retry_with_backoff(lambda: (_ for _ in ()).throw(exc_mod.EpochFault("stale")), attempts=5,
                                    base_delay_s=0.0)
+
+
+def test_instrumented_sites_are_reference_sites_and_fire():
+    """Every site the port instruments is one of JAX's, and a plan armed there fires on the port's path."""
+    import torch
+
+    import metrics_tpu_torch as tmt
+    from metrics_tpu_torch.parallel import sync as psync
+
+    assert set(faults.INSTRUMENTED_SITES) <= set(jfaults.FAULT_SITES)
+    assert {"epoch-fence", "host-offload"} <= set(faults.INSTRUMENTED_SITES)
+
+    def sync_once():
+        m = tmt.SumMetric(device="cpu")
+        m.update(torch.tensor([1.0]))
+        m.sync(distributed_available=lambda: True)
+
+    def offload_once():
+        tmt.CatMetric(compute_on_cpu=True, device="cpu").update(torch.tensor([1.0]))
+
+    def journal_once(tmp):
+        m = tmt.SumMetric(device="cpu")
+        m.update(torch.tensor([1.0]))
+        path = tmp + "/j"
+        m.save_state(path)
+        m.load_state(path)
+
+    import tempfile
+    import warnings
+
+    paths = {"sync-gather": sync_once, "sync-pack": sync_once, "epoch-fence": sync_once,
+               "host-offload": offload_once}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths.update({"journal-write": lambda: journal_once(tmp), "journal-load": lambda: journal_once(tmp)})
+        for site in faults.INSTRUMENTED_SITES:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                with faults.inject_faults(site, count=1) as plan:
+                    try:
+                        paths[site]()
+                    except Exception:  # noqa: BLE001 - a site that raises through is fine: it fired
+                        pass
+            assert plan.fired == 1, site
+    psync.reset_membership()

@@ -46,7 +46,7 @@ def test_port_files_exist():
                    "functional/text/infolm.py", "text/basic.py", "text/advanced.py", "functional/audio/snr.py",
                    "functional/audio/sdr.py", "functional/audio/pit.py", "functional/audio/stoi.py",
                    "functional/audio/host.py", "audio/metrics.py", "ops/faults.py", "ops/telemetry.py",
-                   "ops/journal.py"):
+                   "ops/journal.py", "parallel/sync.py", "parallel/bucketing.py"):
         assert f"metrics_tpu_torch/{module}" in names
 
 
@@ -66,9 +66,20 @@ def test_importing_the_port_loads_no_jax():
         "metrics_tpu_torch.detection, metrics_tpu_torch.functional.detection, metrics_tpu_torch.text, "
         "metrics_tpu_torch.functional.text, metrics_tpu_torch.ops.text_native, metrics_tpu_torch.audio, "
         "metrics_tpu_torch.functional.audio, metrics_tpu_torch.ops.faults, metrics_tpu_torch.ops.telemetry, "
-        "metrics_tpu_torch.ops.journal; "
+        "metrics_tpu_torch.ops.journal, metrics_tpu_torch.parallel.sync, metrics_tpu_torch.parallel.bucketing; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'metrics_tpu')); "
         "assert not bad, bad"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_importing_the_port_starts_no_thread():
+    """The watchdog and the dispatcher of the sync planes start at their first use, not at import."""
+    code = (
+        "import threading; before = threading.active_count(); "
+        "import metrics_tpu_torch, metrics_tpu_torch.parallel.sync, metrics_tpu_torch.parallel.bucketing; "
+        "assert threading.active_count() == before, [t.name for t in threading.enumerate()]"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -1,8 +1,8 @@
 """The port's state journal (``metrics_tpu_torch/ops/journal.py``) against the JAX package's.
 
 The headline suite after the same batches gives the JAX manifest: ``nodes``,
-``update_counts``, entry names, kinds, specs and shapes, ``static_attrs``
-(less ``compute_on_cpu``, which the port does not have yet), and each dtype
+``update_counts``, entry names, kinds, specs and shapes, ``static_attrs``,
+the world stamps of a saved record, and each dtype
 where the two packages' live state dtypes agree; the records share the JAX
 framing (``MTJL``, version 1, header ``<4sIIQII``). Then the JAX package's
 own journal scenarios (``tests/ops/test_journal.py``) as cases of
@@ -94,9 +94,27 @@ def test_headline_manifest_equals_the_reference():
             agreeing += 1
             assert me["dtype"] == re["dtype"]
     assert agreeing == len(m_man["entries"])
-    for m_attrs, r_attrs in zip(m_man["static_attrs"], r_man["static_attrs"]):
-        r_attrs = {k: v for k, v in r_attrs.items() if k != "compute_on_cpu"}
-        assert m_attrs == r_attrs
+    assert m_man["static_attrs"] == r_man["static_attrs"]
+
+
+def test_saved_manifest_carries_the_reference_world_stamps(tmp_path):
+    """A save stamps the world epoch, the owner's last good sync and the monotonic step, as JAX's does;
+    a load keeps them for ``rejoin``."""
+    mine, ref = headline_suite(tmt), headline_suite(jmt)
+    for preds, target in suite_batches(4, 2):
+        mine.update(torch.from_numpy(preds), torch.from_numpy(target))
+        ref.update(jnp.asarray(preds), jnp.asarray(target))
+    m_path, r_path = str(tmp_path / "port.journal"), str(tmp_path / "jax.journal")
+    mine.save_state(m_path)
+    ref.save_state(r_path)
+    m_man, _ = journal.read_record(m_path)
+    r_man, _ = jjournal.read_record(r_path)
+    stamps = ("epoch", "last_good_sync_step", "monotonic_step")
+    assert set(stamps) <= set(m_man) and set(stamps) <= set(r_man)
+    assert m_man["last_good_sync_step"] is None is r_man["last_good_sync_step"]
+    fresh = headline_suite(tmt)
+    fresh.load_state(m_path)
+    assert journal.restored_meta(fresh) == {k: m_man[k] for k in stamps}
 
 
 def test_record_framing_is_the_reference_framing():

@@ -26,27 +26,16 @@ import metrics_tpu_torch as tmt
 DIST_ON = lambda: True  # noqa: E731
 
 # Keys of the JAX snapshot whose planes the port has not yet: key -> the plane that brings them.
-ENGINE, SYNC_PLANES, STREAMING, FUNCORE, CACHE_TUNE = (
-    "dispatch engine", "sync planes beyond the core", "streaming/arena/ingest", "functional core",
-    "program cache/autotuner",
-)
+ENGINE, STREAMING, FUNCORE, CACHE_TUNE = ("dispatch engine", "streaming/arena/ingest", "functional core",
+                                          "program cache/autotuner")
 PENDING_KEYS = {
     **{k: ENGINE for k in ("builds", "hits", "cached", "deferred_steps", "deferred_flushes", "deferred_fallbacks",
                            "deferred_sync_barrier_flushes", "device_probes", "program_analyses", "programs")},
-    **{k: SYNC_PLANES for k in (
-        "sync_deadline_timeouts", "sync_degraded_serves", "sync_quorum_serves", "sync_epoch_bumps",
-        "sync_epoch_fence_trips", "sync_stale_collectives", "sync_dist_resolutions", "sync_peers_declared_dead",
-        "sync_rank_rejoins", "sync_async_dispatches", "sync_async_forces", "sync_async_auto_forces",
-        "sync_async_fallbacks", "sync_async_stale_futures", "sync_quant_payloads", "sync_quant_exact_states",
-        "sync_quant_lossy_states", "sync_quant_bytes_saved", "sync_hier_intranode_collectives",
-        "sync_hier_internode_collectives", "sync_hier_node_reduces")},
     **{k: STREAMING for k in ("streaming", "ingest_state")},
     **{k: CACHE_TUNE for k in ("fid_host_sqrtm", "fid_host_sqrtm_time_s")},
 }
 PENDING_PREFIXES = {"window_": STREAMING, "drift_": STREAMING, "arena_": STREAMING, "ingest_": STREAMING,
                     "funcore_": FUNCORE, "progcache_": CACHE_TUNE, "autotune_": CACHE_TUNE}
-PENDING_HEALTH_KEYS = {"degraded", "epoch", "dead_ranks", "consecutive_timeouts", "transitions", "inflight",
-                       "sync_degraded_serves", "sync_quorum_serves", "sync_deadline_timeouts"}
 
 
 @pytest.fixture(autouse=True)
@@ -171,7 +160,8 @@ def test_snapshot_keys_are_the_reference_keys_less_the_pending_planes():
     mine, ref = telemetry.snapshot(), jtelemetry.snapshot()
     pending = {k for k in ref if k in PENDING_KEYS or k.startswith(tuple(PENDING_PREFIXES))}
     assert set(mine) == set(ref) - pending
-    assert set(mine["sync_health"]) == set(ref["sync_health"]) - PENDING_HEALTH_KEYS
+    assert set(mine["sync_health"]) == set(ref["sync_health"])
+    assert set(mine["sync_health"]["inflight"]) == set(ref["sync_health"]["inflight"])
     assert set(mine["sync_phase_stats"]) == set(ref["sync_phase_stats"])
     for key in ("sync_phase_stats", "slo_violations"):
         for site, block in mine[key].items():
