@@ -235,6 +235,31 @@ Phases, each of which raises on failure (exit code 1):
    (d) Phase 9's 2**24 binary scores through AUROC and AveragePrecision with
    ``compute_on_cpu=True`` and without: peak device memory of the updates
    and of ``compute()``, ms an update, the values bit-equal.
+23. ``engine`` (after phase 22), under 60 s, validation mode "first": (a)
+   phase 3's headline suite (B=8192, C=128) over 5 warm-up and 128 timed
+   updates three ways: per call (deferral off), deferred (``compute()`` in
+   the timed window) and one ``update_many`` over the (128, 8192, 128)
+   stack; each way's ms per step, bincount launches (128 each), host reads
+   of 16 updates (a flush of 16, a chunk of 16: no more than per call),
+   deferred steps and flushes, and peak extra device memory (the queue's
+   copies); the three ways' states bit-equal, and a deferred card suite's
+   equal to the CPU twin over the first steps that fit ``CPU_TWIN_S``. (b)
+   32 forwards under deferral: the lazy values, read after, bit-equal to
+   per-call forwards. (c) ``forward_many`` over phase 9's ImageNet-1k rows
+   (50 x 1000 x 1000) through the suite at C=1000, each step's values equal
+   to 50 forwards. (d) The host lanes: phase 9's binary curve suite and phase
+   14's MS MARCO suite (16 updates each), phase 19's SQuAD updates: host µs
+   a lane update against the first, validated one, SQuAD's copies to the
+   card an update, the rows and sums bit-equal to the CPU twin. (e) The
+   device probe at every=1 on (a)'s flushes: the device-inclusive walls
+   beside the host walls. (f) ``flush-chunk-2`` injected (an eager replay,
+   one fallback, states bit-equal) and ``compile`` injected on a cache miss
+   (counted, the updates run).
+
+Deferral is on by default (the engine queues calls in every validation mode
+but "full"), so every timed window that updates in mode "first" ends with
+``settle(owners)``: the owners' queues flush, then the card synchronises,
+and the times, launch counts and memory peaks include the queued work.
 
 Phases 15 and 16 report what phases 11 to 14 do, and hold every state and
 value against a CPU twin fed the same batches and the same bootstrap draws:
@@ -535,15 +560,34 @@ def make_batches(batch: int, num_classes: int, steps: int, seed: int, signal: fl
     return out
 
 
+def settle(*owners) -> None:
+    """The end of a timed window: the owners' deferred calls flush (the engine queues
+    them in every validation mode but "full"), then the card finishes, so that the
+    time, the launch counts and the memory peaks include the deferred work."""
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch.ops import engine
+    from metrics_tpu_torch.parallel.bucketing import tree_nodes
+
+    def nodes(owner):  # every metric that may hold a queue: a wrapper's clones, a suite's members' trees
+        if isinstance(owner, dict):  # phases 11 to 16 drive some metrics as a dict of members
+            return [n for m in owner.values() for n in nodes(m)]
+        if isinstance(owner, MetricCollection):
+            return [owner] + [n for m in owner._modules.values() for n in nodes(m)]
+        return tree_nodes(owner)
+
+    engine.flush_barrier([n for owner in owners for n in nodes(owner)])
+    torch.cuda.synchronize()
+
+
 def run_suite(suite, batches, warmup: int) -> float:
     """Update over every batch; returns the seconds of the steps after ``warmup``."""
     for preds, target in batches[:warmup]:
         suite.update(preds, target)
-    torch.cuda.synchronize()
+    settle(suite)
     t0 = time.perf_counter()
     for preds, target in batches[warmup:]:
         suite.update(preds, target)
-    torch.cuda.synchronize()
+    settle(suite)
     return time.perf_counter() - t0
 
 
@@ -570,7 +614,7 @@ def device_us(event) -> float:
     return getattr(event, "self_device_time_total", None) or getattr(event, "self_cuda_time_total", 0.0)
 
 
-def device_profile(steps, warmup: int = 2) -> dict:
+def device_profile(steps, warmup: int = 2, owners=()) -> dict:
     """Device-side time by kernel over ``steps`` (callables), from torch.profiler.
 
     The first ``warmup`` steps run in the profiler's warm-up cycle, which
@@ -578,7 +622,7 @@ def device_profile(steps, warmup: int = 2) -> dict:
     starts can be lost, whole sessions of short calls among them. Only
     device-side rows (kernels, memsets, copies: rows with device time and
     no CPU time of their own) are kept, so no time is counted twice.
-    Returns key -> [device ms, count].
+    ``owners``' deferred calls flush at the end of each cycle. Returns key -> [device ms, count].
     """
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -586,11 +630,11 @@ def device_profile(steps, warmup: int = 2) -> dict:
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         for step in steps[:warmup]:
             step()
-        torch.cuda.synchronize()
+        settle(*owners)
         prof.step()
         for step in steps[warmup:]:
             step()
-        torch.cuda.synchronize()
+        settle(*owners)
         prof.step()
 
     rows = prof.key_averages()
@@ -603,10 +647,10 @@ def device_profile(steps, warmup: int = 2) -> dict:
     return kept
 
 
-def profile_steps(update, batches, warmup: int = 2) -> dict:
-    """Device time per steady step ``update(*batch)``, in all and by kernel."""
+def profile_steps(update, batches, warmup: int = 2, owners=()) -> dict:
+    """Device time per steady step ``update(*batch)``, in all and by kernel (``owners`` flushed in each cycle)."""
     active = len(batches) - warmup
-    rows = device_profile([lambda b=b: update(*b) for b in batches], warmup)
+    rows = device_profile([lambda b=b: update(*b) for b in batches], warmup, owners)
     busy_ms = sum(ms for ms, _ in rows.values())
     top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:12]
     return {
@@ -623,11 +667,11 @@ def member_breakdown(suite, batches) -> dict:
     out = {}
     for name, member in suite.items(keep_base=True, copy_state=False):
         clone = member.clone()
-        torch.cuda.synchronize()
+        settle(clone)
         t0 = time.perf_counter()
         for preds, target in batches:
             clone.update(preds, target)
-        torch.cuda.synchronize()
+        settle(clone)
         out[name] = (time.perf_counter() - t0) / len(batches) * 1e3
     return out
 
@@ -669,7 +713,7 @@ def main_path(mt, checks, histogram, card: str, trials: int = 3) -> dict:
             f"{batch * 1e3 / median:.1f} samples/s (median of {trials}; ms/step {per_step}), "
             f"{result[mode]['kernel_launches']} launches  [{card}]")
     checks.set_validation_mode("first")
-    prof = profile_steps(first_suite.update, batches[:12])
+    prof = profile_steps(first_suite.update, batches[:12], owners=(first_suite,))
     if prof["device_ms_per_step"] is not None:
         prof["device_idle_share"] = 1.0 - prof["device_ms_per_step"] / result["first"]["ms_per_step"]
     result["profile_first"] = prof
@@ -790,14 +834,14 @@ def confmat_path(label, make_suite_fn, checks, histogram, batches, cpu_steps, wa
         median = per_step[len(per_step) // 2]
         result[mode].update(ms_per_step_runs=per_step, ms_per_step=median, steps_per_s=1e3 / median)
     checks.set_validation_mode("first")
-    prof = profile_steps(first_suite.update, stream[:8])
+    prof = profile_steps(first_suite.update, stream[:8], owners=(first_suite,))
     if prof["device_ms_per_step"] is not None:
         prof["device_idle_share"] = 1.0 - prof["device_ms_per_step"] / result["first"]["ms_per_step"]
     result["profile_first"] = prof
-    torch.cuda.synchronize()
+    settle(first_suite)
     torch.cuda.reset_peak_memory_stats()
     first_suite.update(*stream[0])
-    torch.cuda.synchronize()
+    settle(first_suite)
     result["peak_device_bytes_one_step"] = torch.cuda.max_memory_allocated()
     log(f"profile {label} (mode=first): {json.dumps(prof)}")
     return result
@@ -923,14 +967,14 @@ def aggregation_path(mt, checks, card) -> dict:
         warnings.simplefilter("ignore")
         for loss, weight in stream[:2]:
             suite.update(loss, weight=weight)
-        torch.cuda.synchronize()
+        settle(suite)
         t0 = time.perf_counter()
         for loss, weight in stream[2:]:
             suite.update(loss, weight=weight)
-        torch.cuda.synchronize()
+        settle(suite)
         seconds = time.perf_counter() - t0
         values = {k: (v.numel() if k == "CatMetric" else float(v)) for k, v in suite.compute().items()}
-        prof = profile_steps(lambda loss, weight: suite.update(loss, weight=weight), stream[:8])
+        prof = profile_steps(lambda loss, weight: suite.update(loss, weight=weight), stream[:8], owners=(suite,))
     ms = seconds / (steps - 2) * 1e3
     assert all(v == v for k, v in values.items()), f"aggregation suite: NaN in {values}"
     result = {"batch": batch, "steps": steps, "runs_checked": checked, "ms_per_step": ms, "steps_per_s": 1e3 / ms,
@@ -946,7 +990,7 @@ def aggregation_path(mt, checks, card) -> dict:
 CURVE_AREA_ATOL = {"binary": 1e-6, "multiclass": 1e-5}  # eager areas, card against CPU (the JAX tests' tolerances)
 SORTED_AREA_ATOL = {"binary": 1e-4, "multiclass": 1e-5}  # sort-based areas against the eager curves on the card
 CONF_SUM_RTOL = 1e-5  # CalibrationError's float32 confidence sums: another order of addition on each side
-CPU_TWIN_BINNED_S = 20.0  # the CPU twin of the binned updates runs all batches only if it takes about this long
+CPU_TWIN_BINNED_S = 10.0  # the CPU twin of the binned updates runs all batches only if it takes about this long
 HOST_READ_OPS = ("aten::_local_scalar_dense", "aten::item", "aten::nonzero")
 CURVES_DEVICE = "cuda"  # where the curve paths run
 CURVES_BINARY_SHAPE = (64, 262_144)  # updates, scores an update: 2**24 scores
@@ -1100,11 +1144,11 @@ def time_runs(make, update, batches, checks, histogram, trials: int = 3) -> tupl
     for trial in range(trials):
         obj = make()
         histogram.KERNEL_LAUNCHES = 0
-        torch.cuda.synchronize()
+        settle(obj)
         t0 = time.perf_counter()
         for batch in batches:
             update(obj, batch)
-        torch.cuda.synchronize()
+        settle(obj)
         runs.append((time.perf_counter() - t0) / len(batches) * 1e3)
         if trial == 0:
             launches, first = histogram.KERNEL_LAUNCHES, obj
@@ -1179,7 +1223,8 @@ def curves_binary_path(mt, checks, histogram, card: str) -> dict:
     assert groups == [["ap", "auroc", "pr_curve", "roc"]], f"curves_binary: groups {groups}"
     assert launches == 0, f"curves_binary: {launches} bincount launches in its updates"
     # on a suite of its own: the profiled updates must not reach the suite held against the CPU
-    update_prof = profile_steps(curves_binary_suite(mt, CURVES_DEVICE).update, batches[:10])
+    spare = curves_binary_suite(mt, CURVES_DEVICE)
+    update_prof = profile_steps(spare.update, batches[:10], owners=(spare,))
     result = {"n": n, "batch": batches[0][0].numel(), "steps": len(batches), "groups": groups, "card": card,
               "update_ms_per_step_runs": runs, "update_ms_per_step": runs[len(runs) // 2],
               "update_profile": update_prof, "kernel_launches": launches}
@@ -1238,7 +1283,8 @@ def curves_imagenet_path(mt, checks, histogram, card: str) -> dict:
     groups = sorted(sorted(g) for g in suite.compute_groups.values())
     assert groups == [["ap", "auroc"], ["binned_ap"], ["ece"]], f"curves_imagenet: groups {groups}"
     assert launches == len(batches), f"curves_imagenet: {launches} bincount launches in {len(batches)} updates"
-    update_prof = profile_steps(curves_imagenet_suite(mt, CURVES_DEVICE, num_classes).update, batches[:8])
+    spare = curves_imagenet_suite(mt, CURVES_DEVICE, num_classes)
+    update_prof = profile_steps(spare.update, batches[:8], owners=(spare,))
     result = {"n": n, "batch": batches[0][0].shape[0], "num_classes": num_classes, "steps": len(batches),
               "groups": groups, "card": card, "update_ms_per_step_runs": runs,
               "update_ms_per_step": runs[len(runs) // 2], "update_profile": update_prof, "kernel_launches": launches}
@@ -1383,7 +1429,7 @@ def curves_path(mt, checks, histogram, card: str) -> dict:
 
 # ------------------------------------------------------------------ phases 11 to 14
 EVAL_DEVICE = "cuda"  # where phases 11 to 14 run
-CPU_TWIN_S = 15.0  # a CPU twin runs every batch where that takes about this long, else the first ones that fit
+CPU_TWIN_S = 8.0  # a CPU twin runs every batch where that takes about this long, else the first ones that fit
 RANKING_SHAPE = (50, 1000, 1000)  # updates, rows an update, labels: the ImageNet-1k validation set
 RANKING_RTOL = 1e-5  # float sums of per-row values (LRAP, ranking loss, hinge, KL) in another order on each side
 REGRESSION_SHAPE = (64, 262_144)  # updates, rows an update: 2**24 rows
@@ -1401,7 +1447,7 @@ PAIRWISE_CPU_ROWS = 256  # rows of x the CPU twin computes, all columns
 PAIRWISE_ATOL, PAIRWISE_RTOL = 1e-3, 1e-5
 RETRIEVAL_SHAPE = (6980, 100, 1000)  # queries, queries an update, candidates a query: MS MARCO dev-small re-ranking
 RETRIEVAL_ATOL = 1e-6  # means over queries of exact per-query values, in another order on each side
-RETRIEVAL_CPU_TWIN_S = 30.0  # the retrieval CPU twin computes all 70 updates only if that takes about this long
+RETRIEVAL_CPU_TWIN_S = 15.0  # the retrieval CPU twin computes all 70 updates only if that takes about this long
 
 
 def median(values) -> float:
@@ -1441,7 +1487,7 @@ def timed_compute(members: dict, result: dict) -> dict:
 def update_profile(make, update, batches, ms_per_step: float) -> dict:
     """Device time per update step on a new ``make()`` (the first 2 steps in the profiler's warm-up)."""
     obj = make()
-    prof = profile_steps(lambda *b: update(obj, b), batches)
+    prof = profile_steps(lambda *b: update(obj, b), batches, owners=(obj,))
     if prof["device_ms_per_step"] is not None:
         prof["device_idle_share"] = 1.0 - prof["device_ms_per_step"] / ms_per_step
     return prof
@@ -1640,11 +1686,11 @@ def regression_path(mt, checks, histogram, card: str) -> dict:
     mo_batches = regression_batches(seed=32, shape=MULTIOUTPUT_SHAPE)
     mo = multioutput_suite(mt, EVAL_DEVICE)
     mo_cpu = multioutput_suite(mt, "cpu")
-    torch.cuda.synchronize()
+    settle(mo)
     t0 = time.perf_counter()
     for p, t in mo_batches:
         mo.update(p, t)
-    torch.cuda.synchronize()
+    settle(mo)
     result["multioutput_update_ms_per_step"] = (time.perf_counter() - t0) / len(mo_batches) * 1e3
     for p, t in mo_batches:
         mo_cpu.update(p.cpu(), t.cpu())
@@ -1928,7 +1974,7 @@ IMAGE_SHAPE = (20, 10, 3, 512, 512)  # updates, images an update, channels, heig
 SPECTRAL_SHAPE = (4, 8, 4, 256, 256)  # updates, patches an update, bands, height, width: 4-band pan-sharpening
 IMAGE_ATOL = 1e-4  # the JAX package's image tests (tests/image/test_image.py:53)
 ERGAS_ATOL = 1e-2  # tests/image/test_image.py:202
-IMAGE_CPU_TWIN_S = 30.0  # the image CPU twin computes every image only if that takes about this long
+IMAGE_CPU_TWIN_S = 15.0  # the image CPU twin computes every image only if that takes about this long
 
 
 class DrawLog:
@@ -2139,7 +2185,7 @@ def wrappers_path(mt, checks, histogram, card: str) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run_tracker(tracker, batches)
-        torch.cuda.synchronize()
+        settle(tracker._history[-1])  # the earlier epochs flushed where the tracker packed them
         result["tracker_update_ms_per_step"] = (time.perf_counter() - t0) / (TRACKER_EPOCHS * TRACKER_STEPS) * 1e3
         tracker_draws.replay()
         run_tracker(cpu_tracker, [tuple(t.cpu() for t in b) for b in batches])
@@ -2313,11 +2359,11 @@ def image_path(mt, checks, histogram, card: str) -> dict:
     sp_batches = spectral_batches()
     sp = spectral_suite(mt, EVAL_DEVICE)
     sp_cpu = spectral_suite(mt, "cpu")
-    torch.cuda.synchronize()
+    settle(sp)
     t0 = time.perf_counter()
     for b in sp_batches:
         sp.update(*b)
-    torch.cuda.synchronize()
+    settle(sp)
     result["spectral_update_ms_per_step"] = (time.perf_counter() - t0) / len(sp_batches) * 1e3
     sp_members = dict(sp.items(keep_base=True, copy_state=False))
     sp_result: dict = {}
@@ -2612,10 +2658,10 @@ def generative_path(mt, checks, histogram, card: str) -> dict:
         metric.update(*pairs[0])  # builds the network
         times = []
         for p in pairs[1:]:
-            torch.cuda.synchronize()
+            settle(metric)
             t0 = time.perf_counter()
             metric.update(*p)
-            torch.cuda.synchronize()
+            settle(metric)
             times.append((time.perf_counter() - t0) * 1e3)
         value = metric.compute()
         assert torch.isfinite(value) and float(value) > 0, f"lpips {net_type}: {value}"
@@ -3031,10 +3077,10 @@ def run_text_family(label: str, make, update_args, batches, card: str, rtol: flo
     t_family = time.perf_counter()
     for batch in batches:
         for name, m in members.items():
-            torch.cuda.synchronize()
+            settle(m)
             t0 = time.perf_counter()
             m.update(*update_args(name, batch))
-            torch.cuda.synchronize()
+            settle(m)
             ms[name].append((time.perf_counter() - t0) * 1e3)
     result = {"updates": len(batches), "card": card,
               "update_ms": {k: median(v) for k, v in ms.items()},
@@ -3061,6 +3107,7 @@ def run_text_family(label: str, make, update_args, batches, card: str, rtol: flo
     for batch in batches:
         for name, m in twin.items():
             m.update(*update_args(name, batch))
+            settle(m)  # observed where the card's member was (SQuAD folds its host sums at each observation)
     want = {name: m.compute() for name, m in twin.items()}
     result["cpu_twin_s"] = time.perf_counter() - t0
     states_equal(members, twin, label)
@@ -3153,17 +3200,17 @@ def text_lm(mt, card: str) -> dict:
         logits, target = lm_batch(g, (batch, seq, vocab), TEXT_DEVICE)
         if i < LM_CPU_UPDATES:
             kept.append((logits.cpu(), target.cpu()))
-        torch.cuda.synchronize()
+        settle(metric)
         t0 = time.perf_counter()
         metric.update(logits, target)
-        torch.cuda.synchronize()
+        settle(metric)
         ms.append((time.perf_counter() - t0) * 1e3)
     logits, target = lm_batch(g, (batch, seq, vocab), TEXT_DEVICE)
     half = logits.to(torch.bfloat16)
-    torch.cuda.synchronize()
+    settle(metric)
     t0 = time.perf_counter()
     metric.update(half, target)
-    torch.cuda.synchronize()
+    settle(metric)
     bf16_ms = (time.perf_counter() - t0) * 1e3
     value = metric.compute()
     assert torch.isfinite(value) and float(value) > 1.0, value
@@ -3415,13 +3462,13 @@ def separation_batches(seed: int, shape, device) -> list:
     return out
 
 
-def timed_updates(update, batches) -> list:
+def timed_updates(update, batches, owners=()) -> list:
     ms = []
     for b in batches:
-        torch.cuda.synchronize()
+        settle(*owners)
         t0 = time.perf_counter()
         update(*b)
-        torch.cuda.synchronize()
+        settle(*owners)
         ms.append((time.perf_counter() - t0) * 1e3)
     return ms
 
@@ -3444,7 +3491,7 @@ def pit_family(mt, F, label: str, shape, seed: int, card: str) -> dict:
         perms.append(perm)
 
     card_m, card_perms = make(TEXT_DEVICE), []
-    ms = timed_updates(lambda p, t, _: feed(card_m, card_perms, p, t), batches)
+    ms = timed_updates(lambda p, t, _: feed(card_m, card_perms, p, t), batches, owners=tuple(card_m.values()))
     result = {"mixtures": shape[0], "speakers": shape[1], "samples": shape[2], "update_mixtures": shape[3],
               "card": card, "update_ms": median(ms)}
     spare = make(TEXT_DEVICE)
@@ -3485,7 +3532,7 @@ def sdr_family(mt, F, card: str) -> dict:
     result = {"clips": n, "samples": samples, "update_clips": size, "filter_length": taps, "card": card}
     for variant, kwargs, atol in (("solve", {}, SDR_F32_ATOL_DB), ("cg10", {"use_cg_iter": 10}, SDR_CG_ATOL_DB)):
         metric = mt.SignalDistortionRatio(filter_length=taps, device=TEXT_DEVICE, **kwargs)
-        ms = timed_updates(metric.update, batches)
+        ms = timed_updates(metric.update, batches, owners=(metric,))
         got = metric.compute()
         per_clip_card = torch.cat([F.signal_distortion_ratio(p, t, filter_length=taps, **kwargs) for p, t in batches[:2]])
         t0 = time.perf_counter()
@@ -3543,7 +3590,7 @@ def stoi_family(mt, card: str) -> dict:
     result = {"clips": n, "samples": samples, "fs": fs, "card": card}
     for label, extended, use in (("stoi", False, batches), ("estoi", True, batches[: ESTOI_CLIPS // size])):
         metric = mt.ShortTimeObjectiveIntelligibility(fs, extended, device=TEXT_DEVICE)
-        ms = timed_updates(metric.update, use)
+        ms = timed_updates(metric.update, use, owners=(metric,))
         got = metric.compute()
         twin = mt.ShortTimeObjectiveIntelligibility(fs, extended, device="cpu")
         for p, c in use:
@@ -3864,7 +3911,7 @@ def sync_world_of_one(mt, histogram, name: str, card: str) -> dict:
     histogram.KERNEL_LAUNCHES = 0
     for args, kwargs in sync_batches(name, 0):
         suite.update(*args, **kwargs)
-    torch.cuda.synchronize()
+    settle(suite)
     launches = histogram.KERNEL_LAUNCHES
     members = suite_nodes(suite)
     if name in ("curves", "retrieval"):
@@ -4180,7 +4227,15 @@ def telemetry_cost(mt, checks, histogram, card: str) -> tuple:
                 by_site = {}
                 for r in spans:
                     by_site[r["site"]] = by_site.get(r["site"], 0) + 1
-                assert by_site == {"suite-step": warmup + timed}, f"telemetry: spans {by_site}"
+                # one suite-step a call; every call after the first enqueues (validation mode "first"), and
+                # the flushes run the suite's step program (a build, a first run of a chunk length, a run)
+                assert by_site.pop("suite-step") == warmup + timed, f"telemetry: spans {by_site}"
+                assert by_site.pop("engine-enqueue") == warmup + timed - 1, f"telemetry: spans {by_site}"
+                assert by_site.pop("engine-flush") >= 2, f"telemetry: spans {by_site}"
+                assert set(by_site) <= {"engine-build", "engine-compile", "engine-dispatch"}, by_site
+                by_site = {r["site"]: 0 for r in spans}
+                for r in spans:
+                    by_site[r["site"]] += 1
                 if trial == 0:
                     result["spans_per_step"] = {k: v / (warmup + timed) for k, v in by_site.items()}
                     result["kernel_launches"] = launches
@@ -4542,7 +4597,7 @@ def planes_world_of_one(mt, histogram, card: str) -> dict:
                             "blocking_ms": out["blocking_sync_ms"], "wire_ms": wire * 1e3, "waited_ms": waited * 1e3,
                             "hidden_share": max(0.0, 1.0 - waited / wire) if wire else None,
                             "updates_in_flight": len(batches) - steps}
-            torch.cuda.synchronize()
+            settle(suite, twin)
             out["kernel_launches"] = histogram.KERNEL_LAUNCHES
             expected = 2 * len(batches)  # one ConfusionMatrix launch an update, both suites
             assert out["kernel_launches"] == expected, (out["kernel_launches"], expected)
@@ -4909,10 +4964,10 @@ def planes_compute_on_cpu(mt, card: str) -> dict:
             logits = torch.randn(batch, generator=g, device=PLANES_DEVICE) + 2.0 * target - 1.5
             preds = torch.round(torch.sigmoid(logits) * 4096) / 4096
             del logits
-            torch.cuda.synchronize()
+            settle(suite)
             t0 = time.perf_counter()
             suite.update(preds, target)
-            torch.cuda.synchronize()
+            settle(suite)
             update_s += time.perf_counter() - t0
             del preds, target
         peak_updates = torch.cuda.max_memory_allocated() - base
@@ -4947,6 +5002,389 @@ def sync_planes_path(mt, checks, histogram, card: str) -> dict:
     result["phase_s"] = time.perf_counter() - t_phase
     log(f"sync planes: phase 22 took {result['phase_s']:.1f} s  [{card}]")
     assert result["phase_s"] < PLANES_PHASE_S, f"phase 22 took {result['phase_s']:.1f} s"
+    return result
+
+
+# ---- phase 23: engine
+ENGINE_DEVICE = "cuda"  # where phase 23 runs
+ENGINE_SHAPE = (8192, 128, 5, 128)  # the headline suite (phase 3's): rows a batch, classes, warm-up and timed updates
+ENGINE_FORWARDS = 32  # (b) forwards under deferral
+ENGINE_READS_STEPS = 16  # the updates of each way whose host reads are counted
+ENGINE_LANE_UPDATES = 16  # (d) updates of the curve and retrieval lanes (the first one validated)
+ENGINE_PHASE_S = 60.0
+
+
+def engine_counts(engine) -> dict:
+    stats = engine.engine_stats()
+    return {k: stats[k] for k in ("builds", "hits", "deferred_steps", "deferred_flushes", "deferred_fallbacks",
+                                  "device_probes")}
+
+
+def counts_delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def host_read_count(fn) -> int:
+    """Host reads (``item``, ``nonzero``) of one call of ``fn``, from a CPU-only profiler session."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    return counts.get("aten::_local_scalar_dense", 0) + counts.get("aten::nonzero", 0)
+
+
+def suite_state_tensors(suite) -> dict:
+    return {(name, state): value for name, m in suite.items(keep_base=True, copy_state=False)
+            for state, value in m.metric_state.items()}
+
+
+def assert_suite_states_bit_equal(got, want, label: str) -> None:
+    a, b = suite_state_tensors(got), suite_state_tensors(want)
+    assert a.keys() == b.keys(), f"{label}: states {sorted(a)} against {sorted(b)}"
+    for key, value in b.items():
+        mine = a[key]
+        if isinstance(value, list):
+            assert len(mine) == len(value) and all(
+                x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()) for x, y in zip(mine, value)), f"{label}: {key}"
+        else:
+            assert mine.dtype == value.dtype and torch.equal(mine.cpu(), value.cpu()), f"{label}: {key} differs"
+
+
+def engine_ways(mt, engine, histogram, batches, card: str) -> dict:
+    """(a) The headline suite three ways in mode "first": per call (deferral off), deferred (compute()
+    inside the timed window), one update_many over the timed steps stacked. Each way ends at 5 + 2 x 128
+    updates (per call and deferred repeat the timed steps untimed; update_many's first chunk of a
+    signature runs call by call, validated), and the three must be bit-equal."""
+    batch, num_classes, warmup, timed = ENGINE_SHAPE
+    out: dict = {}
+    suites = {}
+    stacked = (torch.stack([p for p, _ in batches[warmup:]]), torch.stack([t for _, t in batches[warmup:]]))
+    for way in ("per_call", "deferred", "update_many"):
+        engine.set_deferred_dispatch(way != "per_call")
+        try:
+            suite = make_suite(mt, num_classes, ENGINE_DEVICE)
+            for preds, target in batches[:warmup]:
+                suite.update(preds, target)
+            if way == "update_many":
+                suite.update_many(*stacked)  # the chunk signature's first sight: call by call
+            settle(suite)
+            histogram.KERNEL_LAUNCHES = 0
+            before = engine_counts(engine)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if way == "update_many":
+                suite.update_many(*stacked)
+            else:
+                for preds, target in batches[warmup:]:
+                    suite.update(preds, target)
+            values = suite.compute()
+            settle(suite)
+            seconds = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            launches = histogram.KERNEL_LAUNCHES
+            counts = counts_delta(engine_counts(engine), before)
+            assert launches == timed, f"engine {way}: {launches} bincount launches for {timed} updates"
+            if way != "update_many":  # the second pass, untimed
+                for preds, target in batches[warmup:]:
+                    suite.update(preds, target)
+                settle(suite)
+            # host reads of ENGINE_READS_STEPS updates (a flush of as many entries, a chunk of as many steps)
+            spare = make_suite(mt, num_classes, ENGINE_DEVICE)
+            for preds, target in batches[:warmup]:
+                spare.update(preds, target)
+            few = batches[warmup:warmup + ENGINE_READS_STEPS]
+            if way == "update_many":
+                chunk = (torch.stack([p for p, _ in few]), torch.stack([t for _, t in few]))
+                spare.update_many(*chunk)
+                reads = host_read_count(lambda: (spare.update_many(*chunk), settle(spare)))
+            else:
+                settle(spare)
+                reads = host_read_count(lambda: ([spare.update(p, t) for p, t in few], settle(spare)))
+            del spare
+            suites[way] = suite
+            out[way] = {"ms_per_step": seconds / timed * 1e3, "kernel_launches": launches, "engine": counts,
+                        "peak_extra_bytes": peak, "host_reads_per_16_updates": reads,
+                        "values": {k: v.cpu().tolist() if v.numel() == 1 else None for k, v in values.items()}}
+            log(f"engine (a) {way}: {seconds / timed * 1e3:.4f} ms/step over {timed} updates (compute() included), "
+                f"{launches} launches, engine {counts}, peak extra {peak} bytes, host reads of "
+                f"{ENGINE_READS_STEPS} updates {reads}  [{card}]")
+        finally:
+            engine.set_deferred_dispatch(True)
+    assert out["deferred"]["engine"]["deferred_steps"] == timed, out["deferred"]["engine"]
+    assert out["deferred"]["engine"]["deferred_flushes"] >= 1, out["deferred"]["engine"]
+    assert out["per_call"]["engine"]["deferred_steps"] == 0, out["per_call"]["engine"]
+    assert out["deferred"]["host_reads_per_16_updates"] <= out["per_call"]["host_reads_per_16_updates"], out
+    assert out["update_many"]["host_reads_per_16_updates"] <= out["per_call"]["host_reads_per_16_updates"], out
+    assert_suite_states_bit_equal(suites["deferred"], suites["per_call"], "engine: deferred against per call")
+    assert_suite_states_bit_equal(suites["update_many"], suites["per_call"], "engine: update_many against per call")
+    # the CPU twin over the first steps that fit CPU_TWIN_S, against a card suite fed the same (deferred)
+    cpu = make_suite(mt, num_classes, "cpu")
+    t0 = time.perf_counter()
+    cpu.update(batches[0][0].cpu(), batches[0][1].cpu())
+    depth = cpu_twin_steps(time.perf_counter() - t0, len(batches))
+    card_twin = make_suite(mt, num_classes, ENGINE_DEVICE)
+    card_twin.update(*batches[0])
+    for preds, target in batches[1:depth]:
+        cpu.update(preds.cpu(), target.cpu())
+        card_twin.update(preds, target)
+    assert_suite_states_bit_equal(card_twin, cpu, "engine: the card (deferred) against the CPU twin")
+    out["cpu_twin_steps"] = depth
+    del suites, stacked, card_twin, cpu
+    return out
+
+
+def engine_forwards(mt, engine, histogram, batches, card: str) -> dict:
+    """(b) ENGINE_FORWARDS forwards of the headline suite under deferral, their lazy values read after,
+    each bit-equal to the per-call forward's."""
+    num_classes = ENGINE_SHAPE[1]
+    use = batches[:ENGINE_FORWARDS]
+    engine.set_deferred_dispatch(False)
+    try:
+        ref = make_suite(mt, num_classes, ENGINE_DEVICE)
+        want = [ref(p, t) for p, t in use]
+    finally:
+        engine.set_deferred_dispatch(True)
+    suite = make_suite(mt, num_classes, ENGINE_DEVICE)
+    before = engine_counts(engine)
+    histogram.KERNEL_LAUNCHES = 0
+    settle(suite)
+    t0 = time.perf_counter()
+    got = [suite(p, t) for p, t in use]
+    enqueue_s = time.perf_counter() - t0
+    lazy = sum(isinstance(v, engine.LazyValue) for row in got for v in row.values())
+    resolved = [{k: v._force() if isinstance(v, engine.LazyValue) else v for k, v in row.items()} for row in got]
+    settle(suite)
+    counts = counts_delta(engine_counts(engine), before)
+    launches = histogram.KERNEL_LAUNCHES
+    for i, (g, w) in enumerate(zip(resolved, want)):
+        assert g.keys() == w.keys(), (g.keys(), w.keys())
+        for k in w:
+            assert g[k].dtype == w[k].dtype and torch.equal(g[k], w[k]), f"engine (b): forward {i} {k} differs"
+    assert_suite_states_bit_equal(suite, ref, "engine (b): states after the forwards")
+    assert lazy == 4 * (ENGINE_FORWARDS - 1), f"engine (b): {lazy} lazy values"
+    assert launches == ENGINE_FORWARDS and counts["deferred_steps"] == ENGINE_FORWARDS - 1, (launches, counts)
+    out = {"forwards": ENGINE_FORWARDS, "lazy_values": lazy, "kernel_launches": launches, "engine": counts,
+           "enqueue_ms_per_forward": enqueue_s / ENGINE_FORWARDS * 1e3}
+    log(f"engine (b) forwards: {json.dumps(out)}  [{card}]")
+    return out
+
+
+def engine_forward_many(mt, engine, histogram, card: str) -> dict:
+    """(c) forward_many over phase 9's ImageNet-1k rows through the headline suite at C=1000: the
+    per-step values equal 50 forwards bit for bit (the chunk signature seen once before, then reset)."""
+    steps, _, num_classes = CURVES_IMAGENET_SHAPE
+    rows = curves_imagenet_batches()
+    P, T = torch.stack([p for p, _ in rows]), torch.stack([t for _, t in rows])
+    engine.set_deferred_dispatch(False)
+    try:
+        ref = make_suite(mt, num_classes, ENGINE_DEVICE)
+        want = [ref(p, t) for p, t in rows]
+    finally:
+        engine.set_deferred_dispatch(True)
+    suite = make_suite(mt, num_classes, ENGINE_DEVICE)
+    suite.forward_many(P, T)  # the chunk signature's first sight runs forward by forward
+    suite.reset()
+    settle(suite)
+    histogram.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    got = suite.forward_many(P, T)
+    settle(suite)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = histogram.KERNEL_LAUNCHES
+    for k in want[0]:
+        assert got[k].shape[0] == steps, (k, got[k].shape)
+        for i in range(steps):
+            assert torch.equal(got[k][i], want[i][k]), f"engine (c): step {i} {k} differs"
+    assert_suite_states_bit_equal(suite, ref, "engine (c): states after forward_many")
+    assert launches == steps, f"engine (c): {launches} launches for {steps} steps"
+    out = {"steps": steps, "rows": rows[0][0].shape[0], "num_classes": num_classes, "ms": ms,
+           "ms_per_step": ms / steps, "kernel_launches": launches}
+    log(f"engine (c) forward_many ImageNet: {json.dumps(out)}  [{card}]")
+    del rows, P, T
+    return out
+
+
+def device_tensor_calls(fn, device) -> int:
+    """How many tensors ``fn`` made on ``device`` from host data (``torch.tensor(..., device=device)``, SQuAD's
+    one way to the card), counted at the call: a profiler session can lose a single small copy."""
+    real, count, want = torch.tensor, [0], torch.device(device).type
+
+    def counting(*args, **kwargs):
+        made_on = kwargs.get("device")
+        count[0] += made_on is not None and torch.device(made_on).type == want
+        return real(*args, **kwargs)
+
+    torch.tensor = counting
+    try:
+        fn()
+    finally:
+        torch.tensor = real
+    return count[0]
+
+
+def lane_updates(make, batches, update, telemetry) -> tuple:
+    """(first validated update's host µs, the lane updates' mean host µs, host-lane spans, the metric)."""
+    obj = make(ENGINE_DEVICE)
+    telemetry.clear_spans()
+    settle()
+    t0 = time.perf_counter()
+    update(obj, batches[0])
+    first_us = (time.perf_counter() - t0) * 1e6
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        update(obj, b)
+    lane_us = (time.perf_counter() - t0) / (len(batches) - 1) * 1e6
+    spans = sum(r["site"] == "host-lane" for r in telemetry.spans())
+    return first_us, lane_us, spans, obj
+
+
+def engine_lanes(mt, card: str) -> dict:
+    """(d) The host lanes: phase 9's binary curve suite (ENGINE_LANE_UPDATES of its updates), phase 14's
+    MS MARCO suite (as many updates of 100 queries), phase 19's SQuAD updates; each against its first,
+    validated update, its rows or sums bit-equal to the CPU twin's."""
+    from metrics_tpu_torch.ops import telemetry
+
+    armed = telemetry.armed
+    telemetry.set_telemetry(True)
+    out = {}
+    try:
+        curves = curves_binary_batches()[:ENGINE_LANE_UPDATES]
+        retrieval = retrieval_batches(steps=ENGINE_LANE_UPDATES)
+        preds, target = squad_corpus()
+        squad = list(zip(chunks(preds, QA_SHAPE[1]), chunks(target, QA_SHAPE[1])))
+        cases = (("curves_binary", lambda d: curves_binary_suite(mt, d), curves),
+                 ("retrieval", lambda d: retrieval_suite(mt, d), retrieval),
+                 ("squad", lambda d: mt.SQuAD(device=d), squad))
+        for name, make, batches in cases:
+            first_us, lane_us, spans, obj = lane_updates(make, batches, update_batch, telemetry)
+            assert spans == len(batches) - 1, f"engine (d) {name}: {spans} host-lane updates of {len(batches) - 1}"
+            cpu = make("cpu")
+            for b in batches:
+                update_batch(cpu, tuple(t.cpu() for t in b) if isinstance(b[0], torch.Tensor) else b)
+            row = {"updates": len(batches), "first_update_us": first_us, "lane_update_us": lane_us,
+                   "lane_updates": spans}
+            if name == "squad":
+                spare = make(ENGINE_DEVICE)
+                spare.update(*batches[0])
+                more = batches[1:9]
+                row["copies_to_card_per_update"] = device_tensor_calls(
+                    lambda: [spare.update(*b) for b in more], ENGINE_DEVICE) / len(more)
+                row["copies_to_card_compute"] = device_tensor_calls(spare.compute, ENGINE_DEVICE)
+                got, want = obj.compute(), cpu.compute()
+                for k in want:
+                    assert torch.equal(got[k].cpu(), want[k]), f"engine (d) squad: {k}"
+                assert row["copies_to_card_per_update"] == 0 and row["copies_to_card_compute"] == 1, row
+                states = {k: float(v) for k, v in obj.metric_state.items()}
+                assert states == {k: float(v) for k, v in cpu.metric_state.items()}, states
+            else:
+                assert_suite_states_bit_equal(obj, cpu, f"engine (d) {name}")
+            out[name] = row
+            log(f"engine (d) {name}: {json.dumps(row)}  [{card}]")
+    finally:
+        telemetry.set_telemetry(armed)
+    return out
+
+
+def engine_probe_and_drills(mt, engine, histogram, batches, card: str) -> dict:
+    """(e) The device probe at every=1 on (a)'s deferred flushes: ``device_probes`` counted, the
+    device-inclusive wall beside the host wall. (f) ``flush-chunk-2`` injected: an eager replay,
+    ``deferred_fallbacks`` 1, states bit-equal; ``compile`` injected on a cache miss: counted, the
+    updates still run."""
+    from metrics_tpu_torch.ops import faults, telemetry
+
+    num_classes, warmup, timed = ENGINE_SHAPE[1:]
+    out: dict = {}
+    armed = telemetry.armed
+    telemetry.set_telemetry(True)
+    engine.set_device_probe(1)
+    try:
+        suite = make_suite(mt, num_classes, ENGINE_DEVICE)
+        for preds, target in batches[:warmup]:
+            suite.update(preds, target)
+        settle(suite)
+        telemetry.clear_spans()
+        before = engine_counts(engine)
+        for preds, target in batches[warmup:]:
+            suite.update(preds, target)
+        settle(suite)
+        counts = counts_delta(engine_counts(engine), before)
+        rows = telemetry.spans()
+        host = [r["dur"] * 1e3 for r in rows if r["site"] == "engine-dispatch"]
+        device = [r["dur"] * 1e3 for r in rows if r["site"] == "device-dispatch"]
+        assert counts["device_probes"] >= 1 and len(device) == counts["device_probes"], (counts, len(device))
+        out["probe"] = {"device_probes": counts["device_probes"], "host_wall_ms": host, "device_inclusive_ms": device,
+                        "per_program": telemetry.device_dispatch_stats()}
+        log(f"engine (e) probe every=1: {counts['device_probes']} probes; host wall ms {host}, device-inclusive "
+            f"ms {device}  [{card}]")
+    finally:
+        engine.set_device_probe(0)
+        telemetry.set_telemetry(armed)
+
+    def twin_states(n):
+        engine.set_deferred_dispatch(False)
+        try:
+            twin = make_suite(mt, num_classes, ENGINE_DEVICE)
+            for preds, target in batches[:n]:
+                twin.update(preds, target)
+            return twin
+        finally:
+            engine.set_deferred_dispatch(True)
+
+    # flush-chunk-2: 1 eager update, then 7 queued (chunks of 4, 2, 1): chunks 0 and 1 apply, then the replay
+    suite = make_suite(mt, num_classes, ENGINE_DEVICE)
+    for preds, target in batches[:8]:
+        suite.update(preds, target)
+    before = engine_counts(engine)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with faults.inject_faults("flush-chunk-2", count=1) as plan:
+            settle(suite)
+    counts = counts_delta(engine_counts(engine), before)
+    assert plan.fired == 1 and counts["deferred_fallbacks"] == 1, (plan.fired, counts)
+    assert any("Replaying the queue eagerly" in str(w.message) for w in caught), [str(w.message) for w in caught]
+    assert_suite_states_bit_equal(suite, twin_states(8), "engine (f) flush-chunk-2")
+    out["flush_chunk_drill"] = {"fired": plan.fired, "engine": counts}
+
+    # compile on a miss: the cache emptied, a new suite's first flush must build its program
+    engine.reset_engine()
+    suite = make_suite(mt, num_classes, ENGINE_DEVICE)
+    for preds, target in batches[:4]:
+        suite.update(preds, target)
+    compile_faults = faults.fault_stats().get("fault_compile", 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with faults.inject_faults("compile", count=1) as plan:
+            settle(suite)
+    assert plan.fired == 1 and faults.fault_stats().get("fault_compile", 0) == compile_faults + 1, plan.fired
+    assert_suite_states_bit_equal(suite, twin_states(4), "engine (f) compile")
+    out["compile_drill"] = {"fired": plan.fired, "fault_compile": faults.fault_stats().get("fault_compile", 0)}
+    log(f"engine (f) drills: {json.dumps(out['flush_chunk_drill'])}, {json.dumps(out['compile_drill'])}  [{card}]")
+    return out
+
+
+def engine_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 23: the dispatch engine (see the module docstring). The bincount launches of (a) are
+    the kernel row's launches on this path."""
+    from metrics_tpu_torch.ops import engine
+
+    t_phase = time.perf_counter()
+    checks.set_validation_mode("first")
+    engine.set_deferred_dispatch(True, max_pending=128, max_age_ms=250)
+    batch, num_classes, warmup, timed = ENGINE_SHAPE
+    batches = make_batches(batch, num_classes, warmup + timed, seed=0, device=ENGINE_DEVICE)
+    result = {"card": card, "shape": list(ENGINE_SHAPE)}
+    result["ways"] = engine_ways(mt, engine, histogram, batches, card)
+    result["forwards"] = engine_forwards(mt, engine, histogram, batches, card)
+    result["forward_many_imagenet"] = engine_forward_many(mt, engine, histogram, card)
+    result["lanes"] = engine_lanes(mt, card)
+    result.update(engine_probe_and_drills(mt, engine, histogram, batches, card))
+    result["kernel_launches"] = sum(result["ways"][w]["kernel_launches"] for w in ("per_call", "deferred",
+                                                                                     "update_many"))
+    result["phase_s"] = time.perf_counter() - t_phase
+    assert result["phase_s"] < ENGINE_PHASE_S, f"phase 23 took {result['phase_s']:.1f} s"
+    log(f"engine phase: {result['phase_s']:.1f} s  [{card}]")
     return result
 
 
@@ -4995,6 +5433,7 @@ def main() -> int:
     sync = timed_phase("sync", sync_path, mt, histogram, card)
     observability = timed_phase("observability_journal", observability_path, mt, checks, histogram, card)
     sync_planes = timed_phase("sync_planes", sync_planes_path, mt, checks, histogram, card)
+    engine_result = timed_phase("engine", engine_path, mt, checks, histogram, card)
     log(f"phase seconds: {json.dumps(phase_s)}")
     # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, the
     # retrieval path's first compute() and graded NDCG, the wrapper phase's first timed runs, and the
@@ -5003,14 +5442,15 @@ def main() -> int:
     kernel["launches"] += (curves["kernel_launches"] + evaluation["kernel_launches"]
                            + wrappers_image["kernel_launches"] + generative_detection["kernel_launches"]
                            + text_audio["kernel_launches"] + sync["kernel_launches"]
-                           + observability["kernel_launches"] + sync_planes["kernel_launches"])
+                           + observability["kernel_launches"] + sync_planes["kernel_launches"]
+                           + engine_result["kernel_launches"])
 
     log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
                     "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation,
                     "curves_path": curves, "eval_paths": evaluation, "wrapper_image_paths": wrappers_image,
                     "generative_detection_paths": generative_detection, "text_audio_paths": text_audio,
                     "sync_path": sync, "observability_journal": observability, "sync_planes": sync_planes,
-                    "phase_seconds": phase_s}))
+                    "engine": engine_result, "phase_seconds": phase_s}))
     log(json.dumps({"kernels": [kernel]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -216,9 +216,38 @@ class CatMetric(BaseAggregator):
     """
 
     _keeps_raw_values = True
+    _has_update_lane_hook = True
 
     def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
         super().__init__("cat", [], nan_strategy, **kwargs)
+
+    def _build_update_lane(self, args: tuple, kwargs: dict) -> Optional[Callable]:
+        """The host fast lane (JAX `aggregation.py:247`): after the first validated
+        update of a signature, a later one of the same shape, dtype and device
+        is the cast, one append and one guard (this signature's "first"-mode
+        NaN check ran on the validated call). Not for a float ``nan_strategy``,
+        which rewrites values, nor for empty updates, which append nothing."""
+        if kwargs or len(args) != 1 or not isinstance(self.nan_strategy, str) or not isinstance(args[0], Tensor):
+            return None
+        v0 = args[0]
+        if v0.numel() == 0:
+            return None
+        signature, device, guard = (v0.shape, v0.dtype, v0.device), self.device, self._lane_guard()
+
+        def lane(largs: tuple, lkwargs: dict) -> bool:
+            if lkwargs or len(largs) != 1:
+                return False
+            v = largs[0]
+            if not isinstance(v, Tensor) or (v.shape, v.dtype, v.device) != signature:
+                return False
+            if not guard() or not isinstance(self.value, list):
+                return False
+            self._update_count += 1
+            self._computed = None
+            self.value.append(torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1))
+            return True
+
+        return lane
 
     def update(self, value: Union[float, Tensor]) -> None:
         value = torch.as_tensor(value, dtype=torch.float32, device=self.device)

@@ -21,6 +21,16 @@ pack or unpack failure demotes the suite's ``sync-pack`` lane and replays
 the sync member by member, bit for bit; clean suite steps and syncs
 re-promote it.
 
+Deferred dispatch and chunks (`metrics_tpu/collections.py` `:294-990`): once
+the compute groups are known and a signature has passed one eager call, an
+``update`` enqueues into ONE suite queue for every group leader (the states of
+every member are held by it), and a ``forward`` of a suite whose members all
+defer enqueues into one suite queue and returns a dict of
+:class:`~metrics_tpu_torch.ops.engine.LazyValue`. Any member's state read,
+``compute``, ``reset``, ``sync``, ``state_dict``, a copy, ``.to()`` and the
+journal flush it, in enqueue order. :meth:`MetricCollection.update_many` and
+:meth:`MetricCollection.forward_many` take a leading steps axis.
+
 Journal (`metrics_tpu/collections.py` ``save_state``/``load_state``/
 ``journal``/``_journal_tick`` `:1616-1700`): the whole suite is one record;
 ``journal(path, every_n)`` saves every ``every_n`` update or forward calls,
@@ -47,23 +57,59 @@ from torch import nn
 
 from metrics_tpu_torch.metric import (
     Metric,
+    _chunk_steps,
+    _deferrable_call,
     _degradable_sync_failure,
     _distributed_available,
     _enter_degraded,
     _inflight_block,
     _note_degraded_serve,
     _note_quorum_serve,
+    _forward_signature,
+    _stack_values,
     _stamp_last_good,
 )
+from metrics_tpu_torch.ops import engine as _engine
 from metrics_tpu_torch.ops import faults as _faults
 from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.parallel import bucketing as _bucketing
 from metrics_tpu_torch.parallel import sync as _psync
+from metrics_tpu_torch.utils import checks as _checks
 from metrics_tpu_torch.utils.data import _flatten_dict, allclose
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 _UNSET_GROUP = object()
+
+
+def _filtered(m: Metric, kwargs: dict) -> dict:
+    return m._filter_kwargs(**kwargs) if kwargs else kwargs
+
+
+def _suite_many_step(suite: "MetricCollection", members: List[Tuple[str, Metric]], steps: List[Tuple[tuple, dict]],
+                     counts0: List[int], with_values: bool) -> list:
+    """The step program of a suite's queues and of its ``update_many``/``forward_many``:
+    per step, every group leader's update (``members`` are the leaders), or
+    every member's reduce-path forward, each with the update count it saw on
+    the per-call path. Takes the suite as an argument, so that the cached
+    program keeps no instance alive."""
+    values = []
+    for j, (a, k) in enumerate(steps):
+        if with_values:
+            row = {}
+            for (name, m), c0 in zip(members, counts0):
+                object.__setattr__(m, "_update_count", c0 + j)
+                row[name] = m._forward_reduce_state_update(*a, **_filtered(m, k))
+            values.append(row)
+        else:
+            for (_, m), c0 in zip(members, counts0):
+                object.__setattr__(m, "_update_count", c0 + j + 1)
+                m._update_step(a, _filtered(m, k))
+    return values
+
+
+def _build_suite_many():
+    return _suite_many_step
 
 
 class MetricCollection(nn.ModuleDict):
@@ -88,6 +134,13 @@ class MetricCollection(nn.ModuleDict):
         >>> {k: round(float(v), 4) for k, v in sorted(collection.compute().items())}
         {'Accuracy': 0.75, 'Precision': 0.8333}
     """
+
+    # the dispatch engine (see the module docstring); _fused_seen holds the suite
+    # signatures that passed one eager call
+    _defer_ok: bool = True
+    _defer_suspended: bool = False
+    _many_ok: bool = True
+    _fused_seen: Optional[dict] = None
 
     def __init__(
         self,
@@ -115,7 +168,13 @@ class MetricCollection(nn.ModuleDict):
         """Call ``forward`` on every metric, kwargs filtered per update signature."""
         t_step = _telemetry.now() if _telemetry.armed else 0.0
         try:
-            res = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in self.items(keep_base=True, copy_state=False)}
+            deferred = self._defer_forward(args, kwargs)
+            if deferred is not None:
+                self._journal_tick()
+                return deferred
+            members = list(self.items(keep_base=True, copy_state=False))
+            res = {k: m(*args, **m._filter_kwargs(**kwargs)) for k, m in members}
+            self._note_forward_signature(members, args, kwargs, res)
             res = _flatten_dict(res)
             self._fault_note_clean()
             self._journal_tick()
@@ -128,6 +187,9 @@ class MetricCollection(nn.ModuleDict):
         """Update every metric, or once the groups are known, every group's leader."""
         t_step = _telemetry.now() if _telemetry.armed else 0.0
         try:
+            if self._defer_update(args, kwargs):
+                self._journal_tick()
+                return
             if self._groups_checked:
                 for cg in self._groups.values():
                     m0 = self._modules[cg[0]]
@@ -153,10 +215,364 @@ class MetricCollection(nn.ModuleDict):
             if t_step and _telemetry.armed:
                 _telemetry.emit("suite-step", self, "suite", t_step, _telemetry.now() - t_step, {"api": "update"})
 
+    # ------------------------------------------------------ deferred dispatch
+    def _defer_barrier(self) -> None:
+        """Flush the suite's pending queue, then each member's own (a member the suite
+        queue could not take defers on its own) and host buffers."""
+        q = self.__dict__.get("_defer_pending")
+        if q is not None:
+            q.flush()
+        for m in self._modules.values():
+            m._defer_barrier()
+
+    def _leaders(self) -> List[Tuple[str, Metric]]:
+        return [(cg[0], self._modules[cg[0]]) for cg in self._groups.values()]
+
+    def _open_queue(self, kind: str, signature: tuple, members: List[Tuple[str, Metric]], consumed: dict,
+                    kwargs: dict, flush_fn) -> _engine.PendingQueue:
+        """A suite queue holding the states of every member (a follower's read flushes it too)."""
+        everyone = list(self._modules.values())
+        for m in everyone:
+            m._defer_barrier()  # a member's own pending calls come first
+        q = _engine.PendingQueue(kind, signature, flush_fn)
+        q.meta = (members, frozenset(consumed), frozenset(kwargs), [m._update_count for _, m in members])
+        q.adopt(self, ())
+        for m in everyone:
+            q.adopt(m, m._defaults)
+        return q
+
+    def _pending_fast(self, kind: str, args: tuple, kwargs: dict, mode: str):
+        """The open suite queue of ``kind`` and this call's consumed kwargs when
+        the call extends it, else None (a queue of another shape is flushed): a
+        new or dropped kwarg, or a switch to mode ``full``, takes the slow path."""
+        q = self.__dict__.get("_defer_pending")
+        if q is None:
+            return None
+        if q.kind == kind and frozenset(kwargs) == q.meta[2] and mode != "full":
+            consumed = {k: v for k, v in kwargs.items() if k in q.meta[1]}
+            if q.matches(kind, _forward_signature(args, consumed)):
+                return q, consumed
+        q.flush()
+        return None
+
+    def _defer_update(self, args: tuple, kwargs: dict) -> bool:
+        """Enqueue one suite ``update`` for every group leader; False when it must run now."""
+        if not (self._groups_checked and not self._state_is_copy and self._defer_ok and not self._defer_suspended
+                and _engine.defer_enabled()):
+            return False
+        mode = _checks._get_validation_mode()
+        fast = self._pending_fast("collection-update", args, kwargs, mode)
+        if fast is not None:
+            q, consumed = fast
+        else:
+            leaders = self._leaders()
+            if mode == "full" or not leaders:
+                return False
+            consumed = {}
+            for _, m in leaders:
+                consumed.update(_filtered(m, kwargs))
+            if not _deferrable_call(args, consumed):
+                return False
+            for _, m in leaders:
+                seen = m._fused_seen_signatures
+                if not (m._defer_ok and m._fusable_states() and seen is not None
+                        and ("__update__", _forward_signature(args, _filtered(m, kwargs))) in seen):
+                    return False  # each leader's first call of a signature runs validated
+            q = self._open_queue("collection-update", _forward_signature(args, consumed), leaders, consumed, kwargs,
+                                 self._flush_suite_queue)
+        q.enqueue(args, consumed)
+        for cg in self._groups.values():
+            m0 = self._modules[cg[0]]
+            m0._update_count += 1
+            m0._computed = None
+            for name in cg[1:]:
+                mi = self._modules[name]
+                mi._update_count = m0._update_count
+                mi._computed = None
+        if q.should_flush():
+            q.flush()
+        return True
+
+    def _forward_members(self) -> Optional[List[Tuple[str, Metric]]]:
+        """The members when a suite forward may enqueue, else None."""
+        members = list(self.items(keep_base=True, copy_state=False))
+        if (
+            not members
+            or any(not (m._defer_ok and m._fusable_states()) or type(m).forward is not Metric.forward
+                   or m.full_state_update or m.full_state_update is None or m.dist_sync_on_step or m._is_synced
+                   for _, m in members)
+            or len({m._update_count for _, m in members}) != 1
+            or len({id(m) for _, m in members}) != len(members)
+        ):
+            return None
+        return members
+
+    def _defer_forward(self, args: tuple, kwargs: dict) -> Optional[Dict[str, Any]]:
+        """Enqueue one suite ``forward``; a dict of lazy handles, or None when it must run now."""
+        if not (self._defer_ok and not self._defer_suspended and _engine.defer_enabled()):
+            return None
+        mode = _checks._get_validation_mode()
+        fast = self._pending_fast("collection-forward", args, kwargs, mode)
+        if fast is not None:
+            q, consumed = fast
+            members = q.meta[0]
+        else:
+            if mode == "full" or self._fused_seen is None:
+                return None
+            members = self._forward_members()
+            if members is None:
+                return None
+            consumed = {}
+            for _, m in members:
+                consumed.update(_filtered(m, kwargs))
+            signature = _forward_signature(args, consumed)
+            if signature not in self._fused_seen:
+                return None  # the first call of a signature runs member by member, validated
+            q = self._open_queue("collection-forward", signature, members, consumed, kwargs,
+                                 self._flush_suite_queue)
+        handles = {}
+        for name, m in members:
+            h = handles[name] = _engine.LazyValue(q)
+            m._update_count += 1
+            m._is_synced = False
+            m._should_unsync = True
+            m._to_sync = m.sync_on_compute
+            m._computed = None
+            object.__setattr__(m, "_forward_cache", h)
+        q.enqueue(args, consumed, handles)
+        if q.should_flush():
+            q.flush()
+        return {self._set_name(name): handles[name] for name, _ in members}
+
+    def _note_forward_signature(self, members: List[Tuple[str, Metric]], args: tuple, kwargs: dict,
+                                res: Dict[str, Any]) -> None:
+        """After a member-wise forward: record its suite signature when the next
+        such call may enqueue (every member defers, every value one tensor)."""
+        if _checks._get_validation_mode() == "full" or self._forward_members() is None:
+            return
+        consumed: Dict[str, Any] = {}
+        for _, m in members:
+            consumed.update(_filtered(m, kwargs))
+        if not _deferrable_call(args, consumed):
+            return
+        if not all(isinstance(v, (torch.Tensor, _engine.LazyValue)) for v in res.values()):
+            return
+        if self._fused_seen is None:
+            object.__setattr__(self, "_fused_seen", {})
+        self._fused_seen[_forward_signature(args, consumed)] = None
+        while len(self._fused_seen) > Metric._FUSED_SIG_CAP:
+            self._fused_seen.pop(next(iter(self._fused_seen)))
+
+    def _many_program(self, with_values: bool) -> _engine.Executable:
+        """The suite's step program for chunks of calls, acquired once per suite."""
+        programs = self.__dict__.get("_many_programs")
+        if programs is None:
+            programs = {}
+            object.__setattr__(self, "_many_programs", programs)
+        exe = programs.get(with_values)
+        if exe is None:
+            key = ("suite-many", with_values) + tuple(
+                (name, _engine.config_fingerprint(m)) for name, m in self._modules.items()
+            )
+            exe = programs[with_values] = _engine.acquire_keyed(key, _build_suite_many)
+        return exe
+
+    def _suspend(self, members: List[Metric]) -> list:
+        flags = [(o, o._defer_suspended) for o in [self, *members]]
+        for o, _ in flags:
+            object.__setattr__(o, "_defer_suspended", True)
+        return flags
+
+    def _flush_suite_queue(self, q: _engine.PendingQueue) -> None:
+        """Run a suite queue in chunks through the suite's step program, then point
+        the group members at their leaders' states again. A chunk that fails is
+        undone and the rest replays eagerly; deferral stays off for the suite
+        until its ``defer`` ladder lane re-promotes."""
+        members, counts0 = q.meta[0], q.meta[3]
+        entries, handles, with_values = q.entries, q.handles, q.kind == "collection-forward"
+        targets = [m for _, m in members]
+        counts_now = [m._update_count for m in targets]
+        caches = [m.__dict__.get("_forward_cache") for m in targets]
+        q.release()
+        applied, snaps = 0, None
+        flags = self._suspend(targets)
+        try:
+            try:
+                program = self._many_program(with_values)
+                for index, n in enumerate(_engine.pow2_chunks(len(entries))):
+                    snaps = [m._state_snapshot() for m in targets]
+                    if _faults.armed:
+                        _faults.maybe_fail("flush-chunk", index=index)
+                    rows = program.run(self, (members, entries[applied:applied + n], [c + applied for c in counts0],
+                                              with_values))
+                    for j, row in enumerate(rows):
+                        for name, value in row.items():
+                            handles[applied + j][name]._set_value(value)
+                    applied += n
+            except Exception as exc:  # noqa: BLE001 - the chunk undone, the rest replayed eagerly
+                if snaps is not None:
+                    for m, snap in zip(targets, snaps):
+                        m._restore_state(snap)
+                object.__setattr__(self, "_defer_ok", False)
+                _faults.demote(
+                    self,
+                    "defer",
+                    exc,
+                    tier="chunked",
+                    site="suite-flush",
+                    warn=(
+                        f"Deferred suite {q.kind[len('collection-'):]} flush raised {type(exc).__name__}: {exc}."
+                        " Replaying the queue eagerly and disabling deferred dispatch for this collection; the"
+                        " degradation ladder re-probes deferral after clean steps."
+                    ),
+                )
+                _engine.note_deferred_flush(fallback=True)
+                for j in range(applied, len(entries)):
+                    try:
+                        rows = _suite_many_step(self, members, entries[j:j + 1], [c + j for c in counts0], with_values)
+                    except Exception:
+                        for m, c in zip(targets, counts_now):  # the calls after the failing one never ran
+                            object.__setattr__(m, "_update_count", c - (len(entries) - j - 1))
+                        raise
+                    for name, value in (rows[0] if with_values else {}).items():
+                        handles[j][name]._set_value(value)
+            else:
+                _engine.note_deferred_flush()
+                self._fault_note_clean(len(entries))
+            for m, c in zip(targets, counts_now):
+                object.__setattr__(m, "_update_count", c)
+        finally:
+            for o, flag in flags:
+                object.__setattr__(o, "_defer_suspended", flag)
+            for m, cache in zip(targets, caches):
+                object.__setattr__(m, "_forward_cache", cache)
+            if not with_values:
+                self._repoint_groups()
+
+    def _repoint_groups(self) -> None:
+        """Group members share their leader's states again (after a leader-only flush or chunk)."""
+        for cg in self._groups.values():
+            m0 = self._modules[cg[0]]
+            for name in cg[1:]:
+                mi = self._modules[name]
+                for state in m0._defaults:
+                    object.__setattr__(mi, state, m0.__dict__.get(state))
+                object.__setattr__(mi, "_update_count", m0._update_count)
+
+    # ---------------------------------------------------------- batched steps
+    def update_many(self, *args: Any, **kwargs: Any) -> None:
+        """``n`` suite updates in one call: a leading steps axis on every tensor
+        argument (see :meth:`Metric.update_many`)."""
+        self._run_many(False, args, kwargs)
+
+    def forward_many(self, *args: Any, **kwargs: Any) -> Optional[Dict[str, Any]]:
+        """``forward`` of the whole suite over a chunk of steps: ``{name: per-step
+        values stacked on a leading axis}``."""
+        return self._run_many(True, args, kwargs)
+
+    def _run_many(self, with_values: bool, args: tuple, kwargs: dict) -> Any:
+        self._defer_barrier()  # a chunk applies after the calls already queued
+        members = list(self.items(keep_base=True, copy_state=False))
+        for _, m in members:
+            m._defer_barrier()
+        consumed: Dict[str, Any] = {}
+        for _, m in members:
+            consumed.update(_filtered(m, kwargs))
+        steps = _chunk_steps(args, consumed)
+        eligible = (
+            self._many_ok
+            and _checks._get_validation_mode() != "full"
+            and self._forward_members() is not None
+            and all(m._many_ok for _, m in members)
+            and _deferrable_call(args, consumed)
+        )
+        if not eligible:
+            return self._run_many_eager(with_values, steps)
+        signature = ("__many__", with_values, _forward_signature(args, consumed))
+        if self._fused_seen is None:
+            object.__setattr__(self, "_fused_seen", {})
+        if signature not in self._fused_seen:
+            result = self._run_many_eager(with_values, steps)  # the first sight runs call by call, validated
+            self._fused_seen[signature] = None
+            return result
+        # updates go to the group leaders; forwards to every member, as the per-call paths do
+        targets = members if with_values or not self._groups_checked else self._leaders()
+        counts0 = [m._update_count for _, m in targets]
+        snaps = [m._state_snapshot() for _, m in targets]
+        flags = self._suspend([m for _, m in members])
+        try:
+            rows = self._many_program(with_values).run(self, (targets, steps, counts0, with_values))
+        except Exception as exc:  # noqa: BLE001 - undone, then call by call (raises if the input is bad)
+            for (_, m), snap, c in zip(targets, snaps, counts0):
+                m._restore_state(snap)
+                object.__setattr__(m, "_update_count", c)
+            for o, flag in flags:
+                object.__setattr__(o, "_defer_suspended", flag)
+            result = self._run_many_eager(with_values, steps)
+            _faults.demote(
+                self,
+                "many",
+                exc,
+                tier="chunked",
+                site="suite-many",
+                warn=(
+                    f"Batched-step suite program for this MetricCollection raised {type(exc).__name__}: {exc}."
+                    " Falling back to per-step eager forwards for this collection's batched API; recoverable"
+                    " failures re-probe after clean steps."
+                ),
+            )
+            object.__setattr__(self, "_many_ok", False)
+            return result
+        finally:
+            for o, flag in flags:
+                object.__setattr__(o, "_defer_suspended", flag)
+        n = len(steps)
+        for (_, m), c in zip(targets, counts0):
+            m._update_count = c + n
+            m._is_synced = False
+            m._should_unsync = True
+            m._to_sync = m.sync_on_compute
+            m._computed = None
+        if with_values:
+            for name, m in members:
+                m._forward_cache = rows[-1][name]  # as n forward calls leave it
+        elif self._groups_checked:
+            self._repoint_groups()
+        self._fault_note_clean(n)
+        self._journal_tick(n)
+        if not with_values:
+            return None
+        res = _flatten_dict({name: _stack_values([row[name] for row in rows]) for name, _ in members})
+        return {self._set_name(k): v for k, v in res.items()}
+
+    def _run_many_eager(self, with_values: bool, steps: List[Tuple[tuple, dict]]) -> Any:
+        values = []
+        flags = self._suspend(list(self._modules.values()))
+        try:
+            for a, k in steps:
+                if with_values:
+                    values.append(self.forward(*a, **k))
+                else:
+                    self.update(*a, **k)
+        finally:
+            for o, flag in flags:
+                object.__setattr__(o, "_defer_suspended", flag)
+        return _stack_values(values) if with_values else None
+
+    def to_device(self, device: Any) -> "MetricCollection":
+        """Move every member to ``device``: ``.to(device)``."""
+        return self.to(device)
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # a copy or a pickle observes every member: the suite queue flushes first
+        self._defer_barrier()
+        return {k: v for k, v in self.__dict__.items() if k not in ("_defer_pending", "_many_programs")}
+
     def _compute_members(self) -> Dict[str, Any]:
         return {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
 
     def compute(self) -> Dict[str, Any]:
+        self._defer_barrier()
         # compute() forces the suite's sync in flight; a fault there takes the degraded tier
         pending = self.__dict__.get("_pending_sync")
         if pending is not None:
@@ -237,6 +653,7 @@ class MetricCollection(nn.ModuleDict):
                 m._to_sync = flag
 
     def reset(self) -> None:
+        self._defer_barrier()  # pending forward values stay what they were
         fut = self.__dict__.get("_pending_sync")
         if fut is not None:  # its rows must not land on the reset states
             fut.cancel()
@@ -268,6 +685,7 @@ class MetricCollection(nn.ModuleDict):
         ``sync-pack`` lane of the suite or of the member). Returns
         ``(members, coalesced, individual, group)``; raises when a member is
         already synced."""
+        self._defer_barrier()
         members = list(self.items(keep_base=True, copy_state=False))
         if any(m._is_synced for _, m in members):
             raise MetricsUserError("The Metric has already been synced.")
@@ -285,6 +703,7 @@ class MetricCollection(nn.ModuleDict):
             if eligible:
                 nodes = _bucketing.tree_nodes(m)
                 for n in nodes:
+                    n._defer_barrier()
                     n._canonicalize_list_states()
                 group = process_group if process_group is not None else m.process_group
                 eligible = (
@@ -650,7 +1069,8 @@ class MetricCollection(nn.ModuleDict):
     def _journal_nodes(self) -> List[Metric]:
         """Every member tree's nodes, member by member in suite order: the walk
         the coalesced sync packs, so the record's layout depends only on how
-        the suite was built."""
+        the suite was built. Pending suite calls flush first."""
+        self._defer_barrier()
         return [n for _, m in self.items(keep_base=True, copy_state=False) for n in _bucketing.tree_nodes(m)]
 
     def save_state(self, path: str) -> int:
@@ -803,6 +1223,7 @@ class MetricCollection(nn.ModuleDict):
     def add_metrics(
         self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]], *additional_metrics: Metric
     ) -> None:
+        self._defer_barrier()  # the groups change below: a suite queue runs on the groups it was made for
         if isinstance(metrics, Metric):
             metrics = [metrics]
         if isinstance(metrics, Sequence) and not isinstance(metrics, (str, dict)):

@@ -49,6 +49,7 @@ def _child_state(state: Mapping[str, Any], name: str) -> Dict[str, Any]:
 
 
 def _load_metric(metric: Metric, state: Mapping[str, Any], update_count: int, mode: Optional[str]) -> None:
+    metric._defer_barrier()  # queued calls run first: a later flush must not write over the loaded states
     for name, child in metric._named_child_metrics():
         _load_metric(child, _child_state(state, name), update_count, mode)
     missing = [name for name in metric._defaults if name not in state]

@@ -58,8 +58,24 @@ metric's device first (NCCL gathers no CPU tensors), merge and compute
 there, and leave the host rows in place again afterwards. ``forward``
 computes its batch value with the offload off.
 
-Left for later slices of the port: the dispatch engine and fused programs,
-deferred dispatch, ``update_many``/``forward_many`` and ``as_functions``.
+The dispatch engine (`metrics_tpu/metric.py` `:421-1230`, `:1441-1700`;
+:mod:`metrics_tpu_torch.ops.engine`): under validation modes other than
+``full``, once an input signature has passed one eager call, a metric whose
+states are all tensors merged by sum, mean, max or min enqueues later
+``update`` and reduce-path ``forward`` calls (``forward`` returns a
+:class:`~metrics_tpu_torch.ops.engine.LazyValue`). The queue copies the
+inputs, holds the states out of ``__dict__`` and flushes, in enqueue order,
+when anything observes them (:meth:`Metric._defer_barrier`: a state read,
+``compute``, ``sync``, ``reset``, ``state_dict``, a copy or pickle, ``.to()``,
+the journal). A flush runs the queued calls through the metric's own eager
+step, chunk by chunk; a failed flush replays the rest eagerly and turns
+deferral off for the instance. :meth:`Metric.update_many` and
+:meth:`Metric.forward_many` take a leading steps axis and run as n calls would.
+The port's eager update is its single-step program: there is no fused
+single-step tier. Append-only metrics bind a host lane at the first validated
+update of a signature (:meth:`Metric._build_update_lane`).
+
+Left for later slices of the port: ``as_functions`` and the functional core.
 """
 from __future__ import annotations
 
@@ -69,9 +85,11 @@ import inspect
 from abc import ABC, abstractmethod
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import Tensor, nn
 
+from metrics_tpu_torch.ops import engine as _engine
 from metrics_tpu_torch.ops import faults as _faults
 from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.parallel import bucketing as _bucketing
@@ -108,6 +126,109 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
             " pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+_STACKABLE_SCALARS = (bool, int, float, complex)
+
+
+def _call_leaves(tree: Any, out: list) -> bool:
+    """Collect a call's leaves into ``out``; False when one cannot be queued
+    (a string, a host object): only tensors, arrays and scalars can."""
+    if isinstance(tree, (Tensor, np.ndarray, np.generic, *_STACKABLE_SCALARS)) or tree is None:
+        out.append(tree)
+        return True
+    if isinstance(tree, (list, tuple)):
+        return all(_call_leaves(v, out) for v in tree)
+    if isinstance(tree, dict):
+        return all(_call_leaves(v, out) for v in tree.values())
+    return False
+
+
+def _deferrable_call(args: tuple, kwargs: dict) -> bool:
+    """Whether a call may enqueue: every leaf a tensor, an array or a scalar,
+    and at least one tensor or array (JAX ``_leaves_jittable`` and
+    ``_defer_stackable``)."""
+    leaves: list = []
+    return _call_leaves((args, kwargs), leaves) and any(hasattr(v, "shape") for v in leaves)
+
+
+def _forward_signature(args: tuple, kwargs: dict) -> tuple:
+    """A call's input signature: shapes, dtypes and devices of its tensors, the
+    values of its other leaves (long reprs by their hash)."""
+
+    def leaf(a: Any) -> Any:
+        if isinstance(a, Tensor):
+            return (tuple(a.shape), a.dtype, a.device)
+        if hasattr(a, "shape") and hasattr(a, "dtype"):
+            return (tuple(a.shape), a.dtype)
+        if isinstance(a, (list, tuple)):
+            return (type(a).__name__,) + tuple(leaf(v) for v in a)
+        if isinstance(a, dict):
+            return ("dict",) + tuple((k, leaf(v)) for k, v in sorted(a.items()))
+        r = repr(a)
+        return r if len(r) <= 64 else hash(r)
+
+    return tuple(leaf(a) for a in args) + tuple((k, leaf(v)) for k, v in sorted(kwargs.items()))
+
+
+def _index_leaves(tree: Any, i: int) -> Any:
+    """Step ``i`` of a chunked call: tensors and arrays of at least one dimension
+    are indexed on their leading axis, everything else passes through."""
+    if hasattr(tree, "shape") and getattr(tree, "ndim", 0) >= 1:
+        return tree[i]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_index_leaves(v, i) for v in tree)
+    if isinstance(tree, dict):
+        return {k: _index_leaves(v, i) for k, v in tree.items()}
+    return tree
+
+
+def _chunk_steps(args: tuple, kwargs: dict) -> List[Tuple[tuple, dict]]:
+    """The per-step calls of an ``update_many``/``forward_many`` chunk (views, no copies)."""
+    leaves: list = []
+    _call_leaves((args, kwargs), leaves)
+    chunked = [v for v in leaves if hasattr(v, "shape") and getattr(v, "ndim", 0) >= 1]
+    if not chunked:
+        raise ValueError("update_many/forward_many need at least one array argument with a leading steps axis")
+    lengths = {int(v.shape[0]) for v in chunked}
+    if lengths == {0}:
+        raise ValueError("update_many/forward_many got a zero-length steps axis (empty chunk)")
+    if len(lengths) != 1:
+        raise ValueError(
+            "All chunked (ndim>=1) arguments must share the same leading steps-axis length; got lengths"
+            f" {sorted(lengths)}. Pass per-chunk constants as python scalars or 0-d tensors."
+        )
+    return [_index_leaves((args, kwargs), i) for i in range(lengths.pop())]
+
+
+def _stack_values(values: List[Any]) -> Any:
+    """Per-step values stacked along a new leading axis (dicts key by key)."""
+    first = values[0]
+    if isinstance(first, dict):
+        return {k: _stack_values([v[k] for v in values]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack_values([v[i] for v in values]) for i in range(len(first)))
+    return torch.stack([torch.as_tensor(v) for v in values])
+
+
+def _metric_many_step(metric: "Metric", steps: List[Tuple[tuple, dict]], count0: int, with_values: bool) -> list:
+    """The step program of a metric's queue and of ``update_many``/``forward_many``:
+    each call through the metric's own eager step, with the update count each
+    step saw on the per-call path. Takes the metric as an argument, so that
+    the cached program keeps no instance alive."""
+    values = []
+    for j, (a, k) in enumerate(steps):
+        if with_values:
+            object.__setattr__(metric, "_update_count", count0 + j)
+            values.append(metric._forward_reduce_state_update(*a, **k))
+        else:
+            object.__setattr__(metric, "_update_count", count0 + j + 1)
+            metric._update_step(a, k)
+    return values
+
+
+def _build_metric_many():
+    return _metric_many_step
 
 
 def _squeeze_scalar(value: Any) -> Any:
@@ -235,6 +356,25 @@ class Metric(nn.Module, ABC):
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = None
 
+    # the dispatch engine: an open queue holds the states out of __dict__;
+    # _defer_ok is the instance's health (a failed flush turns it off until the
+    # "defer" ladder lane re-promotes), _many_ok the batched API's; while
+    # _defer_suspended is set nothing enqueues (a flush, a chunk or an eager
+    # forward is running the metric's own steps)
+    _defer_pending: Optional["_engine.PendingQueue"] = None
+    _defer_ok: bool = True
+    _defer_suspended: bool = False
+    _many_ok: bool = True
+    _fused_seen_signatures: Optional[dict] = None
+    _FUSED_SIG_CAP = 4096
+    _fusable_cached: Optional[bool] = None
+    # the host fast lane: a closure bound at the first validated update of a
+    # signature, by the metrics that define _build_update_lane
+    _update_lane: Optional[Callable] = None
+    _has_update_lane_hook: bool = False
+    # set by the metrics that keep host sums between observations (SQuAD)
+    _has_host_pending_hook: bool = False
+
     def __init__(
         self,
         *,
@@ -306,6 +446,7 @@ class Metric(nn.Module, ABC):
         self._reductions[name] = fn
         self._reduction_specs[name] = spec
         self._persistent[name] = persistent
+        object.__setattr__(self, "_fusable_cached", None)
         setattr(self, name, [] if isinstance(default, list) else default.clone())
 
     @property
@@ -319,7 +460,9 @@ class Metric(nn.Module, ABC):
 
     @property
     def metric_state(self) -> Dict[str, Any]:
-        """Current states by name (tensor, or list of tensors)."""
+        """Current states by name (tensor, or list of tensors). An observation:
+        pending deferred calls flush first."""
+        self._defer_barrier()
         return {name: getattr(self, name) for name in self._defaults}
 
     def _state_snapshot(self) -> Dict[str, Any]:
@@ -353,21 +496,47 @@ class Metric(nn.Module, ABC):
         """Finalise the accumulated state into the metric value."""
 
     def _wrap_update(self, update: Callable) -> Callable:
+        object.__setattr__(self, "_inner_update", update)
+
         @functools.wraps(update)
         def wrapped(*args: Any, **kwargs: Any) -> None:
+            # the host fast lane: False for anything it did not bind (a new
+            # signature, a mode change); compute_on_cpu bypasses it, its offload must run
+            lane = self._update_lane
+            if lane is not None and not self.compute_on_cpu and lane(args, kwargs):
+                if _telemetry.armed:
+                    _telemetry.emit("host-lane", self, "host")
+                return
             self._computed = None
             self._update_count += 1
-            prev_owner = _checks._check_owner
-            _checks._check_owner = self  # "first"-mode memory is kept per instance
-            try:
-                with torch.no_grad():
-                    update(*args, **kwargs)
-            finally:
-                _checks._check_owner = prev_owner
-            if not (self.compute_on_cpu and self._move_list_states_to_host()):
-                self._fault_note_clean()  # a clean update: a step toward every demoted lane's recovery edge
+            mode = _checks._get_validation_mode()
+            signature = self._defer_signature("__update__", args, kwargs, mode)
+            if signature is not None and signature in self._fused_seen_signatures:
+                if self._defer_ok and _engine.defer_enabled():
+                    self._defer_enqueue("update", signature, args, kwargs)
+                    return
+                signature = None  # recorded already
+            self._update_step(args, kwargs)
+            if signature is not None:
+                self._record_fused_signature(signature)  # only once the eager call validated it
+            if self.compute_on_cpu:
+                if self._move_list_states_to_host():
+                    return
+            elif self._has_update_lane_hook and mode != "full":
+                self._install_update_lane(args, kwargs)
+            self._fault_note_clean()  # a clean update: a step toward every demoted lane's recovery edge
 
         return wrapped
+
+    def _update_step(self, args: tuple, kwargs: dict) -> None:
+        """One call of the metric's own update, as the wrapped update runs it."""
+        prev_owner = _checks._check_owner
+        _checks._check_owner = self  # "first"-mode memory is kept per instance
+        try:
+            with torch.no_grad():
+                self._inner_update(*args, **kwargs)
+        finally:
+            _checks._check_owner = prev_owner
 
     # host offload health: its own ladder lane, a failed move keeps the rows on the device
     _host_offload_ok: bool = True
@@ -416,6 +585,10 @@ class Metric(nn.Module, ABC):
                 lad.promote()
                 if lane == "host":
                     self._host_offload_ok = True
+                elif lane == "defer":
+                    object.__setattr__(self, "_defer_ok", True)
+                elif lane == "many":
+                    object.__setattr__(self, "_many_ok", True)
 
     def _lift_host_rows(self) -> None:
         """Bring list-state rows held on the host (``compute_on_cpu``) back to this
@@ -426,6 +599,288 @@ class Metric(nn.Module, ABC):
             value = getattr(self, name)
             if isinstance(value, list) and any(v.device != self._device for v in value):
                 setattr(self, name, [v.to(self._device) for v in value])
+
+    # ------------------------------------------------------ deferred dispatch
+    def _fusable_states(self) -> bool:
+        """Every state a tensor merged by sum, mean, max or min (JAX `metric.py:1236`):
+        the metrics whose calls may enqueue. Cached; ``add_state`` clears it."""
+        cached = self._fusable_cached
+        if cached is None:
+            cached = bool(self._defaults) and all(
+                not isinstance(default, list) and self._reduction_specs[name] in ("sum", "mean", "max", "min")
+                for name, default in self._defaults.items()
+            )
+            object.__setattr__(self, "_fusable_cached", cached)
+        return cached
+
+    def _defer_signature(self, tag: str, args: tuple, kwargs: dict, mode: str) -> Optional[tuple]:
+        """The signature under which this call may enqueue once it has run eagerly, or None."""
+        if mode == "full" or self._defer_suspended or not self._fusable_states() or not _deferrable_call(args, kwargs):
+            return None
+        if self._fused_seen_signatures is None:
+            object.__setattr__(self, "_fused_seen_signatures", {})
+        return (tag, _forward_signature(args, kwargs))
+
+    def _record_fused_signature(self, signature: tuple) -> None:
+        """Record a signature that passed one eager call; the oldest goes past the cap."""
+        seen = self._fused_seen_signatures
+        seen[signature] = None
+        while len(seen) > self._FUSED_SIG_CAP:
+            seen.pop(next(iter(seen)))
+
+    def _defer_barrier(self) -> None:
+        """Flush a pending queue, then fold host sums (:meth:`_host_pending_flush`):
+        the one hook every surface that observes the states goes through."""
+        q = self.__dict__.get("_defer_pending")
+        if q is not None:
+            q.flush()
+        if self._has_host_pending_hook:
+            self._host_pending_flush()
+
+    def _host_pending_flush(self) -> None:
+        """Hook: fold the host sums kept between observations into the states
+        (SQuAD). Runs at every observation; must be idempotent."""
+
+    def __getattr__(self, name: str) -> Any:
+        # reached only for a name missing from __dict__: a state held by an open
+        # queue flushes it (a flush replaying eagerly may open another: bounded)
+        d = self.__dict__
+        for _ in range(8):
+            q = d.get("_defer_pending")
+            if q is None or not q.has_state(self, name):
+                break
+            q.flush()
+            if name in d:
+                return d[name]
+        return super().__getattr__(name)
+
+    def _suspend_deferral(self) -> bool:
+        """Stop enqueues while the metric runs its own steps; returns the flag to put back."""
+        prev = self._defer_suspended
+        object.__setattr__(self, "_defer_suspended", True)
+        return prev
+
+    def _defer_enqueue(self, kind: str, signature: tuple, args: tuple, kwargs: dict) -> Optional[_engine.LazyValue]:
+        """Enqueue one ``update`` (count already taken by the wrapper) or reduce-path
+        ``forward`` call (a :class:`~metrics_tpu_torch.ops.engine.LazyValue` back).
+        A queue of another kind or signature flushes first: calls stay in order."""
+        q = self.__dict__.get("_defer_pending")
+        if q is not None and not q.matches(kind, signature):
+            q.flush()
+            q = None
+        if q is None:
+            q = _engine.PendingQueue(kind, signature, self._flush_queue)
+            q.meta = self._update_count - (kind == "update")  # the count before the queue's first call
+            q.adopt(self, self._defaults)
+        handle = _engine.LazyValue(q) if kind == "forward" else None
+        q.enqueue(args, kwargs, handle)
+        if handle is not None:
+            self._update_count += 1
+            self._is_synced = False
+            self._should_unsync = True
+            self._to_sync = self.sync_on_compute
+            self._computed = None
+        if q.should_flush():
+            q.flush()
+        return handle
+
+    def _many_program(self, with_values: bool) -> _engine.Executable:
+        """This metric's step program for chunks of calls, acquired once per instance."""
+        programs = self.__dict__.get("_many_programs")
+        if programs is None:
+            programs = {}
+            object.__setattr__(self, "_many_programs", programs)
+        exe = programs.get(with_values)
+        if exe is None:
+            exe = programs[with_values] = _engine.acquire(self, "many", _build_metric_many, extra_key=(with_values,))
+        return exe
+
+    def _flush_queue(self, q: _engine.PendingQueue) -> None:
+        """Run a pending queue in :func:`~metrics_tpu_torch.ops.engine.pow2_chunks`
+        chunks through the step program. Each step is the per-call path's own
+        step, so the states equal it bit for bit. A chunk that fails is undone
+        and the rest replays eagerly on the same tensors; deferral stays off for
+        this instance until its ``defer`` ladder lane re-promotes."""
+        entries, handles, with_values = q.entries, q.handles, q.kind == "forward"
+        count0, count_now = q.meta, self._update_count
+        forward_cache = self.__dict__.get("_forward_cache")
+        q.release()
+        applied, snap = 0, None
+        suspended = self._suspend_deferral()
+        try:
+            try:
+                program = self._many_program(with_values)
+                for index, n in enumerate(_engine.pow2_chunks(len(entries))):
+                    snap = self._state_snapshot()
+                    if _faults.armed:
+                        _faults.maybe_fail("flush-chunk", index=index)
+                    values = program.run(self, (entries[applied:applied + n], count0 + applied, with_values))
+                    for j, value in enumerate(values):
+                        handles[applied + j]._set_value(value)
+                    applied += n
+            except Exception as exc:  # noqa: BLE001 - the chunk undone, the rest replayed eagerly
+                if snap is not None:
+                    self._restore_state(snap)
+                object.__setattr__(self, "_defer_ok", False)
+                _faults.demote(
+                    self,
+                    "defer",
+                    exc,
+                    tier="chunked",
+                    site="deferred-flush",
+                    warn=(
+                        f"Deferred {q.kind} flush for `{type(self).__name__}` raised {type(exc).__name__}: {exc}."
+                        " Replaying the queue eagerly and disabling deferred dispatch for this instance; the"
+                        " degradation ladder re-probes deferral after clean steps."
+                    ),
+                )
+                _engine.note_deferred_flush(fallback=True)
+                for j in range(applied, len(entries)):
+                    try:
+                        values = _metric_many_step(self, entries[j:j + 1], count0 + j, with_values)
+                    except Exception:
+                        # the calls after the failing one never ran: their counts go
+                        object.__setattr__(self, "_update_count", count_now - (len(entries) - j - 1))
+                        raise
+                    if with_values:
+                        handles[j]._set_value(values[0])
+            else:
+                _engine.note_deferred_flush()
+                self._fault_note_clean(len(entries))
+            object.__setattr__(self, "_update_count", count_now)
+        finally:
+            object.__setattr__(self, "_defer_suspended", suspended)
+            object.__setattr__(self, "_forward_cache", forward_cache)
+
+    # ---------------------------------------------------------- batched steps
+    def update_many(self, *args: Any, **kwargs: Any) -> None:
+        """``n`` updates in one call: every tensor argument carries a leading steps
+        axis, and ``update_many(preds, target)`` with shapes ``(n, *batch)`` equals
+        ``n`` calls ``update(preds[i], target[i])``. Scalars and 0-d tensors pass
+        to every step. Pending deferred calls apply first.
+
+        Example:
+            >>> import torch
+            >>> from metrics_tpu_torch import SumMetric
+            >>> m = SumMetric(device="cpu")
+            >>> m.update_many(torch.tensor([[1.0, 2.0], [3.0, 4.0]]))
+            >>> m.compute()
+            tensor(10.)
+        """
+        self._run_many(False, args, kwargs)
+
+    def forward_many(self, *args: Any, **kwargs: Any) -> Any:
+        """``forward`` over a chunk of steps: the per-step batch values, stacked on a
+        leading axis (``forward_many(p, t)[i]`` is what ``forward(p[i], t[i])``
+        returns at that step)."""
+        return self._run_many(True, args, kwargs)
+
+    def _run_many(self, with_values: bool, args: tuple, kwargs: dict) -> Any:
+        self._defer_barrier()  # a chunk applies after the calls already queued
+        if self._is_synced:
+            raise MetricsUserError(
+                "The Metric shouldn't be synced when performing `forward_many`/`update_many`. "
+                "HINT: Did you forget to call `unsync()`?"
+            )
+        steps = _chunk_steps(args, kwargs)
+        eligible = (
+            self._many_ok
+            and _checks._get_validation_mode() != "full"
+            and self._fusable_states()
+            and not (self.full_state_update or self.full_state_update is None or self.dist_sync_on_step)
+            and type(self).forward is Metric.forward  # a forward of its own defines its own steps
+            and _deferrable_call(args, kwargs)
+        )
+        if not eligible:
+            return self._run_many_eager(with_values, steps)
+        if self._fused_seen_signatures is None:
+            object.__setattr__(self, "_fused_seen_signatures", {})
+        signature = ("__many__", with_values, _forward_signature(args, kwargs))
+        if signature not in self._fused_seen_signatures:
+            # a chunk signature's first sight runs call by call, fully validated
+            result = self._run_many_eager(with_values, steps)
+            self._record_fused_signature(signature)
+            return result
+        count0, snap = self._update_count, self._state_snapshot()
+        suspended = self._suspend_deferral()
+        try:
+            values = self._many_program(with_values).run(self, (steps, count0, with_values))
+        except Exception as exc:  # noqa: BLE001 - undone, then call by call (raises if the input is bad)
+            self._restore_state(snap)
+            object.__setattr__(self, "_update_count", count0)
+            object.__setattr__(self, "_defer_suspended", suspended)
+            result = self._run_many_eager(with_values, steps)
+            _faults.demote(
+                self,
+                "many",
+                exc,
+                tier="chunked",
+                site="batched-many",
+                warn=(
+                    f"Batched-step program for `{type(self).__name__}` raised {type(exc).__name__}: {exc}."
+                    " Falling back to per-step eager forwards for this instance's batched API; recoverable"
+                    " failures re-probe after clean steps."
+                ),
+            )
+            object.__setattr__(self, "_many_ok", False)
+            return result
+        finally:
+            object.__setattr__(self, "_defer_suspended", suspended)
+        n = len(steps)
+        self._update_count = count0 + n
+        self._is_synced = False
+        self._should_unsync = True
+        self._to_sync = self.sync_on_compute
+        self._computed = None
+        self._fault_note_clean(n)
+        if not with_values:
+            return None
+        self._forward_cache = values[-1]  # as n forward calls leave it
+        return _stack_values(values)
+
+    def _run_many_eager(self, with_values: bool, steps: List[Tuple[tuple, dict]]) -> Any:
+        values = []
+        suspended = self._suspend_deferral()
+        try:
+            for a, k in steps:
+                if with_values:
+                    values.append(self.forward(*a, **k))
+                else:
+                    self.update(*a, **k)
+        finally:
+            object.__setattr__(self, "_defer_suspended", suspended)
+        return _stack_values(values) if with_values else None
+
+    # ------------------------------------------------------- host fast lane
+    def _build_update_lane(self, args: tuple, kwargs: dict) -> Optional[Callable]:
+        """Hook: a closure for the steady-state updates of the just-validated
+        ``(args, kwargs)`` signature, or None. It takes ``(args, kwargs)`` and
+        returns True when it handled the update (count and cache included),
+        False to fall through to the full path. The append-only metrics
+        (CatMetric, retrieval, the raw-row curves) define it."""
+        return None
+
+    def _install_update_lane(self, args: tuple, kwargs: dict) -> None:
+        try:
+            lane = self._build_update_lane(args, kwargs)
+        except Exception:  # noqa: BLE001 - a lane is a shortcut, never a failure
+            lane = None
+        if lane is not None:
+            object.__setattr__(self, "_update_lane", lane)
+
+    def _lane_guard(self) -> Callable[[], bool]:
+        """A lane's validity check: a validation-mode change (any
+        ``set_validation_mode`` call) drops every lane, so that ``full`` checks
+        every call again."""
+        generation = _checks._cache_generation
+
+        def still_valid() -> bool:
+            if _checks._cache_generation != generation:
+                object.__setattr__(self, "_update_lane", None)
+                return False
+            return True
+
+        return still_valid
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
@@ -438,6 +893,7 @@ class Metric(nn.Module, ABC):
                 )
             if self._computed is not None:
                 return self._computed
+            self._defer_barrier()
             # compute() forces an in-flight sync; a fault there takes the degraded tier a blocking sync's would
             pending = self.__dict__.get("_pending_sync")
             forced_async = False
@@ -531,6 +987,7 @@ class Metric(nn.Module, ABC):
         entry_state = self._state_snapshot()
         entry_count = self._update_count
         compute_on_cpu = self.compute_on_cpu
+        suspended = self._suspend_deferral()  # the batch value's updates run now
         try:
             self.update(*args, **kwargs)
             update_count = self._update_count
@@ -555,16 +1012,27 @@ class Metric(nn.Module, ABC):
             self._to_sync = self.sync_on_compute
             self._computed = None
             self.compute_on_cpu = compute_on_cpu
+            object.__setattr__(self, "_defer_suspended", suspended)
         return batch_val
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
-        """One update on a reset state, its batch value, then a merge into the old state."""
+        """One update on a reset state, its batch value, then a merge into the old state.
+
+        Once a signature has run here eagerly, later calls of it enqueue and
+        return a :class:`~metrics_tpu_torch.ops.engine.LazyValue` (see the module
+        docstring)."""
+        signature = self._defer_signature("__forward__", args, kwargs, _checks._get_validation_mode())
+        if signature is not None and signature in self._fused_seen_signatures:
+            if self._defer_ok and _engine.defer_enabled():
+                return self._defer_enqueue("forward", signature, args, kwargs)
+            signature = None  # recorded already
         global_state = self._state_snapshot()
         update_count = self._update_count
         self.reset()
         self._to_sync = self.dist_sync_on_step
         self._should_unsync = False
         compute_on_cpu, self.compute_on_cpu = self.compute_on_cpu, False
+        suspended = self._suspend_deferral()
         try:
             self.update(*args, **kwargs)
             batch_val = self.compute()
@@ -581,6 +1049,9 @@ class Metric(nn.Module, ABC):
             self._to_sync = self.sync_on_compute
             self._computed = None
             self.compute_on_cpu = compute_on_cpu
+            object.__setattr__(self, "_defer_suspended", suspended)
+        if signature is not None:
+            self._record_fused_signature(signature)
         return batch_val
 
     def _reduce_states(self, incoming_state: Dict[str, Any]) -> None:
@@ -660,6 +1131,7 @@ class Metric(nn.Module, ABC):
             return False
         snaps = []
         for n in nodes[1:]:
+            n._defer_barrier()
             n._canonicalize_list_states()
             snaps.append((n, n._state_snapshot()))
         group = process_group if process_group is not None else self.process_group
@@ -729,6 +1201,7 @@ class Metric(nn.Module, ABC):
         group = process_group if process_group is not None else self.process_group
         if isinstance(group, (list, tuple)):
             _psync.validate_group_live(group)  # a list of ranks (the quorum tier's survivors)
+        self._defer_barrier()
         self._canonicalize_list_states()
         self._cache = self._state_snapshot()
         self._lift_host_rows()  # the snapshot keeps the host rows for unsync
@@ -796,6 +1269,7 @@ class Metric(nn.Module, ABC):
         )
         if eligible:
             for n in nodes:
+                n._defer_barrier()
                 n._canonicalize_list_states()
             eligible = _bucketing.coalescible(nodes)
 
@@ -979,8 +1453,10 @@ class Metric(nn.Module, ABC):
 
     # ------------------------------------------------------------- lifecycle
     def reset(self) -> None:
-        """Reset every state to its default (reference `metric.py:547-562`). A
+        """Reset every state to its default (reference `metric.py:547-562`). Pending
+        deferred calls flush first, so their forward values stay what they were. A
         sync in flight is cancelled: its rows must not land on the reset states."""
+        self._defer_barrier()
         fut = self.__dict__.get("_pending_sync")
         if fut is not None:
             fut.cancel()
@@ -997,11 +1473,15 @@ class Metric(nn.Module, ABC):
         """An independent deep copy, states included."""
         return copy.deepcopy(self)
 
+    # bound to this instance, or engine machinery: rebuilt on restore, or at first use
+    _UNPICKLED = ("update", "compute", "_inner_update", "_pending_sync", "_defer_pending", "_update_lane",
+                  "_many_programs")
+
     def __getstate__(self) -> Dict[str, Any]:
-        # the wrapped bound methods close over this instance: re-wrapped on restore;
-        # pickled rows are canonical, as in a checkpoint
+        # a copy or a pickle observes the states: pending calls flush first; rows are canonical, as in a checkpoint
+        self._defer_barrier()
         self._canonicalize_list_states()
-        return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute", "_pending_sync")}
+        return {k: v for k, v in self.__dict__.items() if k not in self._UNPICKLED}
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         super().__setstate__(state)
@@ -1017,7 +1497,9 @@ class Metric(nn.Module, ABC):
         """``.to()``, ``.cuda()``, ``.double()`` and kin reach the states and their defaults too.
 
         Child metrics are submodules, so ``nn.Module._apply`` reaches them (and
-        buffers such as a composition's scalar operand) first."""
+        buffers such as a composition's scalar operand) first. Pending deferred
+        calls flush first, on the device they were queued on."""
+        self._defer_barrier()
         super()._apply(fn, recurse)
         for name, default in self._defaults.items():
             value = getattr(self, name)
@@ -1036,6 +1518,7 @@ class Metric(nn.Module, ABC):
     # -------------------------------------------------------- serialization
     def _save_to_state_dict(self, destination: Dict[str, Any], prefix: str, keep_vars: bool) -> None:
         super()._save_to_state_dict(destination, prefix, keep_vars)
+        self._defer_barrier()
         self._canonicalize_list_states()
         for name in self._defaults:
             if not self._persistent[name]:
@@ -1056,6 +1539,7 @@ class Metric(nn.Module, ABC):
         unexpected_keys: List[str],
         error_msgs: List[str],
     ) -> None:
+        self._defer_barrier()  # queued calls run first: a later flush must not write over the loaded states
         for name in self._defaults:
             key = prefix + name
             if key in state_dict:
@@ -1070,6 +1554,29 @@ class Metric(nn.Module, ABC):
         super()._load_from_state_dict(
             state_dict, prefix, local_metadata, strict, missing_keys, unexpected_keys, error_msgs
         )
+
+    def to_device(self, device: Any) -> "Metric":
+        """Move the states (and their defaults, and child metrics) to ``device``: ``.to(device)``."""
+        return self.to(device)
+
+    def astype(self, dtype: torch.dtype) -> "Metric":
+        """Cast the floating-point states (and their defaults) to ``dtype``; integer states stay."""
+        return self._apply(lambda t: t.to(dtype) if t.is_floating_point() else t)
+
+    def type(self, dst_type: torch.dtype) -> "Metric":  # type: ignore[override]
+        return self.astype(dst_type)
+
+    def float(self) -> "Metric":
+        return self.astype(torch.float32)
+
+    def double(self) -> "Metric":
+        return self.astype(torch.float64)
+
+    def half(self) -> "Metric":
+        return self.astype(torch.float16)
+
+    def bfloat16(self) -> "Metric":
+        return self.astype(torch.bfloat16)
 
     def persistent(self, mode: bool = False) -> None:
         """Set whether every state is saved by ``state_dict()`` (reference `metric.py:657-660`)."""

@@ -1,7 +1,8 @@
 """Device kernels and the planes beside them: the CUDA bincount (``histogram``),
 the loader that builds the sources under ``csrc/`` (``_native``), the binned
-curve counts, the segment reductions, and the fault, telemetry and state
-journal planes (``faults``, ``telemetry``, ``journal``).
+curve counts, the segment reductions, the dispatch engine (``engine``), and
+the fault, telemetry and state journal planes (``faults``, ``telemetry``,
+``journal``).
 
 The names of ``metrics_tpu/ops/__init__.py`` that the port has, resolved at
 first access: ``utils/data.py`` imports ``ops.histogram`` while the modules
@@ -12,6 +13,14 @@ import importlib
 from metrics_tpu_torch.ops.histogram import fused_bincount
 
 _LAZY = {
+    "Executable": "engine",
+    "acquire": "engine",
+    "acquire_keyed": "engine",
+    "config_fingerprint": "engine",
+    "donation_supported": "engine",
+    "engine_stats": "engine",
+    "reset_engine": "engine",
+    "reset_stats": "engine",
     "binned_curve_counts": "binned",
     "FAULT_SITES": "faults",
     "fault_stats": "faults",

@@ -103,7 +103,13 @@ FAULT_SITES = (
     "autotune-sweep",
 )
 
-INSTRUMENTED_SITES = ("sync-gather", "sync-pack", "epoch-fence", "host-offload", "journal-write", "journal-load")
+#: ``probe`` is not among them: the JAX package fires it where it traces a
+#: program abstractly before licensing it (``jax.eval_shape``), and an eager
+#: step has nothing to trace. ``donation`` neither: no eager op consumes its
+#: input (``engine.donation_supported()`` is False). ``flush-chunk`` fires
+#: before each chunk of a flush, also as ``flush-chunk-<k>`` for chunk k.
+INSTRUMENTED_SITES = ("compile", "flush-chunk", "sync-gather", "sync-pack", "epoch-fence", "host-offload",
+                      "journal-write", "journal-load")
 
 _SITE_DEFAULT_EXC = {
     "probe": TraceFault,

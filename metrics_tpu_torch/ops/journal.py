@@ -470,6 +470,7 @@ def save_nodes(owner: Any, nodes: Sequence[Any], path: str, manifest_extra: Opti
     t0 = _telemetry.now() if _telemetry.armed else 0.0
     try:
         for n in nodes:
+            n._defer_barrier()
             n._canonicalize_list_states()
         extra = world_meta(owner)
         if manifest_extra:
@@ -497,6 +498,8 @@ def load_nodes(owner: Any, nodes: Sequence[Any], path: str) -> int:
     :class:`JournalFault` only when none restores."""
     last: Optional[BaseException] = None
     t0 = _telemetry.now() if _telemetry.armed else 0.0
+    for n in nodes:
+        n._defer_barrier()  # queued calls run first: a later flush must not write over the restored states
     # a few generations past the configured depth: the depth may have been lowered between runs
     for gen in range(journal_generations() + 8):
         gpath = _gen_path(path, gen)

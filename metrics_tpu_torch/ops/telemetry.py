@@ -1,4 +1,4 @@
-"""Flight recorder: one telemetry plane for sync, faults and the journal.
+"""Flight recorder: one telemetry plane for the engine, sync, faults and the journal.
 
 JAX counterpart: `metrics_tpu/ops/telemetry.py`, with the same public names,
 span sites, counter keys, environment variables and defaults, so that one
@@ -24,13 +24,15 @@ deployment configures and scrapes both packages the same way. Three layers:
   and site.
 
 Faces: :func:`snapshot` (alias ``telemetry_snapshot``), one merged dict of
-the planes the port has (faults, collectives, journal, recorder, latency,
-SLO, and a ``sync_health`` block with world membership and the syncs in
-flight); :func:`prometheus_text`, its Prometheus text exposition;
-:func:`trace_events` and :func:`export_trace`, the ring as
-Chrome-trace/Perfetto JSON. Keys of the JAX snapshot that belong to planes
-not ported yet (the dispatch engine and its program ledger, streaming,
-ingestion) are absent; ``ROADMAP.md`` lists them.
+the planes the port has (the engine's cache and deferral counters, faults,
+collectives, journal, recorder, latency, SLO, and a ``sync_health`` block
+with world membership and the syncs in flight); :func:`prometheus_text`, its
+Prometheus text exposition; :func:`trace_events` and :func:`export_trace`,
+the ring as Chrome-trace/Perfetto JSON. The engine's sampled device probes
+land in :func:`observe_device_dispatch`. Keys of the JAX snapshot that
+belong to planes not ported yet (the program ledger and its cost analyses,
+the functional core, streaming, ingestion, the program cache and the
+autotuner) are absent; ``ROADMAP.md`` lists them.
 """
 from __future__ import annotations
 
@@ -47,11 +49,13 @@ __all__ = [
     "SYNC_PHASE_SITES",
     "armed",
     "clear_spans",
+    "device_dispatch_stats",
     "emit",
     "export_trace",
     "is_counter_key",
     "latency_stats",
     "now",
+    "observe_device_dispatch",
     "prometheus_text",
     "register_reset",
     "register_warning_reset",
@@ -69,10 +73,10 @@ __all__ = [
 ]
 
 #: Every span site, by subsystem, under the JAX package's names. The port
-#: emits the sync, fault, ladder, journal and suite sites; the others belong
-#: to planes not ported yet and are kept so that both packages share one table.
+#: emits the engine, sync, fault, ladder, journal and suite sites; the others
+#: belong to planes not ported yet and are kept so that both packages share one table.
 SPAN_SITES = {
-    # engine (not ported yet)
+    # engine (ops/engine.py; engine-compile marks a program's first run of a signature)
     "engine-enqueue": "one eager call enqueued into a pending queue (instant)",
     "engine-flush": "a pending queue flushed as stacked program(s)",
     "engine-build": "a program-cache miss built a new program",
@@ -503,6 +507,28 @@ def slo_violations() -> Dict[str, int]:
     return out
 
 
+_DEVICE_HIST_SITE = "device-dispatch"
+
+
+def observe_device_dispatch(program: str, t_start: float, dur_s: float) -> None:
+    """Land one probed, device-inclusive program wall (the engine's sampled
+    synchronise): a ``device-dispatch`` span, and an observation in the
+    program's own full-lifetime family ``device-dispatch:<program>``."""
+    emit(_DEVICE_HIST_SITE, program, "engine", t_start, dur_s, {"program": program})
+    site = _DEVICE_HIST_SITE + ":" + program
+    h = _site_hists.get(site)
+    if h is None:  # one allocation per program, at its first probe
+        h = _site_hists.setdefault(site, LatencyHistogram())
+    h.observe(dur_s)
+
+
+def device_dispatch_stats() -> Dict[str, Dict[str, Any]]:
+    """``{program: stats block}`` for every program with at least one probe."""
+    prefix = _DEVICE_HIST_SITE + ":"
+    return {site[len(prefix):]: h.stats() for site, h in sorted(_site_hists.items())
+            if site.startswith(prefix) and h.max_s > 0.0}
+
+
 def reset_latency() -> None:
     """Zero the histograms and the violation counters, and forget the cached
     budgets so that the environment is read again."""
@@ -570,8 +596,9 @@ register_warning_reset("telemetry", _reset_overflow_warning)
 
 # --------------------------------------------------------------------- faces
 def snapshot() -> Dict[str, Any]:
-    """One merged monitoring dict: the fault counters and ``failure_log``, the
-    collective counters, the journal counters, the recorder counters, the
+    """One merged monitoring dict: the engine's counters (``builds``, ``hits``,
+    ``cached``, ``deferred_*``, ``device_probes``), the fault counters and
+    ``failure_log``, the collective counters, the journal counters, the recorder counters, the
     monotonic step, a ``sync_health`` block, the sync phase statistics, the
     latency histograms and the SLO violations. Scrape this, or its
     :func:`prometheus_text` rendering.
@@ -586,15 +613,12 @@ def snapshot() -> Dict[str, Any]:
          'last_good_sync_step', 'monotonic_step', 'slo_violations', 'sync_deadline_timeouts',
          'sync_degraded_serves', 'sync_quorum_serves', 'transitions']
     """
-    from metrics_tpu_torch.ops import faults as _faults
-    from metrics_tpu_torch.ops import journal as _journal
+    from metrics_tpu_torch.ops import engine as _engine
     from metrics_tpu_torch.parallel import sync as _psync
 
     _flush_env_warnings()
     out: Dict[str, Any] = {"snapshot_schema": 1}
-    out.update(_faults.fault_stats())
-    out.update(_psync.collective_stats())
-    out.update(_journal.journal_stats())
+    out.update(_engine.engine_stats())  # the engine's, fault, collective and journal counters
     out.update(telemetry_stats())
     out["monotonic_step"] = _step_provider()
     domain_counts: Dict[str, int] = {}

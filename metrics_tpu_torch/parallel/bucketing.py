@@ -82,6 +82,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.ops import engine as _engine
 from metrics_tpu_torch.ops import faults as _faults
 from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.parallel import sync as _sync
@@ -738,6 +739,7 @@ def dispatch_coalesced_sync(nodes: Sequence[Any], group: Optional[Any] = None,
     pack phase of :func:`coalesced_sync_nodes`."""
     t0 = _telemetry.now() if _telemetry.armed else 0.0
     t_dispatch = _telemetry.now()
+    _engine.flush_barrier(nodes)  # on the caller's thread: pending calls land before the pack reads the states
     ctx = _pack_phase(nodes, group, owner=owner, async_mode=True)
     if ctx is None:
         return None
@@ -780,6 +782,8 @@ def force_coalesced_sync(disp: _Dispatched) -> List[Tuple[Any, Any]]:
     except EpochFault:
         _sync._bump("sync_async_stale_futures")
         raise
+    # calls enqueued while the wire ran land before the apply writes over the states
+    _engine.flush_barrier(ctx.nodes)
     snaps = [(n, n._state_snapshot()) for n in ctx.nodes]
     _sync.note_sync_success(world=None if node_reduced else int(gathered.shape[0]), members=ctx.members)
     _finish(ctx, gathered, rank_dyn, node_reduced)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from abc import abstractmethod
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 from torch import Tensor
@@ -166,6 +166,42 @@ class RetrievalMetric(Metric):
         self.indexes.append(indexes)
         self.preds.append(preds)
         self.target.append(target)
+
+    _has_update_lane_hook = True
+
+    def _build_update_lane(self, args: tuple, kwargs: dict) -> Optional[Callable]:
+        """The host fast lane (JAX `retrieval/base.py:196`): after the first
+        validated update of a signature, a later one of the same shapes, dtypes
+        and device is three list appends and one guard (the metadata checks are
+        a function of the signature; the value checks follow the validation
+        mode). Bound only where the full path buffered the inputs as they came."""
+        if kwargs or len(args) != 3 or not all(isinstance(v, Tensor) for v in args):
+            return None
+        p0, t0, i0 = args
+        if not (isinstance(self.indexes, list) and self.indexes and self.indexes[-1] is i0
+                and self.preds[-1] is p0 and self.target[-1] is t0):
+            return None
+        shapes = (p0.shape, p0.dtype, t0.shape, t0.dtype, i0.shape, i0.dtype)
+        device, guard = p0.device, self._lane_guard()
+
+        def lane(largs: tuple, lkwargs: dict) -> bool:
+            if lkwargs or len(largs) != 3:
+                return False
+            p, t, i = largs
+            if not (isinstance(p, Tensor) and isinstance(t, Tensor) and isinstance(i, Tensor)
+                    and (p.shape, p.dtype, t.shape, t.dtype, i.shape, i.dtype) == shapes
+                    and p.device == device and t.device == device and i.device == device):
+                return False
+            if not guard() or not isinstance(self.indexes, list):
+                return False
+            self._update_count += 1
+            self._computed = None
+            self.indexes.append(i)
+            self.preds.append(p)
+            self.target.append(t)
+            return True
+
+        return lane
 
     def _canonicalize_list_states(self) -> None:
         """Flatten, cast and filter the buffered rows in place; idempotent.

@@ -12,7 +12,7 @@ a part of its deferral plane, which the port does not have yet.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
@@ -272,18 +272,58 @@ class SQuAD(Metric):
     higher_is_better = True
     full_state_update = False
 
+    # the host buffer (JAX `text/basic.py:281-344`): each update adds Python
+    # numbers to ``_pending``, with no device work; the buffer folds into the
+    # three states, in one copy, at the observation barrier (compute, sync,
+    # state_dict, a copy, the journal: ``Metric._defer_barrier``)
+    _pending: Optional[Tuple[float, float, int]] = None
+    _has_host_pending_hook = True
+    _has_update_lane_hook = True
+
     def __init__(self, **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self.add_state("f1_score", torch.tensor(0.0), dist_reduce_fx="sum")
         self.add_state("exact_match", torch.tensor(0.0), dist_reduce_fx="sum")
         self.add_state("total", torch.tensor(0, dtype=torch.int32), dist_reduce_fx="sum")
 
+    def _host_pending_flush(self) -> None:
+        p = self._pending
+        if p is not None:
+            object.__setattr__(self, "_pending", None)
+            sums = torch.tensor(p, dtype=torch.float64, device=self.device)
+            self.f1_score = self.f1_score + sums[0].to(torch.float32)
+            self.exact_match = self.exact_match + sums[1].to(torch.float32)
+            self.total = self.total + sums[2].to(torch.int32)
+
+    def _canonicalize_list_states(self) -> None:
+        self._host_pending_flush()  # whatever observes the states one by one folds the buffer first
+
+    def reset(self) -> None:
+        object.__setattr__(self, "_pending", None)
+        super().reset()
+
+    def _add_pending(self, preds, target) -> None:
+        f1, exact_match, total = _squad_update_host(*_squad_input_check(preds, target))
+        p = self._pending or (0.0, 0.0, 0)
+        object.__setattr__(self, "_pending", (p[0] + f1, p[1] + exact_match, p[2] + total))
+
     def update(self, preds, target) -> None:
-        preds_dict, target_list = _squad_input_check(preds, target)
-        sums = torch.tensor(_squad_update_host(preds_dict, target_list), dtype=torch.float64, device=self.device)
-        self.f1_score = self.f1_score + sums[0].to(torch.float32)
-        self.exact_match = self.exact_match + sums[1].to(torch.float32)
-        self.total = self.total + sums[2].to(torch.int32)
+        self._add_pending(preds, target)
+
+    def _build_update_lane(self, args: tuple, kwargs: dict) -> Optional[Callable]:
+        """The host fast lane: later updates skip the wrapper's bookkeeping and run
+        the checks, the host scoring and the sums directly."""
+        guard = self._lane_guard()
+
+        def lane(largs: tuple, lkwargs: dict) -> bool:
+            if lkwargs or len(largs) != 2 or not guard():
+                return False
+            self._add_pending(*largs)  # raises as the full path does on malformed input
+            self._update_count += 1
+            self._computed = None
+            return True
+
+        return lane
 
     def compute(self) -> Dict[str, Tensor]:
         return _squad_compute(self.f1_score, self.exact_match, self.total)

@@ -193,6 +193,7 @@ class MetricTracker:
     def _pack(self, metric: Union[Metric, MetricCollection]) -> bytes:
         nodes = self._node_list(metric)
         for node in nodes:
+            node._defer_barrier()
             node._canonicalize_list_states()
         return _journal.pack_record(nodes)
 

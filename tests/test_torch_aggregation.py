@@ -19,6 +19,7 @@ import metrics_tpu as jmt
 import metrics_tpu_torch as tmt
 from metrics_tpu.utils import checks as jax_checks
 from metrics_tpu_torch.interop import load_reference_state
+from metrics_tpu_torch.ops import engine
 from metrics_tpu_torch.utils import checks as torch_checks
 
 AGGREGATORS = ["MaxMetric", "MinMetric", "SumMetric", "CatMetric", "MeanMetric"]
@@ -84,6 +85,8 @@ def _call(fn, *args):
 
 def _assert_close(expected, got):
     e = np.asarray(expected)
+    if isinstance(got, engine.LazyValue):  # a deferred forward's value, as the JAX package returns one
+        got = got._force()
     assert isinstance(got, torch.Tensor) and got.dtype == torch.float32
     g = got.cpu().numpy()
     assert e.shape == g.shape, (e.shape, g.shape)

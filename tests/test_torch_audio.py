@@ -17,6 +17,7 @@ import metrics_tpu as jmt
 import metrics_tpu.functional as jF
 import metrics_tpu_torch as tmt
 import metrics_tpu_torch.functional as tF
+from metrics_tpu_torch.ops.engine import LazyValue
 from metrics_tpu_torch.utils.imports import _PESQ_AVAILABLE
 
 SNR_ATOL_DB = 1e-4  # float32 sums over the time axis in another order: about 1e-6 relative in each energy
@@ -35,6 +36,8 @@ def signals(seed, shape, snr_db=10.0, dtype=np.float32):
 
 def close(got, want, atol, rtol=0.0):
     w = np.asarray(want)
+    if isinstance(got, LazyValue):  # a deferred forward's value, as the JAX package returns one
+        got = got._force()
     assert isinstance(got, torch.Tensor)
     g = got.detach().cpu().numpy()
     assert g.shape == w.shape and str(g.dtype) == str(w.dtype), (g.shape, w.shape, g.dtype, w.dtype)

@@ -10,6 +10,7 @@ import torch
 import metrics_tpu as jmt
 import metrics_tpu_torch as tmt
 from metrics_tpu_torch.interop import load_reference_state
+from metrics_tpu_torch.ops import engine
 
 B, C, STEPS = 64, 8, 5
 
@@ -227,6 +228,7 @@ def test_agreement_suite_matches_jax_and_groups_the_confusion_matrices(monkeypat
         before = len(calls)
         js.update(jnp.asarray(preds), jnp.asarray(target))
         ts.update(torch.from_numpy(preds), torch.from_numpy(target))
+        engine.flush_barrier([ts])  # an update deferred by the engine launches at its flush
         per_update.append(len(calls) - before)
     assert per_update == [3] + [1] * (STEPS - 1)
     assert ts.compute_groups == js.compute_groups
@@ -302,6 +304,7 @@ def test_curve_suites_form_the_jax_groups_and_match_jax(kind, monkeypatch):
         assert calls == []
     else:
         assert groups == [["ap", "auroc"], ["binned_ap"], ["ece"]]
+        engine.flush_barrier([ts])  # the updates the engine deferred launch at their flush
         assert len(calls) == STEPS  # CalibrationError: one bincount an update
     members = dict(ts.items(keep_base=True, copy_state=False))
     leader = ts.compute_groups[0][0]

@@ -32,9 +32,13 @@ journal round trip on the card, into a CPU twin and back; a restored
 BootStrapper continuing its draws on the card; the ``sync-pack`` fault drill
 in a NCCL world of one; Spearman's ranks with NaN on the card against the
 CPU; the asynchronous sync with updates in flight equal to a blocking sync;
-the bf16 and int8 wire bytes on the card equal to the CPU's; and
+the bf16 and int8 wire bytes on the card equal to the CPU's;
 ``compute_on_cpu`` rows on the host after an update and on the card at the
-sync.
+sync; and the dispatch engine on the card (validation mode "first"): deferred
+updates and forwards and ``update_many`` bit-equal to the per-call path with
+one bincount launch an update, no state leaving the card, a lazy value in
+torch expressions with card tensors, a host lane that declines a CPU tensor
+for a card metric, and the device probe counting.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -1034,3 +1038,119 @@ def test_compute_on_cpu_rows_on_the_host_after_update_on_the_card_at_sync(nccl_w
     assert all(a is b for a, b in zip(offloaded.preds, host_rows))
     assert torch.equal(offloaded.compute().cpu(), on_card.compute().cpu())
     assert all(r.device.type == "cpu" for r in offloaded.preds)
+
+
+# ------------------------------------------------------------- the dispatch engine
+@pytest.fixture
+def first_mode(dev):
+    from metrics_tpu_torch.ops import engine
+    from metrics_tpu_torch.utils import checks
+
+    mode = checks._get_validation_mode()
+    checks.set_validation_mode("first")
+    engine.set_deferred_dispatch(True)
+    yield dev
+    engine.set_device_probe(0)
+    engine.set_deferred_dispatch(True)
+    checks.set_validation_mode(mode)
+
+
+def _engine_suite(dev, c=16):
+    return mt.MetricCollection({
+        "acc": mt.Accuracy(num_classes=c, average="macro", device=dev),
+        "f1": mt.F1Score(num_classes=c, average="macro", device=dev),
+        "confmat": mt.ConfusionMatrix(num_classes=c, device=dev),
+        "precision": mt.Precision(num_classes=c, average="macro", device=dev),
+    })
+
+
+def _engine_batches(dev, n, c=16, b=512):
+    g = torch.Generator(device=dev).manual_seed(n)
+    return [(torch.softmax(torch.randn(b, c, generator=g, device=dev), 1),
+             torch.randint(0, c, (b,), generator=g, device=dev)) for _ in range(n)]
+
+
+def _engine_states(suite):
+    return {(k, s): v for k, m in suite.items(keep_base=True, copy_state=False) for s, v in m.metric_state.items()}
+
+
+@pytest.mark.parametrize("way", ["deferred", "update_many", "forward"])
+def test_engine_ways_on_the_card_equal_the_per_call_path(first_mode, way):
+    from metrics_tpu_torch.ops import engine
+
+    dev = first_mode
+    batches = _engine_batches(dev, 9)
+    engine.set_deferred_dispatch(False)
+    ref = _engine_suite(dev)
+    want = [ref(p, t) if way == "forward" else ref.update(p, t) for p, t in batches]
+    engine.set_deferred_dispatch(True)
+    suite = _engine_suite(dev)
+    if way != "forward":
+        suite.update(*batches[0])
+    before = histogram.KERNEL_LAUNCHES
+    if way == "update_many":
+        rest = batches[1:]
+        stacked = (torch.stack([p for p, _ in rest]), torch.stack([t for _, t in rest]))
+        suite.update_many(*stacked)  # the first sight: call by call
+        launched = histogram.KERNEL_LAUNCHES - before
+        for p, t in rest:
+            ref.update(p, t)
+        before = histogram.KERNEL_LAUNCHES
+        suite.update_many(*stacked)  # the step program
+        engine.flush_barrier([suite])
+        assert histogram.KERNEL_LAUNCHES - before == len(rest) and launched == len(rest)
+    elif way == "deferred":
+        for p, t in batches[1:]:
+            suite.update(p, t)
+        assert suite._defer_pending is not None
+        assert histogram.KERNEL_LAUNCHES == before  # nothing launched yet
+        engine.flush_barrier([suite])
+        assert histogram.KERNEL_LAUNCHES - before == len(batches) - 1
+    else:
+        got = [suite(p, t) for p, t in batches]
+        assert isinstance(got[1]["acc"], engine.LazyValue)
+        for g, w in zip(got, want):
+            for k in w:
+                value = g[k]._force() if isinstance(g[k], engine.LazyValue) else g[k]
+                assert value.device.type == "cuda" and torch.equal(value, w[k])
+        assert histogram.KERNEL_LAUNCHES - before == len(batches)
+    mine, theirs = _engine_states(suite), _engine_states(ref)
+    assert mine.keys() == theirs.keys()
+    for key, value in theirs.items():
+        assert mine[key].device.type == "cuda" and torch.equal(mine[key], value), key
+
+
+def test_lazy_value_in_torch_expressions_on_the_card(first_mode):
+    dev = first_mode
+    m = mt.MeanSquaredError(device=dev)
+    a, b = torch.rand(64, device=dev), torch.rand(64, device=dev)
+    m(a, b)
+    h1, h2 = m(a, b), m(a, b)
+    stacked = torch.stack([h1, h2])
+    assert stacked.device.type == "cuda" and torch.equal(stacked[0], stacked[1])
+    assert torch.equal(torch.ones((), device=dev) + h1, 1 + stacked[0])
+
+
+def test_host_lane_declines_a_cpu_tensor_for_a_card_metric(first_mode):
+    dev = first_mode
+    m = mt.AUROC(pos_label=1, device=dev)
+    p, t = torch.rand(256, device=dev), torch.randint(0, 2, (256,), device=dev)
+    m.update(p, t)
+    m.update(p.cpu(), t.cpu())  # the full path moves it to the card
+    assert all(r.device.type == "cuda" for r in m.preds + m.target)
+
+
+def test_device_probe_counts_on_the_card(first_mode):
+    from metrics_tpu_torch.ops import engine
+
+    dev = first_mode
+    engine.set_device_probe(1)
+    m = mt.Accuracy(device=dev)
+    p, t = torch.rand(256, device=dev), torch.randint(0, 2, (256,), device=dev)
+    m.update(p, t)
+    before = engine.engine_stats()["device_probes"]
+    for _ in range(3):
+        m.update(p, t)
+        m.update(p, t)
+        m.compute()  # a flush of two entries: one run of the program
+    assert engine.engine_stats()["device_probes"] - before == 2  # the first run of its signature is not probed

@@ -92,6 +92,8 @@ def assert_curve(expected, got, atol=None):
     """Curves exactly (``atol`` None), areas within ``atol``; lists and tuples element by element."""
     if hasattr(expected, "_force"):  # a JAX ``forward`` value whose dispatch was deferred
         expected = expected._force()
+    if hasattr(got, "_force"):  # and the port's
+        got = got._force()
     if isinstance(expected, (tuple, list)):
         assert isinstance(got, (tuple, list)) and len(expected) == len(got)
         for e, g in zip(expected, got):

@@ -334,11 +334,26 @@ def test_instrumented_sites_are_reference_sites_and_fire():
         m.save_state(path)
         m.load_state(path)
 
+    def flush_once():
+        from metrics_tpu_torch.ops import engine
+        from metrics_tpu_torch.utils import checks
+
+        mode = checks._get_validation_mode()
+        checks.set_validation_mode("first")
+        try:
+            engine.reset_engine()  # a cache miss, where "compile" fires
+            m = tmt.SumMetric(device="cpu")
+            for _ in range(3):
+                m.update(torch.tensor([1.0]))
+            m.compute()
+        finally:
+            checks.set_validation_mode(mode)
+
     import tempfile
     import warnings
 
     paths = {"sync-gather": sync_once, "sync-pack": sync_once, "epoch-fence": sync_once,
-               "host-offload": offload_once}
+             "host-offload": offload_once, "compile": flush_once, "flush-chunk": flush_once}
     with tempfile.TemporaryDirectory() as tmp:
         paths.update({"journal-write": lambda: journal_once(tmp), "journal-load": lambda: journal_once(tmp)})
         for site in faults.INSTRUMENTED_SITES:

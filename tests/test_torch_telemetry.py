@@ -25,12 +25,11 @@ import metrics_tpu_torch as tmt
 
 DIST_ON = lambda: True  # noqa: E731
 
-# Keys of the JAX snapshot whose planes the port has not yet: key -> the plane that brings them.
-ENGINE, STREAMING, FUNCORE, CACHE_TUNE = ("dispatch engine", "streaming/arena/ingest", "functional core",
-                                          "program cache/autotuner")
+# Keys of the JAX snapshot whose planes the port has not yet: key -> the plane that brings them. The
+# engine's cache and deferral counters are the port's; its program ledger waits for the program cache.
+STREAMING, FUNCORE, CACHE_TUNE = ("streaming/arena/ingest", "functional core", "program cache/autotuner")
 PENDING_KEYS = {
-    **{k: ENGINE for k in ("builds", "hits", "cached", "deferred_steps", "deferred_flushes", "deferred_fallbacks",
-                           "deferred_sync_barrier_flushes", "device_probes", "program_analyses", "programs")},
+    **{k: CACHE_TUNE for k in ("program_analyses", "programs")},
     **{k: STREAMING for k in ("streaming", "ingest_state")},
     **{k: CACHE_TUNE for k in ("fid_host_sqrtm", "fid_host_sqrtm_time_s")},
 }
