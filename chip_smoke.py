@@ -19,7 +19,13 @@ Phases, each of which raises on failure (exit code 1):
    such sessions the row's device time is null), one launch per call (the wrapper's counter),
    wrapper time (CUDA events) and host time per call, beside the plain
    version, ``torch.bincount`` and the bound. One JSON line
-   ``{"bincount_sweep": ...}``.
+   ``{"bincount_sweep": ...}``. Then the batched form (``mt_bincount_batched``,
+   what ``torch.func.vmap`` makes of the bincount) against its plain version,
+   bit for bit, on both paths, ids per row and shared, weighted, more rows than
+   the grid's second axis takes; and at ``BATCHED_SHAPES`` (phase 24 (c)'s
+   vmapped suites, a block of phase 15's row deltas, clones sharing one id row)
+   its time, the plain version's, one ``torch.bincount`` over ids offset by
+   ``row * length`` and the bound. One JSON line ``{"bincount_batched_sweep": ...}``.
 3. The main path: the headline suite of ``bench.py`` (Accuracy, F1Score,
    ConfusionMatrix, Precision; macro, C=128) on batches of B=8192 softmax
    rows, 5 warm-up and 50 timed ``update`` steps, then ``compute()``, in
@@ -124,7 +130,16 @@ Phases, each of which raises on failure (exit code 1):
    10 updates and its ``best_metric(return_step=True)``; then
    MultioutputWrapper(R2Score) over phase 12's multi-output rows with a NaN in
    1% of the rows (``remove_nans``). The bootstrap draws come from the card's
-   generator and are recorded and replayed to the CPU twin.
+   generator and are recorded and replayed to the CPU twin. The BootStrappers,
+   MinMaxMetric and the MultioutputWrapper take their fused paths (one program
+   over the clones, ``torch.func.vmap``; the Poisson and ``remove_nans`` paths as
+   weighted per-row deltas, certified on their first steps): three timed runs in
+   mode "first" and one with the fused path turned off, each with its ms/step
+   (and the steady state's from update ``WRAPPER_STEADY_FROM``), launches
+   (unbatched and batched), peak extra device memory and, for the fused path,
+   a steady update's host reads; the CPU twin runs in mode "full" (the eager
+   path, which the fused paths decline), and at the end every fused path is
+   still engaged, healthy and undemoted.
 16. ``image_restoration``: PSNR (range 1, and the observed range), SSIM,
    MS-SSIM and UQI in one collection over 200 image pairs of 3 x 512 x 512 in
    20 updates (DIV2K's 100 validation images as two crops each; a noisy
@@ -256,6 +271,23 @@ Phases, each of which raises on failure (exit code 1):
    one fallback, states bit-equal) and ``compile`` injected on a cache miss
    (counted, the updates run).
 
+24. ``functional_core`` (after phase 23), under 60 s, validation mode "first": (a)
+   phase 3's headline suite (B=8192, C=128) through ``init``, ``apply_update`` x 128
+   and ``apply_compute``: ms/step, 128 launches, host reads of 16 updates (0), the
+   states and values bit-equal to the stateful per-call path and to the CPU twin
+   over the first steps that fit ``CPU_TWIN_S``. (b) The same ``apply_update``
+   captured once in a ``torch.cuda.CUDAGraph`` and replayed for every batch (the
+   inputs copied into the captured buffers): ms/step, the states bit-equal. (c)
+   ``torch.func.vmap`` of ``apply_update`` over ``FUNCORE_STACK`` stacked suites
+   for ``FUNCORE_VMAP_STEPS`` calls: each suite bit-equal to its own run, one
+   batched bincount launch a call. (d) ``apply_compute(axis_name=...)`` in the NCCL
+   world of one (a ``ProcessGroup``, a ``DeviceMesh``, a ``(mesh, dim)`` pair; a
+   bare string raises ``SyncConfigFault``) and in a spawned two-rank Gloo world on
+   the card: one functional collective a state, no host read in the merge, the
+   merged states and the values equal ``sync_pytree``'s. (e) ``host_handoff``
+   merged (``compute()`` then issues 0 collectives in a world that syncs) and with
+   a stale epoch (``EpochFault``, the states intact).
+
 Deferral is on by default (the engine queues calls in every validation mode
 but "full"), so every timed window that updates in mode "first" ends with
 ``settle(owners)``: the owners' queues flush, then the card synchronises,
@@ -278,8 +310,8 @@ makes, peak extra device memory and bincount launches, and the device time
 of the grouping sort, the segmented scan, the LRAP compare and the Spearman
 sort beside their bounds.
 
-Output: labelled lines, then a JSON line ``{"kernels": [...]}``, then the
-nvidia-smi line, then ``{"ok": true, "device": {...}}`` as the last line.
+Output: labelled lines, then a JSON line ``{"kernels": [...]}`` (``bincount``
+and ``bincount_batched``), then the nvidia-smi line, then ``{"ok": true, "device": {...}}`` as the last line.
 Without a CUDA device it exits with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -525,6 +557,92 @@ def kernel_entry(sweep: list, max_abs_err: float) -> dict:
         "launches": None,  # filled from the main path's run
         "max_abs_err": max_abs_err,
         "ms": main["dispatched"]["wrapper_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": main["library_ms"],
+    }
+
+
+# ---- the batched form (phase 2): what torch.func.vmap makes of the bincount
+# (name, rows, ids a row, bins, ids shared by every row): phase 24 (c)'s vmapped suites, a block of
+# BootStrapper(ConfusionMatrix(1000))'s row deltas (phase 15), and clones sharing one id row
+BATCHED_SHAPES = [("vmap_suites", 8, 8192, 128**2, False), ("row_deltas_confmat", 33, 1, 10**6, False),
+                  ("shared_ids", 100, 1000, 1000, True)]
+
+
+def check_batched_bincount(histogram) -> float:
+    """The batched kernel against its plain version: both paths, shared and per-row ids, int32 and int64,
+    weighted (dyadic weights: every sum exact in any order), more rows than the grid's second axis takes,
+    no ids; the largest absolute difference (0 expected, asserted)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = 0.0
+    for rows, n, length in ((1, 0, 5), (3, 1000, 361), (8, 8192, 32768), (8, 8192, 32769), (5, 4096, 10**6),
+                            (70000, 16, 4), (33, 1, 10**6)):
+        for shared in (False, True):
+            for dtype in (torch.int64, torch.int32):
+                x = torch.randint(-3, length + 3, (1 if shared else rows, n), generator=g, device=dev).to(dtype)
+                w = torch.randint(1, 5, x.shape, generator=g, device=dev).float() * 0.5
+                for weights in (None, w):
+                    got = histogram.bincount_batched_cuda(x, length, weights, rows)
+                    want = histogram._bincount_batched_plain(x, length, weights, rows)
+                    assert got.dtype == want.dtype and got.shape == want.shape, (rows, n, length)
+                    worst = max(worst, float((got.double() - want.double()).abs().max()) if got.numel() else 0.0)
+    torch.cuda.synchronize()
+    assert worst == 0.0, f"batched bincount: max |kernel - plain| {worst}"
+    log(f"batched bincount: bit-exact against the plain version on every shape (max |err| {worst})")
+    return worst
+
+
+def sweep_batched_bincount(histogram, card: str) -> list:
+    """The batched kernel at ``BATCHED_SHAPES``: wrapper ms (CUDA events, one launch a call), the plain
+    version, one ``torch.bincount`` over ids offset by ``row * length`` (the same function) and the bytes
+    bound (ids read once, ``4 * rows * length`` bytes of counts written)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    out = []
+    for name, rows, n, length, shared in BATCHED_SHAPES:
+        x = torch.randint(0, length, (1 if shared else rows, n), generator=g, device=dev)
+        bytes_moved = x.numel() * x.element_size() + 4 * rows * length
+        bound_ms = max(bytes_moved / HBM_BYTES_PER_S, 2 * rows * n / FP32_OPS_PER_S) * 1e3
+        call = lambda: histogram.bincount_batched_cuda(x, length, None, rows)  # noqa: E731
+        before = histogram.BATCHED_LAUNCHES
+        ms = cuda_time_ms(call, iters=50, warmup=5)
+        assert histogram.BATCHED_LAUNCHES - before == 55, f"batched bincount {name}: not one launch a call"
+        prof = {}
+        for _ in range(PROFILE_ATTEMPTS):  # a session that lost device rows is taken again, as in the sweep above
+            prof = device_profile([call] * 52)
+            if sum(k for _, k in prof.values()) >= 50:
+                break
+            prof = {}
+        offsets = torch.arange(rows, device=dev).unsqueeze(1) * length
+        flat = (x.expand(rows, n) + offsets).reshape(-1)
+        row = {"shape": name, "rows": rows, "n": n, "length": length, "shared_ids": shared, "bytes": bytes_moved,
+               "bound_ms": bound_ms, "path": histogram.kernel_path(length), "ms": ms,
+               # None: no session recorded every call's device operation
+               "device_ms": sum(v for v, _ in prof.values()) / 50 if prof else None,
+               "device_ops_per_call": sum(k for _, k in prof.values()) / 50 if prof else None,
+               "plain_ms": cuda_time_ms(lambda: histogram._bincount_batched_plain(x, length, None, rows), 50, 5),
+               "library_ms": cuda_time_ms(lambda: torch.bincount(flat, minlength=rows * length), 50, 5)}
+        out.append(row)
+        log(f"batched bincount {name}: rows={rows} n={n} L={length} ({row['path']}): {ms:.5f} ms (device "
+            f"{row['device_ms']} ms, {row['device_ops_per_call']} operations a call), plain "
+            f"{row['plain_ms']:.5f} ms, torch.bincount {row['library_ms']:.5f} ms, bound {bound_ms:.6f} ms  [{card}]")
+    return out
+
+
+def batched_kernel_entry(sweep: list, max_abs_err: float) -> dict:
+    """The kernels line's entry for the batched form, at phase 24 (c)'s shape."""
+    main = next(r for r in sweep if r["shape"] == "vmap_suites")
+    return {
+        "name": "bincount_batched",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/bincount.cu",
+        "replaces": "metrics_tpu/ops/histogram.py:36",
+        "launches": None,  # filled from the paths' runs
+        "max_abs_err": max_abs_err,
+        "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": "bytes",
@@ -990,7 +1108,7 @@ def aggregation_path(mt, checks, card) -> dict:
 CURVE_AREA_ATOL = {"binary": 1e-6, "multiclass": 1e-5}  # eager areas, card against CPU (the JAX tests' tolerances)
 SORTED_AREA_ATOL = {"binary": 1e-4, "multiclass": 1e-5}  # sort-based areas against the eager curves on the card
 CONF_SUM_RTOL = 1e-5  # CalibrationError's float32 confidence sums: another order of addition on each side
-CPU_TWIN_BINNED_S = 10.0  # the CPU twin of the binned updates runs all batches only if it takes about this long
+CPU_TWIN_BINNED_S = 6.0  # the CPU twin of the binned updates runs all batches only if it takes about this long
 HOST_READ_OPS = ("aten::_local_scalar_dense", "aten::item", "aten::nonzero")
 CURVES_DEVICE = "cuda"  # where the curve paths run
 CURVES_BINARY_SHAPE = (64, 262_144)  # updates, scores an update: 2**24 scores
@@ -1429,7 +1547,7 @@ def curves_path(mt, checks, histogram, card: str) -> dict:
 
 # ------------------------------------------------------------------ phases 11 to 14
 EVAL_DEVICE = "cuda"  # where phases 11 to 14 run
-CPU_TWIN_S = 8.0  # a CPU twin runs every batch where that takes about this long, else the first ones that fit
+CPU_TWIN_S = 6.0  # a CPU twin runs every batch where that takes about this long, else the first ones that fit
 RANKING_SHAPE = (50, 1000, 1000)  # updates, rows an update, labels: the ImageNet-1k validation set
 RANKING_RTOL = 1e-5  # float sums of per-row values (LRAP, ranking loss, hinge, KL) in another order on each side
 REGRESSION_SHAPE = (64, 262_144)  # updates, rows an update: 2**24 rows
@@ -1447,7 +1565,7 @@ PAIRWISE_CPU_ROWS = 256  # rows of x the CPU twin computes, all columns
 PAIRWISE_ATOL, PAIRWISE_RTOL = 1e-3, 1e-5
 RETRIEVAL_SHAPE = (6980, 100, 1000)  # queries, queries an update, candidates a query: MS MARCO dev-small re-ranking
 RETRIEVAL_ATOL = 1e-6  # means over queries of exact per-query values, in another order on each side
-RETRIEVAL_CPU_TWIN_S = 15.0  # the retrieval CPU twin computes all 70 updates only if that takes about this long
+RETRIEVAL_CPU_TWIN_S = 10.0  # the retrieval CPU twin computes all 70 updates only if that takes about this long
 
 
 def median(values) -> float:
@@ -1484,10 +1602,13 @@ def timed_compute(members: dict, result: dict) -> dict:
     return values
 
 
-def update_profile(make, update, batches, ms_per_step: float) -> dict:
-    """Device time per update step on a new ``make()`` (the first 2 steps in the profiler's warm-up)."""
+def update_profile(make, update, batches, ms_per_step: float, warm: int = 0) -> dict:
+    """Device time per update step on a new ``make()`` (the first 2 steps in the profiler's warm-up), after
+    ``warm`` untimed steps."""
     obj = make()
-    prof = profile_steps(lambda *b: update(obj, b), batches, owners=(obj,))
+    for batch in batches[:warm]:
+        update(obj, batch)
+    prof = profile_steps(lambda *b: update(obj, b), batches[warm:], owners=(obj,))
     if prof["device_ms_per_step"] is not None:
         prof["device_idle_share"] = 1.0 - prof["device_ms_per_step"] / ms_per_step
     return prof
@@ -1974,32 +2095,33 @@ IMAGE_SHAPE = (20, 10, 3, 512, 512)  # updates, images an update, channels, heig
 SPECTRAL_SHAPE = (4, 8, 4, 256, 256)  # updates, patches an update, bands, height, width: 4-band pan-sharpening
 IMAGE_ATOL = 1e-4  # the JAX package's image tests (tests/image/test_image.py:53)
 ERGAS_ATOL = 1e-2  # tests/image/test_image.py:202
-IMAGE_CPU_TWIN_S = 15.0  # the image CPU twin computes every image only if that takes about this long
+IMAGE_CPU_TWIN_S = 10.0  # the image CPU twin computes every image only if that takes about this long
 
 
 class DrawLog:
-    """BootStrapper's draws on the card, recorded, then replayed to a CPU twin: the two samplers
-    get the same index draws; no two generators are trusted to agree."""
+    """BootStrapper's draw matrices on the card, recorded, then replayed to a CPU twin: the two samplers
+    get the same matrices (the fused and the eager path both draw through ``_draw_matrix``); no two
+    generators are trusted to agree."""
 
     def __init__(self):
         from metrics_tpu_torch.wrappers import bootstrapping
 
-        self.module, self.real, self.draws = bootstrapping, bootstrapping._bootstrap_sampler, []
+        self.module, self.real, self.draws = bootstrapping, bootstrapping._draw_matrix, []
 
     def record(self):
-        def sampler(*args):
+        def draw(*args):
             out = self.real(*args)
-            self.draws.append([d.cpu() for d in out])
+            self.draws.append(out.cpu())
             return out
 
-        self.module._bootstrap_sampler = sampler
+        self.module._draw_matrix = draw
 
     def replay(self, start: int = 0):
         queue = iter(list(self.draws[start:]))
-        self.module._bootstrap_sampler = lambda *args: next(queue)
+        self.module._draw_matrix = lambda size, clones, strategy, generator: next(queue).to(generator.device)
 
     def restore(self):
-        self.module._bootstrap_sampler = self.real
+        self.module._draw_matrix = self.real
 
 
 def tree_states(metric) -> dict:
@@ -2114,14 +2236,87 @@ def multioutput_nan_batches(seed: int = 41) -> list:
     return out
 
 
+# a wrapper run's steady state starts after the first, eager call and the certified fused steps
+WRAPPER_STEADY_FROM = 5
+# The wrappers with a fused path: the attribute that turns it off (the eager run sets it False), and the
+# program attribute that shows it engaged
+FUSED_ATTRS = {"boot_poisson": ("_boot_ok", "_boot_program"), "boot_multinomial": ("_boot_ok", "_boot_program"),
+               "boot_confmat": ("_boot_ok", "_boot_program"), "minmax": ("_mm_ok", "_mm_program"),
+               "multioutput_r2": ("_mo_ok", "_mo_program")}
+
+
+def wrapper_runs(name, make, update, batches, checks, histogram) -> tuple:
+    """Three runs over every batch on a new ``make()`` in mode "first" (the fused path where ``name`` has
+    one), then one with the fused path turned off: ms per step of each, launches and peak extra device
+    memory of the first fused run and of the eager run; the first fused run's object."""
+    checks.set_validation_mode("first")
+    out, first = {"runs": []}, None
+    ok_attr = FUSED_ATTRS.get(name, (None,))[0]
+    for trial in range(3 + (ok_attr is not None)):
+        eager = trial == 3
+        obj = make()
+        if eager:
+            object.__setattr__(obj, ok_attr, False)
+        histogram.KERNEL_LAUNCHES, histogram.BATCHED_LAUNCHES = 0, 0
+        settle(obj)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i, batch in enumerate(batches):
+            if i == WRAPPER_STEADY_FROM:
+                settle(obj)
+                t_steady = time.perf_counter()
+            update(obj, batch)
+        settle(obj)
+        t1 = time.perf_counter()
+        record = {"launches": histogram.KERNEL_LAUNCHES, "batched_launches": histogram.BATCHED_LAUNCHES,
+                  "peak_extra_bytes": torch.cuda.max_memory_allocated() - base,
+                  "ms_per_step": (t1 - t0) / len(batches) * 1e3,
+                  "steady_ms_per_step": (t1 - t_steady) / (len(batches) - WRAPPER_STEADY_FROM) * 1e3}
+        ms = record["ms_per_step"]
+        if trial == 0 and ok_attr is not None:  # one steady step's host reads (the fused path's, here)
+            record["steady_host_reads"] = host_read_count(lambda: (update(obj, batches[-1]), settle(obj)))
+        if eager:
+            out["eager"] = record
+        else:
+            out["runs"].append(ms)
+            if trial == 0:
+                out["fused"], first = record, obj
+    out["runs"].sort()
+    return out, first
+
+
+def assert_fused_engaged(name: str, obj) -> dict:
+    """A wrapper's fused path ran and is still healthy: its program exists, its flag is True and none of its
+    ladder lanes is demoted (a fused path that quietly demoted would otherwise pass)."""
+    ok_attr, program_attr = FUSED_ATTRS[name]
+    demoted = [lane for lane, lad in obj.__dict__.get("_fault_ladders", {}).items() if lad.demoted]
+    assert getattr(obj, ok_attr) and getattr(obj, program_attr) is not None and not demoted, (
+        f"wrappers {name}: fused path {ok_attr}={getattr(obj, ok_attr)}, program "
+        f"{getattr(obj, program_attr) is not None}, demoted lanes {demoted}")
+    return {ok_attr: True, "demoted_lanes": 0}
+
+
 def wrapper_component(name, make_card, make_cpu, step, batches, checks, histogram, float_rtol: float = 0.0):
-    """One wrapped metric driven by ``step(metric, batch)``: timed steps, device profile, host reads a
-    step, then the CPU twin (fed the card's bootstrap draws) over every batch where that fits
-    ``CPU_TWIN_S``, else the first ones, against a card instance fed the same; then ``compute()``
-    timed and profiled on the timed run's instance."""
-    runs, launches, obj = time_runs(make_card, step, batches, checks, histogram)
-    out = {"update_ms_per_step_runs": runs, "update_ms_per_step": median(runs), "kernel_launches": launches}
-    out["update_profile"] = update_profile(make_card, step, batches[:6], out["update_ms_per_step"])
+    """One wrapped metric driven by ``step(metric, batch)``: timed steps (fused and, where there is a
+    fused path, eager), device profile, host reads a step, then the CPU twin (in mode "full", which the
+    fused paths decline: the eager oracle, fed the card's bootstrap draws) over every batch where that
+    fits ``CPU_TWIN_S``, else the first ones, against a card instance in mode "first" fed the same; then
+    ``compute()`` timed and profiled on the timed run's instance."""
+    timing, obj = wrapper_runs(name, make_card, step, batches, checks, histogram)
+    runs = timing["runs"]
+    out = {"update_ms_per_step_runs": runs, "update_ms_per_step": median(runs),
+           "kernel_launches": timing["fused"]["launches"], "batched_launches": timing["fused"]["batched_launches"],
+           "peak_extra_bytes": timing["fused"]["peak_extra_bytes"]}
+    if "eager" in timing:
+        out["eager"] = timing["eager"]
+        out["steady_ms_per_step"] = timing["fused"]["steady_ms_per_step"]
+        out["steady_host_reads"] = timing["fused"]["steady_host_reads"]
+        # the fused path's steady state: after the eager first call and the certified steps
+        out["update_profile"] = update_profile(make_card, step, batches[:WRAPPER_STEADY_FROM + 6],
+                                               out["steady_ms_per_step"], warm=WRAPPER_STEADY_FROM)
+    else:
+        out["update_profile"] = update_profile(make_card, step, batches[:6], out["update_ms_per_step"])
     probe = make_card()
     probe_profile = compute_profile(lambda: step(probe, batches[0]))
     out["update_host_reads"] = {**probe_profile["host_reads"],
@@ -2131,19 +2326,27 @@ def wrapper_component(name, make_card, make_cpu, step, batches, checks, histogra
         draws.record()
         step(twin, batches[0])
         draws.replay()
+        checks.set_validation_mode("full")
         t0 = time.perf_counter()
         step(cpu, tuple(t.cpu() for t in batches[0]))
         once = time.perf_counter() - t0
         twin_steps = cpu_twin_steps(once, len(batches))
         draws.record()
+        checks.set_validation_mode("first")
         for b in batches[1:twin_steps]:
             step(twin, b)
+        settle(twin)
         draws.replay(start=1)  # the first step's draws went to the CPU already
+        checks.set_validation_mode("full")
         for b in batches[1:twin_steps]:
             step(cpu, tuple(t.cpu() for t in b))
     finally:
         draws.restore()
+        checks.set_validation_mode("first")
     assert_tree_close(twin, cpu, f"wrappers {name}", float_rtol)
+    if name in FUSED_ATTRS:
+        out["fused_health"] = assert_fused_engaged(name, obj)
+        assert_fused_engaged(name, twin)
     twin._computed = None
     err = assert_values_close(twin.compute(), cpu.compute(), f"wrappers {name}", WRAPPER_ATOL,
                               max(WRAPPER_RTOL, float_rtol))
@@ -2164,10 +2367,20 @@ def wrappers_path(mt, checks, histogram, card: str) -> dict:
         make_cpu = lambda name=name: wrapper_member(mt, name, "cpu")  # noqa: E731
         step = forward_batch if name == "minmax" else update_batch  # MinMaxMetric is driven by forward
         result[name] = wrapper_component(name, make, make_cpu, step, batches, checks, histogram)
-    want = BOOT_CONFMAT_CLONES * steps  # one launch a clone's update
-    assert result["boot_confmat"]["kernel_launches"] == want, (
-        f"boot_confmat: {result['boot_confmat']['kernel_launches']} bincount launches, not {want}")
-    assert all(result[k]["kernel_launches"] == 0 for k in WRAPPER_MEMBERS if k != "boot_confmat")
+    # boot_confmat, Poisson, fused from its second update: the first update and the oracles of the
+    # certified steps launch once a clone, each fused update once a block of row deltas
+    from metrics_tpu_torch.wrappers._fanout import DELTA_BLOCK_BYTES
+    from metrics_tpu_torch.wrappers.bootstrapping import BootStrapper
+
+    cert = BootStrapper._POISSON_CERT_STEPS
+    blocks = -(-batch // max(1, min(batch, DELTA_BLOCK_BYTES // (8 * c * c))))
+    want = (BOOT_CONFMAT_CLONES * (1 + cert), blocks * (steps - 1))
+    got = (result["boot_confmat"]["kernel_launches"], result["boot_confmat"]["batched_launches"])
+    assert got == want, f"boot_confmat: (unbatched, batched) bincount launches {got}, not {want}"
+    eager = result["boot_confmat"]["eager"]
+    assert eager["launches"] == BOOT_CONFMAT_CLONES * steps and eager["batched_launches"] == 0, eager
+    assert all(result[k]["kernel_launches"] == result[k]["batched_launches"] == 0
+               for k in WRAPPER_MEMBERS if k != "boot_confmat")
     for name in ("boot_poisson", "boot_multinomial"):
         # the resampled rows every clone reads once (its index_select and its update) beside the update's time
         bytes_moved = BOOT_CLONES * batch * (c * 4 + 8 + 8)
@@ -2215,10 +2428,17 @@ def wrappers_path(mt, checks, histogram, card: str) -> dict:
     result["multioutput_r2"] = wrapper_component("multioutput_r2", make_mo, lambda: make_mo("cpu"), update_batch,
                                                  mo_batches, checks, histogram, float_rtol=REGRESSION_RTOL)
     result["kernel_launches"] = result["boot_confmat"]["kernel_launches"]
+    result["batched_launches"] = sum(result[k]["batched_launches"] for k in WRAPPER_MEMBERS + ("multioutput_r2",))
     for name in WRAPPER_MEMBERS + ("multioutput_r2",):
         r = result[name]
+        eager = r.get("eager")
+        fused = (f"; fused path: steady {r['steady_ms_per_step']:.3f} ms/step (from update {WRAPPER_STEADY_FROM}), "
+                 f"{r['steady_host_reads']} host reads a steady update, {r['peak_extra_bytes']} bytes peak extra, "
+                 f"{r['batched_launches']} batched launches; eager {eager['ms_per_step']:.3f} ms/step (steady "
+                 f"{eager['steady_ms_per_step']:.3f}), {eager['launches']} launches, {eager['peak_extra_bytes']} "
+                 f"bytes peak extra" if eager else "")
         log(f"wrappers_imagenet {name}: update {r['update_ms_per_step']:.3f} ms/step (runs "
-            f"{[round(x, 3) for x in r['update_ms_per_step_runs']]}), device {r['update_profile']['device_ms_per_step']} "
+            f"{[round(x, 3) for x in r['update_ms_per_step_runs']]}){fused}, device {r['update_profile']['device_ms_per_step']} "
             f"ms/step, idle share {r['update_profile'].get('device_idle_share')}, host reads an update "
             f"{r['update_host_reads']}; compute {r['compute_ms']:.3f} ms (again {r['compute_again_ms']:.3f}), host reads "
             f"{r['compute_profile']['host_reads']}, peak extra {r['compute_peak_extra_bytes']} bytes; "
@@ -5388,6 +5608,377 @@ def engine_path(mt, checks, histogram, card: str) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 24
+# ---- phase 24: functional_core
+FUNCORE_DEVICE = "cuda"  # where phase 24 runs
+FUNCORE_SHAPE = (8192, 128, 128)  # the headline suite (phase 3's): rows a batch, classes, timed updates
+FUNCORE_STACK = 8  # (c) suites stacked under torch.func.vmap
+FUNCORE_VMAP_STEPS = 16  # (c) vmapped calls, each one batch a suite
+FUNCORE_RANK_STEPS = 4  # (d) updates of each rank of the two-rank Gloo world
+FUNCORE_WORLD_S = 300  # (d) wall-clock limit of the two-rank world
+FUNCORE_PHASE_S = 60.0
+FUNCORE_MEAN_RTOL = 1e-6  # (d) a "mean" state merged by the functional collectives against sync_pytree's
+
+
+def funcore_states_equal(got: dict, want: dict, label: str) -> None:
+    """Two ``{member: {state: tensor}}`` trees bit for bit."""
+    assert got.keys() == want.keys(), f"{label}: members {sorted(got)} against {sorted(want)}"
+    for name, states in want.items():
+        assert got[name].keys() == states.keys(), f"{label}: {name}'s states differ"
+        for key, value in states.items():
+            mine = got[name][key]
+            assert mine.dtype == value.dtype and torch.equal(mine.cpu(), value.cpu()), f"{label}: {name}.{key} differs"
+
+
+def shell_states(suite) -> dict:
+    return {name: dict(m.metric_state) for name, m in suite.items(keep_base=True, copy_state=True)}
+
+
+def functional_collectives_counted():
+    """A counter of the functional collectives issued (``all_reduce`` and the all-gathers), and its undo."""
+    import torch.distributed._functional_collectives as funcol
+
+    count = [0]
+    real = {name: getattr(funcol, name) for name in ("all_reduce", "all_gather_single", "all_gather_tensor")
+            if hasattr(funcol, name)}
+
+    def counting(fn):
+        def call(*args, **kwargs):
+            count[0] += 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    for name, fn in real.items():
+        setattr(funcol, name, counting(fn))
+
+    def undo():
+        for name, fn in real.items():
+            setattr(funcol, name, fn)
+
+    return count, undo
+
+
+def funcore_apply(mt, histogram, batches, card: str) -> dict:
+    """(a) init, apply_update over every batch, apply_compute: against the stateful per-call suite and
+    the CPU twin; (b) the same apply_update captured once in a CUDA graph and replayed for every batch."""
+    from metrics_tpu_torch.ops import engine
+
+    _, num_classes, timed = FUNCORE_SHAPE
+    out: dict = {}
+    suite = make_suite(mt, num_classes, FUNCORE_DEVICE)
+    state = suite.apply_update(suite.init(), *batches[0])  # the signature's first call: checked, export built
+    torch.cuda.synchronize()
+    histogram.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for preds, target in batches[1:]:
+        state = suite.apply_update(state, preds, target)
+    values = suite.apply_compute(state)
+    torch.cuda.synchronize()
+    out["apply_ms_per_step"] = (time.perf_counter() - t0) / timed * 1e3
+    out["kernel_launches"] = histogram.KERNEL_LAUNCHES
+    assert out["kernel_launches"] == timed, f"funcore (a): {out['kernel_launches']} launches for {timed} updates"
+    few = batches[1:17]
+
+    def sixteen():
+        s = state
+        for p, t in few:
+            s = suite.apply_update(s, p, t)
+        torch.cuda.synchronize()
+
+    out["host_reads_per_16_updates"] = host_read_count(sixteen)
+    assert out["host_reads_per_16_updates"] == 0, out["host_reads_per_16_updates"]
+    # the stateful per-call path over the same batches (deferral off)
+    engine.set_deferred_dispatch(False)
+    try:
+        shell = make_suite(mt, num_classes, FUNCORE_DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for preds, target in batches:
+            shell.update(preds, target)
+        want_values = shell.compute()
+        torch.cuda.synchronize()
+        out["per_call_ms_per_step"] = (time.perf_counter() - t0) / len(batches) * 1e3
+    finally:
+        engine.set_deferred_dispatch(True)
+    funcore_states_equal(state.states, shell_states(shell), "funcore (a): apply_update against per call")
+    for key, value in want_values.items():
+        assert torch.equal(values[key].cpu(), value.cpu()), f"funcore (a): {key} differs from the shell's compute()"
+    # the CPU twin over the first steps that fit CPU_TWIN_S, against a card run of as many
+    cpu = make_suite(mt, num_classes, "cpu")
+    t0 = time.perf_counter()
+    cpu_state = cpu.apply_update(cpu.init(), batches[0][0].cpu(), batches[0][1].cpu())
+    depth = cpu_twin_steps(time.perf_counter() - t0, len(batches))
+    card_state = suite.apply_update(suite.init(), *batches[0])
+    for preds, target in batches[1:depth]:
+        cpu_state = cpu.apply_update(cpu_state, preds.cpu(), target.cpu())
+        card_state = suite.apply_update(card_state, preds, target)
+    funcore_states_equal(card_state.states, cpu_state.states, "funcore (a): the card against the CPU twin")
+    out["cpu_twin_steps"] = depth
+
+    # (b) one capture, a replay a batch; the inputs copied into the captured buffers
+    static = suite.init()
+    sp, st = batches[0][0].clone(), batches[0][1].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            suite.apply_update(static, sp, st)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    histogram.KERNEL_LAUNCHES = 0
+    with torch.cuda.graph(graph):
+        new = suite.apply_update(static, sp, st)
+        for name, states in static.states.items():
+            for key, value in states.items():
+                value.copy_(new.states[name][key])
+    out["graph_capture_launches"] = histogram.KERNEL_LAUNCHES
+    del new
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for preds, target in batches:
+        sp.copy_(preds)
+        st.copy_(target)
+        graph.replay()
+    torch.cuda.synchronize()
+    out["graph_ms_per_step"] = (time.perf_counter() - t0) / len(batches) * 1e3
+    funcore_states_equal(static.states, state.states, "funcore (b): graph replays against apply_update")
+    out["graph_replays"] = len(batches)
+    del graph, static
+    log(f"functional_core (a) apply_update {out['apply_ms_per_step']:.4f} ms/step ({timed} updates, apply_compute "
+        f"included), per call {out['per_call_ms_per_step']:.4f} ms/step, {out['kernel_launches']} launches, host reads "
+        f"of 16 updates {out['host_reads_per_16_updates']}, CPU twin over {depth} updates bit-equal; (b) CUDA graph "
+        f"{out['graph_ms_per_step']:.4f} ms/step over {len(batches)} replays (input copies included), "
+        f"{out['graph_capture_launches']} launch captured, states bit-equal  [{card}]")
+    return out, state
+
+
+def funcore_vmap(mt, histogram, batches, card: str) -> dict:
+    """(c) torch.func.vmap of apply_update over FUNCORE_STACK stacked suites, FUNCORE_VMAP_STEPS calls, against
+    as many separate runs; the bincount one batched launch a vmapped call."""
+    _, num_classes, _ = FUNCORE_SHAPE
+    suite = make_suite(mt, num_classes, FUNCORE_DEVICE)
+    k, steps = FUNCORE_STACK, FUNCORE_VMAP_STEPS
+    feeds = [[batches[1 + s * k + i] for i in range(k)] for s in range(steps)]
+    stacked_inputs = [(torch.stack([p for p, _ in f]), torch.stack([t for _, t in f])) for f in feeds]
+    step = torch.func.vmap(lambda s, p, t: suite.apply_update(s, p, t))
+    state = mt.stack_states([suite.init() for _ in range(k)])
+    state = step(state, *stacked_inputs[0])  # the export and its first call, outside the window
+    torch.cuda.synchronize()
+    histogram.KERNEL_LAUNCHES, histogram.BATCHED_LAUNCHES = 0, 0
+    t0 = time.perf_counter()
+    for p, t in stacked_inputs[1:]:
+        state = step(state, p, t)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = {"ms_per_vmapped_call": seconds / (steps - 1) * 1e3, "suites": k, "calls": steps - 1,
+           "batched_launches": histogram.BATCHED_LAUNCHES, "kernel_launches": histogram.KERNEL_LAUNCHES}
+    assert out["batched_launches"] == steps - 1 and out["kernel_launches"] == 0, out
+    rows = mt.unstack_states(state, k)
+    for i in range(k):
+        one = suite.init()
+        for s in range(steps):
+            one = suite.apply_update(one, *feeds[s][i])
+        funcore_states_equal(rows[i].states, one.states, f"funcore (c): suite {i} vmapped against alone")
+    log(f"functional_core (c) vmap over {k} suites: {out['ms_per_vmapped_call']:.4f} ms a call "
+        f"({out['ms_per_vmapped_call'] / k:.4f} a suite-step), {out['batched_launches']} batched launches for "
+        f"{steps - 1} calls, 0 unbatched; each suite bit-equal to its own run  [{card}]")
+    return out
+
+
+def funcore_merge_check(mt, suite, state, axis, label: str) -> dict:
+    """apply_compute(axis_name=axis) against sync_pytree over the same group: the merged states (bit for bit,
+    "mean" within FUNCORE_MEAN_RTOL) and the values; one functional collective a state, no host read."""
+    from metrics_tpu_torch.parallel.collectives import merge_pytree, resolve_axis, sync_pytree
+
+    group = resolve_axis(axis)
+    members = dict(suite._modules.items())
+    count, undo = functional_collectives_counted()
+    try:
+        merged = {n: merge_pytree(state.states[n], members[n]._reduction_specs, axis) for n in members}
+        torch.cuda.synchronize()
+        collectives = count[0]
+        reads = host_read_count(lambda: [merge_pytree(state.states[n], members[n]._reduction_specs, axis)
+                                         for n in members])
+        values = suite.apply_compute(state, axis_name=axis)
+    finally:
+        undo()
+    synced = {n: sync_pytree(state.states[n], members[n]._reduction_specs, group) for n in members}
+    n_states = sum(len(s) for s in state.states.values())
+    assert collectives == n_states, f"{label}: {collectives} functional collectives for {n_states} states"
+    assert reads == 0, f"{label}: {reads} host reads in the merge"
+    for n in members:
+        for key, value in synced[n].items():
+            got = merged[n][key]
+            if members[n]._reduction_specs[key] == "mean":
+                torch.testing.assert_close(got, value, rtol=FUNCORE_MEAN_RTOL, atol=0.0)
+            else:
+                assert got.dtype == value.dtype and torch.equal(got, value), f"{label}: {n}.{key} differs"
+    want = suite.apply_compute(mt.FuncState(synced, state.epoch))
+    for key, value in want.items():
+        assert torch.equal(values[key], value), f"{label}: value {key} differs from sync_pytree's"
+    return {"functional_collectives": collectives, "states": n_states, "merge_host_reads": reads,
+            "values": {k: v.cpu().tolist() for k, v in values.items() if v.numel() == 1}}
+
+
+def funcore_gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """(d) One rank of the two-rank Gloo world on the one card (CUDA tensors): apply_update over its own
+    batches, then apply_compute(axis_name=the world's group) against sync_pytree's."""
+    import torch.distributed as dist
+
+    if str(HERE) not in sys.path:
+        sys.path.insert(0, str(HERE))
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch.utils import checks
+
+    torch.cuda.set_device(0)
+    checks.set_validation_mode("first")
+    dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world)
+    result: dict = {}
+    try:
+        batch, num_classes, _ = FUNCORE_SHAPE
+        suite = make_suite(mt, num_classes, FUNCORE_DEVICE)
+        state = suite.init()
+        for preds, target in make_batches(batch, num_classes, FUNCORE_RANK_STEPS, seed=240 + rank,
+                                          device=FUNCORE_DEVICE):
+            state = suite.apply_update(state, preds, target)
+        result = funcore_merge_check(mt, suite, state, dist.group.WORLD, f"funcore (d) rank {rank}")
+        result["local"] = {n: {k: v.cpu() for k, v in s.items()} for n, s in state.states.items()}
+    except Exception as exc:  # noqa: BLE001 - reported to the parent, which raises
+        result = {"error": f"{type(exc).__name__}: {exc}"}
+    finally:
+        torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def funcore_two_ranks(mt, card: str) -> dict:
+    """(d) The two-rank Gloo world: each rank's merge equals sync_pytree's, and the merged counts equal the
+    sum of both ranks' local counts."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_method = f"file://{os.path.join(tmp, 'rendezvous')}"
+        procs = [ctx.Process(target=funcore_gloo_rank, args=(r, 2, init_method, tmp)) for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + FUNCORE_WORLD_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        codes = [p.exitcode for p in procs]
+        results = [torch.load(os.path.join(tmp, f"{r}.pt")) for r in range(2)] if not any(codes) else []
+    if any(codes) or any("error" in r for r in results):
+        raise RuntimeError(f"funcore two-rank world: exit codes {codes}, {[r.get('error') for r in results]}")
+    confmat = sum(r["local"]["confmat"]["confmat"] for r in results)
+    assert all(r["values"] == results[0]["values"] for r in results), "funcore (d): the ranks' values differ"
+    out = {k: results[0][k] for k in ("functional_collectives", "states", "merge_host_reads", "values")}
+    out["confmat_total"] = int(confmat.sum())
+    log(f"functional_core (d) two Gloo ranks: {out['functional_collectives']} functional collectives for "
+        f"{out['states']} states, 0 host reads, values equal sync_pytree's on both ranks {out['values']}  [{card}]")
+    return out
+
+
+def funcore_world_of_one(mt, suite, state, card: str) -> dict:
+    """(d) The NCCL world of one: every axis_name form; (e) host_handoff merged (compute() then issues no
+    collective) and with a stale epoch (EpochFault, the states intact)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from metrics_tpu_torch import metric as metric_mod
+    from metrics_tpu_torch.parallel import sync as psync
+    from metrics_tpu_torch.utils.exceptions import EpochFault, SyncConfigFault
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}", rank=0, world_size=1)
+        try:
+            out["process_group"] = funcore_merge_check(mt, suite, state, dist.group.WORLD, "funcore (d) NCCL")
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("dp",))
+            for label, axis in (("mesh", mesh), ("mesh_dim", (mesh, "dp"))):
+                out[label] = funcore_merge_check(mt, suite, state, axis, f"funcore (d) NCCL {label}")
+            try:
+                suite.apply_compute(state, axis_name="dp")
+                raise AssertionError("funcore (d): a bare axis string did not raise")
+            except SyncConfigFault as err:
+                assert "DeviceMesh" in str(err) and "ProcessGroup" in str(err), str(err)
+            # (e) the handoff seam, in a world of one that syncs (as phase 22 makes it)
+            shell = make_suite(mt, FUNCORE_SHAPE[1], FUNCORE_DEVICE)
+            metric_mod._dist_available = lambda: True
+            try:
+                before = psync.collective_stats()["sync_collectives_issued"]
+                shell.host_handoff(state)
+                values = shell.compute()
+                out["handoff_collectives"] = psync.collective_stats()["sync_collectives_issued"] - before
+                assert out["handoff_collectives"] == 0, out["handoff_collectives"]
+                want = suite.apply_compute(state)
+                for key, value in want.items():
+                    assert torch.equal(values[key], value), f"funcore (e): {key} after host_handoff"
+                shell.unsync()
+                kept = shell_states(shell)
+                stale = state.with_epoch(psync.world_epoch())
+                psync.bump_epoch("phase 24 drill: a stale functional tree")
+                try:
+                    shell.host_handoff(stale)
+                    raise AssertionError("funcore (e): a stale epoch landed")
+                except EpochFault:
+                    pass
+                funcore_states_equal(shell_states(shell), kept, "funcore (e): the states after the fenced handoff")
+            finally:
+                metric_mod._dist_available = psync.distributed_available
+                psync.reset_membership()
+        finally:
+            dist.destroy_process_group()
+    log(f"functional_core (d) NCCL world of one: {out['process_group']['functional_collectives']} functional "
+        f"collectives for {out['process_group']['states']} states (ProcessGroup, DeviceMesh, (mesh, dim) alike), "
+        f"0 host reads, values equal sync_pytree's; (e) merged host_handoff: compute() issued "
+        f"{out['handoff_collectives']} collectives; a stale epoch raised EpochFault, states intact  [{card}]")
+    return out
+
+
+def int32_matmul_on_the_card() -> str:
+    """Whether this torch multiplies int32 matrices on the card: the fused wrappers' integer row deltas
+    contract in float64 because it does not (``wrappers/_fanout.py``)."""
+    a = torch.ones(4, 4, dtype=torch.int32, device=FUNCORE_DEVICE)
+    try:
+        torch.matmul(a, a)
+        torch.cuda.synchronize()
+        out = "supported"
+    except RuntimeError as err:
+        out = f"refused: {str(err).splitlines()[0][:120]}"
+    log(f"functional_core int32 matmul on the card: {out}")
+    return out
+
+
+def functional_core_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 24: the functional core (see the module docstring). The launches of (a) count in the bincount
+    row, (c)'s in the batched bincount's."""
+    t_phase = time.perf_counter()
+    checks.set_validation_mode("first")
+    batch, num_classes, timed = FUNCORE_SHAPE
+    batches = make_batches(batch, num_classes, timed + 1, seed=24, device=FUNCORE_DEVICE)
+    result: dict = {"card": card, "shape": list(FUNCORE_SHAPE)}
+    result["apply"], state = funcore_apply(mt, histogram, batches, card)
+    result["vmap"] = funcore_vmap(mt, histogram, batches, card)
+    suite = make_suite(mt, num_classes, FUNCORE_DEVICE)
+    result["world_of_one"] = funcore_world_of_one(mt, suite, state, card)
+    result["two_ranks_gloo"] = funcore_two_ranks(mt, card)
+    del batches, state
+    result["int32_matmul"] = int32_matmul_on_the_card()
+    result["kernel_launches"] = result["apply"]["kernel_launches"]
+    result["batched_launches"] = result["vmap"]["batched_launches"]
+    result["phase_s"] = time.perf_counter() - t_phase
+    assert result["phase_s"] < FUNCORE_PHASE_S, f"phase 24 took {result['phase_s']:.1f} s"
+    log(f"functional_core phase: {result['phase_s']:.1f} s  [{card}]")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5418,6 +6009,10 @@ def main() -> int:
     sweep = timed_phase("bincount_sweep", sweep_bincount, histogram, card)
     log(json.dumps({"bincount_sweep": sweep, "card": card}))
     kernel = kernel_entry(sweep, max_abs_err)
+    batched_err = timed_phase("bincount_batched_check", check_batched_bincount, histogram)
+    batched_sweep = timed_phase("bincount_batched_sweep", sweep_batched_bincount, histogram, card)
+    log(json.dumps({"bincount_batched_sweep": batched_sweep, "card": card}))
+    batched = batched_kernel_entry(batched_sweep, batched_err)
     main = timed_phase("main", main_path, mt, checks, histogram, card)
     large = timed_phase("large_l", large_l_path, mt, histogram)
     multilabel = timed_phase("multilabel", multilabel_path, mt, histogram)
@@ -5434,6 +6029,7 @@ def main() -> int:
     observability = timed_phase("observability_journal", observability_path, mt, checks, histogram, card)
     sync_planes = timed_phase("sync_planes", sync_planes_path, mt, checks, histogram, card)
     engine_result = timed_phase("engine", engine_path, mt, checks, histogram, card)
+    funcore = timed_phase("functional_core", functional_core_path, mt, checks, histogram, card)
     log(f"phase seconds: {json.dumps(phase_s)}")
     # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, the
     # retrieval path's first compute() and graded NDCG, the wrapper phase's first timed runs, and the
@@ -5443,15 +6039,18 @@ def main() -> int:
                            + wrappers_image["kernel_launches"] + generative_detection["kernel_launches"]
                            + text_audio["kernel_launches"] + sync["kernel_launches"]
                            + observability["kernel_launches"] + sync_planes["kernel_launches"]
-                           + engine_result["kernel_launches"])
+                           + engine_result["kernel_launches"] + funcore["kernel_launches"])
+    # the batched form: phase 15's fused wrapper paths and phase 24 (c)'s vmapped suites, counted from 0
+    # just before each
+    batched["launches"] = wrappers_image["wrappers_imagenet"]["batched_launches"] + funcore["batched_launches"]
 
     log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
                     "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation,
                     "curves_path": curves, "eval_paths": evaluation, "wrapper_image_paths": wrappers_image,
                     "generative_detection_paths": generative_detection, "text_audio_paths": text_audio,
                     "sync_path": sync, "observability_journal": observability, "sync_planes": sync_planes,
-                    "engine": engine_result, "phase_seconds": phase_s}))
-    log(json.dumps({"kernels": [kernel]}))
+                    "engine": engine_result, "functional_core": funcore, "phase_seconds": phase_s}))
+    log(json.dumps({"kernels": [kernel, batched]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

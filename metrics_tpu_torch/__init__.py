@@ -28,7 +28,11 @@ included, in one collective. The fault, telemetry and journal planes
 (``metrics_tpu_torch.ops``): classified faults with degradation ladders,
 spans and latency histograms with a Prometheus and a Perfetto export, and a
 crash-consistent state journal (``save_state``/``load_state``,
-``MetricCollection.journal``).
+``MetricCollection.journal``). The functional core (``init``,
+``apply_update``, ``apply_compute``, ``host_handoff``, ``FuncState``):
+metric state as an explicit, epoch-stamped tree, whose update runs under
+``torch.func.vmap`` and in a CUDA-graph capture, and on which BootStrapper,
+MultioutputWrapper and MinMaxMetric run their clones as one program.
 """
 from metrics_tpu_torch import functional, parallel
 from metrics_tpu_torch.__about__ import __version__
@@ -149,6 +153,17 @@ from metrics_tpu_torch.ops.telemetry import (  # noqa: E402
 )
 from metrics_tpu_torch.parallel.sync import world_health  # noqa: E402
 
+# the functional core: state as an epoch-stamped tree, the apply_* API under
+# torch.func.vmap and CUDA-graph capture, the host_handoff seam
+from metrics_tpu_torch.functional_core import (  # noqa: E402
+    FuncState,
+    apply_compute,
+    apply_update,
+    funcore_stats,
+    host_handoff,
+)
+from metrics_tpu_torch.arena import stack_states, unstack_states  # noqa: E402
+
 __all__ = [
     "AUC",
     "AUROC",
@@ -177,6 +192,7 @@ __all__ = [
     "F1Score",
     "FBetaScore",
     "FrechetInceptionDistance",
+    "FuncState",
     "HammingDistance",
     "HingeLoss",
     "InceptionScore",
@@ -248,12 +264,18 @@ __all__ = [
     "WordInfoLost",
     "WordInfoPreserved",
     "__version__",
+    "apply_compute",
+    "apply_update",
     "export_trace",
+    "funcore_stats",
     "functional",
+    "host_handoff",
     "load_reference_state",
     "parallel",
     "prometheus_text",
     "set_telemetry",
+    "stack_states",
     "telemetry_snapshot",
+    "unstack_states",
     "world_health",
 ]

@@ -46,6 +46,14 @@ payload collective with :meth:`MetricCollection.sync_async`, journals every
 process at one agreed step with :meth:`MetricCollection.checkpoint_barrier`,
 and a restarted process re-enters the world with
 :meth:`MetricCollection.rejoin`.
+
+The functional core (`metrics_tpu/collections.py` `:2008-2059`):
+:meth:`MetricCollection.as_functions`, ``init``, ``apply_update``,
+``apply_compute`` and ``host_handoff`` run the whole suite as one tree of
+``{member: states}`` (:mod:`metrics_tpu_torch.functional_core`), each member's
+kwargs filtered as the stateful update filters them, the values named with the
+collection's flatten and prefix rule. The functional update runs every
+member: compute groups are the stateful shell's.
 """
 from __future__ import annotations
 
@@ -566,7 +574,8 @@ class MetricCollection(nn.ModuleDict):
     def __getstate__(self) -> Dict[str, Any]:
         # a copy or a pickle observes every member: the suite queue flushes first
         self._defer_barrier()
-        return {k: v for k, v in self.__dict__.items() if k not in ("_defer_pending", "_many_programs")}
+        return {k: v for k, v in self.__dict__.items()
+                if k not in ("_defer_pending", "_many_programs", "_funcore_export")}
 
     def _compute_members(self) -> Dict[str, Any]:
         return {k: m.compute() for k, m in self.items(keep_base=True, copy_state=False)}
@@ -1277,6 +1286,40 @@ class MetricCollection(nn.ModuleDict):
             self._init_compute_groups()
         else:
             self._groups = {}
+
+    # ------------------------------------------------------ functional export
+    def as_functions(self) -> tuple:
+        """Export the whole suite as ``(init, update, compute)`` pure functions over a
+        ``{metric_name: state}`` dict (:mod:`metrics_tpu_torch.functional_core`),
+        cached per tuple of member fingerprints."""
+        from metrics_tpu_torch import functional_core as _funcore
+
+        return _funcore.metric_functions(self)
+
+    def init(self) -> Any:
+        """A fresh epoch-stamped ``{metric_name: state}`` tree for the whole suite."""
+        from metrics_tpu_torch import functional_core as _funcore
+
+        return _funcore.init(self)
+
+    def apply_update(self, state: Any, *args: Any, **kwargs: Any) -> Any:
+        """Pure whole-suite update over one explicit state tree."""
+        from metrics_tpu_torch import functional_core as _funcore
+
+        return _funcore.apply_update(self, state, *args, **kwargs)
+
+    def apply_compute(self, state: Any, *, axis_name: Optional[Any] = None) -> Any:
+        """Pure whole-suite compute; with ``axis_name`` every state merges with one
+        functional collective."""
+        from metrics_tpu_torch import functional_core as _funcore
+
+        return _funcore.apply_compute(self, state, axis_name=axis_name)
+
+    def host_handoff(self, state: Any, *, merged: bool = True) -> "MetricCollection":
+        """Land a suite state tree back into every member without a second merge."""
+        from metrics_tpu_torch import functional_core as _funcore
+
+        return _funcore.host_handoff(self, state, merged=merged)
 
     # --------------------------------------------------------------- dict api
     def _set_name(self, base: str) -> str:

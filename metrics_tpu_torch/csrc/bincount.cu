@@ -279,6 +279,94 @@ cudaError_t dispatch(const void* x, const void* w, int64_t n, void* counts, int6
                 : launch<IdT, float, false>(x, w, n, counts, length, device, stream);
 }
 
+
+// ---------------------------------------------------------------- batched
+// The batched form: `rows` histograms of `length` bins in one launch, what
+// jax.vmap makes of the Pallas kernel (a grid axis over the batch). Row r
+// counts ids x[r * x_row_stride + i], i < n, with weights
+// w[r * w_row_stride + i]; a stride of 0 shares one id (or weight) row among
+// every output row. One block owns a row, so no grid barrier is needed and the
+// launch is a plain one: the grid's second axis walks the rows (a block takes
+// row blockIdx.y, then every gridDim.y-th after it, for more than 65,535
+// rows). Where length <= kSharedMaxBins the block counts in a private
+// histogram in shared memory and stores every bin of its row; above that it
+// zeroes its row, syncs the block and adds with global atomics. Either way
+// the kernel writes every bin of the (rows, length) output: no memset.
+template <typename IdT, typename CountT, bool kShared>
+__global__ void __launch_bounds__(kThreads)
+    bincount_batched_kernel(const IdT* __restrict__ x, int64_t x_row_stride, const float* __restrict__ w,
+                            int64_t w_row_stride, int64_t n, int64_t rows, CountT* __restrict__ counts,
+                            int64_t length) {
+  constexpr bool kWeighted = std::is_same<CountT, float>::value;
+  extern __shared__ __align__(16) unsigned char smem[];
+  CountT* hist = reinterpret_cast<CountT*>(smem);
+  for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
+    const IdT* xr = x + row * x_row_stride;
+    const float* wr = kWeighted ? w + row * w_row_stride : nullptr;
+    CountT* out = counts + row * length;
+    CountT* target = kShared ? hist : out;
+    for (int64_t b = threadIdx.x; b < length; b += kThreads) target[b] = 0;
+    __syncthreads();  // every bin is zero before the first add (global stores included: one block)
+    // the loop bound is uniform across the block: every lane of a warp takes every round
+    for (int64_t base = 0; base < n; base += kThreads) {
+      const int64_t i = base + threadIdx.x;
+      int bin = kNoBin;
+      float weight = 0.0f;
+      if (i < n) {
+        const int64_t v = (int64_t)xr[i];  // compared at 64 bits
+        if (v >= 0 && v < length) {
+          bin = (int)v;
+          if constexpr (kWeighted) weight = wr[i];
+        }
+      }
+      add_aggregated(target, bin, weight);
+    }
+    __syncthreads();
+    if (kShared) {
+      for (int64_t b = threadIdx.x; b < length; b += kThreads) out[b] = hist[b];
+      __syncthreads();  // the histogram is read out before the next row zeroes it
+    }
+  }
+}
+
+template <typename IdT, typename CountT, bool kShared>
+cudaError_t batched_setup(int device) {
+  static cudaError_t table[kMaxDevices];
+  static std::once_flag once[kMaxDevices];
+  std::call_once(once[device], [device] {
+    const size_t smem = kShared ? kSharedMaxBins * sizeof(CountT) : 0;
+    table[device] = smem > 48 * 1024 ? cudaFuncSetAttribute((const void*)bincount_batched_kernel<IdT, CountT, kShared>,
+                                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+                                     : cudaSuccess;
+  });
+  return table[device];
+}
+
+constexpr int64_t kMaxGridY = 65535;
+
+template <typename IdT, typename CountT, bool kShared>
+cudaError_t launch_batched(const void* x, int64_t x_row_stride, const void* w, int64_t w_row_stride, int64_t n,
+                           int64_t rows, void* counts, int64_t length, int device, cudaStream_t stream) {
+  const cudaError_t e = batched_setup<IdT, CountT, kShared>(device);
+  if (e != cudaSuccess) return e;
+  const size_t smem = kShared ? (size_t)length * sizeof(CountT) : 0;
+  const dim3 grid(1, (unsigned)(rows < kMaxGridY ? rows : kMaxGridY));
+  bincount_batched_kernel<IdT, CountT, kShared><<<grid, kThreads, smem, stream>>>(
+      (const IdT*)x, x_row_stride, (const float*)w, w_row_stride, n, rows, (CountT*)counts, length);
+  return cudaGetLastError();
+}
+
+template <typename IdT>
+cudaError_t dispatch_batched(const void* x, int64_t x_row_stride, const void* w, int64_t w_row_stride, int64_t n,
+                             int64_t rows, void* counts, int64_t length, bool shared, int device, cudaStream_t s) {
+  if (w == nullptr) {
+    return shared ? launch_batched<IdT, int, true>(x, x_row_stride, w, 0, n, rows, counts, length, device, s)
+                  : launch_batched<IdT, int, false>(x, x_row_stride, w, 0, n, rows, counts, length, device, s);
+  }
+  return shared ? launch_batched<IdT, float, true>(x, x_row_stride, w, w_row_stride, n, rows, counts, length, device, s)
+                : launch_batched<IdT, float, false>(x, x_row_stride, w, w_row_stride, n, rows, counts, length, device, s);
+}
+
 }  // namespace
 
 // The most bins the shared-memory path takes; the Python wrapper checks that
@@ -300,5 +388,26 @@ extern "C" int mt_bincount(const void* x, int id_bytes, const void* w, int64_t n
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t e = id_bytes == 4 ? dispatch<int32_t>(x, w, n, counts, length, shared != 0, device, s)
                                       : dispatch<int64_t>(x, w, n, counts, length, shared != 0, device, s);
+  return (int)e;
+}
+
+// The batched form. x: ids of id_bytes, row r at x + r * x_row_stride (in ids;
+// 0 shares one row), n ids a row; w: float32 weights laid out the same with
+// w_row_stride, or NULL; counts: rows x length bins of uninitialised memory,
+// int32 when w is NULL, float32 otherwise, all written by the kernel; shared:
+// count in shared memory (length <= mt_bincount_shared_max_bins()) or in
+// global memory. One launch on `stream`, no synchronisation.
+extern "C" int mt_bincount_batched(const void* x, int id_bytes, int64_t x_row_stride, const void* w,
+                                   int64_t w_row_stride, int64_t n, int64_t rows, void* counts, int64_t length,
+                                   int shared, int device, void* stream) {
+  if (n < 0 || rows < 1 || length < 1 || length > INT32_MAX || x_row_stride < 0 || w_row_stride < 0 ||
+      (shared && length > kSharedMaxBins) || (id_bytes != 4 && id_bytes != 8)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (device < 0 || device >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t e =
+      id_bytes == 4 ? dispatch_batched<int32_t>(x, x_row_stride, w, w_row_stride, n, rows, counts, length, shared != 0, device, s)
+                    : dispatch_batched<int64_t>(x, x_row_stride, w, w_row_stride, n, rows, counts, length, shared != 0, device, s);
   return (int)e;
 }

@@ -164,4 +164,35 @@ def lpips_state_from_flax(params: Mapping[str, Any], net_type: str) -> Dict[str,
     return state_from_flax(params, meta_module(LPIPSNet, net_type), lpips_converter(net_type))
 
 
-__all__ = ["inception_state_from_flax", "load_reference_state", "lpips_state_from_flax"]
+def _tree_to_torch(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, Mapping):
+        return {k: _tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to_torch(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def funcstate_from_reference(states_np: Mapping[str, Any], epoch: int, *, device: Any = None) -> Any:
+    """A JAX functional state tree, given as numpy arrays, as the port's
+    :class:`~metrics_tpu_torch.functional_core.FuncState` (each array copied to
+    ``device``, the card unless one is given; lists of arrays stay lists).
+
+    ``states_np`` is the JAX ``FuncState``'s ``states`` with every leaf passed
+    through ``np.asarray``: ``{state: array}`` for a metric, ``{member:
+    {state: array}}`` for a collection.
+
+    Example:
+        >>> import numpy as np
+        >>> from metrics_tpu_torch import SumMetric
+        >>> from metrics_tpu_torch.interop import funcstate_from_reference
+        >>> state = funcstate_from_reference({"value": np.array(4.0, np.float32)}, epoch=1, device="cpu")
+        >>> float(SumMetric(device="cpu").apply_compute(state))
+        4.0
+    """
+    from metrics_tpu_torch.functional_core import FuncState
+    from metrics_tpu_torch.metric import resolve_device
+
+    return FuncState(_tree_to_torch(states_np, resolve_device(device)), epoch)
+
+
+__all__ = ["funcstate_from_reference", "inception_state_from_flax", "load_reference_state", "lpips_state_from_flax"]

@@ -75,7 +75,17 @@ The port's eager update is its single-step program: there is no fused
 single-step tier. Append-only metrics bind a host lane at the first validated
 update of a signature (:meth:`Metric._build_update_lane`).
 
-Left for later slices of the port: ``as_functions`` and the functional core.
+The functional core (`metrics_tpu/metric.py` `:2472-2535`, `:2695-2712`,
+`:2907`; :mod:`metrics_tpu_torch.functional_core`): :meth:`Metric.as_functions`
+exports ``(init, update, compute)`` as pure functions over a state dict, built
+from the same ``_inner_update``/``_inner_compute`` bodies the stateful API
+runs; :meth:`Metric.init`, :meth:`Metric.apply_update` and
+:meth:`Metric.apply_compute` run them over an epoch-stamped
+:class:`~metrics_tpu_torch.functional_core.FuncState` (under
+``torch.func.vmap`` and inside a CUDA-graph capture), and
+:meth:`Metric.host_handoff` lands a tree back into the shell. A change of a
+public hyperparameter bumps ``_fused_version``, which the fused wrapper
+programs watch.
 """
 from __future__ import annotations
 
@@ -129,6 +139,40 @@ def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
 
 
 _STACKABLE_SCALARS = (bool, int, float, complex)
+_UNSET = object()  # an attribute that is absent, as against one set to None
+_STATIC_ATTR_SCALARS = (int, float, bool, str, bytes, type(None))
+
+
+def _is_static_value(value: Any) -> bool:
+    """A plain python value (or a tuple or frozenset of them): what an update may
+    infer from shapes and leave on the instance for ``compute``."""
+    if isinstance(value, _STATIC_ATTR_SCALARS):
+        return True
+    if isinstance(value, (tuple, frozenset)):
+        return all(_is_static_value(v) for v in value)
+    return False
+
+
+def _propagate_static_attrs(src: "Metric", dst: "Metric") -> None:
+    """Copy update-inferred static hyperparameters from ``src`` to ``dst`` (JAX `metric.py:2907`).
+
+    Several metrics infer a hyperparameter from their first batch and keep it
+    for ``compute`` (``mode`` on Accuracy, ``num_classes`` on the curves). Only
+    public, non-state attributes holding plain python values are copied; the
+    names are cached on ``src`` by its public-key tuple, the values read anew."""
+    public_keys = tuple(k for k in src.__dict__ if not k.startswith("_"))
+    cache = src.__dict__.get("_static_attr_names")
+    if cache is None or cache[0] != public_keys:
+        state_names = set(src._reduction_specs)
+        cache = (public_keys, tuple(k for k in public_keys if k not in state_names))
+        object.__setattr__(src, "_static_attr_names", cache)
+    for name in cache[1]:
+        value = src.__dict__.get(name, _UNSET)
+        if value is _UNSET or not _is_static_value(value):
+            continue
+        old = dst.__dict__.get(name, _UNSET)
+        if type(old) is not type(value) or old != value:
+            object.__setattr__(dst, name, value)
 
 
 def _call_leaves(tree: Any, out: list) -> bool:
@@ -374,6 +418,9 @@ class Metric(nn.Module, ABC):
     _has_update_lane_hook: bool = False
     # set by the metrics that keep host sums between observations (SQuAD)
     _has_host_pending_hook: bool = False
+    # bumped by every change of a public hyperparameter (__setattr__): the fused
+    # wrapper programs (wrappers/_fanout.py) rebuild when a version they baked moves
+    _fused_version: int = 0
 
     def __init__(
         self,
@@ -589,6 +636,10 @@ class Metric(nn.Module, ABC):
                     object.__setattr__(self, "_defer_ok", True)
                 elif lane == "many":
                     object.__setattr__(self, "_many_ok", True)
+                elif lane.startswith("fanout:"):  # a wrapper's clone program re-probes
+                    _, ok_attr, program_attr = lane.split(":", 2)
+                    object.__setattr__(self, ok_attr, True)
+                    object.__setattr__(self, program_attr, None)
 
     def _lift_host_rows(self) -> None:
         """Bring list-state rows held on the host (``compute_on_cpu``) back to this
@@ -1475,7 +1526,7 @@ class Metric(nn.Module, ABC):
 
     # bound to this instance, or engine machinery: rebuilt on restore, or at first use
     _UNPICKLED = ("update", "compute", "_inner_update", "_pending_sync", "_defer_pending", "_update_lane",
-                  "_many_programs")
+                  "_many_programs", "_funcore_export")
 
     def __getstate__(self) -> Dict[str, Any]:
         # a copy or a pickle observes the states: pending calls flush first; rows are canonical, as in a checkpoint
@@ -1491,7 +1542,78 @@ class Metric(nn.Module, ABC):
     def __setattr__(self, name: str, value: Any) -> None:
         if name in ("higher_is_better", "is_differentiable", "full_state_update"):
             raise RuntimeError(f"Can't change const `{name}`.")
+        # the queued calls were enqueued under the old hyperparameters and states: they
+        # run before a public attribute or a held state changes (JAX `metric.py:2664-2672`)
+        q = self.__dict__.get("_defer_pending")
+        if q is not None and (not name.startswith("_") or q.has_state(self, name)):
+            q.flush()
+        if (
+            not name.startswith("_")
+            and name not in self.__dict__.get("_defaults", ())
+            and name not in ("update", "compute", "compute_on_cpu")
+        ):
+            # a hyperparameter change moves the version the fused programs baked
+            # (JAX `metric.py:2680-2712`); the same python scalar again is no change
+            old = self.__dict__.get(name, _UNSET)
+            unchanged = (
+                old is not _UNSET
+                and isinstance(value, _STATIC_ATTR_SCALARS)
+                and type(old) is type(value)
+                and (old is value or old == value)
+            )
+            if not unchanged:
+                object.__setattr__(self, "_fused_version", self.__dict__.get("_fused_version", 0) + 1)
         super().__setattr__(name, value)
+
+    # ------------------------------------------------------ functional export
+    def as_functions(self) -> tuple:
+        """Export ``(init, update, compute)`` as pure functions over the state dict::
+
+            init, update_fn, compute_fn = metric.as_functions()
+            state = update_fn(init(), preds, target)       # vmap or capture it freely
+            value = compute_fn(state, axis_name=group)     # one functional collective a state
+
+        The functions run the metric's own update and compute bodies on a
+        private template (:mod:`metrics_tpu_torch.functional_core`), cached per
+        configuration fingerprint."""
+        from metrics_tpu_torch import functional_core as _funcore
+
+        return _funcore.metric_functions(self)
+
+    def init(self) -> Any:
+        """A fresh epoch-stamped state tree (:class:`~metrics_tpu_torch.functional_core.FuncState`)."""
+        from metrics_tpu_torch import functional_core as _funcore
+
+        return _funcore.init(self)
+
+    def apply_update(self, state: Any, *args: Any, **kwargs: Any) -> Any:
+        """Pure update over an explicit state tree (:func:`~metrics_tpu_torch.functional_core.apply_update`)."""
+        from metrics_tpu_torch import functional_core as _funcore
+
+        return _funcore.apply_update(self, state, *args, **kwargs)
+
+    def apply_compute(self, state: Any, *, axis_name: Optional[Any] = None) -> Any:
+        """Pure compute; with ``axis_name`` one functional collective a state
+        (:func:`~metrics_tpu_torch.functional_core.apply_compute`)."""
+        from metrics_tpu_torch import functional_core as _funcore
+
+        return _funcore.apply_compute(self, state, axis_name=axis_name)
+
+    def host_handoff(self, state: Any, *, merged: bool = True) -> "Metric":
+        """Land a functional state tree back into this metric without a second merge
+        (:func:`~metrics_tpu_torch.functional_core.host_handoff`)."""
+        from metrics_tpu_torch import functional_core as _funcore
+
+        return _funcore.host_handoff(self, state, merged=merged)
+
+    def _inner_compute(self) -> Any:
+        return _squeeze_scalar(self.compute.__wrapped__())  # type: ignore[attr-defined]
+
+    def _bare_clone(self) -> "Metric":
+        """A reset deep copy: the pure functions' template."""
+        m = copy.deepcopy(self)
+        m.reset()
+        return m
 
     def _apply(self, fn: Callable, recurse: bool = True) -> "Metric":
         """``.to()``, ``.cuda()``, ``.double()`` and kin reach the states and their defaults too.
@@ -1893,6 +2015,17 @@ class CompositionalMetric(Metric):
     def _wrap_compute(self, compute: Callable) -> Callable:
         # no cache and no sync of its own: the operands' computes have both
         return compute
+
+    def _inner_compute(self) -> Any:
+        # compute is not wrapped: the operands' own wrapped computes run inside it
+        return _squeeze_scalar(self.compute())
+
+    def as_functions(self) -> tuple:
+        # no states of its own: the base export would compute on reset operands
+        raise NotImplementedError(
+            "CompositionalMetric holds no states of its own; export each component's "
+            "as_functions() and compose the computed values instead."
+        )
 
 
 __all__ = ["CompositionalMetric", "Metric", "resolve_device"]

@@ -131,10 +131,13 @@ def _value_digest(value: Any, depth: int = 0) -> Any:
 
     Tensors and arrays digest by their full content (a repr truncates long
     arrays); an enum by its value (a journal restores enum hyperparameters as
-    plain values); containers recurse, three levels deep; anything else by
-    its repr."""
+    plain values); a ``torch.Generator`` by its device type (a sampler's
+    stream is not configuration); containers recurse, three levels deep;
+    anything else by its repr."""
     if isinstance(value, enum.Enum):
         return _value_digest(value.value, depth)
+    if isinstance(value, torch.Generator):  # a sampler's stream, not what a step computes
+        return ("generator", value.device.type)
     if isinstance(value, torch.Tensor):
         flat = value.detach().reshape(-1).contiguous().cpu()
         raw = flat.view(torch.uint8).numpy().tobytes() if flat.numel() else b""
@@ -334,7 +337,9 @@ def engine_stats() -> Dict[str, Any]:
     ``deferred_steps`` (calls enqueued), ``deferred_flushes`` (queues flushed),
     ``deferred_fallbacks`` (flushes replayed eagerly),
     ``deferred_sync_barrier_flushes`` (queues flushed by :func:`flush_barrier`)
-    and ``device_probes``; then the fault, sync and journal planes' counters."""
+    and ``device_probes``; then the fault, sync and journal planes' counters
+    and the functional core's ``funcore_*``."""
+    from metrics_tpu_torch import functional_core as _funcore
     from metrics_tpu_torch.ops import journal as _journal
     from metrics_tpu_torch.parallel import sync as _psync
 
@@ -351,6 +356,7 @@ def engine_stats() -> Dict[str, Any]:
     out.update(_faults.fault_stats())
     out.update(_psync.collective_stats())
     out.update(_journal.journal_stats())
+    out.update(_funcore.funcore_stats())
     return out
 
 

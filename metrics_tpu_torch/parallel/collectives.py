@@ -15,6 +15,13 @@ JAX counterpart: `metrics_tpu/parallel/collectives.py` (``sync_array`` `:34`,
 As with XLA's collectives, the gathers need the same shape on every process;
 :func:`metrics_tpu_torch.parallel.sync.gather_all_tensors` takes uneven ones.
 With no process group initialised the world is one process.
+
+The in-graph merge lane (:func:`merge_pytree`, what ``apply_compute(state,
+axis_name=...)`` runs; JAX's ``sync_pytree`` under ``shard_map``): the same
+specs through ``torch.distributed._functional_collectives``, one functional
+collective per state, nothing read on the host, so a CUDA graph can capture
+it. ``axis_name`` names the group: a ``ProcessGroup``, a one-dimensional
+``DeviceMesh`` or a ``(DeviceMesh, dim_name)`` pair.
 """
 from __future__ import annotations
 
@@ -91,4 +98,90 @@ def sync_pytree(
     return out
 
 
-__all__ = ["sync_array", "sync_pytree"]
+# --------------------------------------------------------------- in-graph lane
+def resolve_axis(axis_name: Any) -> Any:
+    """The ``ProcessGroup`` an ``axis_name`` names: a ``ProcessGroup`` itself, a
+    one-dimensional ``DeviceMesh``'s group, or a ``(DeviceMesh, dim_name)`` pair's.
+    Anything else (a bare mesh-axis string among them) raises
+    :class:`SyncConfigFault`."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if _sync._is_process_group(axis_name):
+        return axis_name
+    if isinstance(axis_name, DeviceMesh) and axis_name.ndim == 1:
+        return axis_name.get_group()
+    if (
+        isinstance(axis_name, tuple)
+        and len(axis_name) == 2
+        and isinstance(axis_name[0], DeviceMesh)
+        and isinstance(axis_name[1], str)
+    ):
+        return axis_name[0].get_group(axis_name[1])
+    raise SyncConfigFault(
+        f"axis_name must be a torch.distributed ProcessGroup, a one-dimensional DeviceMesh or a"
+        f" (DeviceMesh, dim_name) pair; got {axis_name!r}",
+        site="sync-spec",
+    )
+
+
+def _waited(t: Tensor) -> Tensor:
+    import torch.distributed._functional_collectives as funcol
+
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def _gather_rows(x: Tensor, group: Any) -> Tensor:
+    """Every member's ``x`` concatenated along dim 0: one functional all-gather
+    (``all_gather_single`` where this torch has it, else ``all_gather_tensor``)."""
+    import torch.distributed._functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    return _waited(gather(x.contiguous(), 0, group))
+
+
+def merge_array(x: Tensor, spec: Optional[str], group: Any, custom_fn: Optional[Callable] = None) -> Tensor:
+    """Reduce ``x`` across ``group`` by ``spec`` with one functional collective
+    (an all-reduce or an all-gather); "mean" is the sum over the group's size."""
+    import torch.distributed._functional_collectives as funcol
+
+    if spec in _REDUCE_OPS:
+        out = _waited(funcol.all_reduce(x, _REDUCE_OPS[spec].lower(), group))
+        return out / dist.get_world_size(group) if spec == "mean" else out
+    if spec == "cat":
+        return _gather_rows(torch.atleast_1d(x), group)
+    if spec is None or spec == "custom":
+        if spec == "custom" and custom_fn is None:
+            raise SyncConfigFault("custom reduction requires `custom_fn`", site="sync-spec")
+        stacked = _gather_rows(x.unsqueeze(0), group)
+        return stacked if spec is None else custom_fn(stacked)
+    raise SyncConfigFault(f"Unknown reduction spec {spec!r}", site="sync-spec")
+
+
+def merge_pytree(
+    state: Dict[str, Any],
+    specs: Dict[str, Any],
+    axis_name: Any,
+    custom_fns: Optional[Dict[str, Callable]] = None,
+) -> Dict[str, Any]:
+    """:func:`sync_pytree`'s result over the group ``axis_name`` names, through the
+    functional collectives: one per state, no host read. List states are
+    concatenated locally first and come back as one tensor in a one-element list."""
+    group = resolve_axis(axis_name)
+    custom_fns = dict(custom_fns or {})
+    out: Dict[str, Any] = {}
+    for name, value in state.items():
+        spec = specs.get(name)
+        if callable(spec):
+            custom_fns[name], spec = spec, "custom"
+        if isinstance(value, (list, tuple)):
+            if len(value) == 0:
+                out[name] = list(value)
+                continue
+            local = torch.cat([torch.atleast_1d(v) for v in value], dim=0)
+            out[name] = [merge_array(local, spec, group, custom_fns.get(name))]
+        else:
+            out[name] = merge_array(value, spec, group, custom_fns.get(name))
+    return out
+
+
+__all__ = ["merge_array", "merge_pytree", "resolve_axis", "sync_array", "sync_pytree"]

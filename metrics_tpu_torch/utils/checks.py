@@ -13,6 +13,12 @@ ranges, probability bounds) cost one device-to-host copy on the card, so they
 follow the validation mode, read from ``METRICS_TPU_VALIDATION`` as in the JAX
 package: ``"full"`` (the default) checks every update, ``"first"`` checks the
 first update of each input signature per metric instance, ``"off"`` never.
+
+Under a transform no value is read at all (:func:`_is_concrete`, JAX
+counterpart `checks.py:32`): inside ``torch.func.vmap``, on fake tensors and
+while a CUDA graph is being captured, the value checks skip without taking
+the signature, as a traced update skips them in the JAX package, so a later
+eager update of the same shapes is still checked.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from torch import Tensor
+from torch._subclasses.fake_tensor import FakeTensor
 
 from metrics_tpu_torch.utils.data import select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
@@ -37,6 +44,20 @@ _SEEN_KEYS_CAP = 4096
 # so "first"-mode memory is kept per metric instance
 _check_owner = None
 _cache_generation = 0  # bumped by set_validation_mode to invalidate per-instance memory
+
+
+def _is_concrete(*tensors) -> bool:
+    """Whether the values of ``tensors`` may be read on the host: False for a
+    tensor wrapped by a ``torch.func`` transform, for a ``FakeTensor`` and,
+    for a CUDA tensor, while the current stream is capturing a CUDA graph."""
+    on_card = False
+    for t in tensors:
+        if not isinstance(t, Tensor):
+            continue
+        if torch._C._functorch.is_functorch_wrapped_tensor(t) or isinstance(t, FakeTensor):
+            return False
+        on_card = on_card or t.is_cuda
+    return not (on_card and torch.cuda.is_current_stream_capturing())
 
 
 def set_validation_mode(mode: str) -> None:
@@ -61,6 +82,10 @@ def _get_validation_mode() -> str:
 def _should_value_check(preds: Tensor, target: Tensor, key_extra: tuple = ()) -> bool:
     mode = _get_validation_mode()
     if mode == "off":
+        return False
+    if not _is_concrete(preds, target):
+        # no value under a transform is read; the signature is not taken, so a
+        # later eager update of the same shapes is still checked
         return False
     if mode == "full":
         return True
@@ -107,8 +132,18 @@ class _ValueStats:
             if t.numel() == 0 or p.numel() == 0:
                 # torch raises RuntimeError on the min of no values; jnp raises ValueError
                 raise ValueError("zero-size array to reduction operation min which has no identity")
-            stats = torch.stack([t.min().float(), t.max().float(), p.min().float(), p.max().float()])
-            self._vals = stats.cpu().numpy()
+            if _is_concrete(t, p):
+                stats = torch.stack([t.min().float(), t.max().float(), p.min().float(), p.max().float()])
+                self._vals = stats.cpu().numpy()
+            else:
+                # a pair half under a transform: each concrete side is read on its
+                # own, the other reports the benign values (JAX `checks.py:205-217`)
+                vals = _BENIGN_STATS.copy()
+                if _is_concrete(t):
+                    vals[:2] = torch.stack([t.min().float(), t.max().float()]).cpu().numpy()
+                if _is_concrete(p):
+                    vals[2:] = torch.stack([p.min().float(), p.max().float()]).cpu().numpy()
+                self._vals = vals
         return self._vals
 
     @property
@@ -380,6 +415,11 @@ def _input_format_classification(
             preds = select_topk(preds, top_k or 1)
         else:
             if num_classes is None:
+                if not _is_concrete(preds, target):
+                    raise ValueError(
+                        "`num_classes` must be given explicitly for label inputs under a transform"
+                        " (vmap, a CUDA graph capture): the class count defines the output shape."
+                    )
                 # inference, not validation: needs the real values
                 real = stats if stats.is_real else _ValueStats(preds, target, force=True)
                 num_classes = int(max(real.preds_max, real.target_max) + 1)

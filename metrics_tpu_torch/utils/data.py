@@ -113,7 +113,8 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     else:
         idx = torch.topk(prob_tensor, topk, dim=dim).indices
     mask = torch.zeros_like(prob_tensor, dtype=torch.int32)
-    return mask.scatter_(dim, idx, 1)
+    # out of place, with a tensor source: the form torch.func.vmap batches
+    return mask.scatter(dim, idx, torch.ones_like(idx, dtype=torch.int32))
 
 
 def to_categorical(x: Tensor, argmax_dim: int = 1) -> Tensor:

@@ -1,9 +1,10 @@
 """Wrappers around metrics (JAX counterpart: `metrics_tpu/wrappers`).
 
-The one-program clone fan-out (`wrappers/_fanout.py`), the fused wrapper
-paths and the tracker's packed history belong to the dispatch engine and the
-state journal, and are not ported yet; the eager paths here give the values
-those paths are held to.
+BootStrapper and MultioutputWrapper run their clones as one program over the
+functional core after an eager, validated first call of each signature
+(:mod:`metrics_tpu_torch.wrappers._fanout`), and MinMaxMetric runs its
+``forward`` as one cached step; their eager paths give the values the fused
+ones are held to.
 """
 from metrics_tpu_torch.wrappers.bootstrapping import BootStrapper
 from metrics_tpu_torch.wrappers.classwise import ClasswiseWrapper

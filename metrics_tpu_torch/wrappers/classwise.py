@@ -1,7 +1,7 @@
 """ClasswiseWrapper: split a per-class result into a dict keyed by class.
 
-JAX counterpart: `metrics_tpu/wrappers/classwise.py:14`; reference
-`wrappers/classwise.py:8-78`.
+JAX counterpart: `metrics_tpu/wrappers/classwise.py:14` (``as_functions``
+`:57`); reference `wrappers/classwise.py:8-78`.
 """
 from __future__ import annotations
 
@@ -55,6 +55,16 @@ class ClasswiseWrapper(Metric):
 
     def reset(self) -> None:
         self.metric.reset()
+
+    def as_functions(self) -> tuple:
+        """The pure export: the wrapped metric's functions, its compute labelled per
+        class (the wrapper holds no states of its own)."""
+        init, update_fn, child_compute = self.metric.as_functions()
+
+        def compute_fn(state, axis_name=None):
+            return self._convert(child_compute(state, axis_name=axis_name))
+
+        return init, update_fn, compute_fn
 
 
 __all__ = ["ClasswiseWrapper"]

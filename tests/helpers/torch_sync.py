@@ -403,3 +403,98 @@ __all__ = [
     "run_world",
     "tree_of",
 ]
+
+
+# ------------------------------------------------- the functional core's merge
+def _sum_rows(stacked):
+    """The probe's custom reduction: the sum of every process's row."""
+    return stacked.sum(dim=0)
+
+
+class SpecProbe(Metric):
+    """One state of every reduction spec, for the functional core's merge: sum, mean, max and min
+    over 3 floats, a stacked (spec None) pair, a custom sum and a ``cat`` list of rows."""
+
+    full_state_update = False
+
+    def __init__(self, **kwargs: Any) -> None:
+        kwargs.setdefault("device", "cpu")
+        super().__init__(**kwargs)
+        for name, spec in (("s_sum", "sum"), ("s_mean", "mean"), ("s_max", "max"), ("s_min", "min")):
+            self.add_state(name, torch.zeros(3), spec)
+        self.add_state("stacked", torch.zeros(2), None)
+        self.add_state("custom", torch.zeros(3), _sum_rows)
+        self.add_state("rows", [], "cat")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.s_sum = self.s_sum + x
+        self.s_mean = self.s_mean + x / 4
+        self.s_max = torch.maximum(self.s_max, x)
+        self.s_min = torch.minimum(self.s_min, x)
+        self.stacked = self.stacked + x[:2]
+        self.custom = self.custom + 2 * x
+        self.rows.append(x)
+
+    def compute(self) -> dict:
+        out = {k: getattr(self, k) for k in ("s_sum", "s_mean", "s_max", "s_min", "stacked", "custom")}
+        out["rows"] = dim_zero_cat(self.rows)
+        return out
+
+
+def probe_rows(seed: int, rank: int, steps: int = 3) -> list:
+    rng = np.random.RandomState(seed + 10 * rank)
+    return [rng.randn(3).astype(np.float32) for _ in range(steps)]
+
+
+def funcore_world_worker(rank: int, world: int, seed: int) -> dict:
+    """One rank of the functional core's real-process test: the headline suite and the spec probe
+    updated through ``apply_update`` on this rank's inputs, then ``apply_compute(axis_name=...)`` over
+    the world's group, a one-dimensional ``DeviceMesh`` and a ``(mesh, dim)`` pair, with the functional
+    collectives and the host sync plane's collectives counted; ``merge_pytree`` and ``sync_pytree`` of
+    every member's states over the same group."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from metrics_tpu_torch.parallel import collective_stats, sync_pytree
+    from metrics_tpu_torch.parallel.collectives import merge_pytree
+
+    suite = headline_suite(tmt)
+    state = suite.init()
+    for preds, target in suite_batches(seed + rank, 2):
+        state = suite.apply_update(state, torch.from_numpy(preds), torch.from_numpy(target))
+    probe = SpecProbe()
+    pstate = probe.init()
+    for row in probe_rows(seed, rank):
+        pstate = probe.apply_update(pstate, torch.from_numpy(row))
+    counted = [0]
+    real = {name: getattr(funcol, name) for name in ("all_reduce", "all_gather_single", "all_gather_tensor")
+            if hasattr(funcol, name)}
+    for name, fn in real.items():
+        def call(*args, _fn=fn, **kwargs):
+            counted[0] += 1
+            return _fn(*args, **kwargs)
+
+        setattr(funcol, name, call)
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("dp",))
+    host_before = collective_stats()["sync_collectives_issued"]
+    try:
+        values = suite.apply_compute(state, axis_name=dist.group.WORLD)
+        suite_collectives = counted[0]
+        probe_values = probe.apply_compute(pstate, axis_name=dist.group.WORLD)
+        probe_collectives = counted[0] - suite_collectives
+        mesh_values = suite.apply_compute(state, axis_name=mesh)
+        mesh_dim_values = probe.apply_compute(pstate, axis_name=(mesh, "dp"))
+        merged = {name: merge_pytree(state.states[name], m._reduction_specs, dist.group.WORLD)
+                  for name, m in suite._modules.items()}
+        custom = {k: fn for k, fn in probe._reductions.items() if probe._reduction_specs[k] == "custom"}
+        merged["probe"] = merge_pytree(pstate.states, probe._reduction_specs, dist.group.WORLD, custom)
+    finally:
+        for name, fn in real.items():
+            setattr(funcol, name, fn)
+    host_collectives = collective_stats()["sync_collectives_issued"] - host_before
+    synced = {name: sync_pytree(state.states[name], m._reduction_specs) for name, m in suite._modules.items()}
+    synced["probe"] = sync_pytree(pstate.states, probe._reduction_specs, None, custom)
+    return {"values": values, "probe_values": probe_values, "mesh_values": mesh_values,
+            "mesh_dim_values": mesh_dim_values, "merged": merged, "synced": synced,
+            "suite_collectives": suite_collectives, "probe_collectives": probe_collectives,
+            "host_collectives": host_collectives, "local": state.states, "probe_local": pstate.states}

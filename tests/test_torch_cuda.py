@@ -38,7 +38,13 @@ sync; and the dispatch engine on the card (validation mode "first"): deferred
 updates and forwards and ``update_many`` bit-equal to the per-call path with
 one bincount launch an update, no state leaving the card, a lazy value in
 torch expressions with card tensors, a host lane that declines a CPU tensor
-for a card metric, and the device probe counting.
+for a card metric, and the device probe counting; the functional core on the
+card: the batched bincount kernel against its plain version (both paths,
+shared and per-row ids, weighted, more rows than the grid's second axis),
+one batched launch a vmapped call, ``apply_update`` equal to the stateful
+path, captured in a CUDA graph and under ``torch.func.vmap``, the value checks
+skipped while a graph is being captured, and the fused BootStrapper,
+MultioutputWrapper and MinMaxMetric equal to their eager paths.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -1154,3 +1160,162 @@ def test_device_probe_counts_on_the_card(first_mode):
         m.update(p, t)
         m.compute()  # a flush of two entries: one run of the program
     assert engine.engine_stats()["device_probes"] - before == 2  # the first run of its signature is not probed
+
+
+# ------------------------------------------------------------------ the functional core on the card
+@pytest.mark.parametrize("rows, n, length", [(1, 0, 5), (3, 1000, 361), (8, 8192, 32768), (4, 2048, 32769),
+                                             (70000, 8, 4), (33, 1, 10**6)])
+@pytest.mark.parametrize("shared", [False, True], ids=["per-row ids", "shared ids"])
+def test_batched_kernel_equals_its_plain_version(dev, rows, n, length, shared):
+    g = torch.Generator(device=dev).manual_seed(rows + n)
+    x = torch.randint(-3, length + 3, (1 if shared else rows, n), generator=g, device=dev)
+    w = torch.randint(1, 5, x.shape, generator=g, device=dev).float() * 0.5  # dyadic: every order exact
+    for ids in (x, x.to(torch.int32)):
+        for weights in (None, w):
+            before = histogram.BATCHED_LAUNCHES
+            got = histogram.bincount_batched_cuda(ids, length, weights, rows)
+            assert histogram.BATCHED_LAUNCHES - before == (1 if rows * length else 0)
+            want = histogram._bincount_batched_plain(ids, length, weights, rows)
+            assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_a_vmapped_bincount_is_one_batched_launch(dev):
+    x = torch.randint(0, 16384, (8, 8192), device=dev)
+    before, plain = histogram.BATCHED_LAUNCHES, histogram.KERNEL_LAUNCHES
+    got = torch.func.vmap(lambda r: histogram.fused_bincount(r, 16384))(x)
+    assert histogram.BATCHED_LAUNCHES - before == 1 and histogram.KERNEL_LAUNCHES == plain
+    assert torch.equal(got, torch.stack([histogram.fused_bincount(r, 16384) for r in x]))
+
+
+def _card_suite(c=16):
+    return mt.MetricCollection({"acc": mt.Accuracy(num_classes=c, average="macro"),
+                                "confmat": mt.ConfusionMatrix(num_classes=c),
+                                "precision": mt.Precision(num_classes=c, average="macro")})
+
+
+def _card_batches(dev, steps=4, n=512, c=16, seed=40):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.softmax(torch.randn(n, c, generator=g, device=dev), 1),
+             torch.randint(0, c, (n,), generator=g, device=dev)) for _ in range(steps)]
+
+
+def _assert_state_trees_equal(a, b):
+    for name, states in b.items():
+        for key, value in states.items():
+            assert torch.equal(a[name][key], value), (name, key)
+
+
+def test_apply_update_on_the_card_captured_and_vmapped(dev):
+    from metrics_tpu_torch.utils import checks
+
+    prev = checks._get_validation_mode()
+    checks.set_validation_mode("first")
+    try:
+        suite, batches = _card_suite(), _card_batches(dev)
+        state = suite.init()
+        shell = _card_suite()
+        for p, t in batches:
+            state = suite.apply_update(state, p, t)
+            shell.update(p, t)
+        _assert_state_trees_equal(state.states, {n: dict(m.metric_state) for n, m in shell.items(keep_base=True)})
+        static = suite.init()
+        sp, st = batches[0][0].clone(), batches[0][1].clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            suite.apply_update(static, sp, st)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            new = suite.apply_update(static, sp, st)
+            for name, states in static.states.items():
+                for key, value in states.items():
+                    value.copy_(new.states[name][key])
+        for p, t in batches:
+            sp.copy_(p)
+            st.copy_(t)
+            graph.replay()
+        torch.cuda.synchronize()
+        _assert_state_trees_equal(static.states, state.states)
+        stacked = mt.stack_states([suite.init() for _ in batches])
+        out = torch.func.vmap(lambda s, p, t: suite.apply_update(s, p, t))(
+            stacked, torch.stack([p for p, _ in batches]), torch.stack([t for _, t in batches]))
+        for i, (p, t) in enumerate(batches):
+            _assert_state_trees_equal(mt.unstack_states(out, len(batches))[i].states,
+                                      suite.apply_update(suite.init(), p, t).states)
+    finally:
+        checks.set_validation_mode(prev)
+
+
+def test_value_checks_skip_while_a_graph_is_captured(dev):
+    from metrics_tpu_torch.utils import checks
+
+    x = torch.ones(4, device=dev)
+    assert checks._is_concrete(x)
+    seen = []
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        seen.append(checks._is_concrete(x))
+        y = x * 2  # noqa: F841
+    torch.cuda.current_stream().wait_stream(side)
+    assert seen == [False] and checks._is_concrete(x)
+
+
+@pytest.mark.parametrize("strategy", ["poisson", "multinomial"])
+def test_fused_bootstrapper_on_the_card_equals_its_eager_path(dev, strategy):
+    from metrics_tpu_torch.utils import checks
+
+    prev = checks._get_validation_mode()
+    checks.set_validation_mode("first")
+    try:
+        batches = _card_batches(dev, steps=5, n=256)
+        for base in (lambda: mt.Accuracy(num_classes=16, average="macro"), lambda: mt.ConfusionMatrix(num_classes=16)):
+            fused = mt.BootStrapper(base(), num_bootstraps=8, sampling_strategy=strategy)
+            eager = mt.BootStrapper(base(), num_bootstraps=8, sampling_strategy=strategy)
+            object.__setattr__(eager, "_boot_ok", False)
+            fused.generator.manual_seed(4)
+            eager.generator.manual_seed(4)
+            for p, t in batches:
+                fused.update(p, t)
+                eager.update(p, t)
+            assert fused._boot_program is not None and fused._boot_ok
+            for a, b in zip(fused.metrics, eager.metrics):
+                for name in a._defaults:
+                    assert torch.equal(getattr(a, name), getattr(b, name)), name
+    finally:
+        checks.set_validation_mode(prev)
+
+
+def test_fused_multioutput_and_minmax_on_the_card_equal_their_eager_paths(dev):
+    from metrics_tpu_torch.utils import checks
+
+    prev = checks._get_validation_mode()
+    checks.set_validation_mode("first")
+    try:
+        g = torch.Generator(device=dev).manual_seed(9)
+        preds = torch.rand(4, 256, 3, generator=g, device=dev)
+        target = torch.rand(4, 256, 3, generator=g, device=dev)
+        preds[:, ::17, 1] = float("nan")
+        fused = mt.MultioutputWrapper(mt.R2Score(), num_outputs=3)
+        eager = mt.MultioutputWrapper(mt.R2Score(), num_outputs=3)
+        object.__setattr__(eager, "_mo_ok", False)
+        for p, t in zip(preds, target):
+            fused.update(p, t)
+            eager.update(p, t)
+        assert fused._mo_program is not None and fused._mo_ok
+        for a, b in zip(fused.compute(), eager.compute()):
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+        mm = mt.MinMaxMetric(mt.Accuracy(num_classes=3))
+        mm_eager = mt.MinMaxMetric(mt.Accuracy(num_classes=3))
+        object.__setattr__(mm_eager, "_mm_ok", False)
+        for p in preds:
+            labels = p.nan_to_num(0).argmax(dim=1)
+            a, b = mm(p.nan_to_num(0), labels), mm_eager(p.nan_to_num(0), labels)
+            assert torch.equal(a["raw"], b["raw"])
+        assert mm._mm_program is not None
+        for key, value in mm_eager.compute().items():
+            assert torch.equal(mm.compute()[key], value)
+    finally:
+        checks.set_validation_mode(prev)

@@ -479,6 +479,27 @@ def test_loading_states_with_calls_queued_runs_them_first(how, tmp_path):
     _assert_tree_equal(m.compute(), source.value + 4)
 
 
+def test_a_hyperparameter_change_runs_the_queued_calls_first():
+    """The queued calls were enqueued under the old hyperparameters: they run before the change, as the
+    JAX package's ``__setattr__`` barrier makes them (``metrics_tpu/metric.py:2664-2672``)."""
+    rng = np.random.RandomState(31)
+    batches = [(rng.rand(16).astype(np.float32), rng.randint(0, 2, 16)) for _ in range(3)]
+
+    def run(pkg, **kw):
+        m = pkg.Accuracy(**kw)
+        for p, y in batches[:2]:
+            m.update(*((torch.from_numpy(p), torch.from_numpy(y)) if pkg is tmt else (jnp.asarray(p), jnp.asarray(y))))
+        if pkg is tmt:
+            assert m._defer_pending is not None  # the second call is queued
+        m.threshold = 0.9
+        p, y = batches[2]
+        m.update(*((torch.from_numpy(p), torch.from_numpy(y)) if pkg is tmt else (jnp.asarray(p), jnp.asarray(y))))
+        return m.compute()
+
+    got, want = run(tmt, device="cpu"), run(jmt)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_adding_members_runs_the_suite_queue_first():
     col = tmt.MetricCollection({"acc": tmt.Accuracy(device="cpu"), "mean": tmt.MeanMetric(device="cpu")})
     for _ in range(3):
