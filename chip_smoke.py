@@ -288,6 +288,33 @@ Phases, each of which raises on failure (exit code 1):
    merged (``compute()`` then issues 0 collectives in a world that syncs) and with
    a stale epoch (``EpochFault``, the states intact).
 
+25. ``tenant_planes`` (after phase 24), under 90 s, validation mode "first": (a)
+   a ``MetricArena`` of ``Accuracy(num_classes=2)`` + ``MeanMetric`` at
+   ``TENANT_TIERS`` (100,000 and 1,000,000 tenants, 8 rows a tenant an update,
+   slab 1024: bench.py's tiers), ``TENANT_STEPS`` timed updates of every
+   tenant: ms a step, tenant-updates/s, the engine's builds (one a chunk size:
+   bounded by the buckets and chunk sizes, not the tenants), peak extra device
+   memory, device ms a step and idle share; the first ``TENANT_TWIN`` tenants
+   equal a CPU twin. (b) A ``ConfusionMatrix(10)`` arena of 100,000 tenants:
+   one batched bincount launch a pow2 chunk, the counts bit-equal to the CPU
+   twin, against a per-instance loop over 256 metrics. (c) One-at-a-time adds
+   across slab boundaries (``retraces_per_add``), ``reset(mask)``, ``save`` and
+   ``restore`` of every slab bit for bit (``slab_record_bytes``) with a torn
+   slab falling back to its previous generation, ``close_window``,
+   ``decay_tick`` and ``cohort_drift`` over two cohorts against a CPU twin.
+   (d) ``Windowed(headline suite, window=8)`` over 32 updates of phase 3's
+   shape: 4 closes, the window value and its journal restore equal a fresh
+   suite's; ``Decayed`` refuses the suite's integer counts and runs over a
+   ``MeanMetric`` of the confidences; ``drift_report`` between the first and
+   the last window's confidences through the plain kernel. (e)
+   ``IngestGateway`` into a ``MeanMetric`` arena at bench.py's setting (256
+   tenants, 64 payloads, a 2x overload): admitted rows/s, offer p50/p99 us,
+   the shed fraction, the settlement identity exactly. (f) The headline suite's
+   states placed by ``shard_states`` on a NCCL ``DeviceMesh`` of one, updated and
+   computed equal to the unsharded run; a spawned two-rank Gloo world on the CPU
+   splits ``ConfusionMatrix(1000)`` on its class axis, half on each rank, values
+   equal one rank's unsharded run.
+
 Deferral is on by default (the engine queues calls in every validation mode
 but "full"), so every timed window that updates in mode "first" ends with
 ``settle(owners)``: the owners' queues flush, then the card synchronises,
@@ -5979,6 +6006,479 @@ def functional_core_path(mt, checks, histogram, card: str) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 25
+# ---- phase 25: tenant_planes
+TENANT_DEVICE = "cuda"  # where phase 25 runs
+TENANT_TIERS = (100_000, 1_000_000)  # (a) tenants of the Accuracy(2) + MeanMetric arena (bench.py's tiers)
+TENANT_ROWS = 8  # rows a tenant an update
+TENANT_SLAB = 1024
+TENANT_STEPS = 3  # (a), (b) timed updates of each tier, after one untimed
+TENANT_TWIN = 1024  # tenants of each CPU twin: the card's first TENANT_TWIN tenants fed the same rows
+TENANT_LOOP_SAMPLE = 256  # suites of the per-instance loop the arena is compared with (bench.py's sample)
+TENANT_CONFMAT = (100_000, 10)  # (b) tenants, classes
+TENANT_LIFECYCLE = (300, 64, 4096, 2)  # (c) one-at-a-time adds, their slab; the lifecycle arena's tenants, cohorts
+STREAM_SHAPE = (8192, 128, 32, 8)  # (d) phase 3's batch and classes, updates, window
+INGEST_SHAPE = (256, 64)  # (e) tenants (one row each a payload), payloads (bench.py's full setting)
+SHARD_CLASSES = 1000  # (f) the ConfusionMatrix split over two Gloo ranks on the CPU
+TENANT_WORLD_S = 120  # (f) wall-clock limit of the two-rank world
+TENANT_MEAN_RTOL = 1e-6  # float32 sums of 8 (or 4) values in another order on the card and the CPU
+INGEST_RTOL = 1e-5  # (e) float32 running sums over 129 updates in another order (the JAX tests' float tolerance)
+TENANT_PHASE_S = 90.0
+
+
+def acc_mean_suite(mt, device):
+    return mt.MetricCollection({"acc": mt.Accuracy(num_classes=2, device=device), "mean": mt.MeanMetric(device=device)})
+
+
+def arena_states_equal(card_arena, cpu_arena, rows: int, label: str, rtol: float = 0.0) -> None:
+    """The card arena's first ``rows`` tenants against the CPU twin's: counts bit for bit, floats within rtol."""
+    for name, twin in cpu_arena._stacked.items():
+        got = card_arena._stacked[name][:rows].cpu()
+        if got.is_floating_point() and rtol:
+            torch.testing.assert_close(got, twin[:rows], rtol=rtol, atol=0.0, equal_nan=True, msg=f"{label}: {name}")
+        else:
+            assert torch.equal(got, twin[:rows]), f"{label}: {name} differs from the CPU twin"
+
+
+def idle_share(update, steps: int, wall_ms: float) -> dict:
+    """The device's busy ms over ``steps`` profiled updates (torch.profiler) against their wall time."""
+    rows = device_profile([update] * (steps + 1), warmup=1)
+    busy = sum(ms for ms, _ in rows.values())
+    return {"device_ms_per_step": busy / steps if rows else None,
+            "idle_share": max(0.0, 1.0 - busy / (wall_ms * steps)) if rows else None}
+
+
+def loop_suites_per_s(make, update, sample: int, steps: int = 3) -> float:
+    """Suite-updates a second of a per-instance loop over ``sample`` suites on the card (mode "first")."""
+    suites = [make() for _ in range(sample)]
+    for i, s in enumerate(suites):  # the validated first call of each
+        update(s, i)
+    settle(*suites)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        for i, s in enumerate(suites):
+            update(s, i)
+    settle(*suites)
+    return sample * steps / (time.perf_counter() - t0)
+
+
+def arena_tier(mt, engine, histogram, n: int, card: str) -> dict:
+    """(a) One tier: ``n`` tenants, ``TENANT_STEPS`` timed updates of all of them."""
+    g = torch.Generator(device=TENANT_DEVICE).manual_seed(250 + n % 997)
+    preds = torch.randint(0, 2, (n, TENANT_ROWS), generator=g, device=TENANT_DEVICE, dtype=torch.int32)
+    target = torch.randint(0, 2, (n, TENANT_ROWS), generator=g, device=TENANT_DEVICE, dtype=torch.int32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    b0 = engine.engine_stats()["builds"]
+    arena = mt.MetricArena(acc_mean_suite(mt, TENANT_DEVICE), capacity=n, slab=TENANT_SLAB, name=f"tier{n}")
+    ids = arena.add(n)
+    histogram.KERNEL_LAUNCHES, histogram.BATCHED_LAUNCHES = 0, 0
+    arena.update(ids, preds, target)  # the untimed first update builds the chunk programs
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TENANT_STEPS):
+        arena.update(ids, preds, target)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    chunks = len(engine.pow2_chunks(n))
+    out = {"tenants": n, "ms_per_step": seconds / TENANT_STEPS * 1e3, "tenant_updates_per_s": n * TENANT_STEPS / seconds,
+           "builds": engine.engine_stats()["builds"] - b0, "chunks": chunks,
+           "peak_extra_bytes": torch.cuda.max_memory_allocated() - base,
+           "batched_launches": histogram.BATCHED_LAUNCHES, "kernel_launches": histogram.KERNEL_LAUNCHES}
+    # one update program a chunk size, one compute program: bounded by the chunk sizes, not by the tenants
+    assert out["builds"] <= chunks + 1, out
+    # Accuracy(2) counts with one-hot sums and MeanMetric with sums: no bincount of either form here
+    assert out["kernel_launches"] == 0, out
+    values = arena.compute(ids[:TENANT_TWIN])
+    twin = mt.MetricArena(acc_mean_suite(mt, "cpu"), capacity=TENANT_TWIN, slab=TENANT_SLAB)
+    tids = twin.add(TENANT_TWIN)
+    for _ in range(TENANT_STEPS + 1):
+        twin.update(tids, preds[:TENANT_TWIN].cpu(), target[:TENANT_TWIN].cpu())
+    arena_states_equal(arena, twin, TENANT_TWIN, f"tenant (a) {n}", rtol=TENANT_MEAN_RTOL)
+    twin_values = twin.compute()
+    for key, value in twin_values.items():
+        torch.testing.assert_close(values[key].cpu(), value, rtol=TENANT_MEAN_RTOL, atol=0.0, equal_nan=True)
+    out.update(idle_share(lambda: arena.update(ids, preds, target), 2, out["ms_per_step"]))
+    log(f"tenant_planes (a) arena of {n} tenants: {out['ms_per_step']:.3f} ms a step, "
+        f"{out['tenant_updates_per_s']:.0f} tenant-updates/s, {out['builds']} builds ({chunks} chunk sizes), "
+        f"peak +{out['peak_extra_bytes'] / 2**20:.1f} MiB, device {out['device_ms_per_step']} ms a step, idle share "
+        f"{out['idle_share']}, {out['batched_launches']} batched launches (Accuracy(2) and MeanMetric count "
+        f"without a bincount); the first {TENANT_TWIN} tenants equal "
+        f"the CPU twin  [{card}]")
+    del arena, preds, target
+    return out
+
+
+def arena_confmat(mt, engine, histogram, card: str) -> dict:
+    """(b) A ConfusionMatrix(10) arena: one batched launch a chunk, the stacked counts bit-equal to the CPU
+    twin, against a per-instance loop over TENANT_LOOP_SAMPLE metrics."""
+    n, c = TENANT_CONFMAT
+    g = torch.Generator(device=TENANT_DEVICE).manual_seed(251)
+    preds = torch.randint(0, c, (n, TENANT_ROWS), generator=g, device=TENANT_DEVICE)
+    target = torch.randint(0, c, (n, TENANT_ROWS), generator=g, device=TENANT_DEVICE)
+    arena = mt.MetricArena(mt.ConfusionMatrix(num_classes=c, device=TENANT_DEVICE), capacity=n, slab=TENANT_SLAB)
+    ids = arena.add(n)
+    arena.update(ids, preds, target)
+    torch.cuda.synchronize()
+    histogram.KERNEL_LAUNCHES, histogram.BATCHED_LAUNCHES = 0, 0
+    t0 = time.perf_counter()
+    for _ in range(TENANT_STEPS):
+        arena.update(ids, preds, target)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    chunks = len(engine.pow2_chunks(n))
+    out = {"tenants": n, "classes": c, "ms_per_step": seconds / TENANT_STEPS * 1e3,
+           "tenant_updates_per_s": n * TENANT_STEPS / seconds,
+           "batched_launches": histogram.BATCHED_LAUNCHES, "kernel_launches": histogram.KERNEL_LAUNCHES}
+    assert out["batched_launches"] == chunks * TENANT_STEPS and out["kernel_launches"] == 0, out
+    twin = mt.MetricArena(mt.ConfusionMatrix(num_classes=c, device="cpu"), capacity=TENANT_TWIN, slab=TENANT_SLAB)
+    tids = twin.add(TENANT_TWIN)
+    for _ in range(TENANT_STEPS + 1):
+        twin.update(tids, preds[:TENANT_TWIN].cpu(), target[:TENANT_TWIN].cpu())
+    arena_states_equal(arena, twin, TENANT_TWIN, "tenant (b) confmat")
+    sample = TENANT_LOOP_SAMPLE
+    out["loop_suites_per_s"] = loop_suites_per_s(lambda: mt.ConfusionMatrix(num_classes=c, device=TENANT_DEVICE),
+                                                 lambda m, i: m.update(preds[i], target[i]), sample)
+    out["vs_loop"] = out["tenant_updates_per_s"] / out["loop_suites_per_s"]
+    log(f"tenant_planes (b) ConfusionMatrix({c}) arena of {n} tenants: {out['ms_per_step']:.3f} ms a step, "
+        f"{out['tenant_updates_per_s']:.0f} tenant-updates/s against {out['loop_suites_per_s']:.0f} of a "
+        f"{sample}-metric loop ({out['vs_loop']:.1f}x); {out['batched_launches']} batched launches for "
+        f"{TENANT_STEPS} steps of {chunks} chunks, 0 unbatched; counts bit-equal to the CPU twin  [{card}]")
+    return out
+
+
+def arena_lifecycle(mt, engine, histogram, card: str, tmp: str) -> dict:
+    """(c) One-at-a-time adds across slab boundaries, a masked reset, save and restore of every slab with a
+    torn slab falling back to its previous generation, and the cohort views over two cohorts."""
+    adds, slab, n, cohorts = TENANT_LIFECYCLE
+    out: dict = {}
+    arena = mt.MetricArena(mt.MeanMetric(device=TENANT_DEVICE), capacity=1, slab=slab, name="lifecycle")
+    row = torch.ones(1, TENANT_ROWS, device=TENANT_DEVICE)
+    b0 = engine.engine_stats()["builds"]
+    caps = set()
+    for _ in range(adds):
+        arena.update(arena.add(1), row)
+        caps.add(arena.capacity)
+    out["retraces_per_add"] = (engine.engine_stats()["builds"] - b0) / adds
+    out["capacities"] = sorted(caps)
+    assert engine.engine_stats()["builds"] - b0 == len(caps), (engine.engine_stats()["builds"] - b0, caps)
+    # the lifecycle arena proper: MeanMetric (sum states: decay and cohort merges apply), two cohorts
+    g = torch.Generator(device=TENANT_DEVICE).manual_seed(252)
+    x = [torch.rand(n, TENANT_ROWS, generator=g, device=TENANT_DEVICE) for _ in range(4)]
+    arena = mt.MetricArena(mt.MeanMetric(device=TENANT_DEVICE), capacity=n, slab=TENANT_SLAB, name="cohorts")
+    twin = mt.MetricArena(mt.MeanMetric(device="cpu"), capacity=n, slab=TENANT_SLAB, name="cohorts_cpu")
+    half = n // cohorts
+    ids = arena.add(half, cohort="a") + arena.add(n - half, cohort="b")
+    twin.add(half, cohort="a")
+    twin.add(n - half, cohort="b")
+    histogram.KERNEL_LAUNCHES, histogram.BATCHED_LAUNCHES = 0, 0
+    for a in (arena, twin):
+        a.update(ids, x[0] if a is arena else x[0].cpu())
+    mask = np.zeros(n, dtype=bool)
+    mask[::3] = True
+    kept = {k: v.clone() for k, v in arena._stacked.items()}
+    arena.reset(mask)
+    twin.reset(mask)
+    m = torch.from_numpy(mask).to(TENANT_DEVICE)
+    for k, v in arena._stacked.items():
+        assert torch.equal(v[~m], kept[k][~m]) and not v[m].any(), f"tenant (c): reset(mask) of {k}"
+    path = os.path.join(tmp, "arena")
+    first = {k: v.clone() for k, v in arena._stacked.items()}
+    arena.save(path)
+    for a in (arena, twin):
+        a.update(ids, x[1] if a is arena else x[1].cpu())
+    nbytes = arena.save(path)
+    out["slab_record_bytes"] = nbytes // arena.slabs
+    with open(f"{path}.slab1", "r+b") as fh:  # tear slab 1's newest record
+        fh.seek(40)
+        fh.write(b"\xff" * 8)
+    restored = mt.MetricArena(mt.MeanMetric(device=TENANT_DEVICE), capacity=1, slab=TENANT_SLAB, name="restored")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the demotion's warning is the point
+        out["restore"] = restored.restore(path)
+    assert out["restore"] == {"slabs": n // TENANT_SLAB, "demotions": 1, "tenants": n}, out["restore"]
+    s = slice(TENANT_SLAB, 2 * TENANT_SLAB)
+    for k, v in restored._stacked.items():
+        want = arena._stacked[k].clone()
+        want[s] = first[k][s]
+        assert torch.equal(v, want), f"tenant (c): restored {k} is not the saved slabs with slab 1 demoted"
+    # the cohort views: a window close over both cohorts, a decay tick, a drift report between them
+    closed, twin_closed = arena.close_window(), twin.close_window()
+    for cohort, value in twin_closed["cohorts"].items():
+        torch.testing.assert_close(closed["cohorts"][cohort].cpu(), value, rtol=TENANT_MEAN_RTOL, atol=0.0, equal_nan=True)
+    for a in (arena, twin):
+        a.update(ids, x[2] if a is arena else x[2].cpu())
+        a.decay_tick(4.0)
+    arena_states_equal(arena, twin, n, "tenant (c) decay_tick", rtol=TENANT_MEAN_RTOL)
+    before = histogram.KERNEL_LAUNCHES
+    out["drift"] = arena.cohort_drift("a", "b")
+    assert histogram.KERNEL_LAUNCHES - before == 2, "tenant (c): cohort_drift did not count with the kernel"
+    # the same samples counted on the CPU: the same bins, so the same scores exactly
+    twin_drift = mt.drift_report(arena._cohort_sample("a"), arena._cohort_sample("b"), device="cpu")
+    assert {k: v for k, v in out["drift"].items()} == twin_drift, (out["drift"], twin_drift)
+    out["window_values"] = {k: float(v) for k, v in arena.window_values().items()}
+    out["kernel_launches"], out["batched_launches"] = histogram.KERNEL_LAUNCHES, histogram.BATCHED_LAUNCHES
+    log(f"tenant_planes (c) lifecycle: {adds} one-at-a-time adds over capacities {out['capacities']}, "
+        f"retraces_per_add {out['retraces_per_add']:.4f}; reset(mask) left the other rows bit-equal; "
+        f"save/restore of {n // TENANT_SLAB} slabs ({out['slab_record_bytes']} bytes a slab record), the torn "
+        f"slab fell back to its previous generation; close_window, decay_tick equal the CPU twin; cohort_drift "
+        f"psi {out['drift']['psi']:.6g} ks {out['drift']['ks']:.6g} through the kernel  [{card}]")
+    return out
+
+
+def streaming_plane(mt, checks, histogram, card: str, tmp: str) -> dict:
+    """(d) Windowed over phase 3's headline suite, its journal restore, Decayed, and a drift report between
+    the first and the last window's scores."""
+    batch, c, updates, window = STREAM_SHAPE
+    batches = make_batches(batch, c, updates, seed=253, signal=1.0, device=TENANT_DEVICE)
+    suite = make_suite(mt, c, TENANT_DEVICE)
+    path = os.path.join(tmp, "window")
+    win = mt.Windowed(suite, window=window, name="headline", journal_path=path)
+    histogram.KERNEL_LAUNCHES, histogram.BATCHED_LAUNCHES = 0, 0
+    closes = []
+    t0 = time.perf_counter()
+    for preds, target in batches:
+        out = win.update(preds, target)
+        if out is not None:
+            closes.append(out)
+    settle(suite)
+    seconds = time.perf_counter() - t0
+    result = {"updates": updates, "window": window, "closes": len(closes), "ms_per_update": seconds / updates * 1e3,
+              "close_bytes": closes[-1]["bytes"]}
+    assert len(closes) == updates // window and win.window_id == len(closes), (len(closes), win.window_id)
+    # the last window's value against a fresh suite fed the last window's batches
+    fresh = make_suite(mt, c, TENANT_DEVICE)
+    for preds, target in batches[-window:]:
+        fresh.update(preds, target)
+    want = fresh.compute()
+    for key, value in win.value().items():
+        assert torch.equal(value, want[key]), f"tenant (d): window value {key}"
+    restored = mt.Windowed(make_suite(mt, c, TENANT_DEVICE), window=window, name="headline_restored",
+                           journal_path=path)
+    back = restored.restore()
+    for key, value in back["value"].items():
+        assert torch.equal(value, want[key]), f"tenant (d): restored window value {key}"
+    try:
+        mt.Decayed(make_suite(mt, c, TENANT_DEVICE), halflife=4.0)
+        raise AssertionError("tenant (d): Decayed took integer count states")
+    except ValueError:
+        result["decayed_suite"] = "refused: integer count states cannot decay (as in JAX)"
+    ema = mt.Decayed(mt.MeanMetric(device=TENANT_DEVICE), halflife=4.0)
+    ema_cpu = mt.Decayed(mt.MeanMetric(device="cpu"), halflife=4.0)
+    for preds, _ in batches:
+        conf = preds.max(dim=1).values
+        ema.update(conf)
+        ema_cpu.update(conf.cpu())
+    result["decayed_confidence"] = float(ema.compute())
+    torch.testing.assert_close(ema.compute().cpu(), ema_cpu.compute(), rtol=1e-5, atol=0.0)
+    first = torch.cat([p.max(dim=1).values for p, _ in batches[:window]])
+    last = torch.cat([p.max(dim=1).values for p, _ in batches[-window:]])
+    before = histogram.KERNEL_LAUNCHES
+    result["drift"] = mt.drift_report(last, first, name="headline_scores", device=TENANT_DEVICE)
+    assert histogram.KERNEL_LAUNCHES - before == 2, "tenant (d): the drift report did not count with the kernel"
+    twin = mt.drift_report(last.cpu(), first.cpu(), device="cpu")
+    assert result["drift"] == twin, (result["drift"], twin)
+    result["kernel_launches"], result["batched_launches"] = histogram.KERNEL_LAUNCHES, histogram.BATCHED_LAUNCHES
+    log(f"tenant_planes (d) Windowed(headline suite C={c}, window={window}) over {updates} updates: "
+        f"{result['closes']} closes, {result['ms_per_update']:.3f} ms an update, {result['close_bytes']} bytes a slot; "
+        f"the window value and its journal restore equal a fresh suite's; Decayed(MeanMetric of the confidences) "
+        f"{result['decayed_confidence']:.6f} equals the CPU; drift psi {result['drift']['psi']:.6g} "
+        f"ks {result['drift']['ks']:.6g} equal to the CPU's  [{card}]")
+    del batches
+    return result
+
+
+def ingest_plane(mt, histogram, card: str) -> dict:
+    """(e) IngestGateway into a MeanMetric arena at bench.py's full setting: admitted rows/s, offer latency,
+    the 2x overload's shed fraction, and the settlement identity."""
+    from metrics_tpu_torch import ingest
+
+    tenants, payloads = INGEST_SHAPE
+    rows = tenants
+    rng = np.random.RandomState(19)
+    x = rng.rand(rows, 4).astype(np.float32)
+    arena = mt.MetricArena(mt.MeanMetric(device=TENANT_DEVICE), capacity=tenants, slab=64, name="ingest")
+    ids = np.asarray(arena.add(tenants))
+    twin = mt.MetricArena(mt.MeanMetric(device="cpu"), capacity=tenants, slab=64, name="ingest_cpu")
+    twin.add(tenants)
+    stats0 = ingest.ingest_stats()
+    gw = mt.IngestGateway(arena, name="bench_ingest", auto_flush=True, max_rows=rows * payloads * 2,
+                          flush_rows=rows * 8)
+    gw.offer(x, tenant_ids=ids)
+    gw.flush()  # the first payload pins the schema and builds the chunk program
+    torch.cuda.synchronize()
+    histogram.KERNEL_LAUNCHES, histogram.BATCHED_LAUNCHES = 0, 0
+    t0 = time.perf_counter()
+    for _ in range(payloads):
+        gw.offer(x, tenant_ids=ids)
+    gw.flush()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lat = []
+    for _ in range(payloads):
+        t1 = time.perf_counter()
+        gw.offer(x, tenant_ids=ids)
+        lat.append((time.perf_counter() - t1) * 1e6)
+    gw.flush()
+    gw.close()
+    for _ in range(2 * payloads + 1):
+        twin.update(ids, x)
+    torch.testing.assert_close(arena.compute().cpu(), twin.compute(), rtol=INGEST_RTOL, atol=0.0, equal_nan=True)
+    over = mt.IngestGateway(arena, name="bench_ingest_2x", auto_flush=False, max_rows=rows * payloads)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the shed warning is the point
+        for _ in range(payloads * 2):
+            over.offer(x, tenant_ids=ids)
+        over.flush()
+    over.close()
+    torch.cuda.synchronize()
+    stats = {k: v - stats0[k] for k, v in ingest.ingest_stats().items()}
+    settled = (stats["ingest_admitted_rows"] + stats["ingest_coalesced_rows"] + stats["ingest_shed_rows"]
+               + stats["ingest_quarantined_rows"])
+    assert stats["ingest_offered_rows"] == settled, stats
+    over_offered = rows * payloads * 2
+    out = {"tenants": tenants, "payloads": payloads, "admitted_rows_per_s": rows * payloads / seconds,
+           "offer_p50_us": float(np.percentile(lat, 50)), "offer_p99_us": float(np.percentile(lat, 99)),
+           "shed_fraction": stats["ingest_shed_rows"] / over_offered, "identity": "exact",
+           "offered_rows": stats["ingest_offered_rows"], "settled_rows": settled,
+           "kernel_launches": histogram.KERNEL_LAUNCHES, "batched_launches": histogram.BATCHED_LAUNCHES}
+    log(f"tenant_planes (e) IngestGateway into a MeanMetric arena ({tenants} tenants, {payloads} payloads of "
+        f"{rows} rows): {out['admitted_rows_per_s']:.0f} admitted rows/s, offer p50 {out['offer_p50_us']:.1f} us "
+        f"p99 {out['offer_p99_us']:.1f} us; 2x overload shed fraction {out['shed_fraction']:.4f}; offered "
+        f"{settled} rows = admitted + coalesced + shed + quarantined exactly; values equal the CPU twin  [{card}]")
+    return out
+
+
+def shard_gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """(f) One rank of the two-rank Gloo world on the CPU: ConfusionMatrix(SHARD_CLASSES) split on its class
+    axis, updated with the same batches as an unsharded twin on this rank."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if str(HERE) not in sys.path:
+        sys.path.insert(0, str(HERE))
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch.parallel.sharding import PartitionSpec, shard_states
+
+    dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world)
+    result: dict = {}
+    try:
+        mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("c",))
+        metric = mt.ConfusionMatrix(num_classes=SHARD_CLASSES, device="cpu")
+        state = shard_states(metric.init(), mesh, {"confmat": PartitionSpec("c", None)})
+        plain = metric.init()
+        g = torch.Generator().manual_seed(254)  # every rank the same batches
+        for _ in range(2):
+            preds = torch.randint(0, SHARD_CLASSES, (8192,), generator=g)
+            target = torch.randint(0, SHARD_CLASSES, (8192,), generator=g)
+            state = metric.apply_update(state, preds, target)
+            plain = metric.apply_update(plain, preds, target)
+        local = state.states["confmat"].to_local()
+        result = {"local_shape": tuple(local.shape), "equal": bool(torch.equal(metric.apply_compute(state),
+                                                                               metric.apply_compute(plain))),
+                  "local_equal": bool(torch.equal(local, plain.states["confmat"].chunk(world)[rank]))}
+    except Exception as exc:  # noqa: BLE001 - reported to the parent, which raises
+        result = {"error": f"{type(exc).__name__}: {exc}"}
+    finally:
+        torch.save(result, os.path.join(out_dir, f"{rank}.pt"))
+        dist.destroy_process_group()
+
+
+def shard_planes(mt, card: str) -> dict:
+    """(f) The headline suite's states placed by shard_states on a NCCL DeviceMesh of one on the card, updated
+    and computed, equal to the unsharded run; then the two-rank Gloo world on the CPU."""
+    import multiprocessing as mp
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from metrics_tpu_torch.parallel.sharding import PartitionSpec, shard_states
+
+    batch, c, _, _ = STREAM_SHAPE
+    batches = make_batches(batch, c, 3, seed=255, device=TENANT_DEVICE)
+    suite = make_suite(mt, c, TENANT_DEVICE)
+    out: dict = {}
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}", rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh(torch.device(TENANT_DEVICE).type, (1,), mesh_dim_names=("c",))
+            state = suite.init()
+            state.states = {name: shard_states(s, mesh, {"confmat": PartitionSpec("c", None)} if name == "confmat" else {})
+                            for name, s in state.states.items()}
+            plain = suite.init()
+            for preds, target in batches:
+                state = suite.apply_update(state, preds, target)
+                plain = suite.apply_update(plain, preds, target)
+            confmat = state.states["confmat"]["confmat"]
+            out["card_placements"] = [type(p).__name__ for p in confmat.placements]
+            got, want = suite.apply_compute(state), suite.apply_compute(plain)
+            for key, value in want.items():
+                assert torch.equal(got[key], value), f"tenant (f): sharded {key} on the card"
+            assert torch.equal(confmat.to_local(), plain.states["confmat"]["confmat"])
+        finally:
+            dist.destroy_process_group()
+        ctx = mp.get_context("spawn")
+        init_method = f"file://{os.path.join(tmp, 'gloo_rendezvous')}"
+        procs = [ctx.Process(target=shard_gloo_rank, args=(r, 2, init_method, tmp)) for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TENANT_WORLD_S
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        codes = [p.exitcode for p in procs]
+        ranks = [torch.load(os.path.join(tmp, f"{r}.pt")) for r in range(2)] if not any(codes) else []
+    if any(codes) or any("error" in r for r in ranks):
+        raise RuntimeError(f"tenant (f) two-rank world: exit codes {codes}, {[r.get('error') for r in ranks]}")
+    for r in ranks:
+        assert r["local_shape"] == (SHARD_CLASSES // 2, SHARD_CLASSES) and r["equal"] and r["local_equal"], r
+    out["gloo_local_shape"] = list(ranks[0]["local_shape"])
+    log(f"tenant_planes (f) sharding: the headline suite's states on a NCCL DeviceMesh of one "
+        f"({out['card_placements']}) updated and computed equal to the unsharded run; two Gloo ranks on the CPU "
+        f"hold {out['gloo_local_shape']} of ConfusionMatrix({SHARD_CLASSES}) each, values equal one rank's "
+        f"unsharded run  [{card}]")
+    return out
+
+
+def tenant_planes_path(mt, checks, histogram, card: str) -> dict:
+    """Phase 25: the tenant planes (see the module docstring). The launches of (a) to (e) count in the
+    kernels line: plain ones in the bincount row, batched ones in the batched row."""
+    from metrics_tpu_torch.ops import engine
+
+    t_phase = time.perf_counter()
+    checks.set_validation_mode("first")
+    result: dict = {"card": card}
+    part_s: dict = {}
+
+    def part(label, fn, *args):
+        t0 = time.perf_counter()
+        result[label] = fn(*args)
+        part_s[label] = time.perf_counter() - t0
+
+    part("tiers", lambda: [arena_tier(mt, engine, histogram, n, card) for n in TENANT_TIERS])
+    part("confmat", arena_confmat, mt, engine, histogram, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        part("lifecycle", arena_lifecycle, mt, engine, histogram, card, tmp)
+        part("streaming", streaming_plane, mt, checks, histogram, card, tmp)
+    part("ingest", ingest_plane, mt, histogram, card)
+    part("sharding", shard_planes, mt, card)
+    result["part_s"] = part_s
+    parts = result["tiers"] + [result[k] for k in ("confmat", "lifecycle", "streaming", "ingest")]
+    result["kernel_launches"] = sum(p["kernel_launches"] for p in parts)
+    result["batched_launches"] = sum(p["batched_launches"] for p in parts)
+    result["phase_s"] = time.perf_counter() - t_phase
+    assert result["phase_s"] < TENANT_PHASE_S, f"phase 25 took {result['phase_s']:.1f} s"
+    log(f"tenant_planes phase: {result['phase_s']:.1f} s ({json.dumps({k: round(v, 1) for k, v in part_s.items()})}), "
+        f"{result['kernel_launches']} bincount launches, {result['batched_launches']} batched  [{card}]")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6030,6 +6530,7 @@ def main() -> int:
     sync_planes = timed_phase("sync_planes", sync_planes_path, mt, checks, histogram, card)
     engine_result = timed_phase("engine", engine_path, mt, checks, histogram, card)
     funcore = timed_phase("functional_core", functional_core_path, mt, checks, histogram, card)
+    tenants = timed_phase("tenant_planes", tenant_planes_path, mt, checks, histogram, card)
     log(f"phase seconds: {json.dumps(phase_s)}")
     # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, the
     # retrieval path's first compute() and graded NDCG, the wrapper phase's first timed runs, and the
@@ -6039,17 +6540,20 @@ def main() -> int:
                            + wrappers_image["kernel_launches"] + generative_detection["kernel_launches"]
                            + text_audio["kernel_launches"] + sync["kernel_launches"]
                            + observability["kernel_launches"] + sync_planes["kernel_launches"]
-                           + engine_result["kernel_launches"] + funcore["kernel_launches"])
-    # the batched form: phase 15's fused wrapper paths and phase 24 (c)'s vmapped suites, counted from 0
-    # just before each
-    batched["launches"] = wrappers_image["wrappers_imagenet"]["batched_launches"] + funcore["batched_launches"]
+                           + engine_result["kernel_launches"] + funcore["kernel_launches"]
+                           + tenants["kernel_launches"])
+    # the batched form: phase 15's fused wrapper paths, phase 24 (c)'s vmapped suites and phase 25's arenas,
+    # counted from 0 just before each
+    batched["launches"] = (wrappers_image["wrappers_imagenet"]["batched_launches"] + funcore["batched_launches"]
+                           + tenants["batched_launches"])
 
     log(json.dumps({"build_s": build_s, "main_path": main, "large_l_path": large, "multilabel_path": multilabel,
                     "agreement_path": agreement, "segmentation_path": segmentation, "aggregation_path": aggregation,
                     "curves_path": curves, "eval_paths": evaluation, "wrapper_image_paths": wrappers_image,
                     "generative_detection_paths": generative_detection, "text_audio_paths": text_audio,
                     "sync_path": sync, "observability_journal": observability, "sync_planes": sync_planes,
-                    "engine": engine_result, "functional_core": funcore, "phase_seconds": phase_s}))
+                    "engine": engine_result, "functional_core": funcore, "tenant_planes": tenants,
+                    "phase_seconds": phase_s}))
     log(json.dumps({"kernels": [kernel, batched]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -164,6 +164,13 @@ from metrics_tpu_torch.functional_core import (  # noqa: E402
 )
 from metrics_tpu_torch.arena import stack_states, unstack_states  # noqa: E402
 
+# the tenant planes: windows, decay and drift; arenas of stacked suites; the ingestion gateway;
+# states sharded over a DeviceMesh
+from metrics_tpu_torch.streaming import Decayed, Windowed, drift_report  # noqa: E402
+from metrics_tpu_torch.arena import MetricArena, arena_stats  # noqa: E402
+from metrics_tpu_torch.ingest import IngestGateway, ingest_state, ingest_stats  # noqa: E402
+from metrics_tpu_torch.parallel.sharding import infer_state_pspecs, infer_state_shardings  # noqa: E402
+
 __all__ = [
     "AUC",
     "AUROC",
@@ -185,6 +192,7 @@ __all__ = [
     "ConfusionMatrix",
     "CosineSimilarity",
     "CoverageError",
+    "Decayed",
     "Dice",
     "ErrorRelativeGlobalDimensionlessSynthesis",
     "ExplainedVariance",
@@ -197,6 +205,7 @@ __all__ = [
     "HingeLoss",
     "InceptionScore",
     "InfoLM",
+    "IngestGateway",
     "JaccardIndex",
     "KLDivergence",
     "KernelInceptionDistance",
@@ -213,6 +222,7 @@ __all__ = [
     "MeanSquaredError",
     "MeanSquaredLogError",
     "Metric",
+    "MetricArena",
     "MetricCollection",
     "MetricTracker",
     "MinMaxMetric",
@@ -260,16 +270,23 @@ __all__ = [
     "TweedieDevianceScore",
     "UniversalImageQualityIndex",
     "WeightedMeanAbsolutePercentageError",
+    "Windowed",
     "WordErrorRate",
     "WordInfoLost",
     "WordInfoPreserved",
     "__version__",
     "apply_compute",
     "apply_update",
+    "arena_stats",
+    "drift_report",
     "export_trace",
     "funcore_stats",
     "functional",
     "host_handoff",
+    "infer_state_pspecs",
+    "infer_state_shardings",
+    "ingest_state",
+    "ingest_stats",
     "load_reference_state",
     "parallel",
     "prometheus_text",

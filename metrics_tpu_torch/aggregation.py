@@ -26,7 +26,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.metric import Metric
-from metrics_tpu_torch.utils.checks import _should_value_check
+from metrics_tpu_torch.utils.checks import _is_concrete, _should_value_check
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 
@@ -251,6 +251,9 @@ class CatMetric(BaseAggregator):
 
     def update(self, value: Union[float, Tensor]) -> None:
         value = torch.as_tensor(value, dtype=torch.float32, device=self.device)
+        if self.nan_strategy == "ignore" and not _is_concrete(value):
+            # under a transform a row cannot drop its NaNs: they become 0.0, as in JAX's traced update
+            value = value.masked_fill(torch.isnan(value), self._nan_neutral)
         needs_check = not isinstance(self.nan_strategy, str) or (
             self.nan_strategy != "ignore"
             and _should_value_check(value, value, key_extra=("agg-nan", self.nan_strategy))
@@ -264,7 +267,8 @@ class CatMetric(BaseAggregator):
         out = self.value
         if isinstance(out, list) and out:  # rows loaded from elsewhere may be of any shape and dtype
             out = torch.cat([v.reshape(-1) for v in out]).to(torch.float32)
-        if self.nan_strategy in ("ignore", "warn") and isinstance(out, Tensor) and out.numel():
+        # a boolean mask has a data-dependent shape: under a transform the NaNs stay, as in JAX
+        if self.nan_strategy in ("ignore", "warn") and isinstance(out, Tensor) and out.numel() and _is_concrete(out):
             out = out[~torch.isnan(out)]
         return out
 

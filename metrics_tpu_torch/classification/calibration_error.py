@@ -21,6 +21,7 @@ from metrics_tpu_torch.functional.classification.calibration_error import (
     _ce_update,
 )
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utils.checks import _is_concrete
 
 
 class CalibrationError(Metric):
@@ -71,8 +72,9 @@ class CalibrationError(Metric):
 
     def compute(self) -> Tensor:
         # a compute before any update raises, as the raw-state formulation does; the
-        # state-sum read runs only when no update was counted (a loaded state may have some)
-        if self._update_count == 0 and int(torch.sum(self.count_bin)) == 0:
+        # state-sum read runs only when no update was counted (a loaded state may have some),
+        # and not under a transform, where the value cannot be read (JAX's traced result is NaN too)
+        if self._update_count == 0 and _is_concrete(self.count_bin) and int(torch.sum(self.count_bin)) == 0:
             raise ValueError("No samples to compute calibration error over; call `update` first")
         return _ce_from_bin_sums(self.count_bin, self.conf_bin, self.acc_bin, self.norm)
 

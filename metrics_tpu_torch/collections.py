@@ -699,7 +699,8 @@ class MetricCollection(nn.ModuleDict):
         if any(m._is_synced for _, m in members):
             raise MetricsUserError("The Metric has already been synced.")
         suite_lad = self.__dict__.get("_fault_ladders", {}).get("sync-pack")
-        suite_ok = dist_sync_fn is None and not (suite_lad is not None and suite_lad.demoted)
+        suite_ok = (dist_sync_fn is None and _bucketing.coalesce_enabled()
+                    and not (suite_lad is not None and suite_lad.demoted))
         coalesced: List[Tuple[Metric, List[Metric]]] = []
         individual: List[Metric] = []
         anchor_group: Any = _UNSET_GROUP

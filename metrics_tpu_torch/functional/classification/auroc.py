@@ -5,10 +5,9 @@ layout transform `:21`, the update `:46`, the eager compute `:63`);
 reference `src/torchmetrics/functional/classification/auroc.py:28-230`.
 
 This is the eager path: a ROC curve per class, then its trapezoidal area.
-The JAX package's traced path (the sort-based AUROC of
-:mod:`metrics_tpu_torch.ops.sorted_curves`, used under ``jit``) has no
-counterpart here, since nothing in the port traces; the functions of
-``sorted_curves`` are called directly. The weighted average's class support
+Under a transform (``torch.func.vmap``, a CUDA-graph capture) the compute
+takes the sort-based AUROC of :mod:`metrics_tpu_torch.ops.sorted_curves`, as
+the JAX package does under ``jit``. The weighted average's class support
 comes from ``_bincount``: the CUDA kernel on the card.
 """
 from __future__ import annotations
@@ -20,7 +19,7 @@ from torch import Tensor
 
 from metrics_tpu_torch.functional.classification.auc import _auc_compute_without_check
 from metrics_tpu_torch.functional.classification.roc import roc
-from metrics_tpu_torch.utils.checks import _classification_case
+from metrics_tpu_torch.utils.checks import _classification_case, _is_concrete
 from metrics_tpu_torch.utils.data import _bincount
 from metrics_tpu_torch.utils.enums import AverageMethod, DataType
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -88,6 +87,26 @@ def _auroc_compute(
 ) -> Tensor:
     if mode == DataType.BINARY:
         num_classes = 1
+
+    if not _is_concrete(preds, target):
+        # under a transform (torch.func.vmap, a graph capture) the curve's length cannot depend on
+        # the data: the exact AUROC is a scalar of a sort and midrank reductions, as JAX's traced path
+        from metrics_tpu_torch.ops.sorted_curves import binary_auroc_sorted, multiclass_auroc_sorted
+
+        if sample_weights is not None:
+            raise ValueError("`sample_weights` are not supported for AUROC under a transform; compute eagerly")
+        if max_fpr is not None:
+            raise ValueError("`max_fpr` (partial AUC) is not supported for AUROC under a transform; compute eagerly")
+        if mode == DataType.BINARY:
+            pl = 1 if pos_label is None else pos_label
+            # a single-class target: the eager path warns and returns 0.0, so the NaN maps to 0.0
+            return torch.nan_to_num(binary_auroc_sorted(preds, target == pl), nan=0.0)
+        if num_classes is None:
+            raise ValueError("Detected multiclass/multilabel input but `num_classes` was not provided")
+        if mode == DataType.MULTILABEL and average == AverageMethod.MICRO:
+            return torch.nan_to_num(binary_auroc_sorted(preds.reshape(-1), target.reshape(-1)), nan=0.0)
+        avg = "none" if average is None else getattr(average, "value", average)
+        return multiclass_auroc_sorted(preds, target, num_classes, avg)
 
     if max_fpr is not None:
         if not isinstance(max_fpr, float) or not 0 < max_fpr <= 1:

@@ -18,6 +18,7 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     _precision_recall_curve_compute,
     _precision_recall_curve_update,
 )
+from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.data import _bincount
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -47,6 +48,20 @@ def _average_precision_compute(
         preds = preds.reshape(-1)
         target = target.reshape(-1)
         num_classes = 1
+
+    if not _is_concrete(preds, target):
+        # under a transform the curve's length cannot depend on the data: the exact AP is a scalar
+        # of a sort and tie-run reductions, as JAX's traced path (`average="none"` stacks the classes)
+        from metrics_tpu_torch.ops.sorted_curves import (
+            binary_average_precision_sorted,
+            multiclass_average_precision_sorted,
+        )
+
+        if num_classes == 1:
+            pl = 1 if pos_label is None else pos_label
+            return binary_average_precision_sorted(preds, target == pl)
+        avg = "none" if average is None else getattr(average, "value", average)
+        return multiclass_average_precision_sorted(preds, target, num_classes, avg)
 
     precision, recall, _ = _precision_recall_curve_compute(preds, target, num_classes, pos_label)
     if average == "weighted":

@@ -40,8 +40,8 @@ def _bin_counts(
     indices = torch.clamp(torch.searchsorted(bin_boundaries, confidences, right=False) - 1, 0, n_bins - 1)
     pair = _bincount(indices + n_bins * (accuracies != 0).to(indices.dtype), minlength=2 * n_bins)
     count_bin = pair[:n_bins] + pair[n_bins:]
-    conf_bin = torch.zeros(n_bins, dtype=confidences.dtype, device=confidences.device)
-    conf_bin.index_add_(0, indices, confidences)
+    # out of place: under torch.func.vmap the zeros are unbatched and the confidences batched
+    conf_bin = torch.zeros(n_bins, dtype=confidences.dtype, device=confidences.device).index_add(0, indices, confidences)
     return count_bin, conf_bin, pair[n_bins:]
 
 

@@ -12,7 +12,7 @@ from typing import Optional
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.utils.checks import _check_broadcastable, _input_format_classification
+from metrics_tpu_torch.utils.checks import _check_broadcastable, _input_format_classification, _is_concrete
 from metrics_tpu_torch.utils.data import _bincount
 from metrics_tpu_torch.utils.enums import DataType
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -52,7 +52,7 @@ def _confusion_matrix_compute(confmat: Tensor, normalize: Optional[str] = None) 
         elif normalize == "all":
             confmat = confmat / confmat.sum()
         nan_mask = torch.isnan(confmat)
-        if bool(nan_mask.any()):
+        if _is_concrete(confmat) and bool(nan_mask.any()):  # under a transform JAX skips the warning too
             rank_zero_warn("nan values found in confusion matrix have been replaced with zeros.")
         confmat = confmat.masked_fill(nan_mask, 0.0)
     return confmat

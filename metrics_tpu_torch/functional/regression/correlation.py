@@ -19,7 +19,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_concrete
 from metrics_tpu_torch.utils.compute import _l2_norm
 
 
@@ -128,12 +128,16 @@ def _rank_data(data: Tensor) -> Tensor:
     n = data.shape[0]
     sorted_data, perm = torch.sort(data, stable=True)
     same = (sorted_data[1:] == sorted_data[:-1]) | (torch.isnan(sorted_data[1:]) & torch.isnan(sorted_data[:-1]))
-    starts = torch.ones(n, dtype=torch.bool, device=data.device)  # a run starts here
-    starts[1:] = ~same
+    # a run starts here; built out of place, since under torch.func.vmap `same` is batched
+    starts = torch.cat([torch.ones(1, dtype=torch.bool, device=data.device), ~same])
     run = torch.cumsum(starts, 0) - 1
-    first = torch.nonzero_static(starts, size=n + 1, fill_value=n).squeeze(1)
+    if _is_concrete(starts):
+        first = torch.nonzero_static(starts, size=n + 1, fill_value=n).squeeze(1)
+    else:  # nonzero_static has no batching rule: each run's least position, the same list
+        pos = torch.arange(n, device=data.device)
+        first = torch.full((n + 1,), n, dtype=pos.dtype, device=data.device).scatter_reduce(0, run, pos, reduce="amin")
     ranks_sorted = (first[run] + first[run + 1] - 1) / 2.0 + 1.0
-    return torch.empty_like(ranks_sorted).scatter_(0, perm, ranks_sorted)
+    return torch.zeros_like(ranks_sorted).scatter(0, perm, ranks_sorted)
 
 
 def _spearman_corrcoef_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:

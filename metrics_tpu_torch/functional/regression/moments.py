@@ -11,7 +11,7 @@ from typing import Tuple, Union
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.utils.checks import _check_same_shape, _should_value_check
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_concrete, _should_value_check
 from metrics_tpu_torch.utils.compute import _safe_xlogy
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -99,8 +99,9 @@ def _r2_score_compute(
     adjusted: int = 0,
     multioutput: str = "uniform_average",
 ) -> Tensor:
-    n = int(n_obs)  # one host read, as in JAX
-    if n < 2:
+    # one host read, as in JAX; none under a transform, where JAX's tracer skips the checks
+    n = int(n_obs) if _is_concrete(n_obs) else None
+    if n is not None and n < 2:
         raise ValueError("Needs at least two samples to calculate r2 score.")
 
     mean_obs = sum_obs / n_obs
@@ -124,12 +125,12 @@ def _r2_score_compute(
         raise ValueError("`adjusted` parameter should be an integer larger or equal to 0.")
 
     if adjusted != 0:
-        if adjusted > n - 1:
+        if n is not None and adjusted > n - 1:
             rank_zero_warn(
                 "More independent regressions than data points in adjusted r2 score. Falls back to standard r2 score.",
                 UserWarning,
             )
-        elif adjusted == n - 1:
+        elif n is not None and adjusted == n - 1:
             rank_zero_warn("Division by zero in adjusted r2 score. Falls back to standard r2 score.", UserWarning)
         else:
             r2 = 1 - (1 - r2) * (n_obs - 1) / (n_obs - adjusted - 1)

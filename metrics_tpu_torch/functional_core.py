@@ -36,7 +36,10 @@ JAX does. ``jax.ensure_compile_time_eval`` has no
 counterpart: a template is built from the owner's concrete defaults even
 when the first export happens inside ``torch.func.vmap``.
 
-Left out: ``state_shardings_for`` (DTensor placements over a ``DeviceMesh``).
+A state tree of DTensors (:func:`metrics_tpu_torch.parallel.sharding.shard_states`)
+updates shard by shard and is gathered whole for a compute
+(:mod:`metrics_tpu_torch.parallel.sharding`); :func:`state_shardings_for`
+infers each leaf's placement.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ from torch.utils import _pytree as pytree
 
 from metrics_tpu_torch.metric import Metric, _is_static_value, _propagate_static_attrs
 from metrics_tpu_torch.ops import telemetry as _telemetry
+from metrics_tpu_torch.parallel import sharding as _sharding
 from metrics_tpu_torch.parallel import sync as _psync
 
 _EXPORT_CACHE_ATTR = "_funcore_export"
@@ -296,9 +300,11 @@ def apply_update(owner: Any, state: Any, *args: Any, **kwargs: Any) -> Any:
         >>> float(apply_compute(m, state))
         2.0
     """
-    _, update_fn, _ = metric_functions(owner)
+    init_fn, update_fn, _ = metric_functions(owner)
     states, _ = _unwrap(state)
     _counters["funcore_updates"] += 1
+    if _sharding.has_sharded_states(states):  # DTensor states: merged shard by shard
+        return _rewrap(_sharding.sharded_update(update_fn, init_fn, _sharding._spec_tree(owner), states, args, kwargs), state)
     return _rewrap(update_fn(states, *args, **kwargs), state)
 
 
@@ -319,7 +325,23 @@ def apply_compute(owner: Any, state: Any, *, axis_name: Optional[Any] = None) ->
     _, _, compute_fn = metric_functions(owner)
     states, _ = _unwrap(state)
     _counters["funcore_computes"] += 1
+    if _sharding.has_sharded_states(states):
+        states = _sharding.full_states(states)
     return compute_fn(states, axis_name=axis_name)
+
+
+def state_shardings_for(owner: Any, state: Any, mesh: Any, axis_name: Optional[str] = None) -> Any:
+    """Per-leaf :class:`~metrics_tpu_torch.parallel.sharding.NamedSharding` inference for a
+    functional state tree (:func:`metrics_tpu_torch.parallel.sharding.infer_state_shardings`),
+    per member for a collection."""
+    states, _ = _unwrap(state)
+    specs = _sharding._spec_tree(owner)
+    if _is_collection(owner):
+        out = {name: _sharding.infer_state_shardings(states[name], mesh, specs[name], axis_name=axis_name)
+               for name in states}
+    else:
+        out = _sharding.infer_state_shardings(states, mesh, specs, axis_name=axis_name)
+    return _rewrap(out, state)
 
 
 # ------------------------------------------------------------------ hand-back
@@ -384,4 +406,5 @@ __all__ = [
     "host_handoff",
     "init",
     "metric_functions",
+    "state_shardings_for",
 ]

@@ -195,4 +195,46 @@ def funcstate_from_reference(states_np: Mapping[str, Any], epoch: int, *, device
     return FuncState(_tree_to_torch(states_np, resolve_device(device)), epoch)
 
 
-__all__ = ["funcstate_from_reference", "inception_state_from_flax", "load_reference_state", "lpips_state_from_flax"]
+def arena_from_reference(content: Mapping[str, Any], template: Any, **kwargs: Any) -> Any:
+    """A JAX ``MetricArena``'s content, given as numpy arrays, as the port's
+    :class:`~metrics_tpu_torch.arena.MetricArena` over ``template`` (a Metric or
+    MetricCollection of the same configuration, on the device the arena is to
+    use). Both arenas then go on alike: the same ids, cohorts and window ring.
+
+    ``content`` holds ``capacity`` and ``slab`` (the arena's ``capacity`` and
+    ``slab_size``), ``stacked`` (the fused lane's ``{flat name: array}``, with
+    JAX's member separator) or ``rows`` (the row lane's per-tenant trees, None
+    for a free id), ``live``, ``counts``, ``cohorts``, ``free``,
+    ``watermark``, ``closes`` and ``ring`` (the window ring's ``(close id,
+    {cohort: {"states", "count"}})`` slots); ``kwargs`` go to the constructor
+    (``name``, ``cohort``, ``window_slots``, ``journal_path``).
+    """
+    from metrics_tpu_torch.arena import MetricArena
+
+    arena = MetricArena(template, int(content["capacity"]), slab=int(content["slab"]), **kwargs)
+    if arena.capacity != int(content["capacity"]):
+        raise ValueError(f"a capacity of {content['capacity']} is no slab bucket of slab {content['slab']}")
+    device = arena.device
+    if arena.fused:
+        arena._stacked = {name: _to_tensor(content["stacked"][name], leaf) for name, leaf in arena._stacked.items()}
+    else:
+        arena._rows = [None if row is None else _tree_to_torch(row, device) for row in content["rows"]]
+    arena._live = np.array(content["live"], dtype=bool)
+    arena._counts = np.array(content["counts"], dtype=np.int64)
+    arena._cohorts = np.array(list(content["cohorts"]), dtype=object)
+    arena._free = [int(i) for i in content["free"]]
+    arena._watermark = int(content["watermark"])
+    arena._closes = int(content.get("closes", 0))
+    arena._ring.clear()
+    for close_id, slot in content.get("ring", ()):
+        arena._ring.append((int(close_id), deepcopy(slot)))
+    return arena
+
+
+__all__ = [
+    "arena_from_reference",
+    "funcstate_from_reference",
+    "inception_state_from_flax",
+    "load_reference_state",
+    "lpips_state_from_flax",
+]

@@ -1170,6 +1170,8 @@ class Metric(nn.Module, ABC):
         their own snapshots. A failed collective raises to the caller."""
         if dist_sync_fn is not gather_all_tensors:
             return False
+        if not _bucketing.coalesce_enabled():
+            return False
         lad = self.__dict__.get("_fault_ladders", {}).get("sync-pack")
         if lad is not None and lad.demoted:
             return False  # clean per-state syncs advance the recovery edge
@@ -1314,6 +1316,7 @@ class Metric(nn.Module, ABC):
         group = process_group if process_group is not None else self.process_group
         eligible = (
             resolved_fn is gather_all_tensors
+            and _bucketing.coalesce_enabled()
             and not (lad is not None and lad.demoted)
             and not any(n._is_synced or n.compute_on_cpu for n in nodes)  # host rows sync blocking
             and (process_group is not None or not any(n.process_group is not self.process_group for n in nodes[1:]))
@@ -1677,6 +1680,13 @@ class Metric(nn.Module, ABC):
             state_dict, prefix, local_metadata, strict, missing_keys, unexpected_keys, error_msgs
         )
 
+    def load_state_dict(self, state_dict: Any, strict: bool = True, assign: bool = False, *, prefix: str = "") -> Any:
+        """``torch.nn.Module.load_state_dict``, plus the JAX package's ``prefix``: only the keys
+        under ``prefix`` are read, with the prefix stripped (``state_dict(prefix=...)`` writes them)."""
+        if prefix:
+            state_dict = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+
     def to_device(self, device: Any) -> "Metric":
         """Move the states (and their defaults, and child metrics) to ``device``: ``.to(device)``."""
         return self.to(device)
@@ -1685,8 +1695,11 @@ class Metric(nn.Module, ABC):
         """Cast the floating-point states (and their defaults) to ``dtype``; integer states stay."""
         return self._apply(lambda t: t.to(dtype) if t.is_floating_point() else t)
 
-    def type(self, dst_type: torch.dtype) -> "Metric":  # type: ignore[override]
-        return self.astype(dst_type)
+    def type(self, dst_type: Optional[torch.dtype] = None, *, dtype: Optional[torch.dtype] = None) -> "Metric":  # type: ignore[override]
+        """Cast the floating-point states: torch's ``dst_type``, or the JAX package's ``dtype``."""
+        if (dst_type is None) == (dtype is None):
+            raise TypeError("type() takes one of `dst_type` or `dtype`")
+        return self.astype(dtype if dtype is not None else dst_type)
 
     def float(self) -> "Metric":
         return self.astype(torch.float32)

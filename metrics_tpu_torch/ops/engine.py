@@ -337,9 +337,13 @@ def engine_stats() -> Dict[str, Any]:
     ``deferred_steps`` (calls enqueued), ``deferred_flushes`` (queues flushed),
     ``deferred_fallbacks`` (flushes replayed eagerly),
     ``deferred_sync_barrier_flushes`` (queues flushed by :func:`flush_barrier`)
-    and ``device_probes``; then the fault, sync and journal planes' counters
-    and the functional core's ``funcore_*``."""
+    and ``device_probes``; then the fault, sync and journal planes' counters,
+    the streaming plane's ``window_*``/``drift_*``, the functional core's
+    ``funcore_*``, the arenas' ``arena_*`` and the gateway's ``ingest_*``."""
+    from metrics_tpu_torch import arena as _arena
     from metrics_tpu_torch import functional_core as _funcore
+    from metrics_tpu_torch import ingest as _ingest
+    from metrics_tpu_torch import streaming as _streaming
     from metrics_tpu_torch.ops import journal as _journal
     from metrics_tpu_torch.parallel import sync as _psync
 
@@ -356,7 +360,10 @@ def engine_stats() -> Dict[str, Any]:
     out.update(_faults.fault_stats())
     out.update(_psync.collective_stats())
     out.update(_journal.journal_stats())
+    out.update(_streaming.streaming_stats())
     out.update(_funcore.funcore_stats())
+    out.update(_arena.arena_stats())
+    out.update(_ingest.ingest_stats())
     return out
 
 

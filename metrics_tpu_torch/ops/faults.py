@@ -81,8 +81,10 @@ TIERS = ("fused", "chunked", "eager", "host")
 #: collective), ``sync-gather`` (before a gather's collectives),
 #: ``epoch-fence`` (the epoch check before each collective),
 #: ``host-offload`` (before ``compute_on_cpu`` moves rows to the host),
-#: ``journal-write`` (before a record's temporary file is written) and
-#: ``journal-load`` (before a stored record is read). The others belong to
+#: ``journal-write`` (before a record's temporary file is written),
+#: ``journal-load`` (before a stored record is read), ``ingest-admit`` (each
+#: gateway offer) and ``ingest-shed`` (each staged payload a gateway flushes).
+#: The others belong to
 #: planes not ported yet (``ROADMAP.md`` names each one's plane).
 #: Instrumented in the port: :data:`INSTRUMENTED_SITES`.
 FAULT_SITES = (
@@ -109,7 +111,7 @@ FAULT_SITES = (
 #: input (``engine.donation_supported()`` is False). ``flush-chunk`` fires
 #: before each chunk of a flush, also as ``flush-chunk-<k>`` for chunk k.
 INSTRUMENTED_SITES = ("compile", "flush-chunk", "sync-gather", "sync-pack", "epoch-fence", "host-offload",
-                      "journal-write", "journal-load")
+                      "journal-write", "journal-load", "ingest-admit", "ingest-shed")
 
 _SITE_DEFAULT_EXC = {
     "probe": TraceFault,

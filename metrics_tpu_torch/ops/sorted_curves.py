@@ -49,11 +49,12 @@ def _segment(values: Tensor, run_id: Tensor, reduce: str) -> Tensor:
     over ``C * N`` segments, row ``c``'s runs offset by ``c * N``. Returns (C, N)."""
     c, n = values.shape
     ids = (run_id + n * torch.arange(c, device=run_id.device)[:, None]).reshape(-1)
+    # out of place: under torch.func.vmap the zeros are unbatched and the values batched
     out = torch.zeros(c * n, dtype=values.dtype, device=values.device)
     if reduce == "sum":
-        out.index_add_(0, ids, values.reshape(-1))
+        out = out.index_add(0, ids, values.reshape(-1))
     else:
-        out.scatter_reduce_(0, ids, values.reshape(-1), reduce=reduce, include_self=False)
+        out = out.scatter_reduce(0, ids, values.reshape(-1), reduce=reduce, include_self=False)
     return out.reshape(c, n)
 
 
@@ -67,7 +68,7 @@ def _midranks_rows(x: Tensor) -> Tensor:
     run_first = _segment(pos, run_id, "amin")
     # the 1-based midrank of a run that starts at f (0-based) with c members: f + (c + 1) / 2
     mid_sorted = torch.gather(run_first, -1, run_id) + (torch.gather(run_count, -1, run_id) + 1.0) * 0.5
-    return torch.zeros_like(mid_sorted).scatter_(-1, order, mid_sorted)
+    return torch.zeros_like(mid_sorted).scatter(-1, order, mid_sorted)
 
 
 def midranks(x: Tensor) -> Tensor:

@@ -646,6 +646,12 @@ def snapshot() -> Dict[str, Any]:
     out["sync_phase_stats"] = sync_phase_stats()
     out[_HIST_SNAPSHOT_KEY] = latency_stats()
     out["slo_violations"] = slo_violations()
+    # window and arena state (gauges: the streaming_ prefix) and gateway state (ingest_state_)
+    from metrics_tpu_torch import ingest as _ingest
+    from metrics_tpu_torch import streaming as _streaming
+
+    out["streaming"] = _streaming.streaming_snapshot()
+    out["ingest_state"] = _ingest.ingest_state()
     return out
 
 

@@ -1,6 +1,8 @@
 """State sync across processes: the per-state and the coalesced protocols, and one collective per spec."""
+from metrics_tpu_torch.parallel.bucketing import coalesce_enabled
 from metrics_tpu_torch.parallel.collectives import sync_array, sync_pytree
 from metrics_tpu_torch.parallel.reductions import resolve_reduction
+from metrics_tpu_torch.parallel.sharding import shard_states, state_shardings
 from metrics_tpu_torch.parallel.sync import (
     SyncFuture,
     class_reduce,
@@ -16,6 +18,7 @@ from metrics_tpu_torch.parallel.sync import (
 __all__ = [
     "SyncFuture",
     "class_reduce",
+    "coalesce_enabled",
     "collective_stats",
     "distributed_available",
     "gather_all_tensors",
@@ -23,6 +26,8 @@ __all__ = [
     "reduce",
     "reset_collective_stats",
     "resolve_reduction",
+    "shard_states",
+    "state_shardings",
     "sync_array",
     "sync_pytree",
     "world_size",

@@ -77,6 +77,7 @@ Each phase emits its span (``sync-pack``, ``sync-quantize``,
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -143,6 +144,12 @@ def handle_coalesce_failure(owner: Any, snaps: Sequence[Tuple[Any, Any]], err: C
         node._restore_state(snap)
     _sync._bump("sync_pack_fallbacks")
     _faults.demote(owner, "sync-pack", err.original, default_domain="runtime", tier="eager", site="sync-pack", warn=warn)
+
+
+def coalesce_enabled() -> bool:
+    """The ``METRICS_TPU_SYNC_COALESCE`` gate (default on; ``0`` or ``false`` restores the
+    per-state protocol). Read at each call: a sync is not on the per-step path."""
+    return os.environ.get("METRICS_TPU_SYNC_COALESCE", "1").lower() not in ("0", "false")
 
 
 # ------------------------------------------------------------------ tree walk

@@ -498,3 +498,101 @@ def funcore_world_worker(rank: int, world: int, seed: int) -> dict:
             "mesh_dim_values": mesh_dim_values, "merged": merged, "synced": synced,
             "suite_collectives": suite_collectives, "probe_collectives": probe_collectives,
             "host_collectives": host_collectives, "local": state.states, "probe_local": pstate.states}
+
+
+def sharding_world_worker(rank: int, world: int, seed: int) -> dict:
+    """One rank of the sharded-state test: states placed by ``shard_states`` on a one-dim ``DeviceMesh``
+    ``("c",)``, updated through ``apply_update`` and computed, with each state's placements and local
+    shape after the updates; the same updates on unsharded states; the helpers' errors; and the
+    inferred specs of a mixed state tree."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from metrics_tpu_torch.parallel.sharding import (
+        PartitionSpec as P,
+        infer_state_pspecs,
+        shard_states,
+        state_shardings,
+    )
+
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("c",))
+    rng = np.random.RandomState(seed)  # every rank feeds the same batches, as one replicated run would
+    out: dict = {}
+    cases = {
+        "binned": (tmt.BinnedPrecisionRecallCurve(num_classes=8, thresholds=5, device="cpu"),
+                   {n: P("c", None) for n in ("TPs", "FPs", "FNs")}, 8),
+        "f1": (tmt.F1Score(num_classes=8, average="macro", device="cpu"), {n: P("c") for n in ("tp", "fp", "tn", "fn")}, 8),
+        "confmat": (tmt.ConfusionMatrix(num_classes=1000, device="cpu"), {"confmat": P("c", None)}, 1000),
+    }
+    for name, (metric, specs, c) in cases.items():
+        logits = rng.rand(2, 64, c).astype(np.float32)
+        preds = logits / logits.sum(-1, keepdims=True)
+        target = rng.randint(0, c, (2, 64))
+        states = shard_states(metric.init(), mesh, specs)
+        plain = metric.init()
+        for step in range(2):
+            batch = (torch.from_numpy(preds[step]), torch.from_numpy(target[step]))
+            states = metric.apply_update(states, *batch)
+            plain = metric.apply_update(plain, *batch)
+        tree, plain_tree = states.states, plain.states
+        out[name] = {
+            "placements": {k: [(type(p).__name__, getattr(p, "dim", None)) for p in tree[k].placements] for k in specs},
+            "local_shapes": {k: tuple(tree[k].to_local().shape) for k in specs},
+            "value": metric.apply_compute(states),
+            "plain_value": metric.apply_compute(plain),
+            "states_equal": all(torch.equal(tree[k].full_tensor(), plain_tree[k]) for k in specs),
+            "inputs": (torch.from_numpy(preds), torch.from_numpy(target)),
+        }
+    errors = {}
+    auroc = tmt.AUROC(device="cpu")
+    for key, call in {
+        "list": lambda: state_shardings(auroc.init(), mesh, {"preds": P("c")}),
+        "unknown": lambda: state_shardings(tmt.BinnedPrecisionRecallCurve(num_classes=8, thresholds=5, device="cpu")
+                                           .init(), mesh, {"tps": P("c", None)}),
+        "mean_spec": lambda: SpecProbe().apply_update(shard_states(SpecProbe().init(), mesh, {}), torch.ones(3)),
+    }.items():
+        try:
+            call()
+            errors[key] = None
+        except ValueError as err:
+            errors[key] = str(err)
+    out["errors"] = errors
+    mixed = {"rows": torch.zeros(6, 3), "empty": torch.zeros(0), "odd": torch.zeros(5, 4), "total": torch.zeros(()),
+             "pairs": torch.zeros(3, 2), "buffered": [torch.zeros(2)]}
+    specs = {"rows": "cat", "empty": "cat", "odd": None, "total": "sum", "pairs": "max", "buffered": "cat"}
+    out["inferred"] = {k: None if v is None else tuple(v) for k, v in infer_state_pspecs(mixed, mesh, specs).items()}
+    return out
+
+
+def coalesce_gate_worker(rank: int, world: int, seed: int) -> dict:
+    """One rank of the ``METRICS_TPU_SYNC_COALESCE`` test: ``MetricCollection([Accuracy(5),
+    ConfusionMatrix(5)])`` synced (blocking, then asynchronously) under ``=1`` and ``=0`` on this rank's
+    inputs, with the collective counters of each sync and the synced states."""
+    from metrics_tpu_torch.parallel import collective_stats, reset_collective_stats
+
+    out: dict = {}
+    rng = np.random.RandomState(seed + rank)
+    logits = rng.rand(2, 20, 5).astype(np.float32)
+    preds, target = logits / logits.sum(-1, keepdims=True), rng.randint(0, 5, (2, 20))
+    for env in ("1", "0"):
+        os.environ["METRICS_TPU_SYNC_COALESCE"] = env
+        for lane in ("sync", "sync_async"):
+            suite = tmt.MetricCollection([tmt.Accuracy(num_classes=5, device="cpu"),
+                                          tmt.ConfusionMatrix(num_classes=5, device="cpu")])
+            for step in range(2):
+                suite.update(torch.from_numpy(preds[step]), torch.from_numpy(target[step]))
+            reset_collective_stats()
+            if lane == "sync":
+                suite.sync()
+            else:
+                fut = suite.sync_async()
+                if fut is not None:
+                    fut.wait()
+            stats = collective_stats()
+            out[(env, lane)] = {
+                "counts": {k: stats[k] for k in ("sync_shape_collectives", "sync_payload_collectives",
+                                                 "sync_coalesced_payloads", "sync_states_coalesced")},
+                "states": {f"{name}.{s}": getattr(m, s).clone() for name, m in suite.items(keep_base=True)
+                           for s in m._defaults},
+            }
+    os.environ.pop("METRICS_TPU_SYNC_COALESCE", None)
+    return out

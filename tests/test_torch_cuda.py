@@ -44,7 +44,9 @@ shared and per-row ids, weighted, more rows than the grid's second axis),
 one batched launch a vmapped call, ``apply_update`` equal to the stateful
 path, captured in a CUDA graph and under ``torch.func.vmap``, the value checks
 skipped while a graph is being captured, and the fused BootStrapper,
-MultioutputWrapper and MinMaxMetric equal to their eager paths.
+MultioutputWrapper and MinMaxMetric equal to their eager paths; the tenant
+planes: a ConfusionMatrix arena's update one batched launch a chunk and equal
+to a CPU twin, and a drift report counted by the plain kernel.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -1319,3 +1321,34 @@ def test_fused_multioutput_and_minmax_on_the_card_equal_their_eager_paths(dev):
             assert torch.equal(mm.compute()[key], value)
     finally:
         checks.set_validation_mode(prev)
+
+
+# -------------------------------------------------------------- tenant planes
+def test_arena_update_is_one_batched_launch_a_chunk_on_the_card(dev):
+    """A ConfusionMatrix arena on the card: its vmapped update is one launch of the batched kernel a
+    pow2 chunk (100 tenants: 64, 32 and 4), none of the plain one, and its stacked counts equal a CPU
+    twin's bit for bit; the stack stays on the card."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    preds = torch.randint(0, 10, (100, 8), generator=g, device=dev)
+    target = torch.randint(0, 10, (100, 8), generator=g, device=dev)
+    arena = mt.MetricArena(mt.ConfusionMatrix(num_classes=10), capacity=100, slab=64)
+    twin = mt.MetricArena(mt.ConfusionMatrix(num_classes=10, device="cpu"), capacity=100, slab=64)
+    ids = arena.add(100)
+    twin.add(100)
+    before, plain = histogram.BATCHED_LAUNCHES, histogram.KERNEL_LAUNCHES
+    arena.update(ids, preds, target)
+    assert histogram.BATCHED_LAUNCHES - before == 3 and histogram.KERNEL_LAUNCHES == plain
+    twin.update(ids, preds.cpu(), target.cpu())
+    for name, leaf in arena._stacked.items():
+        assert leaf.is_cuda and torch.equal(leaf.cpu(), twin._stacked[name])
+    assert torch.equal(arena.compute().cpu(), twin.compute())
+
+
+def test_drift_report_counts_with_the_plain_kernel_on_the_card(dev):
+    g = torch.Generator(device=dev).manual_seed(22)
+    cur, ref = torch.randn(4096, generator=g, device=dev), torch.randn(4096, generator=g, device=dev) + 0.5
+    before = histogram.KERNEL_LAUNCHES
+    out = mt.drift_report(cur, ref, bins=32)
+    assert histogram.KERNEL_LAUNCHES - before == 2
+    twin = mt.drift_report(cur.cpu(), ref.cpu(), bins=32, device="cpu")
+    assert out == twin

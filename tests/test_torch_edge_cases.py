@@ -1,4 +1,4 @@
-"""Three faults found in the port against the JAX package, and how each now stands.
+"""Faults found in the port against the JAX package, and how each now stands.
 
 1. Spearman's ranks with NaN: the port ranks from one sort's permutation and
    the runs of equal sorted values, NaN last and all NaNs one run, which are
@@ -11,6 +11,9 @@
    from the formula, so the port does not imitate it. These tests pin the
    port's NaN; ``ROADMAP.md`` records JAX's value as a reference caveat.
 3. Public names: the subpackages export what the JAX package's do.
+4. JAX's keywords of the shell: ``load_state_dict(sd, prefix=...)`` reads the
+   keys under the prefix, and ``type(dtype=...)`` casts as ``type(dst_type)``;
+   torch's own signatures still work.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -157,3 +160,48 @@ def test_top_level_telemetry_names():
     for name in ("telemetry_snapshot", "prometheus_text", "export_trace", "set_telemetry"):
         assert name in tmt.__all__ and hasattr(jmt, name)
         assert getattr(tmt, name) is getattr(telemetry, name)
+
+
+# ------------------------------------------------- JAX's keywords of the shell
+def test_load_state_dict_takes_the_reference_prefix():
+    rng = np.random.RandomState(7)
+    preds, target = rng.rand(30, 4).astype(np.float32), rng.randint(0, 4, 30)
+    src, jsrc = tmt.ConfusionMatrix(num_classes=4, device="cpu"), jmt.ConfusionMatrix(num_classes=4)
+    src.persistent(True)
+    jsrc.persistent(True)
+    src.update(torch.from_numpy(preds), torch.from_numpy(target))
+    jsrc.update(jnp.asarray(preds), jnp.asarray(target))
+    sd, jsd = src.state_dict(prefix="a."), jsrc.state_dict(prefix="a.")
+    assert set(sd) == set(jsd) == {"a.confmat"}
+    sd["b.confmat"] = torch.zeros(4, 4, dtype=torch.int64)  # another prefix's key: not read
+    dst, jdst = tmt.ConfusionMatrix(num_classes=4, device="cpu"), jmt.ConfusionMatrix(num_classes=4)
+    dst.persistent(True)
+    jdst.persistent(True)
+    dst.load_state_dict(sd, prefix="a.")
+    jdst.load_state_dict(jsd, prefix="a.")
+    np.testing.assert_array_equal(dst.confmat.numpy(), np.asarray(jdst.confmat))
+    assert torch.equal(dst.confmat, src.confmat)
+    plain = tmt.ConfusionMatrix(num_classes=4, device="cpu")
+    plain.persistent(True)
+    plain.load_state_dict(src.state_dict(), strict=True)  # torch's own signature still works
+    assert torch.equal(plain.confmat, src.confmat)
+    # a persistent state missing under the prefix: each package's own error
+    with pytest.raises(RuntimeError):
+        dst.load_state_dict(sd, prefix="c.")
+    with pytest.raises(KeyError):
+        jdst.load_state_dict(jsd, prefix="c.")
+
+
+@pytest.mark.parametrize("how", ["dtype", "dst_type", "positional"])
+def test_type_takes_the_reference_dtype_keyword(how):
+    m, jm = tmt.MeanMetric(device="cpu"), jmt.MeanMetric()
+    m.update(torch.tensor([1.0, 2.0]))
+    jm.update(jnp.asarray([1.0, 2.0]))
+    out = {"dtype": lambda: m.type(dtype=torch.float64), "dst_type": lambda: m.type(dst_type=torch.float64),
+           "positional": lambda: m.type(torch.float64)}[how]()
+    jout = jm.type(dtype=jnp.float16)
+    assert out is m and jout is jm
+    assert m.value.dtype == torch.float64 and jm.value.dtype == jnp.float16
+    assert float(m.compute()) == float(jm.compute()) == 1.5
+    with pytest.raises(TypeError):
+        m.type()

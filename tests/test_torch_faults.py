@@ -352,8 +352,15 @@ def test_instrumented_sites_are_reference_sites_and_fire():
     import tempfile
     import warnings
 
+    def ingest_once():
+        gw = tmt.IngestGateway(tmt.SumMetric(device="cpu"), auto_flush=False)
+        gw.offer(torch.ones(2))
+        gw.flush()
+        gw.close()
+
     paths = {"sync-gather": sync_once, "sync-pack": sync_once, "epoch-fence": sync_once,
-             "host-offload": offload_once, "compile": flush_once, "flush-chunk": flush_once}
+             "host-offload": offload_once, "compile": flush_once, "flush-chunk": flush_once,
+             "ingest-admit": ingest_once, "ingest-shed": ingest_once}
     with tempfile.TemporaryDirectory() as tmp:
         paths.update({"journal-write": lambda: journal_once(tmp), "journal-load": lambda: journal_once(tmp)})
         for site in faults.INSTRUMENTED_SITES:

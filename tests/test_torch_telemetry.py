@@ -27,14 +27,12 @@ DIST_ON = lambda: True  # noqa: E731
 
 # Keys of the JAX snapshot whose planes the port has not yet: key -> the plane that brings them. The
 # engine's cache and deferral counters are the port's; its program ledger waits for the program cache.
-STREAMING, CACHE_TUNE = ("streaming/arena/ingest", "program cache/autotuner")
+CACHE_TUNE = "program cache/autotuner"
 PENDING_KEYS = {
     **{k: CACHE_TUNE for k in ("program_analyses", "programs")},
-    **{k: STREAMING for k in ("streaming", "ingest_state")},
     **{k: CACHE_TUNE for k in ("fid_host_sqrtm", "fid_host_sqrtm_time_s")},
 }
-PENDING_PREFIXES = {"window_": STREAMING, "drift_": STREAMING, "arena_": STREAMING, "ingest_": STREAMING,
-                    "progcache_": CACHE_TUNE, "autotune_": CACHE_TUNE}
+PENDING_PREFIXES = {"progcache_": CACHE_TUNE, "autotune_": CACHE_TUNE}
 
 
 @pytest.fixture(autouse=True)
