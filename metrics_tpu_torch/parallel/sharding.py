@@ -18,19 +18,32 @@ or ``Replicate()`` per mesh dim)::
     states = metric.apply_update(states, preds, target)   # stays class-sharded
 
 **How an update meets a sharded state.** XLA propagates a state's sharding
-through ``state + counts``; torch's DTensor has no sharding rule for most of
-the ops a metric's update runs (the bincount among them), and refuses a mix of
-``DTensor`` and ``Tensor`` operands. So :func:`sharded_update` runs the
-metric's own update on plain tensors from a fresh ``init()``, which gives the
-batch's contribution, and each process merges into its own shard the slice of
-that contribution its placements select, by the state's reduction (``sum``
-adds, ``max``/``min`` take extrema: the merge the sync plane does; a list
-state appends its new rows). The result is put back on the state's own
-placements with ``DTensor.from_local``: no collective, no state gathered
-whole, and on the card the update's kernels run as they do unsharded. The
-contribution is one batch's counts at the state's full shape, which lives for
-the call only. A tree with a tensor state of another reduction (``mean``,
-``None``, custom) raises: its merge needs more than the two operands. ``compute`` reads the whole state, so
+through ``state + counts`` over a global batch; torch's DTensor has no sharding
+rule for most of the ops a metric's update runs (the bincount among them), and
+refuses a mix of ``DTensor`` and ``Tensor`` operands. So :func:`sharded_update`
+runs the metric's own update on plain tensors, with each DTensor state swapped
+for its ``init()``, which gives this process's contribution at the state's full
+shape, and merges it into each shard by the state's reduction (``sum`` adds,
+``max``/``min`` take extrema: the merge the sync plane does).
+
+What the batch is decides what is reduced. A batch argument that is a DTensor
+is a global array, as in JAX: on a mesh dim where it is ``Replicate()`` every
+process holds the same rows, and on one where it is ``Shard(0)`` each holds its
+own. A plain tensor is this process's own rows, as in data-parallel training,
+so a plain batch is split on every mesh dim. Over the mesh dims where the batch
+is split the contributions are partial; a ``Partial`` DTensor redistributed to
+the state's placements sums (or takes extrema of) them: one reduce-scatter for
+a ``Shard`` dim, one all-reduce for a ``Replicate`` one, as XLA's psum over
+``dp`` in JAX's ``dp x c`` case. Each process then holds its slice of the
+global contribution; nothing is gathered whole, and on the card the update's
+kernels run as they do unsharded. A batch replicated on every mesh dim needs no
+collective. The contribution lives for the call only.
+
+Plain (non-DTensor) states, list states among them, come from the update as
+they are. A DTensor state of another reduction (``mean``, ``None``, custom)
+updates only when it is replicated on every mesh dim and the batch is too (its
+local tensor is then the whole state); otherwise it raises, since its merge
+needs more than the two operands. ``compute`` reads the whole state, so
 :func:`full_states` gathers each sharded state once there.
 """
 from __future__ import annotations
@@ -259,39 +272,101 @@ _MERGES: Dict[str, Callable[[Tensor, Tensor], Tensor]] = {
 }
 
 
-def _merge_leaf(name: str, state: Any, delta: Any, spec: Any) -> Any:
-    if isinstance(state, list):  # a list state's contribution is its new rows
-        return list(state) + list(delta)
-    if spec not in _MERGES:
-        raise ValueError(
-            f"State `{name}` reduces by {spec!r}; an update of a sharded state tree merges `sum`, `max` "
-            "and `min` states only"
-        )
-    if not _is_dtensor(state):
-        return _MERGES[spec](state, delta)
-    from torch.distributed.tensor import DTensor
+def _leaves(tree: Dict[str, Any], specs: Dict[str, Any]):
+    """``(path, value, spec)`` of each leaf of a state tree of one or two levels of dicts."""
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            for k, v in value.items():
+                yield (name, k), v, specs[name][k]
+        else:
+            yield (name,), value, specs[name]
 
-    mesh, placements = state.device_mesh, state.placements
-    local = _MERGES[spec](state.to_local(), _local_slice(delta, mesh, placements))
-    return DTensor.from_local(local, mesh, placements, run_check=False, shape=state.shape, stride=state.stride())
+
+def _batch_split_dims(mesh: Any, args: tuple, kwargs: dict) -> Tuple[Tuple[int, ...], tuple, dict]:
+    """The mesh dims over which the batch is split, and the arguments with each DTensor as its local tensor.
+
+    A DTensor argument is split on the mesh dims where it is ``Shard(0)`` and whole on those where it is
+    ``Replicate()``; a plain tensor is this process's own rows, split on every mesh dim. The tensor
+    arguments must agree."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    every = tuple(range(mesh.ndim))
+    seen = set()
+
+    def local(x: Any) -> Any:
+        if isinstance(x, DTensor):
+            if x.device_mesh != mesh:
+                raise ValueError("a DTensor batch argument lies on another mesh than the sharded states")
+            split = []
+            for dim, p in enumerate(x.placements):
+                if isinstance(p, Shard) and p.dim == 0:
+                    split.append(dim)
+                elif not isinstance(p, Replicate):
+                    raise ValueError(f"a DTensor batch argument is split along its rows (Shard(0)) or replicated, not {p}")
+            seen.add(tuple(split))
+            return x.to_local()
+        if isinstance(x, Tensor):
+            seen.add(every)
+        return x
+
+    args = tuple(local(a) for a in args)
+    kwargs = {k: local(v) for k, v in kwargs.items()}
+    if len(seen) > 1:
+        raise ValueError(
+            "the batch arguments disagree on how they are split over the mesh: a plain tensor is this "
+            "process's own rows, a DTensor says it by its placements; pass them all one way"
+        )
+    return (seen.pop() if seen else every), args, kwargs
 
 
 def sharded_update(
     update_fn: Callable, init_fn: Callable, specs: Mapping[str, Any], state: Dict[str, Any],
     args: tuple, kwargs: dict,
 ) -> Dict[str, Any]:
-    """``update_fn(state, *args, **kwargs)`` for a state tree holding DTensors: the
-    batch's contribution from ``init_fn()``, merged shard by shard (module docstring).
-    ``specs`` maps each state to its reduction spec (a dict of them per member for a
-    collection's tree)."""
-    delta = update_fn(init_fn(), *args, **kwargs)
-    out: Dict[str, Any] = {}
-    for name, value in state.items():
-        if isinstance(value, dict):
-            out[name] = {k: _merge_leaf(f"{name}.{k}", v, delta[name][k], specs[name][k]) for k, v in value.items()}
+    """``update_fn(state, *args, **kwargs)`` for a state tree holding DTensors: each DTensor
+    state's contribution from ``init_fn()``, reduced over the mesh dims that split the batch
+    and merged shard by shard (module docstring). ``specs`` maps each state to its reduction
+    spec (a dict of them per member for a collection's tree)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    fresh = init_fn()
+    mesh = next(v.device_mesh for _, v, _ in _leaves(state, specs) if _is_dtensor(v))
+    split, args, kwargs = _batch_split_dims(mesh, args, kwargs)
+    swapped: Dict[str, Any] = {k: dict(v) if isinstance(v, dict) else v for k, v in state.items()}
+    merged = []  # (path, state, fresh value, spec) of the DTensor states merged from a contribution
+    for path, value, spec in _leaves(state, specs):
+        if not _is_dtensor(value):
+            continue
+        if value.device_mesh != mesh:
+            raise ValueError(f"State `{'.'.join(path)}` lies on another mesh than the tree's other sharded states")
+        owner = swapped[path[0]] if len(path) == 2 else swapped
+        if spec in _MERGES:
+            init = fresh[path[0]][path[1]] if len(path) == 2 else fresh[path[0]]
+            owner[path[-1]] = init
+            merged.append((path, value, init, spec))
+        elif not split and all(isinstance(p, Replicate) for p in value.placements):
+            owner[path[-1]] = value.to_local()  # the whole state, and the batch is whole on every process
         else:
-            out[name] = _merge_leaf(name, value, delta[name], specs[name])
-    return out
+            raise ValueError(
+                f"State `{'.'.join(path)}` reduces by {spec!r}; a sharded state merges an update's contribution "
+                "only by `sum`, `max` or `min`, and one of another reduction updates only when it and the batch "
+                "are replicated on every mesh dim"
+            )
+    new = {k: dict(v) if isinstance(v, dict) else v for k, v in update_fn(swapped, *args, **kwargs).items()}
+    for path, value, init, spec in merged:
+        out = new[path[0]] if len(path) == 2 else new
+        delta = out[path[-1]] - init if spec == "sum" else out[path[-1]]
+        partial = [Partial(spec) if dim in split else Replicate() for dim in range(mesh.ndim)]
+        local = DTensor.from_local(delta, mesh, partial, run_check=False, shape=delta.shape, stride=delta.stride())
+        local = local.redistribute(mesh, value.placements).to_local()
+        out[path[-1]] = DTensor.from_local(_MERGES[spec](value.to_local(), local), mesh, value.placements,
+                                           run_check=False, shape=value.shape, stride=value.stride())
+    done = {m[0] for m in merged}
+    for path, value, _ in _leaves(state, specs):
+        if _is_dtensor(value) and path not in done:  # replicated, updated whole on its local tensor
+            out = new[path[0]] if len(path) == 2 else new
+            out[path[-1]] = DTensor.from_local(out[path[-1]], mesh, value.placements, run_check=False)
+    return new
 
 
 def full_states(tree: Any) -> Any:

@@ -500,12 +500,57 @@ def funcore_world_worker(rank: int, world: int, seed: int) -> dict:
             "host_collectives": host_collectives, "local": state.states, "probe_local": pstate.states}
 
 
+SHARDING_CASES = {
+    "binned": (lambda: tmt.BinnedPrecisionRecallCurve(num_classes=8, thresholds=5, device="cpu"),
+               ("TPs", "FPs", "FNs"), ("c", None), 8),
+    "f1": (lambda: tmt.F1Score(num_classes=8, average="macro", device="cpu"), ("tp", "fp", "tn", "fn"), ("c",), 8),
+    "confmat": (lambda: tmt.ConfusionMatrix(num_classes=1000, device="cpu"), ("confmat",), ("c", None), 1000),
+}
+
+
+def sharding_batches(seed: int, c: int, steps: int = 2, rows: int = 64):
+    """``steps`` batches of softmax preds ``(rows, c)`` and int64 targets, as numpy arrays made from ``seed``."""
+    rng = np.random.RandomState(seed)
+    logits = rng.rand(steps, rows, c).astype(np.float32)
+    return logits / logits.sum(-1, keepdims=True), rng.randint(0, c, (steps, rows))
+
+
+def _sharded_run(metric, states, twin, feeds):
+    """``feeds``: ``(sharded args, twin args)`` per step. The states after the updates, and the twin's."""
+    for args, twin_args in feeds:
+        states = metric.apply_update(states, *args)
+        twin = metric.apply_update(twin, *twin_args)
+    return states, twin
+
+
+def _sharding_report(metric, states, twin, names, inputs):
+    tree, twin_tree = states.states, twin.states
+    return {
+        "placements": {k: [(type(p).__name__, getattr(p, "dim", None)) for p in tree[k].placements] for k in names},
+        "local_shapes": {k: tuple(tree[k].to_local().shape) for k in names},
+        "value": metric.apply_compute(states),
+        "plain_value": metric.apply_compute(twin),
+        "states_equal": all(torch.equal(tree[k].full_tensor(), twin_tree[k]) for k in names),
+        "inputs": inputs,
+    }
+
+
 def sharding_world_worker(rank: int, world: int, seed: int) -> dict:
-    """One rank of the sharded-state test: states placed by ``shard_states`` on a one-dim ``DeviceMesh``
-    ``("c",)``, updated through ``apply_update`` and computed, with each state's placements and local
-    shape after the updates; the same updates on unsharded states; the helpers' errors; and the
-    inferred specs of a mixed state tree."""
+    """One rank of the sharded-state test (``world`` = 4): states placed by ``shard_states`` and updated
+    through ``apply_update``, with each state's placements and local shape after the updates, its value,
+    and an unsharded twin's:
+
+    - ``replicated``: a one-dim ``DeviceMesh`` ``("c",)``; every rank feeds the same batches as
+      ``Replicate()`` DTensors, so the twin runs those batches;
+    - ``dp``: the same mesh; each rank feeds its own batches (seed ``seed + 1 + rank``) as plain tensors,
+      so the twin runs every rank's rows, concatenated in rank order;
+    - ``dp_c`` (binned only): a ``(2, 2)`` mesh ``("dp", "c")``, the state split over ``c`` and the batch
+      over ``dp`` (``[Shard(0), Replicate()]``), as JAX's ``test_dp_times_c``.
+
+    Then the helpers' errors, the update of states of other reductions, and the inferred specs of a
+    mixed state tree."""
     from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from metrics_tpu_torch.parallel.sharding import (
         PartitionSpec as P,
@@ -515,40 +560,59 @@ def sharding_world_worker(rank: int, world: int, seed: int) -> dict:
     )
 
     mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("c",))
-    rng = np.random.RandomState(seed)  # every rank feeds the same batches, as one replicated run would
+    grid = init_device_mesh("cpu", (2, world // 2), mesh_dim_names=("dp", "c"))
+
+    def dt(x, on, placements):
+        return DTensor.from_local(torch.from_numpy(x), on, placements, run_check=False)
+
     out: dict = {}
-    cases = {
-        "binned": (tmt.BinnedPrecisionRecallCurve(num_classes=8, thresholds=5, device="cpu"),
-                   {n: P("c", None) for n in ("TPs", "FPs", "FNs")}, 8),
-        "f1": (tmt.F1Score(num_classes=8, average="macro", device="cpu"), {n: P("c") for n in ("tp", "fp", "tn", "fn")}, 8),
-        "confmat": (tmt.ConfusionMatrix(num_classes=1000, device="cpu"), {"confmat": P("c", None)}, 1000),
-    }
-    for name, (metric, specs, c) in cases.items():
-        logits = rng.rand(2, 64, c).astype(np.float32)
-        preds = logits / logits.sum(-1, keepdims=True)
-        target = rng.randint(0, c, (2, 64))
-        states = shard_states(metric.init(), mesh, specs)
-        plain = metric.init()
-        for step in range(2):
-            batch = (torch.from_numpy(preds[step]), torch.from_numpy(target[step]))
-            states = metric.apply_update(states, *batch)
-            plain = metric.apply_update(plain, *batch)
-        tree, plain_tree = states.states, plain.states
-        out[name] = {
-            "placements": {k: [(type(p).__name__, getattr(p, "dim", None)) for p in tree[k].placements] for k in specs},
-            "local_shapes": {k: tuple(tree[k].to_local().shape) for k in specs},
-            "value": metric.apply_compute(states),
-            "plain_value": metric.apply_compute(plain),
-            "states_equal": all(torch.equal(tree[k].full_tensor(), plain_tree[k]) for k in specs),
-            "inputs": (torch.from_numpy(preds), torch.from_numpy(target)),
-        }
+    for name, (make, names, spec, c) in SHARDING_CASES.items():
+        metric = make()
+        specs = {n: P(*spec) for n in names}
+        preds, target = sharding_batches(seed, c)
+        feeds = [((dt(preds[s], mesh, [Replicate()]), dt(target[s], mesh, [Replicate()])),
+                  (torch.from_numpy(preds[s]), torch.from_numpy(target[s]))) for s in range(2)]
+        states, twin = _sharded_run(metric, shard_states(metric.init(), mesh, specs), metric.init(), feeds)
+        out[(name, "replicated")] = _sharding_report(metric, states, twin, names,
+                                                     (torch.from_numpy(preds), torch.from_numpy(target)))
+        every = [sharding_batches(seed + 1 + r, c) for r in range(world)]
+        preds, target = (np.concatenate([b[i] for b in every], axis=1) for i in (0, 1))
+        feeds = [((torch.from_numpy(every[rank][0][s]), torch.from_numpy(every[rank][1][s])),
+                  (torch.from_numpy(preds[s]), torch.from_numpy(target[s]))) for s in range(2)]
+        states, twin = _sharded_run(metric, shard_states(metric.init(), mesh, specs), metric.init(), feeds)
+        out[(name, "dp")] = _sharding_report(metric, states, twin, names,
+                                             (torch.from_numpy(preds), torch.from_numpy(target)))
+    make, names, spec, c = SHARDING_CASES["binned"]
+    metric, row = make(), grid.get_local_rank("dp")
+    every = [sharding_batches(seed + 10 + r, c) for r in range(2)]
+    preds, target = (np.concatenate([b[i] for b in every], axis=1) for i in (0, 1))
+    placements = [Shard(0), Replicate()]
+    feeds = [((dt(every[row][0][s], grid, placements), dt(every[row][1][s], grid, placements)),
+              (torch.from_numpy(preds[s]), torch.from_numpy(target[s]))) for s in range(2)]
+    states, twin = _sharded_run(metric, shard_states(metric.init(), grid, {n: P(*spec) for n in names}),
+                                metric.init(), feeds)
+    out[("binned", "dp_c")] = _sharding_report(metric, states, twin, names,
+                                               (torch.from_numpy(preds), torch.from_numpy(target)))
+
     errors = {}
     auroc = tmt.AUROC(device="cpu")
+    probe = SpecProbe()
+    x = np.arange(3, dtype=np.float32) + rank  # a different row on each rank: a plain batch is this rank's own
+    pearson = tmt.PearsonCorrCoef(device="cpu")
+    pearson_specs = {k: v for k, v in infer_state_pspecs(pearson.init().states, mesh,
+                                                         pearson._reduction_specs).items() if v is not None}
+    xs, ys = sharding_batches(seed + 20, 1, rows=32)
+    xs, ys = xs[..., 0] * ys, xs[..., 0]  # correlated float columns
     for key, call in {
         "list": lambda: state_shardings(auroc.init(), mesh, {"preds": P("c")}),
         "unknown": lambda: state_shardings(tmt.BinnedPrecisionRecallCurve(num_classes=8, thresholds=5, device="cpu")
                                            .init(), mesh, {"tps": P("c", None)}),
-        "mean_spec": lambda: SpecProbe().apply_update(shard_states(SpecProbe().init(), mesh, {}), torch.ones(3)),
+        "mean_spec": lambda: probe.apply_update(shard_states(probe.init(), mesh, {}), torch.from_numpy(x)),
+        "mixed_batch": lambda: tmt.ConfusionMatrix(num_classes=4, device="cpu").apply_update(
+            shard_states(tmt.ConfusionMatrix(num_classes=4, device="cpu").init(), mesh, {"confmat": P("c", None)}),
+            dt(np.arange(4), mesh, [Replicate()]), torch.arange(4)),
+        "pearson_dp": lambda: pearson.apply_update(shard_states(pearson.init(), mesh, pearson_specs),
+                                                   torch.from_numpy(xs[0]), torch.from_numpy(ys[0])),
     }.items():
         try:
             call()
@@ -556,7 +620,25 @@ def sharding_world_worker(rank: int, world: int, seed: int) -> dict:
         except ValueError as err:
             errors[key] = str(err)
     out["errors"] = errors
-    mixed = {"rows": torch.zeros(6, 3), "empty": torch.zeros(0), "odd": torch.zeros(5, 4), "total": torch.zeros(()),
+
+    # states of other reductions, replicated, under a batch replicated on every process: updated whole
+    replicated = {}
+    state, twin = shard_states(probe.init(), mesh, {}), probe.init()
+    for step in range(2):
+        row_x = np.arange(3, dtype=np.float32) * (step + 1) - 1
+        state = probe.apply_update(state, dt(row_x, mesh, [Replicate()]))
+        twin = probe.apply_update(twin, torch.from_numpy(row_x))
+    replicated["probe"] = all(torch.equal(state.states[k].full_tensor(), twin.states[k])
+                              for k in twin.states if not isinstance(twin.states[k], list))
+    state, twin = shard_states(pearson.init(), mesh, pearson_specs), pearson.init()
+    for step in range(2):
+        state = pearson.apply_update(state, dt(xs[step], mesh, [Replicate()]), dt(ys[step], mesh, [Replicate()]))
+        twin = pearson.apply_update(twin, torch.from_numpy(xs[step]), torch.from_numpy(ys[step]))
+    replicated["pearson"] = (pearson.apply_compute(state), pearson.apply_compute(twin))
+    replicated["pearson_inputs"] = (torch.from_numpy(xs), torch.from_numpy(ys))
+    out["replicated_other"] = replicated
+
+    mixed = {"rows": torch.zeros(8, 3), "empty": torch.zeros(0), "odd": torch.zeros(5, 4), "total": torch.zeros(()),
              "pairs": torch.zeros(3, 2), "buffered": [torch.zeros(2)]}
     specs = {"rows": "cat", "empty": "cat", "odd": None, "total": "sum", "pairs": "max", "buffered": "cat"}
     out["inferred"] = {k: None if v is None else tuple(v) for k, v in infer_state_pspecs(mixed, mesh, specs).items()}
