@@ -21,11 +21,14 @@ Phases, each of which raises on failure (exit code 1):
    version, ``torch.bincount`` and the bound. One JSON line
    ``{"bincount_sweep": ...}``. Then the batched form (``mt_bincount_batched``,
    what ``torch.func.vmap`` makes of the bincount) against its plain version,
-   bit for bit, on both paths, ids per row and shared, weighted, more rows than
-   the grid's second axis takes; and at ``BATCHED_SHAPES`` (phase 24 (c)'s
-   vmapped suites, a block of phase 15's row deltas, clones sharing one id row)
-   its time, the plain version's, one ``torch.bincount`` over ids offset by
-   ``row * length`` and the bound. One JSON line ``{"bincount_batched_sweep": ...}``.
+   bit for bit, in its three regimes (packed, cluster, global) and at their
+   edges, ids per row and shared, weighted, more rows than the grid's row axis
+   takes; and at ``BATCHED_SHAPES`` (phase 24 (c)'s vmapped suites, a block of
+   phase 15's row deltas, clones sharing one id row, phase 25 (b)'s largest
+   arena chunk) its plan (regime and split), its time (CUDA events and the
+   profiler's device time), the plain version's, one ``torch.bincount`` over
+   ids offset by ``row * length`` and the bound. One JSON line
+   ``{"bincount_batched_sweep": ...}``.
 3. The main path: the headline suite of ``bench.py`` (Accuracy, F1Score,
    ConfusionMatrix, Precision; macro, C=128) on batches of B=8192 softmax
    rows, 5 warm-up and 50 timed ``update`` steps, then ``compute()``, in
@@ -315,7 +318,10 @@ Phases, each of which raises on failure (exit code 1):
    to the unsharded run; a spawned two-rank Gloo world on the CPU splits
    ``ConfusionMatrix(1000)`` on its class axis, half on each rank: with each
    rank's own batches the values equal an unsharded run of both ranks' rows,
-   and with the same batches replicated they equal one rank's unsharded run.
+   and with the same batches replicated they equal one rank's unsharded run;
+   PearsonCorrCoef's moments (reduction None, placed by
+   ``infer_state_pspecs``) updated with each rank's own rows equal an unsharded
+   run of both ranks' rows within 1e-5.
 
 Deferral is on by default (the engine queues calls in every validation mode
 but "full"), so every timed window that updates in mode "first" ends with
@@ -595,20 +601,29 @@ def kernel_entry(sweep: list, max_abs_err: float) -> dict:
 
 # ---- the batched form (phase 2): what torch.func.vmap makes of the bincount
 # (name, rows, ids a row, bins, ids shared by every row): phase 24 (c)'s vmapped suites, a block of
-# BootStrapper(ConfusionMatrix(1000))'s row deltas (phase 15), and clones sharing one id row
+# BootStrapper(ConfusionMatrix(1000))'s row deltas (phase 15), clones sharing one id row, and the largest
+# pow2 chunk of phase 25 (b)'s ConfusionMatrix(10) arena of 100,000 tenants
 BATCHED_SHAPES = [("vmap_suites", 8, 8192, 128**2, False), ("row_deltas_confmat", 33, 1, 10**6, False),
-                  ("shared_ids", 100, 1000, 1000, True)]
+                  ("shared_ids", 100, 1000, 1000, True), ("arena_chunk", 65536, 8, 100, False)]
 
 
 def check_batched_bincount(histogram) -> float:
-    """The batched kernel against its plain version: both paths, shared and per-row ids, int32 and int64,
-    weighted (dyadic weights: every sum exact in any order), more rows than the grid's second axis takes,
-    no ids; the largest absolute difference (0 expected, asserted)."""
+    """The batched kernel against its plain version in its three regimes and at their edges (a packed row of
+    2048 bins and 2048 ids and one more of either, 64 ids a bin and one fewer between the cluster and global
+    regimes, k x 32768 bins and one more for the card's largest cluster k, more rows than the grid's row axis
+    takes, one id a row, no ids), shared and per-row ids, int32 and int64, weighted (dyadic weights: every sum
+    exact in any order), and a cluster slice above 32768 bins refused; the largest absolute difference (0
+    expected, asserted)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     worst = 0.0
+    k, top = histogram.max_cluster(0), histogram.SHARED_MAX_BINS
+    regimes = set()
     for rows, n, length in ((1, 0, 5), (3, 1000, 361), (8, 8192, 32768), (8, 8192, 32769), (5, 4096, 10**6),
-                            (70000, 16, 4), (33, 1, 10**6)):
+                            (70000, 16, 4), (33, 1, 10**6), (2, 2048, 2048), (2, 2049, 2048), (2, 2048, 2049),
+                            (4, 2048, k * top), (4, 2048, k * top + 1), (65536, 8, 100), (70000, 2, 2100),
+                            (100, 1000, 1000), (4, 4096, 64), (4, 4095, 64), (8, 2**17, 4), (132, 16384, 1000)):
+        regimes.add(histogram.batched_plan(rows, n, length, k).regime)
         for shared in (False, True):
             for dtype in (torch.int64, torch.int32):
                 x = torch.randint(-3, length + 3, (1 if shared else rows, n), generator=g, device=dev).to(dtype)
@@ -618,16 +633,29 @@ def check_batched_bincount(histogram) -> float:
                     want = histogram._bincount_batched_plain(x, length, weights, rows)
                     assert got.dtype == want.dtype and got.shape == want.shape, (rows, n, length)
                     worst = max(worst, float((got.double() - want.double()).abs().max()) if got.numel() else 0.0)
+    # the cluster regime's shared-memory edge, forced: k x 32768 bins in k slices of 32768, and a refusal above
+    x = torch.randint(-3, k * top + 3, (4, 2048), generator=g, device=dev)
+    plan = histogram.BatchedPlan("cluster", k, 4, top)
+    got = histogram._launch_batched(x, k * top, None, 4, plan)
+    worst = max(worst, float((got.double() - histogram._bincount_batched_plain(x, k * top, None, 4).double()).abs().max()))
+    try:
+        histogram._launch_batched(x, k * top + 1, None, 4, plan._replace(slice=top + 4))
+        raise AssertionError("batched bincount: a cluster slice above 32768 bins was launched")
+    except RuntimeError:
+        pass
     torch.cuda.synchronize()
     assert worst == 0.0, f"batched bincount: max |kernel - plain| {worst}"
-    log(f"batched bincount: bit-exact against the plain version on every shape (max |err| {worst})")
+    assert regimes == {"packed", "cluster", "global"}, regimes
+    log(f"batched bincount: bit-exact against the plain version on every shape, in regimes {sorted(regimes)} "
+        f"(largest cluster {k}; max |err| {worst})")
     return worst
 
 
 def sweep_batched_bincount(histogram, card: str) -> list:
-    """The batched kernel at ``BATCHED_SHAPES``: wrapper ms (CUDA events, one launch a call), the plain
-    version, one ``torch.bincount`` over ids offset by ``row * length`` (the same function) and the bytes
-    bound (ids read once, ``4 * rows * length`` bytes of counts written)."""
+    """The batched kernel at ``BATCHED_SHAPES``: its plan (regime and split), wrapper ms (CUDA events, one
+    launch a call), device ms (the profiler), the plain version, one ``torch.bincount`` over ids offset by
+    ``row * length`` (the same function) and the bytes bound (ids read once, ``4 * rows * length`` bytes of
+    counts written)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(6)
     out = []
@@ -647,15 +675,17 @@ def sweep_batched_bincount(histogram, card: str) -> list:
             prof = {}
         offsets = torch.arange(rows, device=dev).unsqueeze(1) * length
         flat = (x.expand(rows, n) + offsets).reshape(-1)
+        plan = histogram.batched_plan(rows, n, length, histogram.max_cluster(0))
         row = {"shape": name, "rows": rows, "n": n, "length": length, "shared_ids": shared, "bytes": bytes_moved,
-               "bound_ms": bound_ms, "path": histogram.kernel_path(length), "ms": ms,
+               "bound_ms": bound_ms, "regime": plan.regime, "split": plan.split, "plan": plan._asdict(), "ms": ms,
                # None: no session recorded every call's device operation
                "device_ms": sum(v for v, _ in prof.values()) / 50 if prof else None,
                "device_ops_per_call": sum(k for _, k in prof.values()) / 50 if prof else None,
                "plain_ms": cuda_time_ms(lambda: histogram._bincount_batched_plain(x, length, None, rows), 50, 5),
                "library_ms": cuda_time_ms(lambda: torch.bincount(flat, minlength=rows * length), 50, 5)}
         out.append(row)
-        log(f"batched bincount {name}: rows={rows} n={n} L={length} ({row['path']}): {ms:.5f} ms (device "
+        log(f"batched bincount {name}: rows={rows} n={n} L={length} ({plan.regime}, split {plan.split}: "
+            f"{'rows a block' if plan.regime == 'packed' else 'CTAs a row'}): {ms:.5f} ms (device "
             f"{row['device_ms']} ms, {row['device_ops_per_call']} operations a call), plain "
             f"{row['plain_ms']:.5f} ms, torch.bincount {row['library_ms']:.5f} ms, bound {bound_ms:.6f} ms  [{card}]")
     return out
@@ -6361,7 +6391,8 @@ def ingest_plane(mt, histogram, card: str) -> dict:
 def shard_gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
     """(f) One rank of the two-rank Gloo world on the CPU: ConfusionMatrix(SHARD_CLASSES) split on its class
     axis, updated once with each rank's own batches (plain tensors, against an unsharded twin of every rank's
-    rows) and once with the same batches on every rank (``Replicate()`` DTensors, against one rank's run)."""
+    rows) and once with the same batches on every rank (``Replicate()`` DTensors, against one rank's run);
+    then PearsonCorrCoef under each rank's own rows, against an unsharded run of both ranks' rows."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate
@@ -6369,7 +6400,7 @@ def shard_gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> No
     if str(HERE) not in sys.path:
         sys.path.insert(0, str(HERE))
     import metrics_tpu_torch as mt
-    from metrics_tpu_torch.parallel.sharding import PartitionSpec, shard_states
+    from metrics_tpu_torch.parallel.sharding import PartitionSpec, infer_state_pspecs, shard_states
 
     dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world)
     result: dict = {}
@@ -6394,6 +6425,21 @@ def shard_gloo_rank(rank: int, world: int, init_method: str, out_dir: str) -> No
             result[mode] = {"local_shape": tuple(local.shape),
                             "equal": bool(torch.equal(metric.apply_compute(state), metric.apply_compute(plain))),
                             "local_equal": bool(torch.equal(local, plain.states["confmat"].chunk(world)[rank]))}
+        # PearsonCorrCoef's six moments (reduction None) placed by infer_state_pspecs, each rank its own rows:
+        # merged by the metric's own moment merge, against an unsharded run of both ranks' rows
+        pearson = mt.PearsonCorrCoef(device="cpu")
+        specs = {k: v for k, v in infer_state_pspecs(pearson.init().states, mesh, pearson._reduction_specs).items()
+                 if v is not None}
+        cols = []
+        for r in range(world):
+            g = torch.Generator().manual_seed(256 + r)
+            x = torch.rand(2, 4096, generator=g)
+            cols.append((x, 0.5 * x + 0.5 * torch.rand(2, 4096, generator=g)))
+        state, plain = shard_states(pearson.init(), mesh, specs), pearson.init()
+        for step in range(2):
+            state = pearson.apply_update(state, cols[rank][0][step], cols[rank][1][step])
+            plain = pearson.apply_update(plain, *(torch.cat([c[i][step] for c in cols]) for i in (0, 1)))
+        result["pearson_dp"] = {"value": float(pearson.apply_compute(state)), "plain": float(pearson.apply_compute(plain))}
     except Exception as exc:  # noqa: BLE001 - reported to the parent, which raises
         result = {"error": f"{type(exc).__name__}: {exc}"}
     finally:
@@ -6456,12 +6502,16 @@ def shard_planes(mt, card: str) -> dict:
         for mode in ("dp", "replicated"):
             got = r[mode]
             assert got["local_shape"] == (SHARD_CLASSES // 2, SHARD_CLASSES) and got["equal"] and got["local_equal"], r
+        pearson = r["pearson_dp"]  # float32 moments merged pairwise against one stream: within 1e-5
+        assert abs(pearson["value"] - pearson["plain"]) <= 1e-5, pearson
     out["gloo_local_shape"] = list(ranks[0]["dp"]["local_shape"])
+    out["pearson_dp"] = ranks[0]["pearson_dp"]
     log(f"tenant_planes (f) sharding: the headline suite's states on a NCCL DeviceMesh of one "
         f"({out['card_placements']}) updated and computed equal to the unsharded run; two Gloo ranks on the CPU "
         f"hold {out['gloo_local_shape']} of ConfusionMatrix({SHARD_CLASSES}) each; with each rank's own batches "
         f"the values equal an unsharded run of both ranks' rows, with the same batches replicated they equal "
-        f"one rank's unsharded run  [{card}]")
+        f"one rank's unsharded run; PearsonCorrCoef's moments (reduction None) under each rank's own rows "
+        f"{out['pearson_dp']['value']:.7f} against the unsharded {out['pearson_dp']['plain']:.7f}  [{card}]")
     return out
 
 

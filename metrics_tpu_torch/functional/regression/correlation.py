@@ -2,7 +2,8 @@
 
 JAX counterpart: `metrics_tpu/functional/regression/correlation.py`
 (Pearson's streaming update `:21-45`, the merge ``_pearson_final_aggregation``
-`:56`, ``_rank_data`` `:106`); reference
+`:56`, here ``_pearson_merge``, which also gives the merged means, and
+``_rank_data`` `:106`); reference
 `functional/regression/{pearson,spearman,cosine_similarity}.py`.
 
 Spearman's average-tie ranks come from one sort: its permutation places
@@ -59,15 +60,16 @@ def _pearson_corrcoef_compute(var_x: Tensor, var_y: Tensor, corr_xy: Tensor, nb:
     return torch.clamp(corrcoef, -1.0, 1.0)
 
 
-def _pearson_final_aggregation(
+def _pearson_merge(
     means_x: Sequence[Tensor],
     means_y: Sequence[Tensor],
     vars_x: Sequence[Tensor],
     vars_y: Sequence[Tensor],
     corrs_xy: Sequence[Tensor],
     nbs: Sequence[Tensor],
-) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Merge the moments of several streams, one pair at a time (reference `regression/pearson.py:23-62`)."""
+) -> Tuple[Tensor, ...]:
+    """Merge the moments of several streams, one pair at a time (reference `regression/pearson.py:23-62`):
+    the six moments of the streams taken together."""
     mx1, my1, vx1, vy1, cxy1, n1 = means_x[0], means_y[0], vars_x[0], vars_y[0], corrs_xy[0], nbs[0]
     for i in range(1, len(means_x)):
         mx2, my2, vx2, vy2, cxy2, n2 = means_x[i], means_y[i], vars_x[i], vars_y[i], corrs_xy[i], nbs[i]
@@ -92,7 +94,12 @@ def _pearson_final_aggregation(
         corr_xy = cxy1 + cxy2
 
         mx1, my1, vx1, vy1, cxy1, n1 = mean_x, mean_y, var_x, var_y, corr_xy, nb
-    return vx1, vy1, cxy1, n1
+    return mx1, my1, vx1, vy1, cxy1, n1
+
+
+def _pearson_final_aggregation(*moments: Sequence[Tensor]) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The merged ``(var_x, var_y, corr_xy, n_total)`` of several streams' moments (:func:`_pearson_merge`)."""
+    return _pearson_merge(*moments)[2:]
 
 
 def pearson_corrcoef(preds: Tensor, target: Tensor) -> Tensor:

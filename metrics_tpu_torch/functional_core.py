@@ -304,7 +304,8 @@ def apply_update(owner: Any, state: Any, *args: Any, **kwargs: Any) -> Any:
     states, _ = _unwrap(state)
     _counters["funcore_updates"] += 1
     if _sharding.has_sharded_states(states):  # DTensor states: merged shard by shard
-        return _rewrap(_sharding.sharded_update(update_fn, init_fn, _sharding._spec_tree(owner), states, args, kwargs), state)
+        return _rewrap(_sharding.sharded_update(update_fn, init_fn, _sharding._spec_tree(owner), states, args, kwargs,
+                                                _sharding._stacked_merge_tree(owner)), state)
     return _rewrap(update_fn(states, *args, **kwargs), state)
 
 

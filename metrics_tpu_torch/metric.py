@@ -399,6 +399,10 @@ class Metric(nn.Module, ABC):
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = None
+    # the merge of this metric's states of reduction None, each stacked one contribution a row
+    # ({name: stacked} -> {name: merged}), which a sharded update under a data-parallel batch takes
+    # (parallel/sharding.py); None: the metric has none
+    _merge_stacked: Optional[Callable[[Dict[str, Tensor]], Dict[str, Tensor]]] = None
 
     # the dispatch engine: an open queue holds the states out of __dict__;
     # _defer_ok is the instance's health (a failed flush turns it off until the

@@ -31,17 +31,22 @@ The bincount is the operator ``metrics_tpu_torch::bincount``
 for the CPU, the kernel for CUDA, and a ``torch.func.vmap`` rule. The vmap
 rule is what ``jax.vmap`` makes of the ``pallas_call``, a grid axis over the
 batch: a vmapped call is ONE call of ``metrics_tpu_torch::bincount_batched``,
-whose CUDA form is one launch of ``mt_bincount_batched`` (one block a row of
-``rows`` histograms, the row stride 0 where every row shares its ids) and
-whose CPU form is :func:`_bincount_batched_plain`, one out-of-place
-``index_add`` over ``rows * length`` bins with ids offset by ``row * length``.
+whose CUDA form is one launch of ``mt_bincount_batched`` and whose CPU form
+is :func:`_bincount_batched_plain`, one out-of-place ``index_add`` over
+``rows * length`` bins with ids offset by ``row * length``. The batched
+launch runs in one of three regimes that :func:`batched_plan` picks from
+``(rows, n, length)``: ``packed`` (several small rows a block, their ids
+counted as one flat range), ``cluster`` (a thread-block cluster of up to 16
+CTAs a row, the row's histogram spread over their shared memory, for ids
+that contend) and ``global`` (the cluster zeroes the row in device memory,
+then adds with global atomics).
 Bound of the batched call: its ids and weights read once, ``4 * rows *
 length`` bytes of counts written.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import Tensor
@@ -60,6 +65,20 @@ SOURCE = "bincount.cu"
 SHARED_MAX_BINS = 32768
 _ID_BYTES = {torch.int32: 4, torch.int64: 8}
 _MAX_LENGTH = 2**31 - 1
+
+#: The batched form's regimes (``batched_plan``); the source's ``Regime`` codes are their indices.
+REGIMES = ("packed", "cluster", "global")
+#: The most bins of a packed block, all its rows side by side (64 KiB); the source's ``kPackedMaxBins`` must agree.
+PACKED_MAX_BINS = 16384
+PACKED_ROW_MAX_BINS = 2048  # rows up to this many bins are packed, where they have few ids or fill the card
+PACKED_MAX_IDS = 2048
+CLUSTER_IDS_PER_BIN = 64  # a row with this many ids a bin contends: its cluster counts in shared memory
+MIN_SLICE_BINS = 2048  # a row is spread over more CTAs while each still owns this many bins ...
+MIN_CTA_IDS = 8192  # ... or counts this many ids (16 rounds of a 512-thread CTA)
+SMS = 132  # the H100's SMs
+MIN_BLOCKS = 4 * SMS  # packed blocks a launch is given where the rows allow: 4 resident a SM
+MAX_GRID = 65535
+SLICE_ALIGN = 4
 
 
 def _bincount_plain(x: Tensor, length: int, weights: Optional[Tensor] = None) -> Tensor:
@@ -100,6 +119,109 @@ def _bincount_batched_plain(x: Tensor, length: int, weights: Optional[Tensor], r
         src, dtype = torch.where(valid, w, torch.zeros_like(w)), torch.float32
     counts = torch.zeros(rows * length, dtype=dtype, device=x.device)
     return counts.index_add(0, idx, src.reshape(-1)).reshape(rows, length)
+
+
+class BatchedPlan(NamedTuple):
+    """How one launch of the batched kernel covers ``rows`` histograms of ``length`` bins.
+
+    ``regime`` is ``"packed"``, ``"cluster"`` or ``"global"``. ``split`` is the
+    rows a block takes at a time (packed) or the CTAs of a row's cluster
+    (cluster, global). ``grid`` is the launch's row axis: blocks along x
+    (packed) or clusters along y (the others), which walk the groups of rows
+    (packed) or the rows in steps of ``grid``. ``slice`` is the bins each CTA
+    owns of its row (cluster, global), or a row's (packed: ``length``).
+    """
+
+    regime: str
+    split: int
+    grid: int
+    slice: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory a block asks for (4-byte bins)."""
+        if self.regime == "packed":
+            return 4 * self.split * self.slice
+        return 4 * self.slice if self.regime == "cluster" else 0
+
+    def rows_of(self, slot: int, rows: int) -> list:
+        """The rows that block (packed) or cluster ``slot`` of the row axis counts, in order."""
+        if self.regime != "packed":
+            return list(range(slot, rows, self.grid))
+        groups = range(slot, -(-rows // self.split), self.grid)
+        return [r for g in groups for r in range(g * self.split, min((g + 1) * self.split, rows))]
+
+    def bins_of(self, rank: int, length: int) -> range:
+        """The bins of a row that CTA ``rank`` of its cluster zeroes and stores (packed: the block's, all)."""
+        if self.regime == "packed":
+            return range(length)
+        return range(min(rank * self.slice, length), min((rank + 1) * self.slice, length))
+
+    def ids_of(self, rank: int, n: int) -> range:
+        """The ids of a row that CTA ``rank`` of its cluster counts (packed: the block's, all)."""
+        if self.regime == "packed":
+            return range(n)
+        per = -(-n // self.split)
+        return range(min(rank * per, n), min((rank + 1) * per, n))
+
+
+def _slice_bins(length: int, split: int) -> int:
+    """Bins each of ``split`` CTAs owns: ``ceil(length / split)`` rounded up to 4 (the source's ``slice_bins``)."""
+    per = -(-length // split)
+    return -(-per // SLICE_ALIGN) * SLICE_ALIGN
+
+
+def batched_plan(rows: int, n: int, length: int, max_cluster: int = 16) -> BatchedPlan:
+    """The batched kernel's regime, split and grid for ``rows`` rows of ``n`` ids into ``length`` bins.
+
+    - packed: rows of up to ``PACKED_ROW_MAX_BINS`` bins with up to
+      ``PACKED_MAX_IDS`` ids, or enough rows to give each SM one. A block
+      takes the largest power of two of rows whose bins fit
+      ``PACKED_MAX_BINS``, fewer where that would leave fewer than
+      ``MIN_BLOCKS`` blocks.
+    - cluster: rows whose ids contend, ``CLUSTER_IDS_PER_BIN`` or more a bin,
+      where a cluster's shared memory holds the row: the row's histogram is
+      spread over the cluster's CTAs and counted with shared-memory atomics.
+    - global: the rest (sparse ids, as many as the bins or fewer, and rows
+      too wide for a cluster): the cluster zeroes the row and adds with
+      global atomics, which on the H100 beat the distributed shared memory
+      wherever few ids share a bin (``tools/torch_bincount_batched_sweep.py``).
+
+    A cluster or global row takes ``split`` CTAs: the smallest power of two
+    that fills the card (``rows * split >= SMS``, or ``2 * SMS`` where the
+    row is zeroed in device memory) while each CTA still owns
+    ``MIN_SLICE_BINS`` bins or counts ``MIN_CTA_IDS`` ids, at least enough
+    for a cluster's slices to fit ``SHARED_MAX_BINS`` each, and at most
+    ``max_cluster`` (what the card takes: ``mt_bincount_batched_max_cluster``).
+    A pure function: the CPU tests check its coverage.
+
+    Example:
+        >>> from metrics_tpu_torch.ops.histogram import batched_plan
+        >>> batched_plan(8, 8192, 16384)
+        BatchedPlan(regime='global', split=8, grid=8, slice=2048)
+        >>> batched_plan(65536, 8, 100)
+        BatchedPlan(regime='packed', split=64, grid=1024, slice=100)
+        >>> batched_plan(8, 2**17, 4)
+        BatchedPlan(regime='cluster', split=16, grid=8, slice=4)
+    """
+    if rows < 1 or length < 1 or n < 0 or max_cluster < 1:
+        raise ValueError(f"a batched plan takes rows >= 1, length >= 1, n >= 0, got {rows}, {length}, {n}")
+    if length <= PACKED_ROW_MAX_BINS and (n <= PACKED_MAX_IDS or rows >= SMS):
+        split = 1
+        while (2 * split * length <= PACKED_MAX_BINS and -(-rows // (2 * split)) >= MIN_BLOCKS
+               and 2 * split * n <= _MAX_LENGTH):  # a block's ids are indexed in 32 bits
+            split *= 2
+        return BatchedPlan("packed", split, min(-(-rows // split), MAX_GRID), length)
+    fits = _slice_bins(length, max_cluster) <= SHARED_MAX_BINS
+    regime = "cluster" if fits and n >= CLUSTER_IDS_PER_BIN * length else "global"
+    fill = SMS if regime == "cluster" else 2 * SMS
+    split = 1
+    while split < max_cluster and (
+        (regime == "cluster" and _slice_bins(length, split) > SHARED_MAX_BINS)
+        or (rows * split < fill and (length // (2 * split) >= MIN_SLICE_BINS or n // (2 * split) >= MIN_CTA_IDS))
+    ):
+        split *= 2
+    return BatchedPlan(regime, split, min(rows, MAX_GRID), _slice_bins(length, split))
 
 
 def kernel_path(length: int) -> str:
@@ -185,6 +307,7 @@ def _launch(x: Tensor, length: int, weights: Optional[Tensor], shared: bool) -> 
 
 
 _batched_entry: Optional[ctypes._CFuncPtr] = None
+_max_cluster: dict = {}
 
 
 def _batched_kernel() -> ctypes._CFuncPtr:
@@ -192,7 +315,14 @@ def _batched_kernel() -> ctypes._CFuncPtr:
     global _batched_entry
     if _batched_entry is None:
         _kernel()  # builds the library and checks its shared-memory threshold
-        fn = _native.load(SOURCE).mt_bincount_batched
+        lib = _native.load(SOURCE)
+        lib.mt_bincount_batched_packed_max_bins.restype = ctypes.c_int64
+        built = lib.mt_bincount_batched_packed_max_bins()
+        if built != PACKED_MAX_BINS:
+            raise RuntimeError(f"{SOURCE} packs {built} bins a block, the wrapper {PACKED_MAX_BINS}")
+        lib.mt_bincount_batched_max_cluster.argtypes = [ctypes.c_int]
+        lib.mt_bincount_batched_max_cluster.restype = ctypes.c_int
+        fn = lib.mt_bincount_batched
         fn.argtypes = [
             ctypes.c_void_p,  # ids
             ctypes.c_int,  # bytes per id: 4 or 8
@@ -203,13 +333,27 @@ def _batched_kernel() -> ctypes._CFuncPtr:
             ctypes.c_int64,  # rows
             ctypes.c_void_p,  # counts, (rows, length), uninitialised
             ctypes.c_int64,  # length
-            ctypes.c_int,  # 1: shared-memory path, 0: global path
+            ctypes.c_int,  # regime: the index of BatchedPlan.regime in REGIMES
+            ctypes.c_int,  # split: rows a block (packed) or CTAs a row (cluster, global)
+            ctypes.c_int64,  # grid: the launch's row axis
             ctypes.c_int,  # device ordinal
             ctypes.c_void_p,  # cudaStream_t
         ]
         fn.restype = ctypes.c_int
         _batched_entry = fn
     return _batched_entry
+
+
+def max_cluster(device: int) -> int:
+    """The largest cluster the batched kernel may take on ``device``: one of them fits at the largest slice."""
+    if device not in _max_cluster:
+        _batched_kernel()
+        with torch.cuda.device(device):
+            found = _native.load(SOURCE).mt_bincount_batched_max_cluster(device)
+        if found < 1:
+            raise RuntimeError(f"the batched bincount kernel fits no thread-block cluster on device {device}")
+        _max_cluster[device] = found
+    return _max_cluster[device]
 
 
 def _row_stride(t: Tensor, rows: int, name: str) -> int:
@@ -224,9 +368,16 @@ def bincount_batched_cuda(x: Tensor, length: int, weights: Optional[Tensor], row
 
     ``x`` is ``(1, n)`` (shared by every row) or ``(rows, n)`` ids, int32 or
     int64, on the card; ``weights`` float32 laid out the same, or None. The
-    path (shared memory or global) is :func:`kernel_path`'s. Does not
-    synchronise. Raises on anything the kernel does not take.
+    regime, split and grid are :func:`batched_plan`'s. Does not synchronise.
+    Raises on anything the kernel does not take, and where the launch is
+    refused.
     """
+    return _launch_batched(x, length, weights, rows)
+
+
+def _launch_batched(x: Tensor, length: int, weights: Optional[Tensor], rows: int,
+                    plan: Optional[BatchedPlan] = None) -> Tensor:
+    """:func:`bincount_batched_cuda` under ``plan`` (default: :func:`batched_plan`'s), one launch."""
     global BATCHED_LAUNCHES
     if x.dtype not in _ID_BYTES:
         raise TypeError(f"the bincount kernel takes int32 or int64 ids, got {x.dtype}")
@@ -248,6 +399,8 @@ def bincount_batched_cuda(x: Tensor, length: int, weights: Optional[Tensor], row
         return counts
     fn = _batched_kernel()
     device = x.get_device()
+    if plan is None:
+        plan = batched_plan(rows, n, length, max_cluster(device))
     args = (
         x.data_ptr(),
         _ID_BYTES[x.dtype],
@@ -258,13 +411,15 @@ def bincount_batched_cuda(x: Tensor, length: int, weights: Optional[Tensor], row
         rows,
         counts.data_ptr(),
         length,
-        int(kernel_path(length) == "shared"),
+        REGIMES.index(plan.regime),
+        plan.split,
+        plan.grid,
         device,
     )
     with torch.cuda.device(device):
         rc = fn(*args, torch._C._cuda_getCurrentRawStream(device))
     if rc != 0:
-        raise RuntimeError(f"the batched bincount kernel failed to launch: CUDA error {rc}")
+        raise RuntimeError(f"the batched bincount kernel failed to launch ({plan}): CUDA error {rc}")
     BATCHED_LAUNCHES += 1
     return counts
 
@@ -386,4 +541,4 @@ torch.library.register_vmap("metrics_tpu_torch::bincount", _bincount_vmap)
 torch.library.register_vmap("metrics_tpu_torch::bincount_batched", _bincount_batched_vmap)
 
 
-__all__ = ["bincount_batched_cuda", "bincount_cuda", "fused_bincount", "kernel_path"]
+__all__ = ["BatchedPlan", "batched_plan", "bincount_batched_cuda", "bincount_cuda", "fused_bincount", "kernel_path"]

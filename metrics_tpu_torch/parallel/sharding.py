@@ -39,12 +39,26 @@ global contribution; nothing is gathered whole, and on the card the update's
 kernels run as they do unsharded. A batch replicated on every mesh dim needs no
 collective. The contribution lives for the call only.
 
+A DTensor state of another reduction merges by its sync rule. Its whole value
+is read (gathered once where it is sharded); the update gives this process's
+contribution (from the state's ``init()``; a ``mean`` state's from its whole
+value), which is gathered over the mesh dims that split the batch as the sync
+plane gathers it (:func:`~metrics_tpu_torch.parallel.collectives.merge_array`:
+``mean`` averages, ``None`` and a custom reduction stack, ``cat``
+concatenates) and merged into the whole value: ``mean`` takes the average of
+the processes' updated values, ``cat`` appends, a custom reduction folds the
+stack of the old value and its merged contributions, and ``None`` states go
+to the metric's own merge of stacked states (``Metric._merge_stacked``,
+PearsonCorrCoef's pairwise moment merge). Each process keeps the block of the
+result its placements select, so a state sharded on its own rows ends with
+each row on its owner. This is what JAX's jitted update over the global batch
+gives wherever the state's reduction is the one its update implies. A state of
+another reduction that is replicated on every mesh dim, under a batch that is
+too, is updated whole on its local tensor, with no collective.
+
 Plain (non-DTensor) states, list states among them, come from the update as
-they are. A DTensor state of another reduction (``mean``, ``None``, custom)
-updates only when it is replicated on every mesh dim and the batch is too (its
-local tensor is then the whole state); otherwise it raises, since its merge
-needs more than the two operands. ``compute`` reads the whole state, so
-:func:`full_states` gathers each sharded state once there.
+they are. ``compute`` reads the whole state, so :func:`full_states` gathers
+each sharded state once there.
 """
 from __future__ import annotations
 
@@ -148,8 +162,6 @@ def shard_states(states: Dict[str, Any], mesh: Any, specs: Mapping[str, Sequence
     the slice its placements select: nothing is sent between processes. A
     ``FuncState`` comes back as one, its epoch kept.
     """
-    from torch.distributed.tensor import DTensor
-
     from metrics_tpu_torch.functional_core import _rewrap
 
     wrapped, states = states, getattr(states, "states", states)
@@ -161,11 +173,7 @@ def shard_states(states: Dict[str, Any], mesh: Any, specs: Mapping[str, Sequence
             out[name] = value
             continue
         value = value.to(mesh.device_type) if value.device.type != mesh.device_type else value
-        placements = sharding.placements
-        out[name] = DTensor.from_local(
-            _local_slice(value, mesh, placements).contiguous(), mesh, placements,
-            run_check=False, shape=value.shape, stride=value.stride(),
-        )
+        out[name] = _placed(value, mesh, sharding.placements)
     return _rewrap(out, wrapped)
 
 
@@ -319,39 +327,62 @@ def _batch_split_dims(mesh: Any, args: tuple, kwargs: dict) -> Tuple[Tuple[int, 
     return (seen.pop() if seen else every), args, kwargs
 
 
+def _gather_over(x: Tensor, mesh: Any, dims: Sequence[int], stack: bool) -> Tensor:
+    """Every process's ``x`` over the mesh dims ``dims``, stacked on a new first dim (``stack``) or
+    concatenated along dim 0, in the mesh's row-major order (one all-gather a dim)."""
+    from metrics_tpu_torch.parallel.collectives import _gather_rows
+
+    out = x.unsqueeze(0) if stack else torch.atleast_1d(x)
+    for dim in reversed(dims):
+        out = _gather_rows(out, mesh.get_group(dim))
+    return out
+
+
+def _placed(full: Tensor, mesh: Any, placements: Sequence[Any]) -> Any:
+    """``full`` as a DTensor on ``mesh`` under ``placements``: this process keeps its block, nothing is sent."""
+    from torch.distributed.tensor import DTensor
+
+    local = _local_slice(full, mesh, placements).contiguous()
+    return DTensor.from_local(local, mesh, placements, run_check=False, shape=full.shape, stride=full.stride())
+
+
 def sharded_update(
     update_fn: Callable, init_fn: Callable, specs: Mapping[str, Any], state: Dict[str, Any],
-    args: tuple, kwargs: dict,
+    args: tuple, kwargs: dict, stacked_merges: Any = None,
 ) -> Dict[str, Any]:
     """``update_fn(state, *args, **kwargs)`` for a state tree holding DTensors: each DTensor
-    state's contribution from ``init_fn()``, reduced over the mesh dims that split the batch
-    and merged shard by shard (module docstring). ``specs`` maps each state to its reduction
-    spec (a dict of them per member for a collection's tree)."""
+    state's contribution from the update, reduced or gathered over the mesh dims that split the
+    batch and merged by the state's reduction (module docstring). ``specs`` maps each state to its
+    reduction spec, a custom reduction as its callable (a dict of them per member for a
+    collection's tree); ``stacked_merges`` is the metric's merge of its stacked ``None`` states
+    (a dict of them per member)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from metrics_tpu_torch.parallel.collectives import merge_array
 
     fresh = init_fn()
     mesh = next(v.device_mesh for _, v, _ in _leaves(state, specs) if _is_dtensor(v))
     split, args, kwargs = _batch_split_dims(mesh, args, kwargs)
     swapped: Dict[str, Any] = {k: dict(v) if isinstance(v, dict) else v for k, v in state.items()}
     merged = []  # (path, state, fresh value, spec) of the DTensor states merged from a contribution
+    others = []  # (path, state, whole value, spec) of the DTensor states of other reductions
     for path, value, spec in _leaves(state, specs):
         if not _is_dtensor(value):
             continue
         if value.device_mesh != mesh:
             raise ValueError(f"State `{'.'.join(path)}` lies on another mesh than the tree's other sharded states")
         owner = swapped[path[0]] if len(path) == 2 else swapped
+        init = fresh[path[0]][path[1]] if len(path) == 2 else fresh[path[0]]
+        replicated = all(isinstance(p, Replicate) for p in value.placements)
         if spec in _MERGES:
-            init = fresh[path[0]][path[1]] if len(path) == 2 else fresh[path[0]]
             owner[path[-1]] = init
             merged.append((path, value, init, spec))
-        elif not split and all(isinstance(p, Replicate) for p in value.placements):
+        elif not split and replicated:
             owner[path[-1]] = value.to_local()  # the whole state, and the batch is whole on every process
         else:
-            raise ValueError(
-                f"State `{'.'.join(path)}` reduces by {spec!r}; a sharded state merges an update's contribution "
-                "only by `sum`, `max` or `min`, and one of another reduction updates only when it and the batch "
-                "are replicated on every mesh dim"
-            )
+            whole = value.to_local() if replicated else value.full_tensor()
+            owner[path[-1]] = whole if spec == "mean" else init
+            others.append((path, value, whole, spec))
     new = {k: dict(v) if isinstance(v, dict) else v for k, v in update_fn(swapped, *args, **kwargs).items()}
     for path, value, init, spec in merged:
         out = new[path[0]] if len(path) == 2 else new
@@ -361,7 +392,33 @@ def sharded_update(
         local = local.redistribute(mesh, value.placements).to_local()
         out[path[-1]] = DTensor.from_local(_MERGES[spec](value.to_local(), local), mesh, value.placements,
                                            run_check=False, shape=value.shape, stride=value.stride())
-    done = {m[0] for m in merged}
+    stacked: Dict[tuple, Dict[str, Tensor]] = {}  # the None states of each metric: old value, then contributions
+    for path, value, whole, spec in others:
+        out = new[path[0]] if len(path) == 2 else new
+        mine = out[path[-1]]
+        if spec == "mean":
+            for dim in split:
+                mine = merge_array(mine, "mean", mesh.get_group(dim))
+            out[path[-1]] = _placed(mine, mesh, value.placements)
+        elif spec == "cat":
+            full = torch.cat([torch.atleast_1d(whole), _gather_over(mine, mesh, split, False)])
+            out[path[-1]] = _placed(full, mesh, value.placements)
+        elif callable(spec):
+            full = spec(torch.stack([whole, spec(_gather_over(mine, mesh, split, True))]))
+            out[path[-1]] = _placed(full, mesh, value.placements)
+        elif spec is None:
+            rows = torch.cat([whole.unsqueeze(0), _gather_over(mine, mesh, split, True)])
+            stacked.setdefault(path[:-1], {})[path[-1]] = rows
+        else:
+            raise ValueError(f"State `{'.'.join(path)}` has an unknown reduction spec {spec!r}")
+    for member, rows in stacked.items():
+        merge = (stacked_merges or {}).get(member[0]) if member else stacked_merges
+        if merge is None:
+            raise ValueError(f"States {sorted(rows)} reduce by None and their metric has no merge of stacked states")
+        out = new[member[0]] if member else new
+        for name, full in merge(rows).items():
+            out[name] = _placed(full, mesh, (state[member[0]][name] if member else state[name]).placements)
+    done = {m[0] for m in merged} | {m[0] for m in others}
     for path, value, _ in _leaves(state, specs):
         if _is_dtensor(value) and path not in done:  # replicated, updated whole on its local tensor
             out = new[path[0]] if len(path) == 2 else new
@@ -376,11 +433,24 @@ def full_states(tree: Any) -> Any:
     return tree.full_tensor() if _is_dtensor(tree) else tree
 
 
+def _metric_specs(m: Any) -> Dict[str, Any]:
+    """A Metric's reduction spec of each state, a custom reduction as its callable."""
+    return {k: m._reductions[k] if spec == "custom" else spec for k, spec in m._reduction_specs.items()}
+
+
 def _spec_tree(owner: Any) -> Dict[str, Any]:
     """The reduction spec of each state of a Metric, or of each member's states of a collection."""
     from metrics_tpu_torch.functional_core import _is_collection
 
     if _is_collection(owner):
-        return {name: dict(m._reduction_specs) for name, m in owner.items(keep_base=True, copy_state=False)}
-    return dict(owner._reduction_specs)
+        return {name: _metric_specs(m) for name, m in owner.items(keep_base=True, copy_state=False)}
+    return _metric_specs(owner)
 
+
+def _stacked_merge_tree(owner: Any) -> Any:
+    """The merge of stacked ``None`` states of a Metric, or of each member of a collection."""
+    from metrics_tpu_torch.functional_core import _is_collection
+
+    if _is_collection(owner):
+        return {name: m._merge_stacked for name, m in owner.items(keep_base=True, copy_state=False)}
+    return owner._merge_stacked

@@ -12,7 +12,7 @@ rows and cast or flatten them when the rows are observed
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Dict
 
 import torch
 from torch import Tensor
@@ -22,6 +22,7 @@ from metrics_tpu_torch.functional.regression.correlation import (
     _pearson_corrcoef_compute,
     _pearson_corrcoef_update,
     _pearson_final_aggregation,
+    _pearson_merge,
     _spearman_corrcoef_compute,
 )
 from metrics_tpu_torch.functional.regression.moments import (
@@ -182,6 +183,9 @@ class R2Score(Metric):
         )
 
 
+_PEARSON_MOMENTS = ("mean_x", "mean_y", "var_x", "var_y", "corr_xy", "n_total")
+
+
 class PearsonCorrCoef(Metric):
     """Pearson correlation from streaming moments, merged across processes after a sync.
 
@@ -202,7 +206,7 @@ class PearsonCorrCoef(Metric):
     def __init__(self, **kwargs: Any) -> None:
         super().__init__(**kwargs)
         # dist_reduce_fx=None: a sync stacks every process's moments; compute merges them
-        for name in ("mean_x", "mean_y", "var_x", "var_y", "corr_xy", "n_total"):
+        for name in _PEARSON_MOMENTS:
             self.add_state(name, default=torch.tensor(0.0), dist_reduce_fx=None)
 
     def update(self, preds: Tensor, target: Tensor) -> None:
@@ -211,6 +215,10 @@ class PearsonCorrCoef(Metric):
         self.mean_x, self.mean_y, self.var_x, self.var_y, self.corr_xy, self.n_total = _pearson_corrcoef_update(
             preds, target, self.mean_x, self.mean_y, self.var_x, self.var_y, self.corr_xy, self.n_total
         )
+
+    def _merge_stacked(self, stacked: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The moments, each stacked one stream a row, merged into one stream's (a sharded update's merge)."""
+        return dict(zip(_PEARSON_MOMENTS, _pearson_merge(*(stacked[k] for k in _PEARSON_MOMENTS))))
 
     def compute(self) -> Tensor:
         if self.var_x.ndim > 0 and self.var_x.shape[0] > 1:

@@ -440,6 +440,40 @@ class SpecProbe(Metric):
         out["rows"] = dim_zero_cat(self.rows)
         return out
 
+    def _merge_stacked(self, stacked: dict) -> dict:
+        """The stacked pair is a running sum: its stacked contributions add."""
+        return {k: v.sum(dim=0) for k, v in stacked.items()}
+
+
+class RowProbe(Metric):
+    """States of the reductions other than sum/max/min over a batch of ``(rows, 3)``: a running sum of
+    batch means (``mean``), a per-position sum with the rows grouped by their index mod 4 (spec None,
+    ``(4, 3)``, which a spec splits on its rows), and a custom sum of doubled rows, beside a plain sum.
+    Under a data-parallel batch of equal row counts, each a multiple of 4, the update of the global
+    batch is what each state's reduction makes of the ranks' contributions."""
+
+    full_state_update = False
+
+    def __init__(self, **kwargs: Any) -> None:
+        kwargs.setdefault("device", "cpu")
+        super().__init__(**kwargs)
+        self.add_state("avg", torch.zeros(3), "mean")
+        self.add_state("per_slot", torch.zeros(4, 3), None)
+        self.add_state("folded", torch.zeros(3), _sum_rows)
+        self.add_state("total", torch.zeros(3), "sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.avg = self.avg + x.mean(dim=0)
+        self.per_slot = self.per_slot + x.reshape(-1, 4, 3).sum(dim=0)
+        self.folded = self.folded + 2 * x.sum(dim=0)
+        self.total = self.total + x.sum(dim=0)
+
+    def compute(self) -> dict:
+        return {k: getattr(self, k) for k in ("avg", "per_slot", "folded", "total")}
+
+    def _merge_stacked(self, stacked: dict) -> dict:
+        return {k: v.sum(dim=0) for k, v in stacked.items()}
+
 
 def probe_rows(seed: int, rank: int, steps: int = 3) -> list:
     rng = np.random.RandomState(seed + 10 * rank)
@@ -547,8 +581,10 @@ def sharding_world_worker(rank: int, world: int, seed: int) -> dict:
     - ``dp_c`` (binned only): a ``(2, 2)`` mesh ``("dp", "c")``, the state split over ``c`` and the batch
       over ``dp`` (``[Shard(0), Replicate()]``), as JAX's ``test_dp_times_c``.
 
-    Then the helpers' errors, the update of states of other reductions, and the inferred specs of a
-    mixed state tree."""
+    Then the helpers' errors, the update of states of other reductions (replicated under a replicated
+    batch; then under a data-parallel batch of each rank's own rows: ``PearsonCorrCoef`` placed by
+    ``infer_state_pspecs``, ``RowProbe`` with its ``(4, 3)`` None state split on its rows over ``c``, and
+    ``SpecProbe``), and the inferred specs of a mixed state tree."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -637,6 +673,29 @@ def sharding_world_worker(rank: int, world: int, seed: int) -> dict:
     replicated["pearson"] = (pearson.apply_compute(state), pearson.apply_compute(twin))
     replicated["pearson_inputs"] = (torch.from_numpy(xs), torch.from_numpy(ys))
     out["replicated_other"] = replicated
+
+    # states of other reductions under a data-parallel batch: each rank feeds its own rows (plain tensors)
+    dp = {}
+    every = [sharding_batches(seed + 30 + r, 1, rows=32) for r in range(world)]
+    every = [(a[..., 0] * b, a[..., 0]) for a, b in every]  # correlated float columns, (2, 32) a rank
+    state = shard_states(pearson.init(), mesh, pearson_specs)
+    for step in range(2):
+        state = pearson.apply_update(state, *(torch.from_numpy(a[step]) for a in every[rank]))
+    dp["pearson"] = pearson.apply_compute(state)
+    dp["pearson_placements"] = {k: [type(p).__name__ for p in v.placements] for k, v in state.states.items()}
+    dp["pearson_inputs"] = tuple(torch.from_numpy(np.concatenate([e[i] for e in every], axis=1)) for i in (0, 1))
+    row_probe = RowProbe()
+    rows = [np.random.RandomState(seed + 40 + r).randn(2, 8, 3).astype(np.float32) for r in range(world)]
+    state = shard_states(row_probe.init(), mesh, {"per_slot": P("c")})
+    for step in range(2):
+        state = row_probe.apply_update(state, torch.from_numpy(rows[rank][step]))
+    dp["rows"] = row_probe.apply_compute(state)
+    dp["rows_local"] = state.states["per_slot"].to_local()
+    dp["rows_placements"] = [type(p).__name__ for p in state.states["per_slot"].placements]
+    dp["rows_inputs"] = torch.from_numpy(np.concatenate(rows, axis=1))
+    state = shard_states(probe.init(), mesh, {})
+    dp["probe"] = probe.apply_compute(probe.apply_update(state, torch.from_numpy(x)))
+    out["dp_other"] = dp
 
     mixed = {"rows": torch.zeros(8, 3), "empty": torch.zeros(0), "odd": torch.zeros(5, 4), "total": torch.zeros(()),
              "pairs": torch.zeros(3, 2), "buffered": [torch.zeros(2)]}

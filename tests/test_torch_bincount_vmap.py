@@ -134,3 +134,65 @@ def test_a_cuda_tensor_never_takes_the_plain_version():
         histogram.bincount_batched_cuda(ids(0, (2, 5), 4), 4, None, 2)
     with pytest.raises(ValueError, match="shape"):
         histogram._row_stride(torch.zeros(3, 5), 2, "ids")
+
+
+# ------------------------------------------------------------ the batched kernel's plan (no card needed)
+PLAN_SHAPES = [(8, 8192, 128**2), (33, 1, 10**6), (65536, 8, 100), (32, 8, 100), (100, 1000, 1000), (1, 0, 5),
+               (3, 1000, 361), (70000, 16, 4), (2, 2048, 2048), (2, 2049, 2048), (2, 2048, 2049), (8, 8192, SMB),
+               (8, 8192, SMB + 1), (4, 2048, 16 * SMB), (4, 2048, 16 * SMB + 1), (4, 2048, 8 * SMB + 1),
+               (1, 300000, 7), (3, 1, 1), (200000, 4, 3), (70000, 2, 10**5), (4, 4096, 64), (4, 4095, 64),
+               (8, 2**17, 4), (132, 16384, 1000), (4, 64 * 16 * SMB, 16 * SMB)]
+
+
+@pytest.mark.parametrize("max_cluster", [16, 8], ids=lambda k: f"k{k}")
+@pytest.mark.parametrize("rows, n, length", PLAN_SHAPES, ids=lambda v: str(v))
+def test_the_batched_plan_covers_every_row_bin_and_id_once(rows, n, length, max_cluster):
+    plan = histogram.batched_plan(rows, n, length, max_cluster)
+    assert 1 <= plan.grid <= histogram.MAX_GRID
+    counted = [r for slot in range(plan.grid) for r in plan.rows_of(slot, rows)]
+    assert sorted(counted) == list(range(rows))  # every row once, the grid's row loop included
+    if plan.regime == "packed":
+        assert plan.split * length <= histogram.PACKED_MAX_BINS and plan.slice == length
+        assert plan.smem_bytes == 4 * plan.split * length <= 64 * 1024
+        assert plan.split == 1 or -(-rows // plan.split) >= histogram.MIN_BLOCKS
+        return
+    assert plan.split in (1, 2, 4, 8, 16) and plan.split <= max_cluster
+    for parts, total in (([plan.bins_of(r, length) for r in range(plan.split)], length),
+                         ([plan.ids_of(r, n) for r in range(plan.split)], n)):
+        # the cluster's CTAs tile the row's bins, and its ids, in order and without a gap or an overlap
+        assert parts[0].start == 0 and parts[-1].stop == total
+        assert all(a.stop == b.start for a, b in zip(parts, parts[1:]))
+    assert plan.slice % histogram.SLICE_ALIGN == 0
+    if plan.regime == "cluster":
+        assert plan.slice <= SMB and plan.smem_bytes <= 4 * SMB  # the slice fits a CTA's shared memory
+        assert n >= histogram.CLUSTER_IDS_PER_BIN * length
+    else:
+        assert plan.smem_bytes == 0
+        assert histogram._slice_bins(length, max_cluster) > SMB or n < histogram.CLUSTER_IDS_PER_BIN * length
+
+
+@pytest.mark.parametrize("rows, n, length, regime, split", [
+    (8, 8192, 128**2, "global", 8), (33, 1, 10**6, "global", 8), (65536, 8, 100, "packed", 64),
+    (100, 1000, 1000, "packed", 1), (132, 16384, 1000, "packed", 1), (8, 2**17, 4, "cluster", 16),
+    (4, 4096, 64, "cluster", 1), (4, 4095, 64, "global", 1), (8, 8192, 16 * SMB, "global", 16),
+    (4, 64 * 16 * SMB, 16 * SMB, "cluster", 16), (4, 64 * (16 * SMB + 1), 16 * SMB + 1, "global", 16),
+])
+def test_the_batched_plan_of_the_path_shapes(rows, n, length, regime, split):
+    plan = histogram.batched_plan(rows, n, length)
+    assert (plan.regime, plan.split) == (regime, split)
+    assert histogram.batched_plan(4, 64 * (8 * SMB + 1), 8 * SMB + 1, max_cluster=8).regime == "global"
+    with pytest.raises(ValueError, match="rows >= 1"):
+        histogram.batched_plan(0, 5, 5)
+
+
+def test_the_vmap_rule_keeps_its_call_shapes(monkeypatch):
+    """A vmapped call over ids of (9, 40) and a shared id row with batched weights give the batched operator
+    the same operands as before: (rows, n) or (1, n) ids, their weights, and the row count."""
+    seen = []
+    real = histogram._bincount_batched_plain
+    monkeypatch.setattr(histogram, "_bincount_batched_plain",
+                        lambda x, length, w, rows: seen.append((tuple(x.shape), length, None if w is None
+                                                                 else tuple(w.shape), rows)) or real(x, length, w, rows))
+    torch.func.vmap(lambda r: histogram.fused_bincount(r, 16))(ids(1, (9, 40), 16))
+    torch.func.vmap(lambda b: histogram.fused_bincount(ids(2, (40,), 16), 16, b))(weights(2, (3, 40)))
+    assert seen == [((9, 40), 16, None, 9), ((1, 40), 16, (3, 40), 3)]

@@ -39,8 +39,9 @@ updates and forwards and ``update_many`` bit-equal to the per-call path with
 one bincount launch an update, no state leaving the card, a lazy value in
 torch expressions with card tensors, a host lane that declines a CPU tensor
 for a card metric, and the device probe counting; the functional core on the
-card: the batched bincount kernel against its plain version (both paths,
-shared and per-row ids, weighted, more rows than the grid's second axis),
+card: the batched bincount kernel against its plain version (its three
+regimes at their edges and under every split, shared and per-row ids,
+weighted, more rows than the grid's row axis), a refused launch raising,
 one batched launch a vmapped call, ``apply_update`` equal to the stateful
 path, captured in a CUDA graph and under ``torch.func.vmap``, the value checks
 skipped while a graph is being captured, and the fused BootStrapper,
@@ -1179,6 +1180,76 @@ def test_batched_kernel_equals_its_plain_version(dev, rows, n, length, shared):
             assert histogram.BATCHED_LAUNCHES - before == (1 if rows * length else 0)
             want = histogram._bincount_batched_plain(ids, length, weights, rows)
             assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def _batched_boundaries(k):
+    """(rows, n, length, shared) at the edges of the batched kernel's regimes, for a largest cluster of ``k``."""
+    top, pm, pi = histogram.SHARED_MAX_BINS, histogram.PACKED_ROW_MAX_BINS, histogram.PACKED_MAX_IDS
+    return [(2, pi, pm, False), (2, pi + 1, pm, False), (2, pi, pm + 1, True), (4, 4096, 64, False),
+            (4, 4095, 64, True), (8, 2**17, 4, False), (4, 2048, k * top, False), (4, 2048, k * top + 1, False),
+            (70000, 8, 100, False), (65536, 8, 100, True), (70000, 2, 2100, False), (33, 1, 10**6, False),
+            (8, 1, 16384, True), (1, 300000, 7, False), (100, 1000, 1000, True), (132, 16384, 1000, False)]
+
+
+def test_batched_kernel_at_each_regime_boundary(dev):
+    """Every regime's edges (k x 32768 bins and one above, more than 65,535 rows, one id a row, a shared id
+    row), int32 and int64 ids, dyadic weights: bit-exact against the plain version, one launch a call."""
+    k = histogram.max_cluster(torch.cuda.current_device())
+    assert k in (8, 16)
+    top = histogram.SHARED_MAX_BINS
+    g = torch.Generator(device=dev).manual_seed(17)
+    regimes = set()
+    for rows, n, length, shared in _batched_boundaries(k):
+        regimes.add(histogram.batched_plan(rows, n, length, k).regime)
+        x = torch.randint(-3, length + 3, (1 if shared else rows, n), generator=g, device=dev)
+        w = torch.randint(1, 5, x.shape, generator=g, device=dev).float() * 0.5
+        for ids in (x, x.to(torch.int32)):
+            for weights in (None, w):
+                before = histogram.BATCHED_LAUNCHES
+                got = histogram.bincount_batched_cuda(ids, length, weights, rows)
+                assert histogram.BATCHED_LAUNCHES - before == 1
+                want = histogram._bincount_batched_plain(ids, length, weights, rows)
+                assert got.dtype == want.dtype and torch.equal(got, want), (rows, n, length, shared, ids.dtype)
+    assert regimes == {"packed", "cluster", "global"}
+    # the cluster regime's shared-memory edge: k x 32768 bins fit k CTAs' slices, one more bin does not
+    x = torch.randint(-3, k * top + 3, (4, 2048), generator=g, device=dev)
+    plan = histogram.BatchedPlan("cluster", k, 4, histogram._slice_bins(k * top, k))
+    assert plan.slice == top
+    got = histogram._launch_batched(x, k * top, None, 4, plan)
+    assert torch.equal(got, histogram._bincount_batched_plain(x, k * top, None, 4))
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        histogram._launch_batched(x, k * top + 1, None, 4, plan._replace(slice=top + 4))
+
+
+@pytest.mark.parametrize("rows, n, length", [(8, 8192, 16384), (33, 1, 10**6), (300, 8, 100), (5, 4096, 40000),
+                                             (8, 2**17, 4)])
+def test_batched_kernel_under_every_split_of_its_regime(dev, rows, n, length):
+    k = histogram.max_cluster(torch.cuda.current_device())
+    plan = histogram.batched_plan(rows, n, length, k)
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randint(-3, length + 3, (rows, n), generator=g, device=dev)
+    w = torch.randint(1, 5, x.shape, generator=g, device=dev).float() * 0.5
+    if plan.regime == "packed":
+        plans = [histogram.BatchedPlan("packed", s, -(-rows // s), length) for s in (1, 2, 4, 8, 16, 32, 64, 128)
+                 if s * length <= histogram.PACKED_MAX_BINS]
+    else:
+        plans = [histogram.BatchedPlan(plan.regime, s, plan.grid, histogram._slice_bins(length, s))
+                 for s in (1, 2, 4, 8, 16) if s <= k and (plan.regime == "global" or
+                                                          histogram._slice_bins(length, s) <= histogram.SHARED_MAX_BINS)]
+    for weights in (None, w):
+        want = histogram._bincount_batched_plain(x, length, weights, rows)
+        for p in plans:
+            assert torch.equal(histogram._launch_batched(x, length, weights, rows, p), want), p
+
+
+def test_a_refused_batched_launch_raises(dev):
+    x = torch.zeros((2, 4), dtype=torch.int64, device=dev)
+    before = histogram.BATCHED_LAUNCHES
+    for plan in (histogram.BatchedPlan("cluster", 1, 2, 40000), histogram.BatchedPlan("packed", 2, 1, 10000),
+                 histogram.BatchedPlan("global", 32, 2, 10)):
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            histogram._launch_batched(x, plan.slice, None, 2, plan)
+    assert histogram.BATCHED_LAUNCHES == before
 
 
 def test_a_vmapped_bincount_is_one_batched_launch(dev):

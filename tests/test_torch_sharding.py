@@ -10,12 +10,15 @@ runs with the batch replicated on every process (``Replicate()`` DTensors) and
 with each process's own rows (plain tensors, checked against JAX on the rows of
 every process concatenated), and the binned curve on a ``(dp, c)`` mesh as
 JAX's ``test_dp_times_c``. A list state named in a spec raises, a spec key that
-names no state raises, batch arguments split two ways raise, and a state of
-another reduction updates only when it and the batch are replicated: JAX
-updates a ``PearsonCorrCoef`` under a data-parallel batch where the port raises
-(``ROADMAP.md`` Queue 3). Then the per-leaf inference rules against JAX's on a
-mesh of four devices, and ``state_shardings_for`` on one process. Values within
-atol 1e-6; the seed is 5.
+names no state raises and batch arguments split two ways raise. States of
+another reduction update whole when they and the batch are replicated, and
+merge by their sync rule under a data-parallel batch: a ``PearsonCorrCoef``
+placed by ``infer_state_pspecs`` and a probe of ``mean``, ``None`` (split on its
+rows) and custom states, fed each rank's own rows, equal JAX's jitted update
+over the ``dp``-sharded global batch. Then the per-leaf inference rules against
+JAX's on a mesh of four devices, and ``state_shardings_for`` on one process.
+Values within atol 1e-6 (1e-5 for the probe's sums of 64 float32 rows, whose
+order differs); the seed is 5.
 """
 import jax
 import jax._src.core
@@ -102,6 +105,17 @@ def test_the_helpers_raise_as_the_reference(ranks):
                                   mesh, {"tps": JP("c", None)})
 
 
+def _jax_dp_update(make, specs, steps):
+    """JAX's jitted update of ``make()``'s states, placed by ``specs`` on a ``dp`` mesh of four devices, over
+    each step's arguments as global batches sharded on their rows over ``dp``; the computed value."""
+    mesh = Mesh(np.array(jax.devices()[:WORLD]), ("dp",))
+    init, update, compute = make().as_functions()
+    states = jsharding.shard_states(init(), mesh, specs(init(), mesh))
+    for args in steps:
+        states = jax.jit(update)(states, *(jax.device_put(a, NamedSharding(mesh, JP("dp"))) for a in args))
+    return compute(states)
+
+
 def test_states_of_other_reductions_update_when_replicated_and_raise_under_a_data_parallel_batch(ranks):
     other = ranks[0]["replicated_other"]
     assert other["probe"]
@@ -112,16 +126,62 @@ def test_states_of_other_reductions_update_when_replicated_and_raise_under_a_dat
         ref.update(jnp.asarray(xs[step]), jnp.asarray(ys[step]))
     np.testing.assert_allclose(flat(got), flat(twin), atol=0)
     np.testing.assert_allclose(flat(got), flat(ref.compute()), atol=ATOL)
-    for rank in ranks:  # the gap against JAX: the port raises for a replicated None/mean state under a dp batch
-        assert "mean" in rank["errors"]["mean_spec"] and "None" in rank["errors"]["pearson_dp"]
-    mesh = Mesh(np.array(jax.devices()[:WORLD]), ("dp",))
-    init, update, compute = jmt.PearsonCorrCoef().as_functions()
-    states = jsharding.shard_states(init(), mesh, {k: v for k, v in jsharding.infer_state_pspecs(
-        init(), mesh, jmt.PearsonCorrCoef()._reduction_specs).items() if v is not None})
-    rows = [jax.device_put(a[0], NamedSharding(mesh, JP("dp"))) for a in (xs, ys)]
-    oracle = jmt.PearsonCorrCoef()
-    oracle.update(jnp.asarray(xs[0]), jnp.asarray(ys[0]))
-    np.testing.assert_allclose(flat(compute(jax.jit(update)(states, *rows))), flat(oracle.compute()), atol=ATOL)
+    for rank in ranks:  # under a data-parallel batch a None and a mean state merge now: nothing raises
+        assert rank["errors"]["mean_spec"] is None and rank["errors"]["pearson_dp"] is None
+    # each rank's own rows, the six moments (spec None) placed by infer_state_pspecs: JAX's update of the
+    # dp-sharded global batch
+    xs, ys = (t.numpy() for t in ranks[0]["dp_other"]["pearson_inputs"])
+    want = _jax_dp_update(jmt.PearsonCorrCoef, lambda states, mesh: {k: v for k, v in jsharding.infer_state_pspecs(
+        states, mesh, jmt.PearsonCorrCoef()._reduction_specs).items() if v is not None}, [(xs[s], ys[s]) for s in range(2)])
+    for rank in ranks:
+        dp = rank["dp_other"]
+        assert all(p == ["Replicate"] for p in dp["pearson_placements"].values()), dp["pearson_placements"]
+        np.testing.assert_allclose(flat(dp["pearson"]), flat(want), atol=ATOL)
+
+
+def _jax_sum_rows(stacked):
+    return stacked.sum(axis=0)
+
+
+class _JaxRowProbe(jmt.Metric):
+    """``tests/helpers/torch_sync.RowProbe`` in the JAX package."""
+
+    full_state_update = False
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("avg", jnp.zeros(3), "mean")
+        self.add_state("per_slot", jnp.zeros((4, 3)), None)
+        self.add_state("folded", jnp.zeros(3), _jax_sum_rows)
+        self.add_state("total", jnp.zeros(3), "sum")
+
+    def update(self, x):
+        self.avg = self.avg + x.mean(axis=0)
+        self.per_slot = self.per_slot + x.reshape(-1, 4, 3).sum(axis=0)
+        self.folded = self.folded + 2 * x.sum(axis=0)
+        self.total = self.total + x.sum(axis=0)
+
+    def compute(self):
+        return {k: getattr(self, k) for k in ("avg", "per_slot", "folded", "total")}
+
+
+def test_mean_none_and_custom_states_under_a_data_parallel_batch_equal_the_reference(ranks):
+    rows = ranks[0]["dp_other"]["rows_inputs"].numpy()
+    want = _jax_dp_update(_JaxRowProbe, lambda states, mesh: {"per_slot": JP("dp")}, [(rows[s],) for s in range(2)])
+    for i, rank in enumerate(ranks):
+        dp = rank["dp_other"]
+        assert dp["rows_placements"] == ["Shard"] and tuple(dp["rows_local"].shape) == (1, 3)
+        for key, value in want.items():
+            np.testing.assert_allclose(flat(dp["rows"][key]), flat(value), atol=1e-5, err_msg=key)
+        np.testing.assert_allclose(flat(dp["rows_local"]), np.asarray(want["per_slot"])[i], atol=1e-5)
+    # the spec probe (its own x on each rank, every state replicated): each reduction's merge of the ranks'
+    x = np.stack([np.arange(3, dtype=np.float32) + r for r in range(WORLD)])
+    got = ranks[0]["dp_other"]["probe"]
+    expect = {"s_sum": x.sum(0), "s_mean": (x / 4).mean(0), "s_max": np.maximum(x.max(0), 0),
+              "s_min": np.minimum(x.min(0), 0), "stacked": x[:, :2].sum(0), "custom": 2 * x.sum(0)}
+    for key, value in expect.items():
+        np.testing.assert_allclose(flat(got[key]), value, atol=ATOL, err_msg=key)
+    np.testing.assert_allclose(flat(got["rows"]), x[0], atol=0)  # a plain list state keeps this rank's rows
 
 
 def test_inferred_specs_equal_the_reference(ranks):
