@@ -320,20 +320,22 @@ cudaError_t dispatch(const void* x, const void* w, int64_t n, void* counts, int6
 //   takes up to split x 32768 bins, and no SM stores a whole row alone. The
 //   launcher takes it where many ids share a bin (64 a bin or more), whose
 //   global atomics would serialise.
-// - global: the rest. The `split` CTAs of a row each zero 1/split of the row
-//   in global memory, meet at the cluster barrier, whose release/acquire
-//   order makes every zero visible to the cluster before any add, then add
-//   with global atomics. No grid barrier, no cooperative launch. Where few ids
-//   share a bin this beats the cluster regime on the H100 (8 rows of 8192 ids
-//   into 16384 bins: 3.4 against 5.0 us; PERF.md): one barrier, not two, and
-//   no store of a shared histogram. The row deltas (10**6 bins) are bound by
-//   the zeroing: 132 MB written.
+// - global: the rest. The `split` CTAs of a row zero it in global memory
+//   together, interleaved 16 bytes a thread, meet at the cluster barrier,
+//   whose release/acquire order makes every zero visible to the cluster
+//   before any add, then add their 1/split of the ids with global atomics. No
+//   grid barrier, no cooperative launch. Where few ids share a bin this beats
+//   the cluster regime on the H100 (8 rows of 8192 ids into 16384 bins: 3.4
+//   against 5.0 us; PERF.md): one barrier, not two, and no store of a shared
+//   histogram. The row deltas (10**6 bins) are bound by the zeroing: 132 MB
+//   written.
 //
 // Cluster and global: the grid is (split, grid) with clusters of (split, 1, 1),
 // and the y axis walks the rows (row blockIdx.y, then every gridDim.y-th),
-// the same rows for every CTA of a cluster. A CTA re-zeroes its slice for the
-// next row only after the barrier that ends the current row's adds, and exits
-// only after it, so no CTA touches the shared memory of one that has left.
+// the same rows for every CTA of a cluster. In the cluster regime a CTA
+// re-zeroes its slice for the next row only after the barrier that ends the
+// current row's adds, and exits only after it, so no CTA touches the shared
+// memory of one that has left.
 constexpr int kPackedThreads = 512;
 constexpr int64_t kPackedMaxBins = 16384;  // bins of a packed block, all its rows: 64 KiB
 constexpr int kClusterThreads = 512;
@@ -469,18 +471,18 @@ template <typename IdT, typename CountT>
 __global__ void __launch_bounds__(kGlobalThreads)
     batched_global_kernel(const IdT* __restrict__ x, int64_t x_row_stride, const float* __restrict__ w,
                           int64_t w_row_stride, int64_t n, int64_t rows, CountT* __restrict__ counts,
-                          int64_t length, int64_t slice) {
+                          int64_t length) {
   constexpr bool kWeighted = std::is_same<CountT, float>::value;
   cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
   const unsigned split = cluster.num_blocks(), rank = cluster.block_rank();
-  const int64_t lo = (int64_t)rank * slice;
-  const int64_t own = lo >= length ? 0 : (length - lo < slice ? length - lo : slice);
   const int64_t per_cta = (n + split - 1) / split;
   const int64_t id_lo = rank * per_cta < n ? rank * per_cta : n;
   const int64_t id_hi = id_lo + per_cta < n ? id_lo + per_cta : n;
   for (int64_t row = blockIdx.y; row < rows; row += gridDim.y) {
     CountT* out = counts + row * length;
-    zero_span(out + lo, own, threadIdx.x, kGlobalThreads);
+    // the cluster's threads zero the row together, neighbouring CTAs on neighbouring 16-byte stores: one
+    // stream of writes a row, which the H100 takes faster than one stream a CTA's contiguous slice
+    zero_span(out, length, (int)(rank * kGlobalThreads + threadIdx.x), (int)(split * kGlobalThreads));
     cluster.sync();  // release/acquire at cluster scope: the whole row is zero before any add
     const IdT* xr = x + row * x_row_stride;
     const float* wr = kWeighted ? w + row * w_row_stride : nullptr;
@@ -552,14 +554,14 @@ cudaError_t launch_batched(int regime, int split, int64_t grid, const void* x, i
         xp, x_row_stride, wp, w_row_stride, n, rows, cp, length, split);
     return cudaGetLastError();
   }
-  const int64_t slice = slice_bins(length, split);
   if (regime == kCluster) {
+    const int64_t slice = slice_bins(length, split);
     return launch_clustered(batched_cluster_kernel<IdT, CountT>, split, grid, kClusterThreads,
                             (size_t)slice * sizeof(CountT), stream, xp, x_row_stride, wp, w_row_stride, n, rows, cp,
                             length, (int)slice);
   }
   return launch_clustered(batched_global_kernel<IdT, CountT>, split, grid, kGlobalThreads, 0, stream, xp,
-                          x_row_stride, wp, w_row_stride, n, rows, cp, length, slice);
+                          x_row_stride, wp, w_row_stride, n, rows, cp, length);
 }
 
 template <typename IdT>
@@ -648,7 +650,7 @@ extern "C" int64_t mt_bincount_batched_packed_max_bins() { return kPackedMaxBins
 // 0 packed (split rows a block, split x length <= kPackedMaxBins and
 // split x n < 2**31; grid blocks along x), 1 cluster (split CTAs a row, a power of two up to 16, each
 // owning slice_bins(length, split) <= kSharedMaxBins bins; grid clusters along
-// y), 2 global (split CTAs a row, as for the cluster regime, no limit on
+// y), 2 global (split CTAs a row, a power of two up to 16, no limit on
 // length). 1 <= grid <= 65535. One launch on `stream`, no synchronisation;
 // cudaErrorInvalidValue for anything outside these limits.
 extern "C" int mt_bincount_batched(const void* x, int id_bytes, int64_t x_row_stride, const void* w,

@@ -76,7 +76,7 @@ CLUSTER_IDS_PER_BIN = 64  # a row with this many ids a bin contends: its cluster
 MIN_SLICE_BINS = 2048  # a row is spread over more CTAs while each still owns this many bins ...
 MIN_CTA_IDS = 8192  # ... or counts this many ids (16 rounds of a 512-thread CTA)
 SMS = 132  # the H100's SMs
-MIN_BLOCKS = 4 * SMS  # packed blocks a launch is given where the rows allow: 4 resident a SM
+MIN_BLOCKS = 4 * SMS  # blocks a packed or global launch is given where the rows allow: 4 resident a SM
 MAX_GRID = 65535
 SLICE_ALIGN = 4
 
@@ -129,7 +129,7 @@ class BatchedPlan(NamedTuple):
     (cluster, global). ``grid`` is the launch's row axis: blocks along x
     (packed) or clusters along y (the others), which walk the groups of rows
     (packed) or the rows in steps of ``grid``. ``slice`` is the bins each CTA
-    owns of its row (cluster, global), or a row's (packed: ``length``).
+    owns of its row in shared memory (cluster), else a row's (``length``).
     """
 
     regime: str
@@ -151,11 +151,16 @@ class BatchedPlan(NamedTuple):
         groups = range(slot, -(-rows // self.split), self.grid)
         return [r for g in groups for r in range(g * self.split, min((g + 1) * self.split, rows))]
 
-    def bins_of(self, rank: int, length: int) -> range:
-        """The bins of a row that CTA ``rank`` of its cluster zeroes and stores (packed: the block's, all)."""
+    def bins_of(self, rank: int, length: int) -> list:
+        """The bins of a row that CTA ``rank`` of its cluster zeroes (packed: the block's, all): a slice
+        (cluster), or every ``split``-th group of 4 (global: the cluster's threads write the row together,
+        16 bytes each, here for a row that starts on 16 bytes)."""
         if self.regime == "packed":
-            return range(length)
-        return range(min(rank * self.slice, length), min((rank + 1) * self.slice, length))
+            return list(range(length))
+        if self.regime == "cluster":
+            return list(range(min(rank * self.slice, length), min((rank + 1) * self.slice, length)))
+        groups = range(rank, -(-length // SLICE_ALIGN), self.split)
+        return [b for g in groups for b in range(g * SLICE_ALIGN, min((g + 1) * SLICE_ALIGN, length))]
 
     def ids_of(self, rank: int, n: int) -> range:
         """The ids of a row that CTA ``rank`` of its cluster counts (packed: the block's, all)."""
@@ -188,9 +193,9 @@ def batched_plan(rows: int, n: int, length: int, max_cluster: int = 16) -> Batch
       wherever few ids share a bin (``tools/torch_bincount_batched_sweep.py``).
 
     A cluster or global row takes ``split`` CTAs: the smallest power of two
-    that fills the card (``rows * split >= SMS``, or ``2 * SMS`` where the
-    row is zeroed in device memory) while each CTA still owns
-    ``MIN_SLICE_BINS`` bins or counts ``MIN_CTA_IDS`` ids, at least enough
+    that fills the card (``rows * split >= SMS``, or ``MIN_BLOCKS`` where the
+    row is zeroed in device memory) while each CTA still has
+    ``MIN_SLICE_BINS`` bins or ``MIN_CTA_IDS`` ids, at least enough
     for a cluster's slices to fit ``SHARED_MAX_BINS`` each, and at most
     ``max_cluster`` (what the card takes: ``mt_bincount_batched_max_cluster``).
     A pure function: the CPU tests check its coverage.
@@ -198,7 +203,7 @@ def batched_plan(rows: int, n: int, length: int, max_cluster: int = 16) -> Batch
     Example:
         >>> from metrics_tpu_torch.ops.histogram import batched_plan
         >>> batched_plan(8, 8192, 16384)
-        BatchedPlan(regime='global', split=8, grid=8, slice=2048)
+        BatchedPlan(regime='global', split=8, grid=8, slice=16384)
         >>> batched_plan(65536, 8, 100)
         BatchedPlan(regime='packed', split=64, grid=1024, slice=100)
         >>> batched_plan(8, 2**17, 4)
@@ -214,14 +219,14 @@ def batched_plan(rows: int, n: int, length: int, max_cluster: int = 16) -> Batch
         return BatchedPlan("packed", split, min(-(-rows // split), MAX_GRID), length)
     fits = _slice_bins(length, max_cluster) <= SHARED_MAX_BINS
     regime = "cluster" if fits and n >= CLUSTER_IDS_PER_BIN * length else "global"
-    fill = SMS if regime == "cluster" else 2 * SMS
+    fill = SMS if regime == "cluster" else MIN_BLOCKS
     split = 1
     while split < max_cluster and (
         (regime == "cluster" and _slice_bins(length, split) > SHARED_MAX_BINS)
         or (rows * split < fill and (length // (2 * split) >= MIN_SLICE_BINS or n // (2 * split) >= MIN_CTA_IDS))
     ):
         split *= 2
-    return BatchedPlan(regime, split, min(rows, MAX_GRID), _slice_bins(length, split))
+    return BatchedPlan(regime, split, min(rows, MAX_GRID), _slice_bins(length, split) if regime == "cluster" else length)
 
 
 def kernel_path(length: int) -> str:

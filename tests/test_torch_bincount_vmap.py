@@ -157,22 +157,21 @@ def test_the_batched_plan_covers_every_row_bin_and_id_once(rows, n, length, max_
         assert plan.split == 1 or -(-rows // plan.split) >= histogram.MIN_BLOCKS
         return
     assert plan.split in (1, 2, 4, 8, 16) and plan.split <= max_cluster
-    for parts, total in (([plan.bins_of(r, length) for r in range(plan.split)], length),
-                         ([plan.ids_of(r, n) for r in range(plan.split)], n)):
-        # the cluster's CTAs tile the row's bins, and its ids, in order and without a gap or an overlap
-        assert parts[0].start == 0 and parts[-1].stop == total
-        assert all(a.stop == b.start for a, b in zip(parts, parts[1:]))
-    assert plan.slice % histogram.SLICE_ALIGN == 0
+    bins = [b for r in range(plan.split) for b in plan.bins_of(r, length)]
+    assert sorted(bins) == list(range(length))  # the cluster's CTAs zero every bin of the row once
+    ids = [plan.ids_of(r, n) for r in range(plan.split)]
+    assert ids[0].start == 0 and ids[-1].stop == n  # ... and count its ids in order, without a gap or an overlap
+    assert all(a.stop == b.start for a, b in zip(ids, ids[1:]))
     if plan.regime == "cluster":
-        assert plan.slice <= SMB and plan.smem_bytes <= 4 * SMB  # the slice fits a CTA's shared memory
+        assert plan.slice % histogram.SLICE_ALIGN == 0 and plan.slice <= SMB and plan.smem_bytes <= 4 * SMB
         assert n >= histogram.CLUSTER_IDS_PER_BIN * length
     else:
-        assert plan.smem_bytes == 0
+        assert plan.smem_bytes == 0 and plan.slice == length
         assert histogram._slice_bins(length, max_cluster) > SMB or n < histogram.CLUSTER_IDS_PER_BIN * length
 
 
 @pytest.mark.parametrize("rows, n, length, regime, split", [
-    (8, 8192, 128**2, "global", 8), (33, 1, 10**6, "global", 8), (65536, 8, 100, "packed", 64),
+    (8, 8192, 128**2, "global", 8), (33, 1, 10**6, "global", 16), (65536, 8, 100, "packed", 64),
     (100, 1000, 1000, "packed", 1), (132, 16384, 1000, "packed", 1), (8, 2**17, 4, "cluster", 16),
     (4, 4096, 64, "cluster", 1), (4, 4095, 64, "global", 1), (8, 8192, 16 * SMB, "global", 16),
     (4, 64 * 16 * SMB, 16 * SMB, "cluster", 16), (4, 64 * (16 * SMB + 1), 16 * SMB + 1, "global", 16),

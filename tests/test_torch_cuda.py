@@ -1233,7 +1233,8 @@ def test_batched_kernel_under_every_split_of_its_regime(dev, rows, n, length):
         plans = [histogram.BatchedPlan("packed", s, -(-rows // s), length) for s in (1, 2, 4, 8, 16, 32, 64, 128)
                  if s * length <= histogram.PACKED_MAX_BINS]
     else:
-        plans = [histogram.BatchedPlan(plan.regime, s, plan.grid, histogram._slice_bins(length, s))
+        plans = [histogram.BatchedPlan(plan.regime, s, plan.grid,
+                                       histogram._slice_bins(length, s) if plan.regime == "cluster" else length)
                  for s in (1, 2, 4, 8, 16) if s <= k and (plan.regime == "global" or
                                                           histogram._slice_bins(length, s) <= histogram.SHARED_MAX_BINS)]
     for weights in (None, w):

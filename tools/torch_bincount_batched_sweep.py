@@ -13,7 +13,8 @@ checks that a launch the kernel refuses raises, and times each split at the path
 (mean of 200 calls after 20: host-bound below some 20 us a call) and with torch.profiler (device time of
 50 calls), under every regime and split that can take each shape, in turns (``--repeats``), beside the
 plan's own choice, the plain version, one ``torch.bincount`` over
-ids offset by ``row * length`` and the bytes bound at 3.35 TB/s. Exits 1 when there is no GPU.
+ids offset by ``row * length``, the device time of ``torch.zeros`` of the counts (writing them once) and the
+bytes bound at 3.35 TB/s. Exits 1 when there is no GPU.
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ def splits_of(regime: str, length: int, k: int) -> list:
 def forced(plan: BatchedPlan, split: int, rows: int, length: int) -> BatchedPlan:
     if plan.regime == "packed":
         return BatchedPlan("packed", split, min(-(-rows // split), histogram.MAX_GRID), length)
-    return BatchedPlan(plan.regime, split, plan.grid, _slice_bins(length, split))
+    return BatchedPlan(plan.regime, split, plan.grid, _slice_bins(length, split) if plan.regime == "cluster" else length)
 
 
 def check(k: int, g: torch.Generator) -> dict:
@@ -161,6 +162,8 @@ def sweep(k: int, g: torch.Generator, repeats: int) -> list:
                 call = lambda: histogram._launch_batched(x, length, None, rows, plan)  # noqa: E731
                 row["splits"][label]["device_ms"].append(device_ms(call))
                 row["splits"][label]["ms"].append(time_ms(call))
+        # the floor of writing the counts once: torch's fill of as many int32 zeros (device time)
+        row["fill_device_ms"] = device_ms(lambda: torch.zeros(rows * length, dtype=torch.int32, device=dev))
         row["plain_ms"] = time_ms(lambda: histogram._bincount_batched_plain(x, length, None, rows), 50, 5)
         flat = (x.expand(rows, n) + torch.arange(rows, device=dev).unsqueeze(1) * length).reshape(-1)
         row["library_ms"] = time_ms(lambda: torch.bincount(flat, minlength=rows * length), 50, 5)
