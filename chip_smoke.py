@@ -63,10 +63,17 @@ Phases, each of which raises on failure (exit code 1):
    CalibrationError (15 bins) and BinnedAveragePrecision (100 thresholds)
    over 50 updates of 1000 softmax rows (the 50,000 ImageNet-1k validation
    rows), one ``compute()``, then the weighted functional AUROC and AP on the
-   same arrays (one bincount each). Each is held against the same suite on
-   the CPU: states, counts and curves bit for bit, areas within
-   ``CURVE_AREA_ATOL``; the binned updates' CPU twin runs every batch only if
-   it takes about ``CPU_TWIN_BINNED_S``, else the first 5. Reported: update
+   same arrays (one bincount each). A CPU twin takes every update and holds
+   the timed suite's states bit for bit and its calibration error within
+   ``CURVE_AREA_ATOL``; the exact curves and areas of the first
+   ``CURVES_TWIN_STEPS`` updates' rows (16 of 64, 10 of 50), the weighted
+   areas too, are computed on both sides from those rows: curves bit for bit,
+   areas within ``CURVE_AREA_ATOL``. The full-data weighted areas are held
+   against ``sorted_curves``' on the same arrays (``SORTED_AREA_ATOL``), as
+   9c holds the unweighted ones. The binned updates' CPU twin
+   runs every batch only if it takes about ``CPU_TWIN_BINNED_S``, else the
+   first 5. The ImageNet ``compute()`` is profiled on the device alone (its
+   host ops are not traced: the profiler took a minute over them). Reported: update
    ms per step (median of 3 runs, mode "first"), ``compute()`` ms, device
    busy time and idle share of both, the host reads of the device a
    ``compute()`` makes, the 2**24 sort's device time and the binned update's
@@ -74,7 +81,8 @@ Phases, each of which raises on failure (exit code 1):
    binary and multi-class AUROC and AP on both paths' arrays against the
    eager values (``SORTED_AREA_ATOL``), timed against the eager calls.
 10. The sync path: the headline, agreement, segmentation and aggregator suites
-   (full width, two updates each), a binary AUROC + AveragePrecision suite
+   (full width, two updates each; the segmentation suite one, ``SYNC_STEPS_OF``:
+   its CPU reference takes 9 s an update), a binary AUROC + AveragePrecision suite
    buffering rows of shapes (n,) and (n, 1), a regression suite (Pearson's
    moments of spec None, stacked by the sync; Spearman's ``cat`` rows) and a
    retrieval suite (rows of int64 query ids in list states of spec None, which
@@ -322,6 +330,28 @@ Phases, each of which raises on failure (exit code 1):
    PearsonCorrCoef's moments (reduction None, placed by
    ``infer_state_pspecs``) updated with each rank's own rows equal an unsharded
    run of both ranks' rows within 1e-5.
+26. ``planes_ledger_autotune`` (after phase 25), under 90 s: (a) ``perf_report``
+   over phase 3's suite (94 updates, a queue of 4, telemetry armed, a device
+   probe every 8 program runs): its coverage of the measured wall within
+   ``perf.TOLERANCE``, its phase columns, the probed states bit-equal to an
+   unprobed run's. (b) ``roofline_peaks()`` calibrated on the card and
+   ``program_report(analyze=True)`` with each program's bound class. (c) The
+   autotuner's sweeps, each installed winner held to the reference under its
+   contract: ``binned_counts`` at ImageNet width (N = C = 1000, T = 100; each
+   variant's device time by the profiler, the hand kernel's launches in the
+   ``segment_sum`` candidate and in the selected path, TP/FP/FN bit for bit),
+   ``auroc_sort``/``ap_sort`` at 2**20 scores, ``fid_sqrtm`` at 2048 x 2048
+   float64, ``map_box_iou`` through mAP's call site over 24 COCO-like images.
+   (d) The program cache across three fresh spawned processes on the card,
+   each timing its first headline update: the first stores (cold: nothing
+   warmed), the second boots warm with the store on (``precompile`` of small
+   batches acquires the programs, ``warm_programs`` runs every stored shape;
+   ``autotune_restores`` > 0, ``autotune_sweeps`` = 0; then ``precompile`` of
+   the stored shapes finds them all), the third is the control with the store
+   off (``precompile`` of the update's own shapes). (e) ``fleet_snapshot``, ``fleet_perf_report`` and
+   ``fleet_prometheus_text`` over two spawned Gloo ranks with CUDA tensors,
+   rank 1's pack slowed: the straggler report names it; ``fleet_health`` of a
+   world of one issues no collective.
 
 Deferral is on by default (the engine queues calls in every validation mode
 but "full"), so every timed window that updates in mode "first" ends with
@@ -360,6 +390,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -1168,6 +1199,7 @@ CURVE_AREA_ATOL = {"binary": 1e-6, "multiclass": 1e-5}  # eager areas, card agai
 SORTED_AREA_ATOL = {"binary": 1e-4, "multiclass": 1e-5}  # sort-based areas against the eager curves on the card
 CONF_SUM_RTOL = 1e-5  # CalibrationError's float32 confidence sums: another order of addition on each side
 CPU_TWIN_BINNED_S = 6.0  # the CPU twin of the binned updates runs all batches only if it takes about this long
+CURVES_TWIN_STEPS = (16, 10)  # updates of phase 9a (of 64) and 9b (of 50) whose rows the CPU's curves and areas take
 HOST_READ_OPS = ("aten::_local_scalar_dense", "aten::item", "aten::nonzero")
 CURVES_DEVICE = "cuda"  # where the curve paths run
 CURVES_BINARY_SHAPE = (64, 262_144)  # updates, scores an update: 2**24 scores
@@ -1224,13 +1256,15 @@ def curves_imagenet_batches(seed: int = 21) -> list:
     return out
 
 
-def compute_profile(fn, warmup_fn=None) -> dict:
+def compute_profile(fn, warmup_fn=None, host_ops: bool = True) -> dict:
     """One call of ``fn`` under torch.profiler, after one call (of ``warmup_fn`` where it is given: a
     slow ``fn`` runs once) in the warm-up cycle: device ms and operations, and the host ops that read
-    the device (``HOST_READ_OPS``) with their counts."""
+    the device (``HOST_READ_OPS``) with their counts. ``host_ops=False`` traces the device alone (a
+    call of many thousand host ops costs the profiler a minute): the host reads are then not measured."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         (warmup_fn or fn)()
         torch.cuda.synchronize()
@@ -1246,7 +1280,7 @@ def compute_profile(fn, warmup_fn=None) -> dict:
         # None: the profiler saw no device time, so it was not measured
         "device_ms": sum(device_us(e) for e in device) / 1e3 if device else None,
         "device_ops": sum(e.count for e in device),
-        "host_reads": {k: counts.get(k, 0) for k in HOST_READ_OPS},
+        "host_reads": {k: counts.get(k, 0) for k in HOST_READ_OPS} if host_ops else None,
         # every copy to the host, ``item`` and ``tolist`` alike, as the device timeline shows it
         "device_to_host_copies": sum(e.count for e in device if "DtoH" in e.key),
         "host_to_device_copies": sum(e.count for e in device if "HtoD" in e.key),
@@ -1421,31 +1455,48 @@ def curves_binary_path(mt, checks, histogram, card: str) -> dict:
     if prof["device_ms"] is not None:
         prof["device_idle_share"] = 1.0 - prof["device_ms"] / result["compute_ms"]
 
+    # the CPU twin takes every update (its appends are cheap) and holds the timed suite's states bit for
+    # bit; its curves and areas come from the first CURVES_TWIN_STEPS[0] updates' rows (a CPU sort of all
+    # 2**24 scores takes about 12 s), against the card's on the same rows of the suite's own states
+    twin_steps = CURVES_TWIN_STEPS[0]
     cpu = curves_binary_suite(mt, "cpu")
     for preds, target in batches:
         cpu.update(preds.cpu(), target.cpu())
-    assert_member_states_equal(dict(suite.items(keep_base=True, copy_state=False)),
-                               dict(cpu.items(keep_base=True, copy_state=False)), "curves_binary")
+    gpu_members = dict(suite.items(keep_base=True, copy_state=False))
+    cpu_members = dict(cpu.items(keep_base=True, copy_state=False))
+    assert_member_states_equal(gpu_members, cpu_members, "curves_binary")
+    F = mt.functional
+    on_rows = {"roc": lambda p, t: F.roc(p, t, pos_label=1),
+               "pr_curve": lambda p, t: F.precision_recall_curve(p, t, pos_label=1),
+               "auroc": lambda p, t: F.auroc(p, t, pos_label=1),
+               "ap": lambda p, t: F.average_precision(p, t, pos_label=1)}
     t0 = time.perf_counter()
-    want = cpu.compute()
+    want = {k: fn(*twin_rows(cpu_members["ap"], twin_steps)) for k, fn in on_rows.items()}
     result["cpu_compute_ms"] = (time.perf_counter() - t0) * 1e3
+    twin_values = {k: fn(*twin_rows(gpu_members["ap"], twin_steps)) for k, fn in on_rows.items()}
     err = {}
     for key in ("roc", "pr_curve"):
-        err[key] = assert_curve_close(values[key], want[key], f"curves_binary {key}", None)
+        err[key] = assert_curve_close(twin_values[key], want[key], f"curves_binary {key}", None)
     for key in ("auroc", "ap"):
-        err[key] = assert_curve_close(values[key], want[key], f"curves_binary {key}", CURVE_AREA_ATOL["binary"])
+        err[key] = assert_curve_close(twin_values[key], want[key], f"curves_binary {key}", CURVE_AREA_ATOL["binary"])
+    assert all(torch.isfinite(values[k]) for k in ("auroc", "ap")), "curves_binary: an area is not finite"
     result.update(values={k: float(values[k]) for k in ("auroc", "ap")}, curve_points=values["roc"][0].numel(),
-                  max_abs_err_vs_cpu=err)
+                  max_abs_err_vs_cpu=err, cpu_twin_steps=twin_steps)
     all_preds = torch.cat([p for p, _ in batches])
     result["sort"] = sort_profile(all_preds)
     log(f"curves_binary N={n} ({len(batches)} x {result['batch']}): update {result['update_ms_per_step']:.4f} ms/step "
         f"(runs {runs}), compute {result['compute_ms']:.2f} ms (again {result['compute_again_ms']:.2f} ms; CPU "
-        f"{result['cpu_compute_ms']:.1f} ms), "
-        f"values {result['values']}, {result['curve_points']} ROC points, curves bit for bit and areas within "
-        f"{CURVE_AREA_ATOL['binary']} of the CPU (max |err| {err})  [{card}]")
+        f"{result['cpu_compute_ms']:.1f} ms over {twin_steps} updates), "
+        f"values {result['values']}, {result['curve_points']} ROC points; over the first {twin_steps} updates curves "
+        f"bit for bit and areas within {CURVE_AREA_ATOL['binary']} of the CPU (max |err| {err})  [{card}]")
     log(f"curves_binary profiles: update {json.dumps(update_prof)}; compute {json.dumps(prof)}; "
         f"sort {json.dumps(result['sort'])}  [{card}]")
     return result, batches, values
+
+
+def twin_rows(leader, steps: int) -> tuple:
+    """The rows of a curve member's first ``steps`` updates: its ``preds`` and ``target`` rows concatenated."""
+    return torch.cat(leader.preds[:steps]), torch.cat(leader.target[:steps])
 
 
 def curves_imagenet_path(mt, checks, histogram, card: str) -> dict:
@@ -1453,6 +1504,11 @@ def curves_imagenet_path(mt, checks, histogram, card: str) -> dict:
     over the 50,000 ImageNet-1k validation rows in 50 updates, one compute, then the weighted
     functional AUROC and AP on the same arrays."""
     num_classes = CURVES_IMAGENET_SHAPE[2]
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(label):  # seconds of each part of the path, logged with its result
+        now = time.perf_counter()
+        laps[label], t_lap[0] = now - t_lap[0], now
     batches = curves_imagenet_batches()
     n = sum(p.shape[0] for p, _ in batches)
     runs, launches, suite = time_runs(lambda: curves_imagenet_suite(mt, CURVES_DEVICE, num_classes), update_batch,
@@ -1460,6 +1516,7 @@ def curves_imagenet_path(mt, checks, histogram, card: str) -> dict:
     groups = sorted(sorted(g) for g in suite.compute_groups.values())
     assert groups == [["ap", "auroc"], ["binned_ap"], ["ece"]], f"curves_imagenet: groups {groups}"
     assert launches == len(batches), f"curves_imagenet: {launches} bincount launches in {len(batches)} updates"
+    lap("runs")
     spare = curves_imagenet_suite(mt, CURVES_DEVICE, num_classes)
     update_prof = profile_steps(spare.update, batches[:8], owners=(spare,))
     result = {"n": n, "batch": batches[0][0].shape[0], "num_classes": num_classes, "steps": len(batches),
@@ -1467,6 +1524,7 @@ def curves_imagenet_path(mt, checks, histogram, card: str) -> dict:
               "update_ms_per_step": runs[len(runs) // 2], "update_profile": update_prof, "kernel_launches": launches}
     if update_prof["device_ms_per_step"] is not None:
         update_prof["device_idle_share"] = 1.0 - update_prof["device_ms_per_step"] / result["update_ms_per_step"]
+    lap("update_profile")
     leader = dict(suite.items(keep_base=True, copy_state=False))["ap"]
     result["state_bytes_on_card"] = sum(t.numel() * t.element_size() for t in leader.preds + leader.target)
 
@@ -1476,16 +1534,23 @@ def curves_imagenet_path(mt, checks, histogram, card: str) -> dict:
     torch.cuda.synchronize()
     result["compute_ms"] = (time.perf_counter() - t0) * 1e3
     result["compute_again_ms"] = timed_ms(lambda: fresh_compute(suite))  # the allocator warm from the first
-    prof = compute_profile(lambda: fresh_compute(suite))
+    # one compute under the profiler, the device alone (a slow call of 1000 classes' host ops: its warm-up
+    # cycle runs a synchronise, and the host ops are not traced)
+    prof = compute_profile(lambda: fresh_compute(suite), warmup_fn=torch.cuda.synchronize, host_ops=False)
     result["compute_profile"] = prof
     if prof["device_ms"] is not None:
         prof["device_idle_share"] = 1.0 - prof["device_ms"] / result["compute_ms"]
 
-    # the CPU twin: every batch through the exact and calibration members, the binned member's
-    # batches only as far as CPU_TWIN_BINNED_S allows
+    lap("compute_and_profile")
+    # the CPU twin: every batch through the exact and calibration members (appends and sums: cheap), which
+    # holds the timed suite's states bit for bit; the exact areas come from the first CURVES_TWIN_STEPS[1]
+    # batches' rows on each side (1000 classes' sorts on the CPU take about 30 s for all 50); the binned
+    # member's batches as far as CPU_TWIN_BINNED_S allows
+    twin_steps = CURVES_TWIN_STEPS[1]
     cpu = curves_imagenet_suite(mt, "cpu", num_classes, binned=False)
     for preds, target in batches:
         cpu.update(preds.cpu(), target.cpu())
+    lap("cpu_twin_updates")
     cpu_binned = mt.BinnedAveragePrecision(num_classes=num_classes, thresholds=100, device="cpu")
     t0 = time.perf_counter()
     cpu_binned.update(batches[0][0].cpu(), batches[0][1].cpu())
@@ -1496,26 +1561,37 @@ def curves_imagenet_path(mt, checks, histogram, card: str) -> dict:
     gpu_binned = mt.BinnedAveragePrecision(num_classes=num_classes, thresholds=100, device=CURVES_DEVICE)
     for preds, target in batches[:binned_steps]:
         gpu_binned.update(preds, target)
+    lap("binned_twins")
     gpu_members = dict(suite.items(keep_base=True, copy_state=False))
     if binned_steps == len(batches):
         for state in ("TPs", "FPs", "FNs"):  # the suite's member ran the same updates on the card
             assert torch.equal(getattr(gpu_members["binned_ap"], state), getattr(gpu_binned, state))
     for state in ("TPs", "FPs", "FNs"):
         assert torch.equal(getattr(gpu_binned, state).cpu(), getattr(cpu_binned, state)), f"binned {state} differs"
-    assert_member_states_equal(gpu_members, dict(cpu.items(keep_base=True, copy_state=False)), "curves_imagenet")
+    cpu_members = dict(cpu.items(keep_base=True, copy_state=False))
+    assert_member_states_equal(gpu_members, cpu_members, "curves_imagenet")
+    F = mt.functional
+    on_rows = {"auroc": lambda p, t: F.auroc(p, t, num_classes=num_classes, average="macro"),
+               "ap": lambda p, t: F.average_precision(p, t, num_classes=num_classes, average="macro")}
     t0 = time.perf_counter()
-    want = cpu.compute()
+    want = {k: fn(*twin_rows(cpu_members["ap"], twin_steps)) for k, fn in on_rows.items()}
     result["cpu_compute_ms"] = (time.perf_counter() - t0) * 1e3
-    err = {k: assert_curve_close(values[k], want[k], f"curves_imagenet {k}", CURVE_AREA_ATOL["multiclass"])
+    twin_values = {k: fn(*twin_rows(gpu_members["ap"], twin_steps)) for k, fn in on_rows.items()}
+    lap("twin_computes")
+    err = {k: assert_curve_close(twin_values[k], want[k], f"curves_imagenet {k}", CURVE_AREA_ATOL["multiclass"])
            for k in ("auroc", "ap")}
-    err["ece"] = assert_curve_close(values["ece"], want["ece"], "curves_imagenet ece", CURVE_AREA_ATOL["binary"])
+    # calibration over every row: the CPU twin's member alone computes it
+    err["ece"] = assert_curve_close(values["ece"], cpu_members["ece"].compute(), "curves_imagenet ece",
+                                    CURVE_AREA_ATOL["binary"])
+    assert all(torch.isfinite(values[k]) for k in ("auroc", "ap", "ece")), "curves_imagenet: a value is not finite"
     err["binned_ap"] = assert_curve_close(gpu_binned.compute(), cpu_binned.compute(), "curves_imagenet binned_ap",
                                           CURVE_AREA_ATOL["binary"])
     assert len(values["binned_ap"]) == num_classes and all(torch.isfinite(v) for v in values["binned_ap"][:10])
     result.update(values={k: float(values[k]) for k in ("auroc", "ap", "ece")},
                   binned_ap_mean=float(torch.stack(values["binned_ap"]).mean()), max_abs_err_vs_cpu=err,
-                  cpu_twin_binned_steps=binned_steps, cpu_binned_s_per_update=per_update_s)
+                  cpu_twin_binned_steps=binned_steps, cpu_binned_s_per_update=per_update_s, cpu_twin_steps=twin_steps)
 
+    lap("twin_checks")
     # the weighted functional areas on the same arrays: the class support is one bincount each
     all_preds = torch.cat([p for p, _ in batches])
     all_target = torch.cat([t for _, t in batches])
@@ -1528,25 +1604,45 @@ def curves_imagenet_path(mt, checks, histogram, card: str) -> dict:
     result["weighted_ms"] = (time.perf_counter() - t0) * 1e3
     result["weighted_launches"] = histogram.KERNEL_LAUNCHES
     assert result["weighted_launches"] == 2, f"weighted areas: {result['weighted_launches']} bincount launches"
-    cpu_preds, cpu_target = all_preds.cpu(), all_target.cpu()
+    assert torch.isfinite(w_auroc) and torch.isfinite(w_ap), "weighted areas: not finite"
+    # the full-data weighted areas against the sort-based ones on the same arrays, as phase 9c holds the
+    # unweighted areas
+    from metrics_tpu_torch.ops import sorted_curves
+
+    for key, got, sort_fn in (("weighted_auroc_sorted", w_auroc, sorted_curves.multiclass_auroc_sorted),
+                              ("weighted_ap_sorted", w_ap, sorted_curves.multiclass_average_precision_sorted)):
+        sorted_value = sort_fn(all_preds, all_target, num_classes, "weighted")
+        err[key] = abs(float(sorted_value) - float(got))
+        assert err[key] <= SORTED_AREA_ATOL["multiclass"], f"{key}: {float(sorted_value)} against {float(got)}"
+    lap("weighted_card")
+    # the CPU twin's rows, against the card on the same rows
+    rows = sum(p.shape[0] for p, _ in batches[:twin_steps])
+    twin_preds, twin_target = all_preds[:rows], all_target[:rows]
+    cpu_preds, cpu_target = twin_preds.cpu(), twin_target.cpu()
     err["weighted_auroc"] = assert_curve_close(
-        w_auroc, mt.functional.auroc(cpu_preds, cpu_target, num_classes=num_classes, average="weighted"),
+        mt.functional.auroc(twin_preds, twin_target, num_classes=num_classes, average="weighted"),
+        mt.functional.auroc(cpu_preds, cpu_target, num_classes=num_classes, average="weighted"),
         "weighted auroc", CURVE_AREA_ATOL["multiclass"])
     err["weighted_ap"] = assert_curve_close(
-        w_ap, mt.functional.average_precision(cpu_preds, cpu_target, num_classes=num_classes, average="weighted"),
+        mt.functional.average_precision(twin_preds, twin_target, num_classes=num_classes, average="weighted"),
+        mt.functional.average_precision(cpu_preds, cpu_target, num_classes=num_classes, average="weighted"),
         "weighted ap", CURVE_AREA_ATOL["multiclass"])
     result["weighted_values"] = {"auroc": float(w_auroc), "ap": float(w_ap)}
 
+    lap("weighted_cpu")
     thresholds = torch.from_numpy(gpu_binned.thresholds).to(CURVES_DEVICE)
     onehot = torch.nn.functional.one_hot(batches[0][1], num_classes)
     result["binned"] = binned_profile(batches[0][0], onehot, thresholds)
+    lap("binned_profile")
     log(f"curves_imagenet N={n} C={num_classes}: update {result['update_ms_per_step']:.4f} ms/step (runs {runs}), "
         f"{launches} bincount launches; compute {result['compute_ms']:.1f} ms (again {result['compute_again_ms']:.1f} "
-        f"ms; CPU {result['cpu_compute_ms']:.1f} ms); "
+        f"ms; CPU {result['cpu_compute_ms']:.1f} ms over {twin_steps} updates); "
         f"values {result['values']}, binned AP mean {result['binned_ap_mean']:.6f}; weighted AUROC and AP "
         f"{result['weighted_values']} in {result['weighted_ms']:.1f} ms, 2 launches; CPU twin of the binned updates "
         f"over {binned_steps} of {len(batches)} batches ({per_update_s:.2f} s an update on the CPU); max |err| vs "
         f"CPU {err}  [{card}]")
+    result["seconds"] = laps
+    log(f"curves_imagenet seconds: {json.dumps(laps)}")
     log(f"curves_imagenet profiles: update {json.dumps(update_prof)}; compute {json.dumps(prof)}; "
         f"binned update {json.dumps(result['binned'])}  [{card}]")
     return result, (all_preds, all_target), values
@@ -1595,12 +1691,17 @@ def sorted_curves_path(binary, imagenet, binary_values, imagenet_values, card: s
 
 def curves_path(mt, checks, histogram, card: str) -> dict:
     """Phase 9: the two curve paths and the sort-based areas on their arrays."""
+    t0 = time.perf_counter()
     binary, binary_batches, binary_values = curves_binary_path(mt, checks, histogram, card)
+    t1 = time.perf_counter()
     imagenet, imagenet_arrays, imagenet_values = curves_imagenet_path(mt, checks, histogram, card)
+    t2 = time.perf_counter()
     binary_arrays = (torch.cat([p for p, _ in binary_batches]), torch.cat([t for _, t in binary_batches]))
     del binary_batches
     sorted_result = sorted_curves_path(binary_arrays, imagenet_arrays, binary_values, imagenet_values, card)
-    return {"curves_binary": binary, "curves_imagenet": imagenet, "sorted_curves": sorted_result,
+    seconds = {"binary": t1 - t0, "imagenet": t2 - t1, "sorted": time.perf_counter() - t2}
+    log(f"curves phase seconds: {json.dumps(seconds)}")
+    return {"seconds": seconds, "curves_binary": binary, "curves_imagenet": imagenet, "sorted_curves": sorted_result,
             "kernel_launches": binary["kernel_launches"] + imagenet["kernel_launches"] + imagenet["weighted_launches"]}
 
 
@@ -3934,7 +4035,8 @@ SYNC_BOOT_CLONES = 100  # the synced BootStrapper's clones of Accuracy (macro, C
 SYNC_IMAGE_SHAPE = (4, 3, 64, 64)  # the synced SSIM suite's images an update on each rank
 SYNC_REGRESSION_ROWS = 65_536  # rows of each regression update on each rank
 SYNC_STEPS = 2  # updates of each suite on each rank
-SYNC_TRIALS = 5  # timed syncs of each protocol, alternating, after one untimed sync
+SYNC_STEPS_OF = {"segmentation": 1}  # but these: the CPU reference of 2 x 19 x 1024 x 2048 takes 9 s an update
+SYNC_TRIALS = 3  # timed syncs of each protocol, alternating, after one untimed sync
 SYNC_WORLD_S = 600  # wall-clock limit of the two-rank world
 SYNC_DEVICE = "cuda"  # where the synced suites live
 
@@ -4001,10 +4103,11 @@ def to_device(obj, device):
     return obj
 
 
-def sync_batches(name: str, rank: int, steps: int = SYNC_STEPS) -> list:
+def sync_batches(name: str, rank: int, steps: Optional[int] = None) -> list:
     """Rank ``rank``'s updates of suite ``name`` on the card, ``(args, kwargs)`` each, from a seed
     of the suite and the rank: full-width batches, and per-sample losses of an uneven length."""
     seed = 100 + 10 * rank + SYNC_SUITES.index(name)
+    steps = SYNC_STEPS_OF.get(name, SYNC_STEPS) if steps is None else steps
     if name == "headline":
         return [((p, t), {}) for p, t in make_batches(8192, 128, steps, seed)]
     if name == "agreement":
@@ -4130,7 +4233,7 @@ def sync_trials(suite, check=None) -> dict:
     return result
 
 
-def sync_profile(suite, protocol: str, syncs: int = 3) -> dict:
+def sync_profile(suite, protocol: str, syncs: int = 1) -> dict:
     """Where a suite sync's time goes (torch.profiler, ``syncs`` syncs after one in the warm-up
     cycle): device ms and device operations per sync, and per sync the host ops with the most
     self CPU time, each with its calls. Host times are taken under the profiler."""
@@ -4223,8 +4326,9 @@ def sync_world_of_one(mt, histogram, name: str, card: str) -> dict:
         assert (got == value) if isinstance(value, list) else (got is value), f"sync {name}: {m}.{s} not restored"
     assert_sync_counts(f"sync {name} (NCCL, world of one)", result, len(want), has_cat, row_gathers, row_states)
     # the first update of a collection runs every member: each confusion-matrix member launches once
-    expected = {"headline": SYNC_STEPS, "agreement": 3 + SYNC_STEPS - 1, "segmentation": SYNC_STEPS}.get(name, 0)
-    assert launches == expected, f"sync {name}: {launches} bincount launches in {SYNC_STEPS} updates, not {expected}"
+    steps = SYNC_STEPS_OF.get(name, SYNC_STEPS)
+    expected = {"headline": steps, "agreement": 3 + steps - 1, "segmentation": steps}.get(name, 0)
+    assert launches == expected, f"sync {name}: {launches} bincount launches in {steps} updates, not {expected}"
     packed = result["coalesced"]["counts"]["sync_bytes_gathered"]
     result.update(states=len(want), bytes_packed=packed, kernel_launches=launches, card=card)
     result["profile"] = {protocol: sync_profile(suite, protocol) for protocol in ("coalesced", "per_state")}
@@ -4323,12 +4427,15 @@ def run_two_ranks(world: int = 2) -> list:
 def sync_two_ranks(mt, card: str) -> dict:
     """Two ranks on the one card over Gloo: both ranks' synced values equal one CPU instance
     fed every batch of both (counts bit-exact, values within atol 1e-6 and rtol 1e-5)."""
+    t0 = time.perf_counter()
     results = run_two_ranks()
+    log(f"sync two ranks: the spawned world took {time.perf_counter() - t0:.1f} s")
     if not all(r["gloo_cuda"] for r in results):
         log(f"sync two ranks: torch's Gloo refused CUDA tensors for all_gather: {results[0].get('gloo_cuda_error')}")
         return {"gloo_cuda": False, "error": results[0].get("gloo_cuda_error"), "card": card}
     out = {"gloo_cuda": True, "card": card}
     for name in SYNC_SUITES:
+        t_ref = time.perf_counter()
         reference = sync_suite(mt, name, "cpu")
         ranks_batches = [sync_batches(name, rank) for rank in range(len(results))]
         if name == "bootstrap":
@@ -4367,6 +4474,7 @@ def sync_two_ranks(mt, card: str) -> dict:
                                result[name]["has_cat"], result[name]["row_gathers"], result[name]["row_states"])
         r0 = results[0][name]
         out[name] = {k: [r[name][k] for r in results] for k in ("compute_ms", "compute_counts")}
+        out[name]["reference_s"] = time.perf_counter() - t_ref
         out[name].update({p: [r[name][p] for r in results] for p in ("coalesced", "per_state", "first_sync_counts")})
         out[name]["states"] = r0["states"]
         log(f"sync {name} (Gloo, two ranks on one card, CUDA tensors): both ranks equal the CPU fed every batch; "
@@ -4386,16 +4494,22 @@ def sync_path(mt, histogram, card: str) -> dict:
 
     os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # the machine has no network: bootstrap over loopback
     torch.cuda.set_device(0)
-    result = {}
+    result, seconds = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}", rank=0, world_size=1)
         try:
             for name in SYNC_SUITES:
+                t0 = time.perf_counter()
                 result[name] = sync_world_of_one(mt, histogram, name, card)
+                seconds[f"nccl_{name}"] = time.perf_counter() - t0
         finally:
             dist.destroy_process_group()
     result["kernel_launches"] = sum(result[name]["kernel_launches"] for name in SYNC_SUITES)
+    t0 = time.perf_counter()
     result["two_ranks_gloo"] = sync_two_ranks(mt, card)
+    seconds["two_ranks_gloo"] = time.perf_counter() - t0
+    result["seconds"] = seconds
+    log(f"sync phase seconds: {json.dumps(seconds)}")
     return result
 
 
@@ -6548,6 +6662,378 @@ def tenant_planes_path(mt, checks, histogram, card: str) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ phase 26
+LEDGER_DEVICE = "cuda"  # where phase 26 runs
+LEDGER_SHAPE = (8192, 128, 96)  # (a) phase 3's headline suite: rows a batch, classes, updates of the decomposed loop
+LEDGER_DEFER_MAX = 4  # (a) a queue flushes every 4 updates: one run of the suite's program each
+LEDGER_PROBE_EVERY = 8  # (a) every 8th run of a program synchronises and is timed on the device
+TUNE_BINNED = (1000, 1000, 100)  # (c) rows, classes, thresholds: one ImageNet-width BinnedAveragePrecision update
+TUNE_SORT_N = 2**20  # (c) scores of the sort variants
+TUNE_FID_D = 2048  # (c) InceptionV3's pool features: the FID covariances, float64
+TUNE_MAP_IMAGES = 24  # (c) COCO-like images whose mAP compute consults map_box_iou at its small cells
+TUNE_MAP_ATOL = 1e-6  # (c) mAP with the autotuner armed against it disarmed: the same host matching on IoUs within 1e-5
+CACHE_CHUNKS = 8  # (d) the precompiled queue lengths: 1, 2, 4, 8
+CACHE_ACQUIRE_ROWS = 64  # (d) rows of the batches the warm boot's precompile acquires its programs with
+FLEET_SLOW_S = 0.05  # (e) the slowed rank's pack sleeps this long a sync
+FLEET_WORLD_S = 120  # (e) wall-clock limit of the two-rank world
+LEDGER_PHASE_S = 90.0
+
+
+def ledger_perf(mt, checks, histogram, card: str) -> dict:
+    """(a) perf_report over the headline suite's decomposed loop, device probes every 8 runs, and its coverage
+    of the measured wall; the probed run's states equal an unprobed run's bit for bit; (b) the roofline
+    peaks calibrated on the card and the suite's programs classified against them."""
+    from metrics_tpu_torch.ops import engine, perf, telemetry
+
+    batch, num_classes, steps = LEDGER_SHAPE
+    batches = make_batches(batch, num_classes, steps, seed=260, device=LEDGER_DEVICE)
+    checks.set_validation_mode("first")
+    engine.set_deferred_dispatch(max_pending=LEDGER_DEFER_MAX)
+    telemetry.set_telemetry(True)
+    try:
+        plain = make_suite(mt, num_classes, LEDGER_DEVICE)
+        for preds, target in batches:
+            plain.update(preds, target)
+        settle(plain)
+        suite = make_suite(mt, num_classes, LEDGER_DEVICE)
+        for preds, target in batches[:2]:  # the first calls are validated and build the programs
+            suite.update(preds, target)
+        settle(suite)
+        engine.set_device_probe(LEDGER_PROBE_EVERY)
+        telemetry.clear_spans()
+        before = telemetry.latency_stats()
+        histogram.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        for preds, target in batches[2:]:
+            suite.update(preds, target)
+        settle(suite)
+        wall = time.perf_counter() - t0
+        launches = histogram.KERNEL_LAUNCHES
+        report = perf.perf_report(measured_wall_s=wall)
+        columns = perf.phase_columns(before, telemetry.latency_stats())
+    finally:
+        engine.set_device_probe(0)
+        engine.set_deferred_dispatch(max_pending=128)
+    assert launches == steps - 2, f"ledger: {launches} bincount launches in {steps - 2} updates"
+    for name, member in suite.items(keep_base=True, copy_state=False):
+        for state, value in member.metric_state.items():
+            assert torch.equal(value, getattr(dict(plain.items(keep_base=True, copy_state=False))[name], state)), (
+                f"ledger: {name}.{state} of the probed run differs from the unprobed run")
+    rec = report["reconciliation"]
+    assert rec["within_tolerance"], f"ledger: the spans cover {rec['coverage']} of the measured wall"
+    assert report["device_probe"]["probes"] >= 1, "ledger: no device probe was taken"
+    log(f"ledger (a) perf_report over {steps - 2} headline updates (B={batch}, C={num_classes}, a queue of "
+        f"{LEDGER_DEFER_MAX}, a probe every {LEDGER_PROBE_EVERY} runs): wall {wall * 1e3:.2f} ms, coverage "
+        f"{rec['coverage']} (tolerance {perf.TOLERANCE}); phase columns ms {json.dumps(columns)}; opportunities "
+        f"{[(o['phase'], o['share']) for o in report['opportunities']]}  [{card}]")
+    peaks = engine.roofline_peaks()
+    assert peaks["calibrated"] and peaks["peak_flops_per_s"] > 0 and peaks["peak_bytes_per_s"] > 0, peaks
+    rows = [r for r in report["programs"] if r["device"]]
+    assert rows, "ledger: no probed program in the report"
+    ledger = [{"program": r["program"], "kind": r["kind"], "bound": r["roofline"]["bound"],
+               "device_p50_ms": r["roofline"]["device_p50_s"] * 1e3, "probes": r["roofline"]["probes"],
+               "flops": (r["analysis"] or {}).get("flops"), "bytes": (r["analysis"] or {}).get("bytes_accessed"),
+               "host_share": r["roofline"]["host_share"]} for r in rows]
+    log(f"ledger (b) roofline_peaks: {peaks['peak_flops_per_s'] / 1e12:.2f} TFLOP/s float32 (TF32 off), "
+        f"{peaks['peak_bytes_per_s'] / 1e12:.3f} TB/s, ridge {peaks['ridge_flops_per_byte']:.2f} FLOP/B; "
+        f"program_report: {json.dumps(ledger)}  [{card}]")
+    return {"steps": steps - 2, "wall_ms": wall * 1e3, "reconciliation": rec, "phase_columns_ms": columns,
+            "opportunities": report["opportunities"], "peaks": peaks, "programs": ledger, "kernel_launches": launches,
+            "card": card}
+
+
+def tune_binned(histogram, card: str) -> dict:
+    """(c) binned_counts at ImageNet width: each variant's device time, the hand kernel's launches in the
+    sweep's segment_sum candidate, its counts bit for bit against the reference, then the selected path."""
+    from metrics_tpu_torch.ops import autotune, binned
+
+    n, c, t = TUNE_BINNED
+    g = torch.Generator(device=LEDGER_DEVICE).manual_seed(261)
+    preds = torch.softmax(torch.randn(n, c, generator=g, device=LEDGER_DEVICE), dim=1)
+    labels = torch.randint(0, c, (n,), generator=g, device=LEDGER_DEVICE)
+    target = torch.nn.functional.one_hot(labels, c).to(torch.float32)
+    thresholds = torch.linspace(0, 1, t, device=LEDGER_DEVICE)
+    want = binned._binned_onehot_matmul(preds, target, thresholds)
+    got = binned._binned_segment_sum(preds, target, thresholds)  # the variant alone, on the card
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), "segment_sum variant differs from onehot_matmul"
+    histogram.KERNEL_LAUNCHES = 0
+    report = autotune.sweep("binned_counts", (preds, target, thresholds))
+    sweep_launches = histogram.KERNEL_LAUNCHES
+    rows = {r["variant"]: r for r in report["candidates"]}
+    assert all(r["ok"] and (r["reference"] or r["exact"]) for r in rows.values()), report["candidates"]
+    # the segment_sum candidate's first run and its timed runs: two launches each (TP and all histograms)
+    assert sweep_launches == 2 * 4, f"binned sweep: {sweep_launches} bincount launches"
+    histogram.KERNEL_LAUNCHES = 0
+    selected = binned.binned_curve_counts(preds, target, thresholds)
+    torch.cuda.synchronize()
+    selected_launches = histogram.KERNEL_LAUNCHES
+    assert selected_launches == (2 if report["winner"] == "segment_sum" else 0), (report["winner"], selected_launches)
+    assert all(torch.equal(a, b) for a, b in zip(selected, want)), "the selected binned path differs"
+    bytes_moved = 4 * (2 * n * c + t + 3 * c * t)
+    # each variant's device time under the profiler (launches made to measure, not counted), beside the
+    # sweep's own: the best of 3 runs queued back to back behind a spin kernel, each between CUDA events
+    variants = {"onehot_matmul": binned._binned_onehot_matmul, "scatter_add": binned._binned_scatter_add,
+                "segment_sum": binned._binned_segment_sum}
+    profiles = {v: op_profile(lambda fn=fn: fn(preds, target, thresholds), bytes_moved, 4 * n * c * t)
+                for v, fn in variants.items()}
+    out = {"n": n, "c": c, "t": t, "winner": report["winner"], "card": card,
+           "device_us": {v: p["device_ms"] * 1e3 for v, p in profiles.items()},
+           "device_kernels": {v: p["device_rows"] for v, p in profiles.items()},
+           "sweep_wall_us": {v: r["wall_s"] * 1e6 for v, r in rows.items()},
+           "sweep_launches": sweep_launches, "selected_launches": selected_launches,
+           "bound_us": max(bytes_moved / HBM_BYTES_PER_S, 4 * n * c * t / FP32_OPS_PER_S) * 1e6,
+           "bucketize_bound_us": bytes_moved / HBM_BYTES_PER_S * 1e6,
+           "tp_fp_fn_sums": [float(x.sum()) for x in selected]}
+    log(f"autotune (c) binned_counts N={n} C={c} T={t}: device us {json.dumps(out['device_us'])} (profiler); the "
+        f"sweep's device us {json.dumps(out['sweep_wall_us'])} (best of 3 held runs, CUDA events); winner "
+        f"{report['winner']}; "
+        f"kernels {json.dumps(out['device_kernels'])}; the hand kernel launched {sweep_launches} times in the sweep's "
+        f"segment_sum candidate, {selected_launches} in the selected path; TP/FP/FN bit for bit against "
+        f"onehot_matmul; bound {out['bound_us']:.2f} us (operations), the bucketize {out['bucketize_bound_us']:.2f} "
+        f"us (bytes)  [{card}]")
+    return out
+
+
+def tune_sorts_fid_map(mt, card: str) -> dict:
+    """(c) auroc_sort and ap_sort at 2**20 scores, fid_sqrtm at 2048 x 2048 float64, map_box_iou at COCO-like
+    cells through mAP's call site: each installed winner held to the reference under its contract."""
+    import numpy as np
+
+    from metrics_tpu_torch.image import generative
+    from metrics_tpu_torch.ops import autotune, sorted_curves
+
+    g = torch.Generator(device=LEDGER_DEVICE).manual_seed(262)
+    scores = torch.round(torch.rand(TUNE_SORT_N, generator=g, device=LEDGER_DEVICE) * 1e4) / 1e4  # ties
+    labels = (torch.rand(TUNE_SORT_N, generator=g, device=LEDGER_DEVICE) < 0.3).to(torch.float32)
+    out = {"card": card}
+    for kernel, public, reference in (("auroc_sort", sorted_curves.binary_auroc_sorted, sorted_curves._auroc_midranks),
+                                      ("ap_sort", sorted_curves.binary_average_precision_sorted,
+                                       sorted_curves._ap_argsort)):
+        report = autotune.sweep(kernel, (scores, labels))
+        value, want = float(public(scores, labels)), float(reference(scores, labels))
+        assert abs(value - want) <= sorted_curves._SORT_TOL, (kernel, report["winner"], value, want)
+        out[kernel] = {"winner": report["winner"], "device_us": {r["variant"]: r["wall_s"] * 1e6
+                                                                  for r in report["candidates"] if r["ok"]},
+                       "value": value, "reference_value": want}
+    d = TUNE_FID_D
+    feats = [torch.randn(2 * d, d, generator=g, device=LEDGER_DEVICE, dtype=torch.float64) for _ in range(2)]
+    sigmas = [f.T @ f / (2 * d - 1) for f in feats]
+    report = autotune.sweep("fid_sqrtm", tuple(sigmas))
+    value, want = float(generative._trace_sqrtm_product(*sigmas)), float(generative._trace_sqrtm_eigh(*sigmas))
+    assert abs(value - want) <= 1e-2 * (1 + abs(want)), ("fid_sqrtm", report["winner"], value, want)
+    out["fid_sqrtm"] = {"winner": report["winner"], "value": value, "reference_value": want,
+                        "device_us": {r["variant"]: r["wall_s"] * 1e6 for r in report["candidates"] if r["ok"]},
+                        "disqualified": report["disqualified"]}
+    data = coco_detections(TUNE_MAP_IMAGES, seed=263)
+    on = lambda ds: [{k: torch.as_tensor(v).to(LEDGER_DEVICE) for k, v in x.items()} for x in ds]  # noqa: E731
+    values = {}
+    for armed in (False, True):
+        autotune.configure(enabled=armed)
+        m = mt.MeanAveragePrecision(box_format="xywh", device=LEDGER_DEVICE)
+        m.update(on([p for p, _ in data]), on([t for _, t in data]))
+        values[armed] = {k: float(v) for k, v in m.compute().items() if v.numel() == 1}
+    autotune.configure(enabled=True)
+    swept = {sc: v for (k, sc), v in autotune._SELECTIONS.items() if k == "map_box_iou"}
+    assert swept, "map_box_iou: the call site swept no shape class"
+    err = max(abs(values[True][k] - values[False][k]) for k in values[False])
+    assert err <= TUNE_MAP_ATOL and all(np.isfinite(list(values[True].values()))), err
+    out["map_box_iou"] = {"shape_classes": len(swept), "winners": sorted(set(swept.values())), "max_abs_err": err,
+                          "map": values[True]["map"]}
+    log(f"autotune (c) sorts at {TUNE_SORT_N} scores: {json.dumps({k: out[k] for k in ('auroc_sort', 'ap_sort')})}; "
+        f"fid_sqrtm {d}x{d} float64: {json.dumps(out['fid_sqrtm'])}; map_box_iou over {TUNE_MAP_IMAGES} COCO-like "
+        f"images: {json.dumps(out['map_box_iou'])}  [{card}]")
+    return out
+
+
+def cache_child(role: str, store: str, out_path: str) -> None:
+    """(d) one fresh process on the card; the first headline update of each is timed. ``cold`` (store on):
+    that update first, then a binned_counts sweep (which persists the table) and ``precompile`` (which
+    stores every signature). ``warm`` (store on): one binned update (the table restored, nothing swept),
+    ``precompile`` of CACHE_ACQUIRE_ROWS-row batches (it acquires the programs; none of the stored shapes) and
+    ``warm_programs`` (which runs the stored shapes), the first update, then ``precompile`` of the stored
+    shapes, which finds every one. ``control`` (store off): the binned update, ``precompile`` of the same
+    shapes as the update, then the first update: what the store adds is the warm boot's difference from it."""
+    os.environ.update(METRICS_TPU_PROGCACHE="0" if role == "control" else "1", METRICS_TPU_PROGCACHE_DIR=store,
+                      METRICS_TPU_AUTOTUNE="1")
+    if str(HERE) not in sys.path:
+        sys.path.insert(0, str(HERE))
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch.ops import autotune, binned, engine
+    from metrics_tpu_torch.utils import checks
+
+    t_start = time.perf_counter()
+    torch.cuda.set_device(0)
+    torch.zeros(1, device=LEDGER_DEVICE)
+    torch.cuda.synchronize()  # the CUDA context exists in every role before any timing
+    checks.set_validation_mode("first")
+    batch, num_classes, _ = LEDGER_SHAPE
+    preds, target = make_batches(batch, num_classes, 1, seed=264, device=LEDGER_DEVICE)[0]
+    n, c, t = TUNE_BINNED
+    scores = torch.rand(n, c, device=LEDGER_DEVICE)
+    onehot = (torch.rand(n, c, device=LEDGER_DEVICE) < 0.001).to(torch.float32)
+    thresholds = torch.linspace(0, 1, t, device=LEDGER_DEVICE)
+    suite = make_suite(mt, num_classes, LEDGER_DEVICE)
+    result = {"role": role, "context_s": time.perf_counter() - t_start}
+
+    def first_update():
+        t0 = time.perf_counter()
+        suite.update(preds, target)
+        settle(suite)
+        return (time.perf_counter() - t0) * 1e3
+
+    # the selection table first: its digest is part of every program's key, so programs are stored (and
+    # found) under the table they will serve with
+    if role == "cold":
+        result["first_update_ms"] = first_update()
+        result["winner"] = autotune.ensure("binned_counts", scores, onehot, thresholds)
+        result["precompile"] = suite.precompile(preds, target, defer_chunks=CACHE_CHUNKS)
+    else:
+        binned.binned_curve_counts(scores, onehot, thresholds)
+        t0 = time.perf_counter()
+        if role == "warm":
+            rows = CACHE_ACQUIRE_ROWS
+            result["acquire"] = suite.precompile(preds[:rows], target[:rows], defer_chunks=CACHE_CHUNKS)
+            result["warmed_programs"] = engine.warm_programs()
+        else:
+            result["precompile"] = suite.precompile(preds, target, defer_chunks=CACHE_CHUNKS)
+        torch.cuda.synchronize()
+        result["boot_ms"] = (time.perf_counter() - t0) * 1e3
+        result["first_update_ms"] = first_update()
+        if role == "warm":
+            result["precompile"] = suite.precompile(preds, target, defer_chunks=CACHE_CHUNKS)
+    stats = engine.engine_stats()
+    result.update({k: v for k, v in stats.items() if k.startswith(("progcache_", "autotune_"))})
+    with open(out_path, "w") as fh:
+        json.dump(result, fh)
+
+
+def fleet_rank(rank: int, world: int, init_method: str, out_dir: str) -> None:
+    """(e) one rank of the two-rank Gloo world on the card (CUDA tensors); rank 1's pack sleeps FLEET_SLOW_S."""
+    import torch.distributed as dist
+
+    if str(HERE) not in sys.path:
+        sys.path.insert(0, str(HERE))
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch.ops import fleetobs, telemetry
+    from metrics_tpu_torch.parallel import bucketing
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=init_method, rank=rank, world_size=world)
+    try:
+        telemetry.set_telemetry(True)
+        if rank == 1:
+            collect = bucketing._collect
+
+            def slow_collect(nodes):
+                time.sleep(FLEET_SLOW_S)
+                return collect(nodes)
+
+            bucketing._collect = slow_collect
+        suite = make_suite(mt, 128, LEDGER_DEVICE)
+        for preds, target in make_batches(2048, 128, 2, seed=265 + rank, device=LEDGER_DEVICE):
+            suite.update(preds, target)
+        for _ in range(3):
+            suite.sync()
+            suite.unsync()
+        snap = fleetobs.fleet_snapshot()
+        result = {"snap": snap, "text": fleetobs.fleet_prometheus_text(snap), "perf": fleetobs.fleet_perf_report()}
+    finally:
+        dist.destroy_process_group()
+    torch.save(result, os.path.join(out_dir, f"fleet{rank}.pt"))
+
+
+def ledger_cache_fleet(mt, card: str) -> dict:
+    """(d) the program cache across three fresh processes on the card, one after the other, while (e) the
+    two-rank Gloo world of the fleet plane runs beside them; then a world of one's fleet_health."""
+    import multiprocessing as mp
+
+    from metrics_tpu_torch.parallel import collective_stats
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        init_method = f"file://{os.path.join(tmp, 'rendezvous')}"
+        ranks = [ctx.Process(target=fleet_rank, args=(r, 2, init_method, tmp)) for r in range(2)]
+        for p in ranks:
+            p.start()
+        cache = {}
+        try:
+            for role in ("cold", "warm", "control"):
+                child = ctx.Process(target=cache_child, args=(role, os.path.join(tmp, "store"),
+                                                              os.path.join(tmp, f"{role}.json")))
+                child.start()
+                child.join(LEDGER_PHASE_S)
+                if child.is_alive():
+                    child.kill()
+                    child.join(10)
+                assert child.exitcode == 0, f"progcache {role} process: exit code {child.exitcode}"
+                cache[role] = json.load(open(os.path.join(tmp, f"{role}.json")))
+        finally:
+            deadline = time.monotonic() + FLEET_WORLD_S
+            for p in ranks:
+                p.join(max(0.0, deadline - time.monotonic()))
+            for p in ranks:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        assert all(p.exitcode == 0 for p in ranks), f"fleet world: exit codes {[p.exitcode for p in ranks]}"
+        fleet = [torch.load(os.path.join(tmp, f"fleet{r}.pt")) for r in range(2)]
+    cold, warm, control = cache["cold"], cache["warm"], cache["control"]
+    stored = cold["precompile"]["progcache_stores"]
+    # the warm boot ran every stored shape of the suite's programs before its first update, and found them
+    # all again in precompile; the table was restored, not swept
+    assert stored > 0 and warm["warmed_programs"] == stored, (cold, warm)
+    assert warm["precompile"]["compiles"] == 0 and warm["autotune_restores"] > 0 and warm["autotune_sweeps"] == 0
+    assert control["progcache_hits"] == 0 and control["progcache_stores"] == 0, control
+    log(f"progcache (d) three fresh processes, first headline update: cold {cold['first_update_ms']:.2f} ms (store "
+        f"on, nothing warmed); warm {warm['first_update_ms']:.2f} ms (store on: precompile of {CACHE_ACQUIRE_ROWS}-row "
+        f"batches and warm_programs, {warm['warmed_programs']} stored signatures warmed, boot {warm['boot_ms']:.2f} "
+        f"ms); control {control['first_update_ms']:.2f} ms (store off: precompile of the update's shapes, boot "
+        f"{control['boot_ms']:.2f} ms); the store's share is warm against control. Cold stored "
+        f"{cold['progcache_stores']} signatures ({cold['progcache_bytes_stored']} bytes); warm progcache_hits "
+        f"{warm['progcache_hits']}, autotune_restores {warm['autotune_restores']}, autotune_sweeps "
+        f"{warm['autotune_sweeps']} (cold winner {cold['winner']})  [{card}]")
+    for rank, res in enumerate(fleet):
+        snap = res["snap"]
+        assert snap["gathered"] and snap["world_size"] == 2 and snap["rank"] == rank
+        assert snap["stragglers"]["phases"]["sync-pack"]["slowest_rank"] == 1, snap["stragglers"]["phases"]
+        assert 1 in snap["stragglers"]["stragglers"], snap["stragglers"]
+        assert 'metrics_tpu_fleet_straggler_flagged{rank="1"} 1' in res["text"]
+        assert res["perf"]["gathered"] and sorted(res["perf"]["reports"]) == [0, 1]
+    assert fleet[0]["snap"]["aggregate"] == fleet[1]["snap"]["aggregate"]
+    suite = make_suite(mt, 128, LEDGER_DEVICE)
+    before = collective_stats()
+    health = suite.fleet_health()
+    assert collective_stats() == before and not health["gathered"] and health["world_size"] == 1
+    pack = fleet[0]["snap"]["stragglers"]["phases"]["sync-pack"]
+    log(f"fleet (e) two Gloo ranks on one card: rank 1 slowed {FLEET_SLOW_S * 1e3:.0f} ms a pack; sync-pack means "
+        f"{pack['per_rank_mean_s']} s, slowest rank {pack['slowest_rank']}, stragglers "
+        f"{fleet[0]['snap']['stragglers']['stragglers']}; {len(fleet[0]['text'].splitlines())} exposition lines; "
+        f"fleet_health of a world of one issued 0 collectives  [{card}]")
+    return {"cache": cache, "fleet_stragglers": fleet[0]["snap"]["stragglers"]["stragglers"],
+            "fleet_pack_means": pack["per_rank_mean_s"], "card": card}
+
+
+def planes_ledger_autotune(mt, checks, histogram, card: str) -> dict:
+    """Phase 26: the performance, fleet, program-cache and autotuner planes on the card (under LEDGER_PHASE_S)."""
+    from metrics_tpu_torch.ops import autotune
+
+    t0 = time.perf_counter()
+    result = {"ledger": ledger_perf(mt, checks, histogram, card)}
+    autotune.configure(enabled=True, reset=True)
+    try:
+        result["binned"] = tune_binned(histogram, card)
+        result["sorts_fid_map"] = tune_sorts_fid_map(mt, card)
+    finally:
+        autotune.configure(reset=True)
+    result["cache_fleet"] = ledger_cache_fleet(mt, card)
+    result["kernel_launches"] = (result["ledger"]["kernel_launches"] + result["binned"]["sweep_launches"]
+                                 + result["binned"]["selected_launches"])
+    result["seconds"] = time.perf_counter() - t0
+    log(f"planes (26): phase 26 took {result['seconds']:.1f} s  [{card}]")
+    assert result["seconds"] <= LEDGER_PHASE_S, f"phase 26 took {result['seconds']:.1f} s of its {LEDGER_PHASE_S} s"
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6600,6 +7086,7 @@ def main() -> int:
     engine_result = timed_phase("engine", engine_path, mt, checks, histogram, card)
     funcore = timed_phase("functional_core", functional_core_path, mt, checks, histogram, card)
     tenants = timed_phase("tenant_planes", tenant_planes_path, mt, checks, histogram, card)
+    planes26 = timed_phase("planes_ledger_autotune", planes_ledger_autotune, mt, checks, histogram, card)
     log(f"phase seconds: {json.dumps(phase_s)}")
     # each path's first timed run in mode "first", the curve paths' first runs and weighted areas, the
     # retrieval path's first compute() and graded NDCG, the wrapper phase's first timed runs, and the
@@ -6610,7 +7097,7 @@ def main() -> int:
                            + text_audio["kernel_launches"] + sync["kernel_launches"]
                            + observability["kernel_launches"] + sync_planes["kernel_launches"]
                            + engine_result["kernel_launches"] + funcore["kernel_launches"]
-                           + tenants["kernel_launches"])
+                           + tenants["kernel_launches"] + planes26["kernel_launches"])
     # the batched form: phase 15's fused wrapper paths, phase 24 (c)'s vmapped suites and phase 25's arenas,
     # counted from 0 just before each
     batched["launches"] = (wrappers_image["wrappers_imagenet"]["batched_launches"] + funcore["batched_launches"]
@@ -6622,7 +7109,7 @@ def main() -> int:
                     "generative_detection_paths": generative_detection, "text_audio_paths": text_audio,
                     "sync_path": sync, "observability_journal": observability, "sync_planes": sync_planes,
                     "engine": engine_result, "functional_core": funcore, "tenant_planes": tenants,
-                    "phase_seconds": phase_s}))
+                    "planes_ledger_autotune": planes26, "phase_seconds": phase_s}))
     log(json.dumps({"kernels": [kernel, batched]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

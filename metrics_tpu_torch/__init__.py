@@ -153,6 +153,15 @@ from metrics_tpu_torch.ops.telemetry import (  # noqa: E402
 )
 from metrics_tpu_torch.parallel.sync import world_health  # noqa: E402
 
+# the fleet plane (cross-rank snapshots, straggler attribution, the merged trace) and performance attribution
+from metrics_tpu_torch.ops.fleetobs import (  # noqa: E402
+    export_fleet_trace,
+    fleet_perf_report,
+    fleet_prometheus_text,
+    fleet_snapshot,
+)
+from metrics_tpu_torch.ops.perf import perf_report  # noqa: E402
+
 # the functional core: state as an epoch-stamped tree, the apply_* API under
 # torch.func.vmap and CUDA-graph capture, the host_handoff seam
 from metrics_tpu_torch.functional_core import (  # noqa: E402
@@ -279,7 +288,11 @@ __all__ = [
     "apply_update",
     "arena_stats",
     "drift_report",
+    "export_fleet_trace",
     "export_trace",
+    "fleet_perf_report",
+    "fleet_prometheus_text",
+    "fleet_snapshot",
     "funcore_stats",
     "functional",
     "host_handoff",
@@ -289,6 +302,7 @@ __all__ = [
     "ingest_stats",
     "load_reference_state",
     "parallel",
+    "perf_report",
     "prometheus_text",
     "set_telemetry",
     "stack_states",

@@ -467,6 +467,102 @@ class MetricCollection(nn.ModuleDict):
                     object.__setattr__(mi, state, m0.__dict__.get(state))
                 object.__setattr__(mi, "_update_count", m0._update_count)
 
+    def precompile(self, *args: Any, defer_chunks: Optional[int] = None, forward: bool = True, compute: bool = True,
+                   sync: bool = False, **kwargs: Any) -> Dict[str, Any]:
+        """Pay every program's one-time costs for the declared batch shapes, then put
+        every member's states back bit for bit: a fresh process warms up before its
+        first served step instead of at it.
+
+        ``args``/``kwargs`` mirror one :meth:`update`; their tensors give the shapes,
+        dtypes and devices (a tensor on the ``meta`` device declares them without
+        data, for the suite's device). Zero-filled batches of them go through the
+        real paths: two updates (the first validated), then one flush at each
+        power-of-two queue length up to ``defer_chunks`` (default
+        :func:`~metrics_tpu_torch.ops.engine.defer_max_pending`; 0 warms the per-call
+        paths only), the same for :meth:`forward` with ``forward=True``, one
+        :meth:`compute` with ``compute=True`` (a failure on zero-filled states is
+        ignored), and a sync context with ``sync=True`` (a collective: every rank
+        calls it together). Deferral needs validation mode ``"first"`` or ``"off"``.
+        With the persistent program cache on, first runs store their signatures
+        and stored ones count as hits. Returns ``{steps, compiles,
+        progcache_hits, progcache_stores, programs}``."""
+        device = next((m.device for _, m in self.items(keep_base=True, copy_state=False)), torch.device("cpu"))
+
+        def _zeros(leaf: Any) -> Any:
+            if isinstance(leaf, torch.Tensor):
+                return torch.zeros(tuple(leaf.shape), dtype=leaf.dtype,
+                                   device=device if leaf.device.type == "meta" else leaf.device)
+            if isinstance(leaf, (list, tuple)):
+                return type(leaf)(_zeros(v) for v in leaf)
+            if isinstance(leaf, dict):
+                return {k: _zeros(v) for k, v in leaf.items()}
+            return leaf
+
+        ex_args, ex_kwargs = _zeros(args), _zeros(kwargs)
+        members = list(self.items(keep_base=True, copy_state=False))
+        owners = (self,) + tuple(m for _, m in members)
+        _engine.flush_barrier(owners)
+        snap = {}
+        for name, m in members:
+            states = {s: ([t.clone() for t in v] if isinstance(v, list) else v.clone())
+                      for s, v in m.metric_state.items()}
+            snap[name] = (states, m._update_count, m._computed, m.__dict__.get("_forward_cache"))
+        before = _engine.program_summary()
+        stats0 = _engine.engine_stats()
+        cap = int(defer_chunks) if defer_chunks is not None else _engine.defer_max_pending()
+        if not _engine.defer_enabled():
+            cap = 0  # every call runs at once: no queue lengths exist
+        steps = 0
+
+        def drive(call) -> None:
+            nonlocal steps
+            for _ in range(2):  # the first call of a signature runs validated, the second takes the fast path
+                call(*ex_args, **ex_kwargs)
+                steps += 1
+            _engine.flush_barrier(owners)
+            c = 1
+            while c <= cap:  # one flush at each power-of-two queue length a live queue can split into
+                for _ in range(c):
+                    call(*ex_args, **ex_kwargs)
+                    steps += 1
+                _engine.flush_barrier(owners)
+                c <<= 1
+
+        try:
+            drive(self.update)
+            if forward:
+                try:
+                    drive(self.forward)
+                except Exception:  # noqa: BLE001 - the warm-up is best effort
+                    pass
+            if compute:
+                try:
+                    self.compute()
+                except Exception:  # noqa: BLE001 - zero-filled states may rightly refuse a compute
+                    pass
+            if sync:
+                with self.sync_context():
+                    pass
+        finally:
+            _engine.flush_barrier(owners)
+            for name, m in members:
+                states, count, computed, forward_cache = snap[name]
+                for s, v in states.items():
+                    object.__setattr__(m, s, v)
+                object.__setattr__(m, "_update_count", count)
+                object.__setattr__(m, "_computed", computed)
+                object.__setattr__(m, "_forward_cache", forward_cache)
+            self._repoint_groups()
+        after = _engine.program_summary()
+        stats1 = _engine.engine_stats()
+        return {
+            "steps": steps,
+            "compiles": after["compiles"] - before["compiles"],
+            "progcache_hits": int(stats1.get("progcache_hits", 0)) - int(stats0.get("progcache_hits", 0)),
+            "progcache_stores": int(stats1.get("progcache_stores", 0)) - int(stats0.get("progcache_stores", 0)),
+            "programs": after["count"] - before["count"],
+        }
+
     # ---------------------------------------------------------- batched steps
     def update_many(self, *args: Any, **kwargs: Any) -> None:
         """``n`` suite updates in one call: a leading steps axis on every tensor
@@ -983,6 +1079,17 @@ class MetricCollection(nn.ModuleDict):
             "world": _psync.world_health(),
         }
 
+    def fleet_health(self) -> Dict[str, Any]:
+        """The suite's fleet view: one :func:`metrics_tpu_torch.fleet_snapshot` (per-rank
+        planes, aggregates, the straggler report, dead-rank placeholders; zero
+        collectives in a world of one process) with this suite's :meth:`sync_health`
+        under ``"suite"``. A collective in a live world: every rank calls it together."""
+        from metrics_tpu_torch.ops import fleetobs as _fleetobs
+
+        out = _fleetobs.fleet_snapshot()
+        out["suite"] = self.sync_health()
+        return out
+
     def checkpoint_barrier(self, path: str) -> Dict[str, Any]:
         """Journal every process at one agreed step: the coordinated
         :meth:`save_state`. Every process calls it. One small exchange
@@ -1006,7 +1113,8 @@ class MetricCollection(nn.ModuleDict):
                             {"barrier_step": agreed, "epoch": fence, "world": world, "bytes": nbytes})
         return {"path": path, "epoch": fence, "barrier_step": agreed, "world_size": world, "bytes": nbytes}
 
-    def rejoin(self, path: str, handoff: Optional[Any] = None, rank: Optional[int] = None) -> Dict[str, Any]:
+    def rejoin(self, path: str, handoff: Optional[Any] = None, rank: Optional[int] = None,
+               warm: bool = True) -> Dict[str, Any]:
         """Re-enter the world after a restart.
 
         1. Restore the newest good generation of the journal at ``path`` (as
@@ -1020,8 +1128,13 @@ class MetricCollection(nn.ModuleDict):
         3. Enter the next epoch (:func:`~metrics_tpu_torch.parallel.sync.rejoin_rank`):
            protocols in flight fence, and the suite's ``sync-degrade`` lane is
            re-promoted.
+        4. With ``warm=True`` and the persistent program cache on,
+           :func:`~metrics_tpu_torch.ops.engine.warm_programs` runs every stored
+           signature of the programs this process has acquired, so the first
+           compute after the rejoin pays no one-time costs. On a fresh
+           process, :meth:`precompile` before ``rejoin`` acquires them.
 
-        Returns ``{generation, epoch, handoff, restored_step, rank}``.
+        Returns ``{generation, epoch, handoff, restored_step, rank, warmed_programs}``.
         """
         from metrics_tpu_torch.ops import journal as _journal
 
@@ -1060,8 +1173,9 @@ class MetricCollection(nn.ModuleDict):
         lad = self.__dict__.get("_fault_ladders", {}).get("sync-degrade")
         if lad is not None and lad.demoted:
             lad.promote()  # a fresh epoch: nothing stale is served
+        warmed = _engine.warm_programs() if warm else 0
         out = {"generation": gen, "epoch": epoch, "handoff": handoff_used, "restored_step": _stamp(meta),
-               "rank": int(live_rank)}
+               "rank": int(live_rank), "warmed_programs": warmed}
         if t0 and _telemetry.armed:
             _telemetry.emit("rank-rejoin", self, "sync", t0, _telemetry.now() - t0, dict(out))
         return out

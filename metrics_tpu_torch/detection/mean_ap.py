@@ -37,6 +37,7 @@ from torch import Tensor
 from metrics_tpu_torch.functional.detection.box_ops import box_convert, box_iou, mask_iou
 from metrics_tpu_torch.functional.detection.rle import masks_from_any
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.ops import autotune as _autotune
 
 _STATES = ("detections", "detection_scores", "detection_labels", "groundtruths", "groundtruth_labels")
 
@@ -55,6 +56,30 @@ def _box_iou_np(det: np.ndarray, gt: np.ndarray) -> np.ndarray:
     union = area_d[:, None] + area_g[None, :] - inter
     with np.errstate(divide="ignore", invalid="ignore"):
         return inter / union
+
+
+def _pow2_bucket(n: int) -> int:
+    """The next power of two (at least 8): the padded size of a blocked device cell."""
+    return max(8, 1 << (int(n) - 1).bit_length())
+
+
+def _box_iou_device_blocked(det: Tensor, gt: Tensor) -> Tensor:
+    """The device alternative to :func:`_box_iou_np` (JAX's ``device_blocked`` variant):
+    both operands padded to their power-of-two bucket, the device ``box_iou``, the
+    live corner sliced out. The same float32 steps as the host mirror; the 1e-5
+    tolerance covers the order of operations only."""
+    det = torch.as_tensor(det).to(torch.float32)
+    gt = torch.as_tensor(gt, device=det.device).to(torch.float32)
+    nd, ng = det.shape[0], gt.shape[0]
+    det_p = torch.nn.functional.pad(det, (0, 0, 0, _pow2_bucket(nd) - nd))
+    gt_p = torch.nn.functional.pad(gt, (0, 0, 0, _pow2_bucket(ng) - ng))
+    return box_iou(det_p, gt_p)[:nd, :ng]
+
+
+# The host mirror is the reference (host=True: run on the host arrays, timed on the host clock): it is
+# what small cells run with the autotuner off.
+_autotune.register_variant("map_box_iou", "host_numpy", _box_iou_np, reference=True, host=True)
+_autotune.register_variant("map_box_iou", "device_blocked", _box_iou_device_blocked, tolerance=1e-5)
 
 
 def _mask_iou_np(det: np.ndarray, gt: np.ndarray) -> np.ndarray:
@@ -306,7 +331,13 @@ class MeanAveragePrecision(Metric):
         nd, ng = det.shape[0], gt.shape[0]
         work = nd * ng * (1 if self.iou_type == "bbox" else int(np.prod(det.shape[1:])))
         if work <= 65536 * (1 if self.iou_type == "bbox" else 64):
-            return _box_iou_np(det, gt) if self.iou_type == "bbox" else _mask_iou_np(det, gt)
+            if self.iou_type != "bbox":
+                return _mask_iou_np(det, gt)
+            # concrete host arrays: a first-seen shape class may sweep here (off: one predicate)
+            if _autotune.dispatch("map_box_iou", (det, gt), sweep_on_miss=True, device=self.device) == "device_blocked":
+                return _box_iou_device_blocked(torch.from_numpy(det).to(self.device),
+                                               torch.from_numpy(gt).to(self.device)).cpu().numpy()
+            return _box_iou_np(det, gt)
         return None
 
     def _device_ious(self, jobs: List[Tuple[int, np.ndarray, np.ndarray]]) -> List[np.ndarray]:

@@ -2,7 +2,9 @@
 the loader that builds the sources under ``csrc/`` (``_native``), the binned
 curve counts, the segment reductions, the dispatch engine (``engine``), and
 the fault, telemetry and state journal planes (``faults``, ``telemetry``,
-``journal``).
+``journal``), performance attribution (``perf``), the fleet plane
+(``fleetobs``), the persistent program cache (``progcache``) and the kernel
+autotuner (``autotune``).
 
 The names of ``metrics_tpu/ops/__init__.py`` that the port has, resolved at
 first access: ``utils/data.py`` imports ``ops.histogram`` while the modules
@@ -21,7 +23,15 @@ _LAZY = {
     "engine_stats": "engine",
     "reset_engine": "engine",
     "reset_stats": "engine",
+    "program_report": "engine",
+    "program_summary": "engine",
     "binned_curve_counts": "binned",
+    "export_fleet_trace": "fleetobs",
+    "fleet_perf_report": "fleetobs",
+    "fleet_prometheus_text": "fleetobs",
+    "fleet_snapshot": "fleetobs",
+    "straggler_report": "fleetobs",
+    "perf_report": "perf",
     "FAULT_SITES": "faults",
     "fault_stats": "faults",
     "inject_faults": "faults",

@@ -19,8 +19,22 @@ it is built for at most :data:`CHUNK_BYTES` of thresholds at a time. With
 0/1 targets every sum is exact below 2**24 rows, so the chunks give the same
 counts as one pass.
 
-The JAX package's bucketize variants (``scatter_add``, ``segment_sum``) are
-not ported: they belong with the autotuner.
+The JAX package's bucketize formulations are autotuner variants here as there
+(``binned.py:40-135``; :mod:`metrics_tpu_torch.ops.autotune`): sort the
+thresholds, bucket each score by how many thresholds lie at or below it, count
+a per-(bucket, class) histogram of the targets and of all scores, and recover
+the ``>=`` counts as a reversed cumulative sum, O(N*C*log T + C*T) work
+instead of the compare's O(N*C*T). ``segment_sum`` counts both histograms
+with :func:`~metrics_tpu_torch.ops.histogram.fused_bincount` over ``(T + 1) *
+C`` bins with float32 weights: on the card the hand-written kernel, 101,000
+bins at ImageNet width. ``scatter_add`` counts them with ``index_add_``. Sums
+of 0/1 values below 2**24 a bin are exact in float32 in any order, so for
+0/1 targets the contract is bit for bit; fractional targets are not exact,
+and the sweep's check disqualifies both there. A NaN score lies above every
+threshold in the sort order that buckets it, and below all of them for the
+compare: the variants count it where the reference does not, as JAX's do, and
+the sweep disqualifies them on such inputs. With ``METRICS_TPU_AUTOTUNE`` off
+the compare always runs.
 """
 from __future__ import annotations
 
@@ -29,6 +43,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.ops import autotune as _autotune
 from metrics_tpu_torch.utils.compute import high_precision
 
 #: The most bytes of float32 compare tensor built at one time.
@@ -59,6 +74,11 @@ def binned_curve_counts(preds: Tensor, target: Tensor, thresholds: Tensor) -> Tu
     preds = torch.as_tensor(preds).to(torch.float32)
     target = torch.as_tensor(target, device=preds.device).to(torch.float32)
     thresholds = torch.as_tensor(thresholds, device=preds.device).to(torch.float32)
+    variant = _autotune.dispatch("binned_counts", (preds, target, thresholds))
+    if variant == "scatter_add":
+        return _binned_bucketize(preds, target, thresholds, via_segment_sum=False)
+    if variant == "segment_sum":
+        return _binned_bucketize(preds, target, thresholds, via_segment_sum=True)
     return _binned_onehot_matmul(preds, target, thresholds)
 
 
@@ -86,6 +106,67 @@ def _chunk_counts(preds_cn: Tensor, target: Tensor, thr: Tensor) -> Tuple[Tensor
     # that the einsum lowers to reads each class's (N, T') block as it lies, with no copy
     ge = (preds_cn >= thr[None, None, :]).to(torch.float32).permute(1, 0, 2)
     return torch.einsum("nc,nct->ct", target, ge), torch.einsum("nct->ct", ge)
+
+
+def _bucket_ids(preds: Tensor, sorted_thr: Tensor) -> Tensor:
+    """How many of the ascending thresholds each score lies at or above, in the total order
+    of a sort (NaN above everything, as JAX's ``searchsorted`` orders it): a NaN score
+    lies above every threshold, a NaN threshold above every score that is not NaN."""
+    t = sorted_thr.shape[0]
+    nan_thr = torch.isnan(sorted_thr)
+    # NaN thresholds sort last; as +inf they count for a score of +inf only, which the correction takes out
+    bounded = torch.where(nan_thr, torch.full_like(sorted_thr, float("inf")), sorted_thr)
+    flat = preds.reshape(-1).contiguous()
+    idx = torch.searchsorted(bounded, flat, right=True)
+    idx = idx - (flat == float("inf")).to(idx.dtype) * nan_thr.sum().to(idx.dtype)
+    return torch.where(torch.isnan(flat), torch.full_like(idx, t), idx)
+
+
+@high_precision
+def _binned_bucketize(preds: Tensor, target: Tensor, thresholds: Tensor, *, via_segment_sum: bool
+                      ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The bucketize formulation (JAX's ``_binned_bucketize``): a per-(bucket, class)
+    histogram of the targets and of all scores, then reversed cumulative sums. The
+    thresholds are sorted and the counts mapped back, so any grid matches the compare."""
+    from metrics_tpu_torch.ops import histogram as _histogram
+
+    n, c = preds.shape
+    t = thresholds.shape[0]
+    order = torch.argsort(thresholds, stable=True)
+    idx = _bucket_ids(preds, thresholds[order]).reshape(n, c)
+    flat = (idx * c + torch.arange(c, device=idx.device, dtype=idx.dtype)[None, :]).reshape(-1)
+    weights = target.reshape(-1).contiguous()
+    ones = torch.ones_like(weights)
+    bins = (t + 1) * c
+    if via_segment_sum:
+        tp_hist = _histogram.fused_bincount(flat, bins, weights)
+        all_hist = _histogram.fused_bincount(flat, bins, ones)
+    else:
+        tp_hist = torch.zeros(bins, dtype=torch.float32, device=preds.device).index_add_(0, flat, weights)
+        all_hist = torch.zeros(bins, dtype=torch.float32, device=preds.device).index_add_(0, flat, ones)
+    # preds >= sorted_thr[j] <=> bucket > j: a suffix sum over buckets j + 1 .. T
+    tp_ge = torch.flip(torch.cumsum(torch.flip(tp_hist.reshape(t + 1, c), [0]), 0), [0])[1:]
+    all_ge = torch.flip(torch.cumsum(torch.flip(all_hist.reshape(t + 1, c), [0]), 0), [0])[1:]
+    inv = torch.argsort(order)  # back to the caller's threshold order
+    tps = tp_ge[inv].T.contiguous()
+    ge_total = all_ge[inv].T.contiguous()
+    pos_total = target.sum(dim=0)[:, None]  # (C, 1)
+    return tps, ge_total - tps, pos_total - tps
+
+
+def _binned_scatter_add(preds: Tensor, target: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    return _binned_bucketize(preds, target, thresholds, via_segment_sum=False)
+
+
+def _binned_segment_sum(preds: Tensor, target: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    return _binned_bucketize(preds, target, thresholds, via_segment_sum=True)
+
+
+# Bit-exact contract (tolerance None): every formulation sums the same 0/1 terms, and float32
+# integer sums below 2**24 do not depend on their order.
+_autotune.register_variant("binned_counts", "onehot_matmul", _binned_onehot_matmul, reference=True)
+_autotune.register_variant("binned_counts", "scatter_add", _binned_scatter_add)
+_autotune.register_variant("binned_counts", "segment_sum", _binned_segment_sum)
 
 
 __all__ = ["binned_curve_counts"]

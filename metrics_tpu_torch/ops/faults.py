@@ -83,10 +83,12 @@ TIERS = ("fused", "chunked", "eager", "host")
 #: ``host-offload`` (before ``compute_on_cpu`` moves rows to the host),
 #: ``journal-write`` (before a record's temporary file is written),
 #: ``journal-load`` (before a stored record is read), ``ingest-admit`` (each
-#: gateway offer) and ``ingest-shed`` (each staged payload a gateway flushes).
-#: The others belong to
-#: planes not ported yet (``ROADMAP.md`` names each one's plane).
-#: Instrumented in the port: :data:`INSTRUMENTED_SITES`.
+#: gateway offer) and ``ingest-shed`` (each staged payload a gateway flushes),
+#: all in :data:`INSTRUMENTED_SITES`, the sites a default configuration reaches.
+#: ``progcache-load`` and ``progcache-store`` (before an entry is read or
+#: written) and ``autotune-sweep`` (before each candidate's check) fire in
+#: planes that are off by default (``METRICS_TPU_PROGCACHE``,
+#: ``METRICS_TPU_AUTOTUNE``).
 FAULT_SITES = (
     "probe",
     "compile",

@@ -52,9 +52,13 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.ops import _native
+from metrics_tpu_torch.ops import autotune as _autotune
 
 #: Kernel launches so far, counted where the kernel is launched and nowhere else.
 KERNEL_LAUNCHES = 0
+#: While the program ledger analyses a step (``engine._analyze``): called with the bytes each
+#: launch moves (ids and weights read, counts written), which the dispatcher never sees.
+BYTES_HOOK = None
 #: Launches of the batched kernel (``mt_bincount_batched``), counted the same way.
 BATCHED_LAUNCHES = 0
 
@@ -308,6 +312,8 @@ def _launch(x: Tensor, length: int, weights: Optional[Tensor], shared: bool) -> 
     if rc != 0:
         raise RuntimeError(f"the bincount kernel failed to launch: CUDA error {rc}")
     KERNEL_LAUNCHES += 1
+    if BYTES_HOOK is not None:
+        BYTES_HOOK(x.numel() * x.element_size() + (0 if weights is None else 4 * n) + 4 * length)
     return counts
 
 
@@ -426,6 +432,8 @@ def _launch_batched(x: Tensor, length: int, weights: Optional[Tensor], rows: int
     if rc != 0:
         raise RuntimeError(f"the batched bincount kernel failed to launch ({plan}): CUDA error {rc}")
     BATCHED_LAUNCHES += 1
+    if BYTES_HOOK is not None:
+        BYTES_HOOK(x.numel() * x.element_size() + (0 if weights is None else weights.numel() * 4) + 4 * rows * length)
     return counts
 
 
@@ -466,7 +474,49 @@ def fused_bincount(x: Tensor, length: int, weights: Optional[Tensor] = None) -> 
         # under a transform (vmap, fake tensors): the operator, whose rules the transform runs
         return torch.ops.metrics_tpu_torch.bincount(x, int(length), weights)
     # a plain tensor: the operator's own kernel for its device, without the dispatcher's round trip
-    return _bincount_plain(x, length, weights) if x.device.type == "cpu" else bincount_cuda(x, length, weights)
+    if x.device.type != "cpu":
+        return bincount_cuda(x, length, weights)  # the card always takes the kernel: no variant routes around it
+    if weights is None:
+        # unweighted counts are integers, so every formulation is exact: the one place the autotuner chooses
+        variant = _autotune.dispatch("bincount", (x, length))
+        if variant == "scatter_add":
+            return _bincount_scatter_add(x, length)
+        if variant == "onehot_matmul":
+            return _bincount_onehot_matmul(x, length)
+    return _bincount_plain(x, length, weights)
+
+
+def _bincount_segment_sum(x: Tensor, length: int) -> Tensor:
+    """The reference formulation of the unweighted count (JAX's ``segment_sum``): :func:`_bincount_plain`."""
+    return _bincount_plain(x, length)
+
+
+def _bincount_scatter_add(x: Tensor, length: int) -> Tensor:
+    """A direct indexed-add histogram (JAX's ``scatter_add`` variant): ``scatter_add_`` of the valid flags."""
+    x = x.reshape(-1)
+    valid = (x >= 0) & (x < length)
+    idx = torch.where(valid, x, torch.zeros_like(x))
+    return torch.zeros(length, dtype=torch.int32, device=x.device).scatter_add_(0, idx, valid.to(torch.int32))
+
+
+def _bincount_onehot_matmul(x: Tensor, length: int) -> Tensor:
+    """The one-hot contraction (JAX's ``onehot_matmul`` variant): ``valid @ one_hot(x, L)``,
+    O(N * L) compares, float32 products at full precision; counts below 2**24 are exact."""
+    from metrics_tpu_torch.utils.compute import high_precision
+
+    x = x.reshape(-1)
+    valid = (x >= 0) & (x < length)
+    idx = torch.where(valid, x, torch.zeros_like(x))
+    onehot = (idx[:, None] == torch.arange(length, dtype=idx.dtype, device=x.device)[None, :]).to(torch.float32)
+    counts = high_precision(torch.matmul)(valid.to(torch.float32)[None, :], onehot)[0]
+    return counts.to(torch.int32)
+
+
+# Bit-exact contract (tolerance None): unweighted counts are integers, in int32 or an exact-below-2**24
+# float32 accumulator, whatever the formulation. Consulted for CPU tensors only.
+_autotune.register_variant("bincount", "segment_sum", _bincount_segment_sum, reference=True)
+_autotune.register_variant("bincount", "scatter_add", _bincount_scatter_add)
+_autotune.register_variant("bincount", "onehot_matmul", _bincount_onehot_matmul)
 
 
 def _transformed(t: Tensor) -> bool:

@@ -24,14 +24,23 @@ in the JAX package: exact up to 2**24 scores. The rank sum at that size adds
 2**24 float32 terms in an order that differs between devices, so areas agree
 within a tolerance, not bit for bit.
 
-The JAX package's autotuned variants (``single_sort``, ``packed_sort``,
-``_sortable_score_keys``) are not ported: they belong with the autotuner.
+The JAX package's autotuned formulations are autotuner variants here as there
+(``sorted_curves.py:82-246``; :mod:`metrics_tpu_torch.ops.autotune`), each
+declaring :data:`_SORT_TOL`: ``single_sort`` derives ranks, tie runs and the
+U statistic in sorted order (no scatter back: the sum does not depend on the
+order), and ``packed_sort`` sorts :func:`_sortable_score_keys` packed with
+each score's position into one int64 key (the key in the high bits), so that
+one sort of values carries the labels along and tie runs come from integer
+equality of the keys; AP's ``packed_sort`` sorts the complemented keys. A
+multi-class call consults the autotuner with one class's row, as JAX's vmap
+of the binary kernel does, and runs the variant on every row.
 """
 from __future__ import annotations
 
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.ops import autotune as _autotune
 from metrics_tpu_torch.utils.compute import high_precision
 
 
@@ -103,6 +112,64 @@ def _auroc_midranks(preds: Tensor, y: Tensor) -> Tensor:
     return _auroc_rows(preds.reshape(1, -1), y.reshape(1, -1))[0]
 
 
+def _sorted_midranks(run_id: Tensor) -> Tensor:
+    """1-based midrank of each sorted position of each row, from its tie-run ids (no scatter)."""
+    pos = torch.arange(run_id.shape[-1], dtype=torch.float32, device=run_id.device).expand(run_id.shape)
+    run_count = _segment(torch.ones_like(pos), run_id, "sum")
+    run_first = _segment(pos, run_id, "amin")
+    return torch.gather(run_first, -1, run_id) + (torch.gather(run_count, -1, run_id) + 1.0) * 0.5
+
+
+def _auroc_single_sort_rows(preds: Tensor, y: Tensor) -> Tensor:
+    """``single_sort`` for each row: ranks, tie runs and the rank sum in sorted order."""
+    order = torch.argsort(preds, dim=-1, stable=True)
+    sy = torch.gather(y, -1, order)
+    mid = _sorted_midranks(_tie_run_ids(torch.gather(preds, -1, order)))
+    return _auroc_from_rank_sum(torch.sum(mid * sy, dim=-1), torch.sum(sy, dim=-1), preds.shape[-1])
+
+
+def _sortable_score_keys(preds: Tensor) -> Tensor:
+    """A monotone image of float32 scores in ``[0, 2**32)`` (int64 here, JAX's uint32):
+    ascending keys are ascending scores, and equal keys are tied scores (``-0.0``
+    folds to ``+0.0`` first, so the zero run stays one run). A NaN sorts by its sign
+    bit, not last: the sweep disqualifies the packed variants on NaN scores."""
+    p = torch.where(preds == 0.0, torch.zeros_like(preds), preds).contiguous()
+    ub = p.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where((ub >> 31) == 1, ~ub & 0xFFFFFFFF, ub | (1 << 31))
+
+
+def _packed_sort(keys: Tensor, y: Tensor):
+    """Sort each row's keys with its labels in one sort of int64 values (key << 31 | position):
+    the sorted keys and the labels in their order. Rows hold fewer than 2**31 scores."""
+    n = keys.shape[-1]
+    packed = (keys << 31) | torch.arange(n, device=keys.device, dtype=torch.int64)
+    values = torch.sort(packed, dim=-1).values
+    return values >> 31, torch.gather(y, -1, values & ((1 << 31) - 1))
+
+
+def _auroc_packed_sort_rows(preds: Tensor, y: Tensor) -> Tensor:
+    """``packed_sort`` for each row: one sort of packed keys carries the labels."""
+    sorted_keys, sy = _packed_sort(_sortable_score_keys(preds), y)
+    mid = _sorted_midranks(_tie_run_ids(sorted_keys))
+    return _auroc_from_rank_sum(torch.sum(mid * sy, dim=-1), torch.sum(sy, dim=-1), preds.shape[-1])
+
+
+def _auroc_single_sort(preds: Tensor, y: Tensor) -> Tensor:
+    return _auroc_single_sort_rows(preds.reshape(1, -1), y.reshape(1, -1))[0]
+
+
+def _auroc_packed_sort(preds: Tensor, y: Tensor) -> Tensor:
+    return _auroc_packed_sort_rows(preds.reshape(1, -1), y.reshape(1, -1))[0]
+
+
+_AUROC_ROWS = {"single_sort": _auroc_single_sort_rows, "packed_sort": _auroc_packed_sort_rows}
+
+
+def _auroc_variant_rows(preds: Tensor, y: Tensor) -> Tensor:
+    """The AUROC of each row (C, N) by the variant the autotuner serves one row with."""
+    return _AUROC_ROWS.get(_autotune.dispatch("auroc_sort", (preds[0], y[0])), _auroc_rows)(preds, y)
+
+
 @high_precision
 def binary_auroc_sorted(preds: Tensor, target: Tensor) -> Tensor:
     """Exact binary AUROC by midranks; NaN when a class is empty.
@@ -117,7 +184,7 @@ def binary_auroc_sorted(preds: Tensor, target: Tensor) -> Tensor:
     y = torch.as_tensor(target, device=preds.device).reshape(-1).to(torch.float32)
     if preds.shape[0] == 0:  # no data: undefined, like an empty class
         return torch.tensor(torch.nan, dtype=torch.float32, device=preds.device)
-    return _auroc_midranks(preds, y)
+    return _auroc_variant_rows(preds.reshape(1, -1), y.reshape(1, -1))[0]
 
 
 def _ap_from_descending(ys: Tensor, run_id: Tensor, n: int) -> Tensor:
@@ -143,6 +210,28 @@ def _ap_rows(preds: Tensor, y: Tensor) -> Tensor:
     return _ap_from_descending(ys, run_id, preds.shape[-1])
 
 
+def _ap_packed_sort_rows(preds: Tensor, y: Tensor) -> Tensor:
+    """``packed_sort`` for each row: the complemented keys sort descending in one sort
+    carrying the labels (run-end precisions do not depend on the order within a run)."""
+    sorted_keys, ys = _packed_sort(~_sortable_score_keys(preds) & 0xFFFFFFFF, y)
+    return _ap_from_descending(ys, _tie_run_ids(sorted_keys), preds.shape[-1])
+
+
+def _ap_argsort(preds: Tensor, y: Tensor) -> Tensor:
+    return _ap_rows(preds.reshape(1, -1), y.reshape(1, -1))[0]
+
+
+def _ap_packed_sort(preds: Tensor, y: Tensor) -> Tensor:
+    return _ap_packed_sort_rows(preds.reshape(1, -1), y.reshape(1, -1))[0]
+
+
+def _ap_variant_rows(preds: Tensor, y: Tensor) -> Tensor:
+    """The AP of each row (C, N) by the variant the autotuner serves one row with."""
+    if _autotune.dispatch("ap_sort", (preds[0], y[0])) == "packed_sort":
+        return _ap_packed_sort_rows(preds, y)
+    return _ap_rows(preds, y)
+
+
 @high_precision
 def binary_average_precision_sorted(preds: Tensor, target: Tensor) -> Tensor:
     """Exact binary AP (step interpolation, tie runs collapsed); NaN without positives.
@@ -157,7 +246,7 @@ def binary_average_precision_sorted(preds: Tensor, target: Tensor) -> Tensor:
     y = torch.as_tensor(target, device=preds.device).reshape(-1).to(torch.float32)
     if preds.shape[0] == 0:  # no data: undefined, like an input without positives
         return torch.tensor(torch.nan, dtype=torch.float32, device=preds.device)
-    return _ap_rows(preds.reshape(1, -1), y.reshape(1, -1))[0]
+    return _ap_variant_rows(preds.reshape(1, -1), y.reshape(1, -1))[0]
 
 
 def _one_vs_rest(preds: Tensor, target: Tensor, num_classes: int) -> Tensor:
@@ -191,7 +280,7 @@ def multiclass_auroc_sorted(preds: Tensor, target: Tensor, num_classes: int, ave
     if preds.shape[0] == 0:
         scores = torch.full((num_classes,), torch.nan, dtype=torch.float32, device=preds.device)
     else:
-        scores = _auroc_rows(*_class_rows(preds, onehot))
+        scores = _auroc_variant_rows(*_class_rows(preds, onehot))
     scores = torch.nan_to_num(scores, nan=0.0)
     if average in ("none", None):
         return scores
@@ -222,7 +311,7 @@ def multiclass_average_precision_sorted(
     if preds.shape[0] == 0:
         scores = torch.full((num_classes,), torch.nan, dtype=torch.float32, device=preds.device)
     else:
-        scores = _ap_rows(*_class_rows(preds, onehot))
+        scores = _ap_variant_rows(*_class_rows(preds, onehot))
     if average in ("none", None):
         return scores
     valid = ~torch.isnan(scores)
@@ -234,6 +323,16 @@ def multiclass_average_precision_sorted(
         w = support / torch.clamp(support.sum(), min=1.0)
         return torch.sum(torch.where(valid, scores * w, 0.0))
     raise ValueError(f"Unsupported average {average!r} for the sorted AP")
+
+
+# The autotuner's variants, consulted only while METRICS_TPU_AUTOTUNE is armed. They reduce the same
+# terms in another order: a small float-summation tolerance. Each takes float32 (n,) scores and labels.
+_SORT_TOL = 1e-4
+_autotune.register_variant("auroc_sort", "midranks", _auroc_midranks, reference=True)
+_autotune.register_variant("auroc_sort", "single_sort", _auroc_single_sort, tolerance=_SORT_TOL)
+_autotune.register_variant("auroc_sort", "packed_sort", _auroc_packed_sort, tolerance=_SORT_TOL)
+_autotune.register_variant("ap_sort", "argsort", _ap_argsort, reference=True)
+_autotune.register_variant("ap_sort", "packed_sort", _ap_packed_sort, tolerance=_SORT_TOL)
 
 
 __all__ = [

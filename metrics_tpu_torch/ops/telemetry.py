@@ -28,11 +28,12 @@ the planes the port has (the engine's cache and deferral counters, faults,
 collectives, journal, recorder, latency, SLO, and a ``sync_health`` block
 with world membership and the syncs in flight); :func:`prometheus_text`, its
 Prometheus text exposition; :func:`trace_events` and :func:`export_trace`,
-the ring as Chrome-trace/Perfetto JSON. The engine's sampled device probes
-land in :func:`observe_device_dispatch`. Keys of the JAX snapshot that
-belong to planes not ported yet (the program ledger and its cost analyses,
-the functional core, streaming, ingestion, the program cache and the
-autotuner) are absent; ``ROADMAP.md`` lists them.
+the ring as Chrome-trace/Perfetto JSON, with the program ledger under
+``programLedger``. The engine's sampled device probes land in
+:func:`observe_device_dispatch`. The snapshot has the JAX snapshot's keys: the
+program ledger's summary (``programs``) and analyses, the program cache's
+``progcache_*``, the autotuner's ``autotune_*`` and, once the image stack is
+loaded, FID's ``fid_host_sqrtm*``.
 """
 from __future__ import annotations
 
@@ -53,6 +54,7 @@ __all__ = [
     "emit",
     "export_trace",
     "is_counter_key",
+    "is_histogram_sample_key",
     "latency_stats",
     "now",
     "observe_device_dispatch",
@@ -72,9 +74,7 @@ __all__ = [
     "trace_events",
 ]
 
-#: Every span site, by subsystem, under the JAX package's names. The port
-#: emits the engine, sync, fault, ladder, journal and suite sites; the others
-#: belong to planes not ported yet and are kept so that both packages share one table.
+#: Every span site, by subsystem, under the JAX package's names: one table for both packages.
 SPAN_SITES = {
     # engine (ops/engine.py; engine-compile marks a program's first run of a signature)
     "engine-enqueue": "one eager call enqueued into a pending queue (instant)",
@@ -96,7 +96,7 @@ SPAN_SITES = {
     "sync-timeout": "a blocking collective hit the watchdog deadline (instant)",
     "sync-degrade-serve": "compute() served a local-only degraded value (instant)",
     "sync-quorum-serve": "compute() served the surviving-quorum aggregate (instant)",
-    # world membership (not ported yet)
+    # world membership (parallel/sync.py)
     "epoch-bump": "the world epoch advanced on a membership transition (instant)",
     "peer-dead": "a peer rank was declared dead (instant)",
     "peer-rejoin": "a rank's dead mark cleared in the membership registry (instant)",
@@ -113,7 +113,7 @@ SPAN_SITES = {
     # suite (collections.py)
     "suite-step": "one whole-suite update/forward call",
     "suite-sync": "one whole-suite sync (coalesced + individual members)",
-    # planes not ported yet
+    # the fleet, tenant, program-cache and autotuner planes
     "fleet-gather": "one fleet metadata/blob exchange",
     "fleet-snapshot": "one cross-rank snapshot gather + merge",
     "fleet-trace": "one cross-rank span-ring gather + merged trace export",
@@ -597,7 +597,8 @@ register_warning_reset("telemetry", _reset_overflow_warning)
 # --------------------------------------------------------------------- faces
 def snapshot() -> Dict[str, Any]:
     """One merged monitoring dict: the engine's counters (``builds``, ``hits``,
-    ``cached``, ``deferred_*``, ``device_probes``), the fault counters and
+    ``cached``, ``deferred_*``, ``device_probes``, ``program_analyses``), the
+    program ledger's summary (``programs``), the fault counters and
     ``failure_log``, the collective counters, the journal counters, the recorder counters, the
     monotonic step, a ``sync_health`` block, the sync phase statistics, the
     latency histograms and the SLO violations. Scrape this, or its
@@ -621,6 +622,7 @@ def snapshot() -> Dict[str, Any]:
     out.update(_engine.engine_stats())  # the engine's, fault, collective and journal counters
     out.update(telemetry_stats())
     out["monotonic_step"] = _step_provider()
+    out["programs"] = _engine.program_summary()
     domain_counts: Dict[str, int] = {}
     for entry in out.get("failure_log", ()):
         domain_counts[entry["domain"]] = domain_counts.get(entry["domain"], 0) + 1
@@ -669,8 +671,8 @@ def _flat_numeric(prefix: str, value: Any) -> Iterator[Tuple[str, float]]:
             yield from _flat_numeric(key, v)
 
 
-# The JAX package's classification of every flattened key, planes not ported
-# yet included, so that both packages render the same dict the same way.
+# The JAX package's classification of every flattened key, so that both packages render the same dict
+# the same way.
 _COUNTER_PREFIXES = (
     "builds", "hits", "deferred_", "fault_", "sync_", "journal_", "fleet_",
     "latency_", "slo_", "spans_recorded", "spans_dropped", "monotonic_step",
@@ -696,6 +698,16 @@ def is_counter_key(key: str) -> bool:
         and not key.endswith(_GAUGE_SUFFIXES)
         and not key.startswith(_GAUGE_PREFIXES)
     )
+
+
+def is_histogram_sample_key(key: str) -> bool:
+    """Whether a flattened snapshot key is a histogram sample (a bucket count,
+    ``_count`` or ``_sum_s`` under the latency plane): counters by
+    :func:`is_counter_key`, but rendered only inside the histogram families and
+    merged structurally by the fleet plane, never as flat scalars."""
+    if not key.startswith(_HIST_SNAPSHOT_KEY + "_"):
+        return False
+    return "_buckets_" in key or key.endswith(("_count", "_sum_s"))
 
 
 def _render_value(value: float) -> str:
@@ -819,7 +831,9 @@ def trace_events(rows: Optional[List[Dict[str, Any]]] = None) -> List[Dict[str, 
 def export_trace(path: str) -> int:
     """Write the recorded spans as Chrome-trace/Perfetto JSON (open it at
     https://ui.perfetto.dev or ``chrome://tracing``), with the numeric
-    snapshot under ``snapshot``. Returns the number of span events written.
+    snapshot under ``snapshot`` and the program ledger
+    (:func:`metrics_tpu_torch.ops.engine.program_report`) under ``programLedger``.
+    Returns the number of span events written.
 
     Example:
         >>> import os, tempfile
@@ -829,11 +843,17 @@ def export_trace(path: str) -> int:
         >>> os.path.exists(path)
         True
     """
-    events = trace_events()
+    from metrics_tpu_torch.ops import engine as _engine
+
+    # the ledger first: its analyses run programs (seconds over a full cache), and the spans and the
+    # snapshot are read after them, so that the file agrees with the ring as it stands when it is written
+    ledger = _engine.program_report()
     snap = snapshot()
+    events = trace_events()
     doc = {
         "displayTimeUnit": "ms",
         "otherData": {"generator": "metrics_tpu_torch.ops.telemetry", "schema": 1},
+        "programLedger": _json_safe(ledger),
         "snapshot": _json_safe({k: v for k, v in snap.items() if k != "failure_log"}),
         "traceEvents": events,
     }

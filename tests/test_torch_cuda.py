@@ -47,7 +47,10 @@ path, captured in a CUDA graph and under ``torch.func.vmap``, the value checks
 skipped while a graph is being captured, and the fused BootStrapper,
 MultioutputWrapper and MinMaxMetric equal to their eager paths; the tenant
 planes: a ConfusionMatrix arena's update one batched launch a chunk and equal
-to a CPU twin, and a drift report counted by the plain kernel.
+to a CPU twin, and a drift report counted by the plain kernel; the planes of
+performance and tuning: the binned counts' ``segment_sum`` variant launching
+the hand kernel bit for bit, a CUDA bincount never consulting the autotuner,
+and the roofline peaks calibrated with the kernel's bytes counted.
 
 They are marked ``cuda`` and skip where no CUDA device is present. This file
 imports no JAX, so on a machine without JAX it runs alone::
@@ -55,6 +58,7 @@ imports no JAX, so on a machine without JAX it runs alone::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 import os
+import time
 
 import pytest
 import torch
@@ -1424,3 +1428,93 @@ def test_drift_report_counts_with_the_plain_kernel_on_the_card(dev):
     assert histogram.KERNEL_LAUNCHES - before == 2
     twin = mt.drift_report(cur.cpu(), ref.cpu(), bins=32, device="cpu")
     assert out == twin
+
+
+def test_binned_segment_sum_variant_launches_the_kernel_bit_exact(dev):
+    """The autotuner's ``segment_sum`` formulation of the binned counts on the card: two launches of the
+    hand kernel (weighted, (T + 1) * C bins) and TP/FP/FN equal to the compare's bit for bit, unsorted
+    thresholds included; the sweep holds it to the same contract."""
+    from metrics_tpu_torch.ops import autotune, binned
+
+    g = torch.Generator(device=dev).manual_seed(30)
+    preds = torch.rand(1000, 100, generator=g, device=dev)
+    target = (torch.rand(1000, 100, generator=g, device=dev) < 0.1).to(torch.float32)
+    thresholds = torch.rand(37, generator=g, device=dev)
+    before = histogram.KERNEL_LAUNCHES
+    got = binned._binned_segment_sum(preds, target, thresholds)
+    assert histogram.KERNEL_LAUNCHES - before == 2
+    for a, b in zip(got, binned._binned_onehot_matmul(preds, target, thresholds)):
+        assert torch.equal(a, b)
+    autotune.configure(enabled=True, reset=True)
+    try:
+        rows = {r["variant"]: r for r in autotune.sweep("binned_counts", (preds, target, thresholds))["candidates"]}
+        assert rows["segment_sum"]["ok"] and rows["segment_sum"]["exact"] and rows["segment_sum"]["wall_s"] > 0
+    finally:
+        autotune.configure(reset=True)
+
+
+def test_a_failed_segment_sum_launch_raises_out_of_the_sweep(dev, monkeypatch):
+    """A hand kernel that fails to launch is no verdict on its variant: the sweep and the consult raise,
+    and the card never quietly serves the reference's compare instead."""
+    from metrics_tpu_torch.ops import autotune
+
+    def failed_launch(*args, **kwargs):
+        raise RuntimeError("mt_bincount failed to launch: an injected launch error")
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    args = (torch.rand(512, 64, generator=g, device=dev),
+            (torch.rand(512, 64, generator=g, device=dev) < 0.1).to(torch.float32), torch.linspace(0, 1, 21, device=dev))
+    monkeypatch.setattr(histogram, "_launch", failed_launch)
+    autotune.configure(enabled=True, reset=True)
+    try:
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            autotune.sweep("binned_counts", args)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            autotune.dispatch("binned_counts", args, sweep_on_miss=True)
+        assert autotune.selection_table() == {} and autotune.autotune_stats()["autotune_disqualified"] == 0
+    finally:
+        autotune.configure(reset=True)
+    torch.cuda.synchronize()
+
+
+def test_the_sweep_times_device_time_not_the_host_gaps(dev):
+    """A candidate whose launches wait 2 ms on the host each run is timed by its device work alone."""
+    from metrics_tpu_torch.ops import autotune
+
+    x = torch.zeros(1024, device=dev)
+
+    def run():
+        time.sleep(0.002)
+        x.add_(1.0)
+
+    assert autotune._time_candidate(run, 3, dev) < 5e-4
+
+
+def test_a_cuda_bincount_never_consults_the_autotuner(dev, monkeypatch):
+    from metrics_tpu_torch.ops import autotune
+
+    x = torch.randint(0, 16, (4096,), device=dev)
+    autotune.configure(enabled=True, reset=True)
+    try:
+        autotune._install("bincount", autotune.shape_class(x, 16), "scatter_add")
+        monkeypatch.setattr(autotune, "dispatch", lambda *a, **k: pytest.fail("a CUDA bincount consulted"))
+        before = histogram.KERNEL_LAUNCHES
+        got = histogram.fused_bincount(x, 16)
+        assert histogram.KERNEL_LAUNCHES - before == 1 and torch.equal(got, histogram._bincount_plain(x, 16))
+    finally:
+        autotune.configure(reset=True)
+
+
+def test_roofline_peaks_calibrate_on_the_card(dev):
+    from metrics_tpu_torch.ops import engine
+
+    engine.set_roofline_peaks(None)
+    peaks = engine.roofline_peaks()
+    assert peaks["calibrated"] and peaks["peak_flops_per_s"] > 1e12 and peaks["peak_bytes_per_s"] > 1e11
+    # the ledger counts the hand kernel's bytes itself: ids and weights read, counts written
+    x = torch.randint(0, 100, (10_000,), device=dev)
+    exe = engine.acquire_keyed(("ledger-bincount-card",), lambda: (lambda state, ids: histogram.fused_bincount(ids, 100)))
+    exe(None, x)
+    analysis = engine._analyze(exe)
+    assert analysis["bytes_accessed"] >= 8 * 10_000 + 4 * 100
+    engine.set_roofline_peaks(None)

@@ -264,7 +264,7 @@ def test_engine_stats_has_the_reference_engine_keys():
     assert engine_keys <= set(mine) and engine_keys <= set(ref)
     snap = telemetry.snapshot()
     assert engine_keys <= set(snap)
-    assert "program_analyses" not in snap and "programs" not in snap  # with the program cache (ROADMAP)
+    assert "program_analyses" in mine and "program_analyses" in snap and set(snap["programs"]) == set(jengine.program_summary())
 
 
 def test_reset_stats_keeps_programs_and_zeroes_counters():

@@ -46,7 +46,8 @@ def test_port_files_exist():
                    "functional/text/infolm.py", "text/basic.py", "text/advanced.py", "functional/audio/snr.py",
                    "functional/audio/sdr.py", "functional/audio/pit.py", "functional/audio/stoi.py",
                    "functional/audio/host.py", "audio/metrics.py", "ops/faults.py", "ops/telemetry.py",
-                   "ops/journal.py", "parallel/sync.py", "parallel/bucketing.py"):
+                   "ops/journal.py", "parallel/sync.py", "parallel/bucketing.py", "ops/perf.py", "ops/fleetobs.py",
+                   "ops/progcache.py", "ops/autotune.py"):
         assert f"metrics_tpu_torch/{module}" in names
 
 

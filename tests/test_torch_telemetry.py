@@ -2,8 +2,7 @@
 
 ``LatencyHistogram`` gives equal bucket counts and quantiles for the same
 durations; ``prometheus_text(d)`` and ``trace_events(rows)`` are byte-identical
-for the same dict and rows; ``snapshot()`` has the JAX snapshot's keys less
-those of the planes not ported yet (listed below, and in ``ROADMAP.md``).
+for the same dict and rows; ``snapshot()`` has the JAX snapshot's keys.
 Then the recorder's contracts on the port's own planes: the sync phases and
 suite calls emit their spans, a disarmed recorder emits nothing, budgets
 count violations and warn once, the ring bounds itself and says so, resets
@@ -25,14 +24,10 @@ import metrics_tpu_torch as tmt
 
 DIST_ON = lambda: True  # noqa: E731
 
-# Keys of the JAX snapshot whose planes the port has not yet: key -> the plane that brings them. The
-# engine's cache and deferral counters are the port's; its program ledger waits for the program cache.
-CACHE_TUNE = "program cache/autotuner"
-PENDING_KEYS = {
-    **{k: CACHE_TUNE for k in ("program_analyses", "programs")},
-    **{k: CACHE_TUNE for k in ("fid_host_sqrtm", "fid_host_sqrtm_time_s")},
-}
-PENDING_PREFIXES = {"progcache_": CACHE_TUNE, "autotune_": CACHE_TUNE}
+# Keys of the JAX snapshot whose planes the port has not yet: key -> the plane that brings them. Every
+# plane is ported, so the port's snapshot has exactly the JAX snapshot's keys.
+PENDING_KEYS: dict = {}
+PENDING_PREFIXES: dict = {}
 
 
 @pytest.fixture(autouse=True)

@@ -442,7 +442,7 @@ def test_rejoin_restores_journal_and_enters_next_epoch(tmp_path):
     assert out["generation"] == 0 and out["handoff"] is False
     assert out["epoch"] == e_dead + 1 == psync.world_epoch()
     assert psync.world_health()["dead_ranks"] == []
-    assert sorted(out) == ["epoch", "generation", "handoff", "rank", "restored_step"]
+    assert sorted(out) == ["epoch", "generation", "handoff", "rank", "restored_step", "warmed_programs"]
     got = restored.compute()
     assert all(torch.equal(got[k], oracle[k]) for k in oracle)
 
