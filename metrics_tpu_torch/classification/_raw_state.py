@@ -24,6 +24,7 @@ from typing import Callable, Optional, Tuple
 
 from torch import Tensor
 
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.utils.data import dim_zero_cat
 
 
@@ -83,9 +84,10 @@ class _RawPairStateMixin:
         """The buffered rows concatenated, canonicalised row by row first only where their shapes force it."""
         if not isinstance(self.preds, list):
             return self.preds, self.target
-        if len({tuple(p.shape[1:]) for p in self.preds}) > 1 or len({tuple(t.shape[1:]) for t in self.target}) > 1:
-            self._canonicalize_list_states()
-        return dim_zero_cat(self.preds), dim_zero_cat(self.target)
+        with _telemetry.trace_range("state-cat"):
+            if len({tuple(p.shape[1:]) for p in self.preds}) > 1 or len({tuple(t.shape[1:]) for t in self.target}) > 1:
+                self._canonicalize_list_states()
+            return dim_zero_cat(self.preds), dim_zero_cat(self.target)
 
 
 __all__ = ["_RawPairStateMixin"]

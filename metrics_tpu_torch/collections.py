@@ -174,8 +174,7 @@ class MetricCollection(nn.ModuleDict):
     # ----------------------------------------------------------- call surface
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Call ``forward`` on every metric, kwargs filtered per update signature."""
-        t_step = _telemetry.now() if _telemetry.armed else 0.0
-        try:
+        with _telemetry.timed("suite-step", self, "suite", {"api": "forward"}):
             deferred = self._defer_forward(args, kwargs)
             if deferred is not None:
                 self._journal_tick()
@@ -187,14 +186,10 @@ class MetricCollection(nn.ModuleDict):
             self._fault_note_clean()
             self._journal_tick()
             return {self._set_name(k): v for k, v in res.items()}
-        finally:
-            if t_step and _telemetry.armed:
-                _telemetry.emit("suite-step", self, "suite", t_step, _telemetry.now() - t_step, {"api": "forward"})
 
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update every metric, or once the groups are known, every group's leader."""
-        t_step = _telemetry.now() if _telemetry.armed else 0.0
-        try:
+        with _telemetry.timed("suite-step", self, "suite", {"api": "update"}):
             if self._defer_update(args, kwargs):
                 self._journal_tick()
                 return
@@ -219,9 +214,6 @@ class MetricCollection(nn.ModuleDict):
             # a clean suite step: demoted suite lanes count it toward their recovery edge
             self._fault_note_clean()
             self._journal_tick()
-        finally:
-            if t_step and _telemetry.armed:
-                _telemetry.emit("suite-step", self, "suite", t_step, _telemetry.now() - t_step, {"api": "update"})
 
     # ------------------------------------------------------ deferred dispatch
     def _defer_barrier(self) -> None:
@@ -855,59 +847,57 @@ class MetricCollection(nn.ModuleDict):
                 "A suite sync is already in flight (sync_async); force it with wait() or compute() before syncing again."
             )
         _psync.drain_inflight()  # other owners' syncs in flight land before this one packs
-        t_suite = _telemetry.now() if _telemetry.armed else 0.0
-        members, coalesced, individual, group = self._partition_sync_members(dist_sync_fn, process_group)
-        try:
-            if coalesced:
-                nodes = [n for _, tree in coalesced for n in tree]
-                snaps = [(n, n._state_snapshot()) for n in nodes]
-                try:
-                    _bucketing.coalesced_sync_nodes(nodes, group=None if group is _UNSET_GROUP else group, owner=self)
-                except _bucketing.CoalesceError as err:
-                    if not _bucketing.should_fallback(err):
-                        # one process alone cannot switch protocols in a live world: raise classified
+        with _telemetry.timed("suite-sync", self, "sync") as span:
+            members, coalesced, individual, group = self._partition_sync_members(dist_sync_fn, process_group)
+            try:
+                if coalesced:
+                    nodes = [n for _, tree in coalesced for n in tree]
+                    snaps = [(n, n._state_snapshot()) for n in nodes]
+                    try:
+                        _bucketing.coalesced_sync_nodes(
+                            nodes, group=None if group is _UNSET_GROUP else group, owner=self
+                        )
+                    except _bucketing.CoalesceError as err:
+                        if not _bucketing.should_fallback(err):
+                            # one process alone cannot switch protocols in a live world: raise classified
+                            for n, snap in snaps:
+                                n._restore_state(snap)
+                            raise err.original from err
+                        _bucketing.handle_coalesce_failure(
+                            self,
+                            snaps,
+                            err,
+                            warn=(
+                                "Coalesced suite sync failed; falling back to member-wise syncs (bit-exact;"
+                                " each member may still coalesce its own tree, per-state only if its own pack"
+                                " also fails)."
+                            ),
+                        )
+                        individual = [m for m, _ in coalesced] + individual
+                    except Exception:
                         for n, snap in snaps:
                             n._restore_state(snap)
-                        raise err.original from err
-                    _bucketing.handle_coalesce_failure(
-                        self,
-                        snaps,
-                        err,
-                        warn=(
-                            "Coalesced suite sync failed; falling back to member-wise syncs (bit-exact;"
-                            " each member may still coalesce its own tree, per-state only if its own pack"
-                            " also fails)."
-                        ),
-                    )
-                    individual = [m for m, _ in coalesced] + individual
-                except Exception:
-                    for n, snap in snaps:
-                        n._restore_state(snap)
-                    raise
-                else:
-                    for n, snap in snaps:
-                        n._cache = snap
-                        n._is_synced = True
-            for m in individual:
-                m.sync(dist_sync_fn, process_group, True, distributed_available)
-            if not coalesced:
-                # a member-wise suite sync is a clean step toward the suite lane's recovery edge
-                lad = self.__dict__.get("_fault_ladders", {}).get("sync-pack")
-                if lad is not None and lad.demoted and lad.note_clean():
-                    lad.promote()
-        except Exception as exc:
-            # no member may stay synced while another holds its local states
-            for _, m in members:
-                if m._is_synced:
-                    m.unsync()
-            self._relink_groups()
-            _faults.note_fault(_faults.classify(exc, "sync"), site="sync", owner=self, error=exc)
-            raise
-        if t_suite and _telemetry.armed:
-            _telemetry.emit(
-                "suite-sync", self, "sync", t_suite, _telemetry.now() - t_suite,
-                {"members": len(members), "coalesced": len(coalesced), "individual": len(individual)},
-            )
+                        raise
+                    else:
+                        for n, snap in snaps:
+                            n._cache = snap
+                            n._is_synced = True
+                for m in individual:
+                    m.sync(dist_sync_fn, process_group, True, distributed_available)
+                if not coalesced:
+                    # a member-wise suite sync is a clean step toward the suite lane's recovery edge
+                    lad = self.__dict__.get("_fault_ladders", {}).get("sync-pack")
+                    if lad is not None and lad.demoted and lad.note_clean():
+                        lad.promote()
+            except Exception as exc:
+                # no member may stay synced while another holds its local states
+                for _, m in members:
+                    if m._is_synced:
+                        m.unsync()
+                self._relink_groups()
+                _faults.note_fault(_faults.classify(exc, "sync"), site="sync", owner=self, error=exc)
+                raise
+            span.attrs = {"members": len(members), "coalesced": len(coalesced), "individual": len(individual)}
         # a suite sync over the whole world is the last good one of the suite and of every member's tree
         if _psync.is_full_world_group(process_group):
             self._stamp_last_good(members, _faults.tick())

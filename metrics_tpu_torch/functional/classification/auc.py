@@ -10,6 +10,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.utils.checks import _check_same_shape
 from metrics_tpu_torch.utils.compute import _auc_compute
 
@@ -25,6 +26,7 @@ def _auc_update(x: Tensor, y: Tensor) -> Tuple[Tensor, Tensor]:
     return x, y
 
 
+@_telemetry.ranged("curve-area")
 def _auc_compute_without_check(x: Tensor, y: Tensor, direction: float = 1.0) -> Tensor:
     return torch.trapezoid(y, x) * direction
 

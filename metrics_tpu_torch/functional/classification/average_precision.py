@@ -18,11 +18,13 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     _precision_recall_curve_compute,
     _precision_recall_curve_update,
 )
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.utils.checks import _is_concrete
 from metrics_tpu_torch.utils.data import _bincount
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 
+@_telemetry.ranged("validate")
 def _average_precision_update(
     preds: Tensor,
     target: Tensor,
@@ -79,6 +81,7 @@ def _bincount_float(target: Tensor, num_classes: int) -> Tensor:
     return _bincount(target.reshape(-1), minlength=num_classes).to(torch.float32)
 
 
+@_telemetry.ranged("curve-area")
 def _average_precision_compute_with_precision_recall(
     precision,
     recall,
@@ -95,10 +98,13 @@ def _average_precision_compute_with_precision_recall(
     if average in ("macro", "weighted"):
         res_arr = torch.stack(res)
         nan_mask = torch.isnan(res_arr)
-        if bool(nan_mask.any()):
+        with _telemetry.trace_range("host-read", "ap-nan-classes"):
+            any_nan = bool(nan_mask.any())
+        if any_nan:
             rank_zero_warn(
                 "Average precision score for one or more classes was `nan`. Ignoring these classes in average",
                 UserWarning,
+                stacklevel=5,  # the caller's line, past the profiler range's frame
             )
         if average == "macro":
             valid = ~nan_mask

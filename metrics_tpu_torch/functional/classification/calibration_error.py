@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.utils.checks import _classification_case
 from metrics_tpu_torch.utils.data import _bincount
 from metrics_tpu_torch.utils.enums import DataType
@@ -32,6 +33,7 @@ def _uniform_bin_boundaries(n_bins: int, device: torch.device) -> Tensor:
     return torch.cat([inner, torch.ones(1, device=device)])
 
 
+@_telemetry.ranged("calibration-bins")
 def _bin_counts(
     confidences: Tensor, accuracies: Tensor, bin_boundaries: Tensor
 ) -> Tuple[Tensor, Tensor, Tensor]:

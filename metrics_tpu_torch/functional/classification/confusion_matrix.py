@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.utils.checks import _check_broadcastable, _input_format_classification, _is_concrete
 from metrics_tpu_torch.utils.data import _bincount
 from metrics_tpu_torch.utils.enums import DataType
@@ -27,8 +28,9 @@ def _confusion_matrix_update(
     pass_nc = num_classes if (not preds.is_floating_point() and preds.ndim == target.ndim) else None
     preds, target, mode = _input_format_classification(preds, target, threshold, num_classes=pass_nc)
     if mode not in (DataType.BINARY, DataType.MULTILABEL):
-        preds = preds.argmax(dim=1)
-        target = target.argmax(dim=1)
+        with _telemetry.trace_range("canonicalize"):
+            preds = preds.argmax(dim=1)
+            target = target.argmax(dim=1)
     if multilabel:
         offsets = 4 * torch.arange(num_classes, device=preds.device)
         # inputs that are not (N, C) multilabel: raise JAX's exception type

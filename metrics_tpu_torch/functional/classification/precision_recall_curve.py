@@ -24,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 
@@ -47,22 +48,25 @@ def _binary_clf_curve(
     if target.shape[0] == 0:
         # JAX's gather of the last score fails with a TypeError on no rows
         raise TypeError("A curve needs at least one sample, got an empty batch")
-    order = torch.argsort(-preds, stable=True)
-    preds = preds[order]
-    target = target[order]
-    weight = sample_weights[order] if sample_weights is not None else 1.0
+    with _telemetry.trace_range("curve-sort"):
+        order = torch.argsort(-preds, stable=True)
+        preds = preds[order]
+        target = target[order]
+        weight = sample_weights[order] if sample_weights is not None else 1.0
 
-    distinct_idx = torch.nonzero(preds[1:] - preds[:-1])[:, 0]
-    last = torch.tensor([target.shape[0] - 1], dtype=distinct_idx.dtype, device=preds.device)
-    threshold_idxs = torch.cat([distinct_idx, last])
-    target = (target == pos_label).to(torch.int32)
-    tps = torch.cumsum(target * weight, dim=0)[threshold_idxs]
+    with _telemetry.trace_range("curve-ties"):
+        with _telemetry.trace_range("host-read", "curve-thresholds"):
+            distinct_idx = torch.nonzero(preds[1:] - preds[:-1])[:, 0]
+        last = torch.tensor([target.shape[0] - 1], dtype=distinct_idx.dtype, device=preds.device)
+        threshold_idxs = torch.cat([distinct_idx, last])
+        target = (target == pos_label).to(torch.int32)
+        tps = torch.cumsum(target * weight, dim=0)[threshold_idxs]
 
-    if sample_weights is not None:
-        fps = torch.cumsum((1 - target) * weight, dim=0)[threshold_idxs]
-    else:
-        fps = 1 + threshold_idxs - tps
-    return fps, tps, preds[threshold_idxs]
+        if sample_weights is not None:
+            fps = torch.cumsum((1 - target) * weight, dim=0)[threshold_idxs]
+        else:
+            fps = 1 + threshold_idxs - tps
+        return fps, tps, preds[threshold_idxs]
 
 
 def _precision_recall_curve_update(
@@ -126,11 +130,18 @@ def _precision_recall_curve_compute_single_class(
     sample_weights: Optional[Sequence] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     fps, tps, thresholds = _binary_clf_curve(preds, target, sample_weights, pos_label)
+    return _precision_recall_from_counts(fps, tps, thresholds)
+
+
+@_telemetry.ranged("curve-area")
+def _precision_recall_from_counts(fps: Tensor, tps: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The precision-recall curve's points from the cumulative counts at each distinct score."""
     precision = tps / (tps + fps)
     recall = tps / tps[-1]
 
     # cut the curve at full recall and flip it, so that recall decreases
-    last_ind = int(torch.nonzero(tps == tps[-1])[0, 0])
+    with _telemetry.trace_range("host-read", "full-recall"):
+        last_ind = int(torch.nonzero(tps == tps[-1])[0, 0])
     sl = slice(0, last_ind + 1)
     one = torch.ones(1, dtype=precision.dtype, device=precision.device)
     precision = torch.cat([precision[sl].flip(0), one])

@@ -18,6 +18,7 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     _binary_clf_curve,
     _precision_recall_curve_update,
 )
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 
@@ -38,26 +39,38 @@ def _roc_compute_single_class(
     sample_weights: Optional[Sequence] = None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     fps, tps, thresholds = _binary_clf_curve(preds, target, sample_weights, pos_label)
+    return _roc_from_counts(fps, tps, thresholds)
+
+
+@_telemetry.ranged("curve-area")
+def _roc_from_counts(fps: Tensor, tps: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The ROC's points from the cumulative counts at each distinct score."""
     # prepend (0, 0) so that the curve starts at the origin
     tps = torch.cat([torch.zeros(1, dtype=tps.dtype, device=tps.device), tps])
     fps = torch.cat([torch.zeros(1, dtype=fps.dtype, device=fps.device), fps])
     thresholds = torch.cat([thresholds[0:1] + 1, thresholds])
 
-    if float(fps[-1]) <= 0:
+    with _telemetry.trace_range("host-read", "roc-negatives"):
+        no_negatives = float(fps[-1]) <= 0
+    if no_negatives:
         rank_zero_warn(
             "No negative samples in targets, false positive value should be meaningless."
             " Returning zero tensor in false positive score",
             UserWarning,
+            stacklevel=6,  # the line that asked for the curve, past the range's frame and the split
         )
         fpr = torch.zeros_like(thresholds)
     else:
         fpr = fps / fps[-1]
 
-    if float(tps[-1]) <= 0:
+    with _telemetry.trace_range("host-read", "roc-positives"):
+        no_positives = float(tps[-1]) <= 0
+    if no_positives:
         rank_zero_warn(
             "No positive samples in targets, true positive value should be meaningless."
             " Returning zero tensor in true positive score",
             UserWarning,
+            stacklevel=6,
         )
         tpr = torch.zeros_like(thresholds)
     else:

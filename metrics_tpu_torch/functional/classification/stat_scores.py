@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.utils.checks import _input_format_classification
 from metrics_tpu_torch.utils.enums import AverageMethod, DataType, MDMCAverageMethod
 
@@ -104,25 +105,26 @@ def _stat_scores_update(
     if ignore_index is not None and preds.shape[1] == 1:
         raise ValueError("You can not use `ignore_index` with binary data.")
 
-    if preds.ndim == 3:
-        if not mdmc_reduce:
-            raise ValueError(
-                "When your inputs are multi-dimensional multi-class, you have to set the `mdmc_reduce` parameter"
-            )
-        if mdmc_reduce == "global":
-            # (N, C, X) -> (N*X, C); the position mask flattens alongside
-            n_cls = preds.shape[1]
-            preds = preds.movedim(1, 2).reshape(-1, n_cls)
-            target = target.movedim(1, 2).reshape(-1, n_cls)
-            if sample_mask is not None:
-                sample_mask = sample_mask.reshape(-1)
+    with _telemetry.trace_range("stat-scores"):
+        if preds.ndim == 3:
+            if not mdmc_reduce:
+                raise ValueError(
+                    "When your inputs are multi-dimensional multi-class, you have to set the `mdmc_reduce` parameter"
+                )
+            if mdmc_reduce == "global":
+                # (N, C, X) -> (N*X, C); the position mask flattens alongside
+                n_cls = preds.shape[1]
+                preds = preds.movedim(1, 2).reshape(-1, n_cls)
+                target = target.movedim(1, 2).reshape(-1, n_cls)
+                if sample_mask is not None:
+                    sample_mask = sample_mask.reshape(-1)
 
-    class_mask = None
-    if ignore_index is not None and ignore_index >= 0 and reduce != "macro":
-        class_mask = torch.ones(preds.shape[1], dtype=torch.bool, device=preds.device)
-        class_mask[ignore_index] = False
+        class_mask = None
+        if ignore_index is not None and ignore_index >= 0 and reduce != "macro":
+            class_mask = torch.ones(preds.shape[1], dtype=torch.bool, device=preds.device)
+            class_mask[ignore_index] = False
 
-    tp, fp, tn, fn = _stat_scores(preds, target, reduce=reduce, class_mask=class_mask, sample_mask=sample_mask)
+        tp, fp, tn, fn = _stat_scores(preds, target, reduce=reduce, class_mask=class_mask, sample_mask=sample_mask)
 
     if ignore_index is not None and ignore_index >= 0 and reduce == "macro":
         # flag the ignored class with -1 so downstream reduces skip it (reference `:186-191`)

@@ -550,6 +550,7 @@ class Metric(nn.Module, ABC):
         object.__setattr__(self, "_inner_update", update)
 
         @functools.wraps(update)
+        @_telemetry.ranged("update", type(self).__name__)
         def wrapped(*args: Any, **kwargs: Any) -> None:
             # the host fast lane: False for anything it did not bind (a new
             # signature, a mode change); compute_on_cpu bypasses it, its offload must run
@@ -939,12 +940,14 @@ class Metric(nn.Module, ABC):
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
+        @_telemetry.ranged("compute", type(self).__name__)
         def wrapped(*args: Any, **kwargs: Any) -> Any:
             if self._update_count == 0:
                 rank_zero_warn(
                     f"The ``compute`` method of metric {self.__class__.__name__} was called before the ``update``"
                     " method which may lead to errors, as metric states have not yet been updated.",
                     UserWarning,
+                    stacklevel=5,  # the caller's line, past the profiler range's frame
                 )
             if self._computed is not None:
                 return self._computed
@@ -1725,6 +1728,7 @@ class Metric(nn.Module, ABC):
             child.persistent(mode)
 
     # ------------------------------------------------------------- plumbing
+    @_telemetry.ranged("filter-kwargs")
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
         """Keep only the kwargs this metric's update accepts (reference `metric.py:702-722`)."""
         params = inspect.signature(type(self).update).parameters

@@ -407,7 +407,11 @@ class Executable:
         _first_runs[0] += 1
         t0 = time.perf_counter()
         try:
-            out = self.step(state, *args, **kwargs)
+            if loaded:
+                out = self.step(state, *args, **kwargs)
+            else:
+                with _telemetry.trace_range("engine-compile", self.kind):
+                    out = self.step(state, *args, **kwargs)
         finally:
             _first_runs[0] -= 1
         dur = time.perf_counter() - t0
@@ -439,7 +443,11 @@ class Executable:
         if state is not None and self._owner_ref is not None and self._owner_ref() is None:
             self._owner_ref = weakref.ref(state)  # the state it last ran died: follow the live one
         t0 = time.perf_counter()
-        out = self.step(state, *args, **kwargs)
+        if record_span:
+            with _telemetry.trace_range("engine-dispatch", self.kind):
+                out = self.step(state, *args, **kwargs)
+        else:
+            out = self.step(state, *args, **kwargs)
         self.runs += 1
         host_dur = time.perf_counter() - t0
         self.dispatch_time_s += host_dur
@@ -562,13 +570,12 @@ def acquire_keyed(key: tuple, build: Callable[[], Callable]) -> Executable:
     if _faults.armed:
         _faults.maybe_fail("compile")
     _stats["builds"] += 1
-    t0 = time.perf_counter()
-    exe = Executable(build())
-    exe.kind = str(key[0])
-    exe.key_digest = hashlib.sha1(repr(key).encode()).hexdigest()[:12]
-    exe.probe_key = f"{exe.kind}:{exe.key_digest[:8]}"
-    if _telemetry.armed:
-        _telemetry.emit("engine-build", exe.kind, "engine", t0, time.perf_counter() - t0, {"key": exe.key_digest})
+    with _telemetry.timed("engine-build", str(key[0]), "engine", detail=str(key[0])) as span:
+        exe = Executable(build())
+        exe.kind = str(key[0])
+        exe.key_digest = hashlib.sha1(repr(key).encode()).hexdigest()[:12]
+        exe.probe_key = f"{exe.kind}:{exe.key_digest[:8]}"
+        span.attrs = {"key": exe.key_digest}
     _PROGRAM_CACHE[key] = exe
     while len(_PROGRAM_CACHE) > _CACHE_CAP:
         _PROGRAM_CACHE.popitem(last=False)
@@ -1169,17 +1176,14 @@ class PendingQueue:
             return
         fn, self.flush_fn = self.flush_fn, None
         self._flushing = True
-        t0 = time.perf_counter() if _telemetry.armed else 0.0
         owner_label = type(self.owners[0]).__name__ if self.owners else None
-        n_entries = len(self.entries)
-        try:
-            fn(self)
-        finally:
-            self._flushing = False
-            self.release()  # a no-op where the flush already released
-            if t0 and _telemetry.armed:
-                _telemetry.emit("engine-flush", owner_label, "defer", t0, time.perf_counter() - t0,
-                                {"kind": self.kind, "entries": n_entries})
+        attrs = {"kind": self.kind, "entries": len(self.entries)}
+        with _telemetry.timed("engine-flush", owner_label, "defer", attrs, detail=owner_label):
+            try:
+                fn(self)
+            finally:
+                self._flushing = False
+                self.release()  # a no-op where the flush already released
 
 
 def _force_tree(tree: Any) -> Any:

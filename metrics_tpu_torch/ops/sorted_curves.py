@@ -41,9 +41,11 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.ops import autotune as _autotune
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.utils.compute import high_precision
 
 
+@_telemetry.ranged("curve-ties")
 def _tie_run_ids(sorted_vals: Tensor) -> Tensor:
     """0-based tie-run index of each element of a vector (or of each row of a
     matrix) already sorted along its last dim; equal neighbours share a run."""
@@ -52,6 +54,7 @@ def _tie_run_ids(sorted_vals: Tensor) -> Tensor:
     return torch.cumsum(boundary, dim=-1) - 1
 
 
+@_telemetry.ranged("curve-ties")
 def _segment(values: Tensor, run_id: Tensor, reduce: str) -> Tensor:
     """Segment reduction of each row of ``values`` (C, N) over its tie runs, as
     ``jax.ops.segment_{sum,min,max}(..., num_segments=N)`` per row: one scatter
@@ -70,14 +73,18 @@ def _segment(values: Tensor, run_id: Tensor, reduce: str) -> Tensor:
 def _midranks_rows(x: Tensor) -> Tensor:
     """Average 1-based ascending ranks of each row of ``x`` (C, N), ties sharing their midrank."""
     n = x.shape[-1]
-    order = torch.argsort(x, dim=-1, stable=True)
-    run_id = _tie_run_ids(torch.gather(x, -1, order))
-    pos = torch.arange(n, dtype=torch.float32, device=x.device).expand_as(x)
-    run_count = _segment(torch.ones_like(pos), run_id, "sum")
-    run_first = _segment(pos, run_id, "amin")
-    # the 1-based midrank of a run that starts at f (0-based) with c members: f + (c + 1) / 2
-    mid_sorted = torch.gather(run_first, -1, run_id) + (torch.gather(run_count, -1, run_id) + 1.0) * 0.5
-    return torch.zeros_like(mid_sorted).scatter(-1, order, mid_sorted)
+    with _telemetry.trace_range("curve-sort"):
+        order = torch.argsort(x, dim=-1, stable=True)
+        sorted_x = torch.gather(x, -1, order)
+    run_id = _tie_run_ids(sorted_x)
+    del sorted_x  # freed where the unnamed gather was
+    with _telemetry.trace_range("curve-ties"):
+        pos = torch.arange(n, dtype=torch.float32, device=x.device).expand_as(x)
+        run_count = _segment(torch.ones_like(pos), run_id, "sum")
+        run_first = _segment(pos, run_id, "amin")
+        # the 1-based midrank of a run that starts at f (0-based) with c members: f + (c + 1) / 2
+        mid_sorted = torch.gather(run_first, -1, run_id) + (torch.gather(run_count, -1, run_id) + 1.0) * 0.5
+        return torch.zeros_like(mid_sorted).scatter(-1, order, mid_sorted)
 
 
 def midranks(x: Tensor) -> Tensor:
@@ -92,6 +99,7 @@ def midranks(x: Tensor) -> Tensor:
     return _midranks_rows(x.reshape(1, -1).to(torch.float32))[0]
 
 
+@_telemetry.ranged("curve-area")
 def _auroc_from_rank_sum(rank_sum_pos: Tensor, n_pos: Tensor, n: int) -> Tensor:
     """AUROC from the midrank sum over the positives (the Mann-Whitney U identity)."""
     n_neg = n - n_pos
@@ -112,6 +120,7 @@ def _auroc_midranks(preds: Tensor, y: Tensor) -> Tensor:
     return _auroc_rows(preds.reshape(1, -1), y.reshape(1, -1))[0]
 
 
+@_telemetry.ranged("curve-ties")
 def _sorted_midranks(run_id: Tensor) -> Tensor:
     """1-based midrank of each sorted position of each row, from its tie-run ids (no scatter)."""
     pos = torch.arange(run_id.shape[-1], dtype=torch.float32, device=run_id.device).expand(run_id.shape)
@@ -122,9 +131,12 @@ def _sorted_midranks(run_id: Tensor) -> Tensor:
 
 def _auroc_single_sort_rows(preds: Tensor, y: Tensor) -> Tensor:
     """``single_sort`` for each row: ranks, tie runs and the rank sum in sorted order."""
-    order = torch.argsort(preds, dim=-1, stable=True)
-    sy = torch.gather(y, -1, order)
-    mid = _sorted_midranks(_tie_run_ids(torch.gather(preds, -1, order)))
+    with _telemetry.trace_range("curve-sort"):
+        order = torch.argsort(preds, dim=-1, stable=True)
+        sy = torch.gather(y, -1, order)
+        sorted_preds = torch.gather(preds, -1, order)
+    mid = _sorted_midranks(_tie_run_ids(sorted_preds))
+    del sorted_preds  # freed where the unnamed gather was
     return _auroc_from_rank_sum(torch.sum(mid * sy, dim=-1), torch.sum(sy, dim=-1), preds.shape[-1])
 
 
@@ -138,6 +150,7 @@ def _sortable_score_keys(preds: Tensor) -> Tensor:
     return torch.where((ub >> 31) == 1, ~ub & 0xFFFFFFFF, ub | (1 << 31))
 
 
+@_telemetry.ranged("curve-sort")
 def _packed_sort(keys: Tensor, y: Tensor):
     """Sort each row's keys with its labels in one sort of int64 values (key << 31 | position):
     the sorted keys and the labels in their order. Rows hold fewer than 2**31 scores."""
@@ -187,6 +200,7 @@ def binary_auroc_sorted(preds: Tensor, target: Tensor) -> Tensor:
     return _auroc_variant_rows(preds.reshape(1, -1), y.reshape(1, -1))[0]
 
 
+@_telemetry.ranged("curve-area")
 def _ap_from_descending(ys: Tensor, run_id: Tensor, n: int) -> Tensor:
     """AP of each row from its labels sorted by descending score and its tie-run ids.
 
@@ -204,9 +218,12 @@ def _ap_from_descending(ys: Tensor, run_id: Tensor, n: int) -> Tensor:
 
 def _ap_rows(preds: Tensor, y: Tensor) -> Tensor:
     """The reference formulation for each row of (C, N): a descending argsort and two gathers."""
-    order = torch.argsort(-preds, dim=-1, stable=True)
-    ys = torch.gather(y, -1, order)
-    run_id = _tie_run_ids(torch.gather(preds, -1, order))
+    with _telemetry.trace_range("curve-sort"):
+        order = torch.argsort(-preds, dim=-1, stable=True)
+        ys = torch.gather(y, -1, order)
+        sorted_preds = torch.gather(preds, -1, order)
+    run_id = _tie_run_ids(sorted_preds)
+    del sorted_preds  # freed where the unnamed gather was
     return _ap_from_descending(ys, run_id, preds.shape[-1])
 
 

@@ -2,7 +2,7 @@
 
 JAX counterpart: `metrics_tpu/ops/telemetry.py`, with the same public names,
 span sites, counter keys, environment variables and defaults, so that one
-deployment configures and scrapes both packages the same way. Three layers:
+deployment configures and scrapes both packages the same way. Four layers:
 
 - **Span recorder**: a bounded ring of ``(step, owner, lane, site, t_start,
   dur, attrs)`` events. ``step`` is the monotonic fault/sync event index the
@@ -22,6 +22,15 @@ deployment configures and scrapes both packages the same way. Three layers:
   ``+Inf``), kept for the process's whole life. Declared per-site budgets
   (``METRICS_TPU_SLO_<SITE>_MS``) count violations and warn once per owner
   and site.
+- **Profiler ranges**: while a ``torch.profiler`` records, the port opens a
+  ``torch.profiler.record_function`` range named ``metrics_tpu_torch.<site>``
+  (or ``<site>:<detail>``) around its layers (:data:`RANGE_SITES`) and around
+  the timed ring sites of the suite, the engine and the sync planes
+  (:class:`timed`), so that they land in the profiler's trace on the device
+  events' clock, nested in the caller's own ranges. With no profiler
+  recording, a range reads the profiler's enabled flag and allocates nothing.
+  Ranges never enter the ring; :func:`export_trace` records the ring clock's
+  offset to the profiler's, so that the two lie on one axis.
 
 Faces: :func:`snapshot` (alias ``telemetry_snapshot``), one merged dict of
 the planes the port has (the engine's cache and deferral counters, faults,
@@ -37,6 +46,7 @@ loaded, FID's ``fid_host_sqrtm*``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import time
@@ -44,8 +54,12 @@ from bisect import bisect_left
 from collections import deque
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
+import torch.autograd.profiler as _profiler
+
 __all__ = [
     "LatencyHistogram",
+    "RANGE_PREFIX",
+    "RANGE_SITES",
     "SPAN_SITES",
     "SYNC_PHASE_SITES",
     "armed",
@@ -59,6 +73,7 @@ __all__ = [
     "now",
     "observe_device_dispatch",
     "prometheus_text",
+    "ranged",
     "register_reset",
     "register_warning_reset",
     "reset_all",
@@ -71,7 +86,9 @@ __all__ = [
     "sync_phase_stats",
     "telemetry_snapshot",
     "telemetry_stats",
+    "timed",
     "trace_events",
+    "trace_range",
 ]
 
 #: Every span site, by subsystem, under the JAX package's names: one table for both packages.
@@ -206,6 +223,141 @@ _step_provider: Callable[[], int] = lambda: 0  # noqa: E731
 def now() -> float:
     """The span clock (``time.perf_counter``: monotonic, sub-µs)."""
     return time.perf_counter()
+
+
+# ---------------------------------------------------------- profiler ranges
+#: The prefix of every range the port opens in a ``torch.profiler`` trace.
+RANGE_PREFIX = "metrics_tpu_torch."
+
+#: The profiler-only sites of :func:`trace_range`, by layer. A range is named ``RANGE_PREFIX + site``, or
+#: ``RANGE_PREFIX + site + ":" + detail``. The timed ring sites ``suite-step``, ``suite-sync``, ``engine-build``,
+#: ``-compile``, ``-dispatch``, ``-flush`` and the timed ``sync-*`` sites open a range of their own name as well,
+#: while the ring records them as before.
+RANGE_SITES = {
+    # metric (metric.py)
+    "update": "one metric's wrapped update (detail: its class)",
+    "compute": "one metric's wrapped compute (detail: its class)",
+    "filter-kwargs": "a metric's keyword arguments filtered by its update's signature, as a suite passes them on",
+    # validation (utils/checks.py and the curves' updates)
+    "validate": "the classification input checks: the case, the shapes and the value checks",
+    "host-read": "one blocking read of the card's values on the host (detail: what is read)",
+    # classification functional and kernels
+    "canonicalize": "the one-hot or threshold of both sides, and the arg-max back to labels",
+    "counts": "a bincount by either route (utils/data._bincount)",
+    "stat-scores": "the tp/fp/tn/fn products and sums of the stat-scores family",
+    "calibration-bins": "CalibrationError's per-bin counts and confidence sums",
+    # curves and kernels
+    "state-cat": "the buffered rows concatenated at compute",
+    "curve-sort": "the curves' sort of the scores and the gathers into its order",
+    "curve-ties": "the curves' tie runs: the distinct thresholds and the counts or ranks at them",
+    "curve-area": "the curves' points and areas from the counts at the thresholds",
+}
+
+#: The ring's clock (``time.perf_counter`` seconds) to the profiler's (Unix-epoch nanoseconds), taken once:
+#: a ring span at ``t_start`` began at ``t_start * 1e9 + _RING_TO_UNIX_NS`` on the profiler's clock.
+_RING_TO_UNIX_NS = time.time_ns() - round(time.perf_counter() * 1e9)
+
+
+class _NoRange:
+    """A site's range while no profiler records: nothing is opened or closed."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc: Any) -> bool:
+        return False
+
+
+_NO_RANGE = _NoRange()
+
+
+def _range_name(site: str, detail: Any) -> str:
+    if detail is None:
+        return RANGE_PREFIX + site
+    return f"{RANGE_PREFIX}{site}:{detail if type(detail) is str else type(detail).__name__}"
+
+
+def trace_range(site: str, detail: Any = None):
+    """A context manager over one site's work: while a ``torch.profiler`` records, a
+    ``record_function`` range named ``metrics_tpu_torch.<site>[:<detail>]`` (``detail``
+    a string, or an object named by its type); otherwise a shared no-op, after one read
+    of the profiler's enabled flag. Ranges go to the profiler only, never to the ring.
+
+    Example:
+        >>> from metrics_tpu_torch.ops import telemetry
+        >>> with telemetry.trace_range("validate"):  # no profiler records: no range is opened
+        ...     pass
+        >>> telemetry._range_name("update", "JaccardIndex")
+        'metrics_tpu_torch.update:JaccardIndex'
+    """
+    if not _profiler._is_profiler_enabled:
+        return _NO_RANGE
+    return _profiler.record_function(_range_name(site, detail))
+
+
+def ranged(site: str, detail: Any = None) -> Callable[[Callable], Callable]:
+    """Decorate a function whose whole body is one site's work: each call runs inside
+    :func:`trace_range`'s range (the name is formed once, here).
+
+    Example:
+        >>> from metrics_tpu_torch.ops import telemetry
+        >>> @telemetry.ranged("counts")
+        ... def double(x):
+        ...     return 2 * x
+        >>> double(3)
+        6
+    """
+    name = _range_name(site, detail)
+
+    def decorate(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def in_range(*args: Any, **kwargs: Any) -> Any:
+            if not _profiler._is_profiler_enabled:
+                return fn(*args, **kwargs)
+            with _profiler.record_function(name):
+                return fn(*args, **kwargs)
+
+        return in_range
+
+    return decorate
+
+
+class timed:
+    """One timed ring site of :data:`SPAN_SITES` as a ``with`` block: its ring span and,
+    while a profiler records, :func:`trace_range`'s range of the same name, both closed
+    on every exit. The span is emitted on exit when the ring is armed and ``attrs`` is
+    set: pass ``attrs`` in for a span on every exit, or set ``.attrs`` at the end of the
+    block for a span of a block that completed. ``.t0`` is the block's start on the
+    ring's clock (0.0 while the ring is disarmed).
+
+    Example:
+        >>> from metrics_tpu_torch.ops import telemetry
+        >>> with telemetry.timed("sync-pack", "Doc", "sync") as span:
+        ...     span.attrs = {"states": 2}  # the block completed: its span is emitted on exit
+    """
+
+    __slots__ = ("site", "owner", "lane", "attrs", "detail", "t0", "_range")
+
+    def __init__(self, site: str, owner: Any = None, lane: Optional[str] = None,
+                 attrs: Optional[Dict[str, Any]] = None, detail: Any = None) -> None:
+        self.site, self.owner, self.lane, self.attrs, self.detail = site, owner, lane, attrs, detail
+        self._range = None
+
+    def __enter__(self) -> "timed":
+        self.t0 = time.perf_counter() if armed else 0.0
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(_range_name(self.site, self.detail))
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc: Any) -> bool:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        if self.t0 and self.attrs is not None and armed:
+            emit(self.site, self.owner, self.lane, self.t0, time.perf_counter() - self.t0, self.attrs)
+        return False
 
 
 # ------------------------------------------------------- latency histograms
@@ -833,7 +985,10 @@ def export_trace(path: str) -> int:
     https://ui.perfetto.dev or ``chrome://tracing``), with the numeric
     snapshot under ``snapshot`` and the program ledger
     (:func:`metrics_tpu_torch.ops.engine.program_report`) under ``programLedger``.
-    Returns the number of span events written.
+    ``otherData.clock`` lays the ring on a ``torch.profiler`` trace of the same
+    process: ``ring_to_unix_ns`` takes a span's ``time.perf_counter`` start to the
+    profiler's Unix-epoch nanoseconds, and ``ts_zero_unix_ns`` is the events' ``ts``
+    0 on that clock. Returns the number of span events written.
 
     Example:
         >>> import os, tempfile
@@ -849,10 +1004,14 @@ def export_trace(path: str) -> int:
     # snapshot are read after them, so that the file agrees with the ring as it stands when it is written
     ledger = _engine.program_report()
     snap = snapshot()
-    events = trace_events()
+    rows = spans()
+    events = trace_events(rows)
+    clock = {"ring_clock": "time.perf_counter", "ring_to_unix_ns": _RING_TO_UNIX_NS}
+    if rows:
+        clock["ts_zero_unix_ns"] = round(min(r["t_start"] for r in rows) * 1e9) + _RING_TO_UNIX_NS
     doc = {
         "displayTimeUnit": "ms",
-        "otherData": {"generator": "metrics_tpu_torch.ops.telemetry", "schema": 1},
+        "otherData": {"generator": "metrics_tpu_torch.ops.telemetry", "schema": 1, "clock": clock},
         "programLedger": _json_safe(ledger),
         "snapshot": _json_safe({k: v for k, v in snap.items() if k != "failure_log"}),
         "traceEvents": events,

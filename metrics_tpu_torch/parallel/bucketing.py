@@ -320,17 +320,13 @@ def _quant_encode(entries: Sequence[_Entry], values: List[Optional[Tensor]], tie
     _sync._bump("sync_quant_exact_states", exact)
     if not lossy:
         return
-    t0 = _telemetry.now() if _telemetry.armed else 0.0
-    for i in lossy:
-        values[i] = _quant_bytes(values[i], tier)
-    _sync._bump("sync_quant_payloads")
-    _sync._bump("sync_quant_lossy_states", len(lossy))
-    _sync._bump("sync_quant_bytes_saved", orig_bytes - wire_bytes)
-    if t0 and _telemetry.armed:
-        _telemetry.emit(
-            "sync-quantize", owner, "sync", t0, _telemetry.now() - t0,
-            {"tier": tier, "states": len(lossy), "bytes_before": orig_bytes, "bytes_after": wire_bytes},
-        )
+    with _telemetry.timed("sync-quantize", owner, "sync") as span:
+        for i in lossy:
+            values[i] = _quant_bytes(values[i], tier)
+        _sync._bump("sync_quant_payloads")
+        _sync._bump("sync_quant_lossy_states", len(lossy))
+        _sync._bump("sync_quant_bytes_saved", orig_bytes - wire_bytes)
+        span.attrs = {"tier": tier, "states": len(lossy), "bytes_before": orig_bytes, "bytes_after": wire_bytes}
 
 
 def _pack(entries: Sequence[_Entry], values: Sequence[Optional[Tensor]], device: torch.device):
@@ -484,27 +480,23 @@ def _pack_phase(nodes: Sequence[Any], group: Optional[Any], owner: Any = None,
     owner = owner if owner is not None else nodes[0]
     members = _sync.validate_group_live(group)
     fence = _sync.world_epoch()
-    t_pack = _telemetry.now() if _telemetry.armed else 0.0
-    try:
-        if _faults.armed:
-            _faults.maybe_fail("sync-pack")
-        entries, values = _collect(nodes)
-        if not entries:
-            return None
-        device = next((v.device for v in values if v is not None), nodes[0].device)
-        quant_tier = _sync.sync_quant_tier()
-        if quant_tier is not None:
-            _quant_encode(entries, values, quant_tier, owner)
-        packed, meta, static_total = _pack(entries, values, device)
-    except SyncFault:
-        raise
-    except Exception as exc:  # noqa: BLE001 - classified by the caller's ladder
-        raise CoalesceError(exc) from exc
-    if t_pack and _telemetry.armed:
-        _telemetry.emit(
-            "sync-pack", owner, "sync", t_pack, _telemetry.now() - t_pack,
-            {"states": len(entries), "bytes": int(packed.numel())},
-        )
+    with _telemetry.timed("sync-pack", owner, "sync") as span:
+        try:
+            if _faults.armed:
+                _faults.maybe_fail("sync-pack")
+            entries, values = _collect(nodes)
+            if not entries:
+                return None
+            device = next((v.device for v in values if v is not None), nodes[0].device)
+            quant_tier = _sync.sync_quant_tier()
+            if quant_tier is not None:
+                _quant_encode(entries, values, quant_tier, owner)
+            packed, meta, static_total = _pack(entries, values, device)
+        except SyncFault:
+            raise
+        except Exception as exc:  # noqa: BLE001 - classified by the caller's ladder
+            raise CoalesceError(exc) from exc
+        span.attrs = {"states": len(entries), "bytes": int(packed.numel())}
     ctx = _ProtocolCtx()
     ctx.nodes, ctx.owner, ctx.members, ctx.fence = list(nodes), owner, members, fence
     ctx.transport = _sync.transport_group(group, members)
@@ -586,25 +578,23 @@ def _make_attempt(ctx: _ProtocolCtx):
         local_total = ctx.meta[-1]
         rank_dyn = None
         rows = None
-        t_meta = _telemetry.now() if _telemetry.armed else 0.0
-        meta_attrs: Optional[dict] = None
-        if ctx.has_dyn:
-            rows = _guarded(ctx, lambda: _host_allgather(ctx.meta_vec, ctx.transport)).tolist()
-            _sync.note_collective("shape", epoch=ctx.fence)
-            _sync._bump("sync_fastlane_misses")
-            meta_attrs = {"dims": len(ctx.meta)}
-        elif ctx.key in _MANIFEST_CACHE:
-            _sync._bump("sync_fastlane_hits")
-        else:
-            _sync._bump("sync_fastlane_misses")
-            if _sync._live():  # once per layout: every process packed the same static bytes
+        # a span only where metadata crossed the wire: ``attrs`` stays None on the fast lane's hit
+        with _telemetry.timed("sync-metadata", ctx.owner, "sync") as span:
+            if ctx.has_dyn:
                 rows = _guarded(ctx, lambda: _host_allgather(ctx.meta_vec, ctx.transport)).tolist()
                 _sync.note_collective("shape", epoch=ctx.fence)
-                meta_attrs = {"cross_check": True}
-        if t_meta and meta_attrs is not None and _telemetry.armed:
-            if ctx.async_mode:
-                meta_attrs["overlapped"] = True
-            _telemetry.emit("sync-metadata", ctx.owner, "sync", t_meta, _telemetry.now() - t_meta, meta_attrs)
+                _sync._bump("sync_fastlane_misses")
+                span.attrs = {"dims": len(ctx.meta)}
+            elif ctx.key in _MANIFEST_CACHE:
+                _sync._bump("sync_fastlane_hits")
+            else:
+                _sync._bump("sync_fastlane_misses")
+                if _sync._live():  # once per layout: every process packed the same static bytes
+                    rows = _guarded(ctx, lambda: _host_allgather(ctx.meta_vec, ctx.transport)).tolist()
+                    _sync.note_collective("shape", epoch=ctx.fence)
+                    span.attrs = {"cross_check": True}
+            if ctx.async_mode and span.attrs is not None:
+                span.attrs["overlapped"] = True
         max_total = local_total
         if rows is not None:
             statics = sorted({row[-2] for row in rows})
@@ -616,14 +606,12 @@ def _make_attempt(ctx: _ProtocolCtx):
         padded = ctx.packed
         if max_total > local_total:
             padded = torch.cat([padded, padded.new_zeros(max_total - local_total)])
-        t_gather = _telemetry.now() if _telemetry.armed else 0.0
-        gathered, node_reduced = _payload_exchange(ctx, padded)
-        if t_gather and _telemetry.armed:
-            attrs = {"bytes": int(gathered.numel()), "world": int(gathered.shape[0]), "epoch": ctx.fence,
-                     "seq": _sync._counters["sync_payload_collectives"]}
+        with _telemetry.timed("sync-payload-gather", ctx.owner, "sync") as span:
+            gathered, node_reduced = _payload_exchange(ctx, padded)
+            span.attrs = {"bytes": int(gathered.numel()), "world": int(gathered.shape[0]), "epoch": ctx.fence,
+                          "seq": _sync._counters["sync_payload_collectives"]}
             if ctx.async_mode:
-                attrs["overlapped"] = True
-            _telemetry.emit("sync-payload-gather", ctx.owner, "sync", t_gather, _telemetry.now() - t_gather, attrs)
+                span.attrs["overlapped"] = True
         return gathered, rank_dyn, node_reduced
 
     return _attempt
@@ -642,18 +630,16 @@ def _finish(ctx: _ProtocolCtx, gathered: Tensor, rank_dyn: Optional[list], node_
     failure before the ``setattr`` raises :class:`CoalesceError` (a ``cat``
     dtype that differs across processes raises :class:`SyncConfigFault`).
     Node partials (``node_reduced``) sum to the flat sum exactly."""
-    t_unpack = _telemetry.now() if _telemetry.armed else 0.0
-    try:
-        results = _unpack(ctx.nodes, ctx.entries, gathered, ctx.static_total, rank_dyn)
-    except SyncFault:
-        raise
-    except Exception as exc:  # noqa: BLE001 - classified by the caller's ladder
-        raise CoalesceError(exc) from exc
-    for node, name, value in results:
-        setattr(node, name, value)
-    if t_unpack and _telemetry.armed:
-        _telemetry.emit("sync-unpack", ctx.owner, "sync", t_unpack, _telemetry.now() - t_unpack,
-                        {"states": len(ctx.entries)})
+    with _telemetry.timed("sync-unpack", ctx.owner, "sync") as span:
+        try:
+            results = _unpack(ctx.nodes, ctx.entries, gathered, ctx.static_total, rank_dyn)
+        except SyncFault:
+            raise
+        except Exception as exc:  # noqa: BLE001 - classified by the caller's ladder
+            raise CoalesceError(exc) from exc
+        for node, name, value in results:
+            setattr(node, name, value)
+        span.attrs = {"states": len(ctx.entries)}
     if not ctx.has_dyn:
         _MANIFEST_CACHE[ctx.key] = True
         while len(_MANIFEST_CACHE) > _MANIFEST_CACHE_CAP:
@@ -744,25 +730,21 @@ def dispatch_coalesced_sync(nodes: Sequence[Any], group: Optional[Any] = None,
     """Pack now (a copy: the caller may go on updating), gather in flight on
     the dispatcher thread. None when the tree holds no state. Raises like the
     pack phase of :func:`coalesced_sync_nodes`."""
-    t0 = _telemetry.now() if _telemetry.armed else 0.0
     t_dispatch = _telemetry.now()
-    _engine.flush_barrier(nodes)  # on the caller's thread: pending calls land before the pack reads the states
-    ctx = _pack_phase(nodes, group, owner=owner, async_mode=True)
-    if ctx is None:
-        return None
-    attempt = _make_attempt(ctx)
-    attempts, backoff = _sync.sync_retries(), _sync.sync_backoff_s()
-    box, done = _sync.submit_async(
-        lambda: _faults.retry_with_backoff(attempt, attempts=attempts, base_delay_s=backoff, site="sync-gather")
-    )
-    disp = _Dispatched(ctx, box, done, t_dispatch)
-    if t0 and _telemetry.armed:
-        _telemetry.emit(
-            "sync-dispatch", ctx.owner, "sync", t0, _telemetry.now() - t0,
-            {"states": len(ctx.entries), "bytes": int(ctx.packed.numel()), "epoch": ctx.fence,
-             "quant": ctx.quant_tier or "off"},
+    with _telemetry.timed("sync-dispatch", owner, "sync") as span:
+        _engine.flush_barrier(nodes)  # on the caller's thread: pending calls land before the pack reads the states
+        ctx = _pack_phase(nodes, group, owner=owner, async_mode=True)
+        if ctx is None:
+            return None
+        attempt = _make_attempt(ctx)
+        attempts, backoff = _sync.sync_retries(), _sync.sync_backoff_s()
+        box, done = _sync.submit_async(
+            lambda: _faults.retry_with_backoff(attempt, attempts=attempts, base_delay_s=backoff, site="sync-gather")
         )
-    return disp
+        span.owner = ctx.owner
+        span.attrs = {"states": len(ctx.entries), "bytes": int(ctx.packed.numel()), "epoch": ctx.fence,
+                      "quant": ctx.quant_tier or "off"}
+    return _Dispatched(ctx, box, done, t_dispatch)
 
 
 def force_coalesced_sync(disp: _Dispatched) -> List[Tuple[Any, Any]]:
@@ -772,34 +754,30 @@ def force_coalesced_sync(disp: _Dispatched) -> List[Tuple[Any, Any]]:
     each node's state from just before the apply (its ``unsync`` cache, which
     holds the updates made in flight). Every failure leaves the states intact."""
     ctx = disp.ctx
-    t0 = _telemetry.now() if _telemetry.armed else 0.0
-    t_wait = _telemetry.now()
-    _sync.wait_with_deadline(disp.done, site="sync-force", owner=ctx.owner)
-    waited = _telemetry.now() - t_wait
-    if "error" in disp.box:
-        err = disp.box["error"]
-        if isinstance(err, EpochFault):
+    with _telemetry.timed("sync-force", ctx.owner, "sync") as span:
+        t_wait = _telemetry.now()
+        _sync.wait_with_deadline(disp.done, site="sync-force", owner=ctx.owner)
+        waited = _telemetry.now() - t_wait
+        if "error" in disp.box:
+            err = disp.box["error"]
+            if isinstance(err, EpochFault):
+                _sync._bump("sync_async_stale_futures")
+            raise err
+        gathered, rank_dyn, node_reduced = disp.box["value"]
+        if gathered is _LAYOUT_MISMATCH:
+            _raise_mismatch(rank_dyn)
+        try:
+            _sync.check_epoch(ctx.fence, site="sync-force", owner=ctx.owner)
+        except EpochFault:
             _sync._bump("sync_async_stale_futures")
-        raise err
-    gathered, rank_dyn, node_reduced = disp.box["value"]
-    if gathered is _LAYOUT_MISMATCH:
-        _raise_mismatch(rank_dyn)
-    try:
-        _sync.check_epoch(ctx.fence, site="sync-force", owner=ctx.owner)
-    except EpochFault:
-        _sync._bump("sync_async_stale_futures")
-        raise
-    # calls enqueued while the wire ran land before the apply writes over the states
-    _engine.flush_barrier(ctx.nodes)
-    snaps = [(n, n._state_snapshot()) for n in ctx.nodes]
-    _sync.note_sync_success(world=None if node_reduced else int(gathered.shape[0]), members=ctx.members)
-    _finish(ctx, gathered, rank_dyn, node_reduced)
-    if t0 and _telemetry.armed:
-        _telemetry.emit(
-            "sync-force", ctx.owner, "sync", t0, _telemetry.now() - t0,
-            {"waited_s": waited, "epoch": ctx.fence, "states": len(ctx.entries),
-             "inflight_s": max(0.0, t_wait - disp.t_dispatch)},
-        )
+            raise
+        # calls enqueued while the wire ran land before the apply writes over the states
+        _engine.flush_barrier(ctx.nodes)
+        snaps = [(n, n._state_snapshot()) for n in ctx.nodes]
+        _sync.note_sync_success(world=None if node_reduced else int(gathered.shape[0]), members=ctx.members)
+        _finish(ctx, gathered, rank_dyn, node_reduced)
+        span.attrs = {"waited_s": waited, "epoch": ctx.fence, "states": len(ctx.entries),
+                      "inflight_s": max(0.0, t_wait - disp.t_dispatch)}
     return snaps
 
 

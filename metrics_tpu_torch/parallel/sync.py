@@ -844,32 +844,28 @@ def _all_gather(tensor: Tensor, group: Optional[Any] = None) -> Tensor:
 
 def _gather_once(result: Tensor, group: Optional[Any], epoch: Optional[int] = None) -> List[Tensor]:
     """The uneven-shape protocol's two collectives over ``group`` (a transport group)."""
-    t0 = _telemetry.now() if _telemetry.armed else 0.0
-    if not _live():
-        note_collective("shape", epoch=epoch)
-        nbytes = result.numel() * result.element_size()
-        note_collective("payload", nbytes=nbytes, epoch=epoch)
-        out = [result]
-    else:
-        x = result.reshape(1) if result.ndim == 0 else result
-        note_collective("shape", epoch=epoch)
-        shapes = _all_gather(torch.tensor(x.shape, dtype=torch.int64, device=x.device), group).tolist()
-        max_shape = [max(s[d] for s in shapes) for d in range(x.ndim)]
-        if list(x.shape) != max_shape:
-            padded = x.new_zeros(max_shape)
-            padded[tuple(slice(0, d) for d in x.shape)] = x
-            x = padded
-        nbytes = x.numel() * x.element_size() * len(shapes)
-        note_collective("payload", nbytes=nbytes, epoch=epoch)
-        gathered = _all_gather(x, group)
-        out = [gathered[r][tuple(slice(0, d) for d in shape)] for r, shape in enumerate(shapes)]
-        if result.ndim == 0:
-            out = [o.reshape(()) for o in out]
-    if t0 and _telemetry.armed:
-        _telemetry.emit(
-            "sync-gather", None, "sync", t0, _telemetry.now() - t0,
-            {"bytes": int(nbytes), "collectives": 2, "seq": _counters["sync_payload_collectives"]},
-        )
+    with _telemetry.timed("sync-gather", None, "sync") as span:
+        if not _live():
+            note_collective("shape", epoch=epoch)
+            nbytes = result.numel() * result.element_size()
+            note_collective("payload", nbytes=nbytes, epoch=epoch)
+            out = [result]
+        else:
+            x = result.reshape(1) if result.ndim == 0 else result
+            note_collective("shape", epoch=epoch)
+            shapes = _all_gather(torch.tensor(x.shape, dtype=torch.int64, device=x.device), group).tolist()
+            max_shape = [max(s[d] for s in shapes) for d in range(x.ndim)]
+            if list(x.shape) != max_shape:
+                padded = x.new_zeros(max_shape)
+                padded[tuple(slice(0, d) for d in x.shape)] = x
+                x = padded
+            nbytes = x.numel() * x.element_size() * len(shapes)
+            note_collective("payload", nbytes=nbytes, epoch=epoch)
+            gathered = _all_gather(x, group)
+            out = [gathered[r][tuple(slice(0, d) for d in shape)] for r, shape in enumerate(shapes)]
+            if result.ndim == 0:
+                out = [o.reshape(()) for o in out]
+        span.attrs = {"bytes": int(nbytes), "collectives": 2, "seq": _counters["sync_payload_collectives"]}
     return out
 
 

@@ -30,6 +30,7 @@ import torch
 from torch import Tensor
 from torch._subclasses.fake_tensor import FakeTensor
 
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.utils.data import select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
 
@@ -128,23 +129,26 @@ class _ValueStats:
 
     def _fetch(self) -> np.ndarray:
         if self._vals is None:
-            t, p = self._target, self._preds
-            if t.numel() == 0 or p.numel() == 0:
-                # torch raises RuntimeError on the min of no values; jnp raises ValueError
-                raise ValueError("zero-size array to reduction operation min which has no identity")
-            if _is_concrete(t, p):
-                stats = torch.stack([t.min().float(), t.max().float(), p.min().float(), p.max().float()])
-                self._vals = stats.cpu().numpy()
-            else:
-                # a pair half under a transform: each concrete side is read on its
-                # own, the other reports the benign values (JAX `checks.py:205-217`)
-                vals = _BENIGN_STATS.copy()
-                if _is_concrete(t):
-                    vals[:2] = torch.stack([t.min().float(), t.max().float()]).cpu().numpy()
-                if _is_concrete(p):
-                    vals[2:] = torch.stack([p.min().float(), p.max().float()]).cpu().numpy()
-                self._vals = vals
+            self._vals = self._read()
         return self._vals
+
+    @_telemetry.ranged("host-read", "value-stats")
+    def _read(self) -> np.ndarray:
+        t, p = self._target, self._preds
+        if t.numel() == 0 or p.numel() == 0:
+            # torch raises RuntimeError on the min of no values; jnp raises ValueError
+            raise ValueError("zero-size array to reduction operation min which has no identity")
+        if _is_concrete(t, p):
+            stats = torch.stack([t.min().float(), t.max().float(), p.min().float(), p.max().float()])
+            return stats.cpu().numpy()
+        # a pair half under a transform: each concrete side is read on its
+        # own, the other reports the benign values (JAX `checks.py:205-217`)
+        vals = _BENIGN_STATS.copy()
+        if _is_concrete(t):
+            vals[:2] = torch.stack([t.min().float(), t.max().float()]).cpu().numpy()
+        if _is_concrete(p):
+            vals[2:] = torch.stack([p.min().float(), p.max().float()]).cpu().numpy()
+        return vals
 
     @property
     def target_min(self) -> float:
@@ -315,6 +319,7 @@ def _validate_top_k(top_k, case, implied_classes, multiclass, preds_float) -> No
         raise ValueError("The `top_k` has to be strictly smaller than the `C` dimension of `preds`.")
 
 
+@_telemetry.ranged("validate")
 def _check_classification_inputs(
     preds: Tensor,
     target: Tensor,
@@ -401,7 +406,21 @@ def _input_format_classification(
         ignore_index=ignore_index,
         stats=stats,
     )
+    return _canonical_form(preds, target, case, threshold, top_k, num_classes, multiclass, stats)
 
+
+@_telemetry.ranged("canonicalize")
+def _canonical_form(
+    preds: Tensor,
+    target: Tensor,
+    case: DataType,
+    threshold: float,
+    top_k: Optional[int],
+    num_classes: Optional[int],
+    multiclass: Optional[bool],
+    stats: _ValueStats,
+) -> Tuple[Tensor, Tensor, DataType]:
+    """:func:`_input_format_classification`'s layout transform of validated inputs of case ``case``."""
     if case in (DataType.BINARY, DataType.MULTILABEL) and not top_k:
         preds = (preds >= threshold).to(torch.int32) if preds.is_floating_point() else preds
         num_classes = num_classes if not multiclass else 2

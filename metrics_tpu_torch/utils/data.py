@@ -16,6 +16,7 @@ from torch import Tensor
 
 import numpy as np
 
+from metrics_tpu_torch.ops import telemetry as _telemetry
 from metrics_tpu_torch.ops.histogram import fused_bincount
 
 TensorOrList = Union[Tensor, List[Tensor]]
@@ -145,6 +146,7 @@ def apply_to_collection(
     return data
 
 
+@_telemetry.ranged("counts")
 def _bincount(x: Tensor, minlength: int) -> Tensor:
     """Bincount of ``x`` over ``minlength`` bins; ids outside ``[0, minlength)`` are dropped.
 

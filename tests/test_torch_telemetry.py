@@ -265,3 +265,180 @@ def test_span_cap_from_the_environment_warns_on_garbage(monkeypatch):
         telemetry.latency_stats()
     monkeypatch.setenv("METRICS_TPU_TELEMETRY_SPANS", "3")
     assert telemetry._env_cap() == 16
+
+
+# ------------------------------------------------------------ profiler ranges
+def _seg_suite():
+    return tmt.MetricCollection({
+        "miou": tmt.JaccardIndex(num_classes=3, device="cpu"),
+        "dice": tmt.Dice(num_classes=3, average="macro", mdmc_average="global", device="cpu"),
+    })
+
+
+def _seg_batch(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(2, 3, 4, 5, generator=g).softmax(1), torch.randint(0, 3, (2, 4, 5), generator=g)
+
+
+def _ctr_suite():
+    return tmt.MetricCollection({
+        "auroc": tmt.AUROC(pos_label=1, device="cpu"),
+        "ap": tmt.AveragePrecision(pos_label=1, device="cpu"),
+        "ece": tmt.CalibrationError(n_bins=15, norm="l1", device="cpu"),
+    })
+
+
+def _ctr_batch(seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(64, generator=g), torch.randint(0, 2, (64,), generator=g)
+
+
+def _suite_calls():
+    """A Jaccard+Dice suite's updates, an AUROC+AP+CE suite's updates and compute, and a suite sync."""
+    seg = _seg_suite()
+    for seed in range(2):
+        seg.update(*_seg_batch(seed))
+    ctr = _ctr_suite()
+    for seed in range(2):
+        ctr.update(*_ctr_batch(seed))
+    ctr.compute()
+    seg.sync(distributed_available=DIST_ON)
+    seg.unsync()
+
+
+class _CountingRange(torch.autograd.profiler.record_function):
+    opened = 0
+
+    def __init__(self, *args, **kwargs):
+        type(self).opened += 1
+        super().__init__(*args, **kwargs)
+
+
+def _ring_rows():
+    return [(r["owner"], r["lane"], r["site"], r["attrs"]) for r in telemetry.spans()]
+
+
+def _profiled_ranges(prof):
+    """The port's ranges of a finished profile: (name without the prefix, start ns, end ns), by start."""
+    prefix = telemetry.RANGE_PREFIX
+    return sorted(((e.name()[len(prefix):], e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.name().startswith(prefix)), key=lambda r: (r[1], -r[2]))
+
+
+def _encloses(outer, inner):
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+def test_no_range_is_opened_while_no_profiler_records(monkeypatch):
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _CountingRange)
+    _CountingRange.opened = 0
+    telemetry.clear_spans()
+    _suite_calls()
+    assert _CountingRange.opened == 0
+    assert telemetry.trace_range("update", "JaccardIndex") is telemetry._NO_RANGE
+    assert {r["site"] for r in telemetry.spans()} <= set(telemetry.SPAN_SITES)
+
+
+def test_ranges_nest_under_the_profiler_and_leave_the_ring_as_it_was():
+    from torch.profiler import ProfilerActivity, profile
+
+    telemetry.reset_all()  # the counters that span attributes carry start from zero each time
+    _suite_calls()
+    unprofiled = _ring_rows()
+    telemetry.reset_all()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _suite_calls()
+    assert _ring_rows() == unprofiled
+    ranges = _profiled_ranges(prof)
+    names = {name for name, _, _ in ranges}
+    assert {n.split(":", 1)[0] for n in names} <= set(telemetry.RANGE_SITES) | set(telemetry.SPAN_SITES)
+    assert {"suite-step", "suite-sync", "sync-pack", "update:JaccardIndex", "update:Dice", "validate",
+            "host-read:value-stats", "canonicalize", "counts", "stat-scores", "update:CalibrationError",
+            "calibration-bins", "compute:AUROC", "compute:AveragePrecision", "state-cat", "curve-sort",
+            "curve-ties", "curve-area", "host-read:curve-thresholds"} <= names
+
+    def chain(*sites):
+        """Some range of each site, each inside the one before."""
+        found = [r for r in ranges if r[0] == sites[0]]
+        for site in sites[1:]:
+            found = [r for r in ranges if r[0] == site and any(_encloses(o, r) for o in found)]
+        return found
+
+    assert chain("suite-step", "update:JaccardIndex", "validate", "host-read:value-stats")
+    assert chain("update:Dice", "canonicalize") and chain("update:JaccardIndex", "counts")
+    assert chain("compute:AUROC", "curve-sort") and chain("compute:AveragePrecision", "curve-ties")
+    assert chain("update:CalibrationError", "calibration-bins", "counts")
+
+
+def test_export_trace_clock_lays_the_ring_on_the_profiler(tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    telemetry.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.autograd.profiler.record_function("outer"):
+            _seg_suite().update(*_seg_batch())
+    path = tmp_path / "trace.json"
+    telemetry.export_trace(str(path))
+    doc = json.loads(path.read_text())
+    clock = doc["otherData"]["clock"]
+    (outer,) = [e for e in prof.profiler.kineto_results.events() if e.name() == "outer"]
+    (step,) = [e for e in doc["traceEvents"] if e.get("name") == "suite-step"]
+    start_ns = clock["ts_zero_unix_ns"] + step["ts"] * 1e3
+    end_ns = start_ns + step["dur"] * 1e3
+    assert outer.start_ns() - 1e6 <= start_ns and end_ns <= outer.end_ns() + 1e6
+    ring = [r for r in telemetry.spans() if r["site"] == "suite-step"][0]
+    assert abs(ring["t_start"] * 1e9 + clock["ring_to_unix_ns"] - start_ns) < 1e3
+
+
+def _raises_inside(block):
+    with pytest.raises(RuntimeError, match="planted"):
+        with block:
+            raise RuntimeError("planted")
+
+
+@pytest.mark.parametrize("attrs_up_front", [True, False])
+def test_a_timed_site_closes_its_range_on_a_fault(attrs_up_front):
+    from torch.profiler import ProfilerActivity, profile
+
+    telemetry.clear_spans()
+    attrs = {"api": "update"} if attrs_up_front else None
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.autograd.profiler.record_function("outer"):
+            _raises_inside(telemetry.timed("suite-step", "Doc", "suite", attrs))
+            with telemetry.timed("sync-pack", "Doc", "sync") as span:
+                span.attrs = {"states": 1}
+    events = prof.profiler.kineto_results.events()
+    (outer,) = [(e.start_ns(), e.end_ns()) for e in events if e.name() == "outer"]
+    ranges = _profiled_ranges(prof)
+    assert [name for name, _, _ in ranges] == ["suite-step", "sync-pack"]
+    step, pack = ranges
+    assert outer[0] <= step[1] <= step[2] <= pack[1] <= pack[2] <= outer[1]
+    # a block that raised leaves a span only where its attributes were given up front
+    expected = (["suite-step"] if attrs_up_front else []) + ["sync-pack"]
+    assert [r["site"] for r in telemetry.spans()] == (expected if telemetry.armed else [])
+
+
+def test_a_ranged_function_closes_its_range_on_a_fault():
+    from torch.profiler import ProfilerActivity, profile
+
+    @telemetry.ranged("validate")
+    def check(fail):
+        if fail:
+            raise RuntimeError("planted")
+        return "ok"
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with pytest.raises(RuntimeError, match="planted"):
+            check(True)
+        assert check(False) == "ok"
+    ranges = _profiled_ranges(prof)
+    assert [name for name, _, _ in ranges] == ["validate", "validate"]
+    assert ranges[0][2] <= ranges[1][1]
+    assert check.__name__ == "check" and check(False) == "ok"
+
+
+def test_a_warning_inside_a_ranged_update_or_compute_points_at_the_caller():
+    metric = tmt.SumMetric(device="cpu")
+    with pytest.warns(UserWarning, match="called before the ``update``") as record:
+        metric.compute()
+    assert [w.filename for w in record if "before the ``update``" in str(w.message)] == [__file__]
