@@ -3,7 +3,9 @@
 JAX counterpart: `metrics_tpu/functional/classification/confusion_matrix.py`
 (reference `functional/classification/confusion_matrix.py:25-120`). The pair
 histogram goes through :func:`metrics_tpu_torch.utils.data._bincount`, which
-on the card is the CUDA kernel of ``ops/histogram.py``.
+on the card is the CUDA kernel of ``ops/histogram.py``. Non-empty multi-class
+inputs give their class ids straight (``utils/checks._class_id_form``): the
+labels the one-hot's arg-max would give, without the one-hot.
 """
 from __future__ import annotations
 
@@ -13,7 +15,15 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.ops import telemetry as _telemetry
-from metrics_tpu_torch.utils.checks import _check_broadcastable, _input_format_classification, _is_concrete
+from metrics_tpu_torch.utils.checks import (
+    _canonical_form,
+    _check_broadcastable,
+    _class_count,
+    _class_id_form,
+    _is_concrete,
+    _takes_class_ids,
+    _validated_classification,
+)
 from metrics_tpu_torch.utils.data import _bincount
 from metrics_tpu_torch.utils.enums import DataType
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -26,18 +36,24 @@ def _confusion_matrix_update(
     target = torch.as_tensor(target, device=preds.device)
     # integer labels: the one-hot width comes from num_classes, not from the data's maximum
     pass_nc = num_classes if (not preds.is_floating_point() and preds.ndim == target.ndim) else None
-    preds, target, mode = _input_format_classification(preds, target, threshold, num_classes=pass_nc)
-    if mode not in (DataType.BINARY, DataType.MULTILABEL):
-        with _telemetry.trace_range("canonicalize"):
-            preds = preds.argmax(dim=1)
-            target = target.argmax(dim=1)
+    preds, target, case, stats = _validated_classification(preds, target, threshold, None, pass_nc, None, None)
+    if _takes_class_ids(preds, target, case):
+        # a label outside the classes takes class 0, as the one-hot's arg-max does
+        n_cls, stats = _class_count(preds, target, pass_nc, stats)
+        preds, target, _ = _class_id_form(preds, target, n_cls, stats, outside=0)
+    else:
+        preds, target, mode = _canonical_form(preds, target, case, threshold, None, pass_nc, None, stats)
+        if mode not in (DataType.BINARY, DataType.MULTILABEL):  # an empty multi-class batch
+            with _telemetry.trace_range("canonicalize"):
+                preds = preds.argmax(dim=1)
+                target = target.argmax(dim=1)
     if multilabel:
         offsets = 4 * torch.arange(num_classes, device=preds.device)
         # inputs that are not (N, C) multilabel: raise JAX's exception type
         _check_broadcastable(tuple(preds.shape), tuple(offsets.shape))
         unique_mapping = ((2 * target + preds) + offsets).reshape(-1)
         return _bincount(unique_mapping, minlength=4 * num_classes).reshape(num_classes, 2, 2)
-    unique_mapping = target.reshape(-1) * num_classes + preds.reshape(-1)
+    unique_mapping = torch.add(preds.reshape(-1), target.reshape(-1), alpha=num_classes)  # target * C + pred
     return _bincount(unique_mapping, minlength=num_classes**2).reshape(num_classes, num_classes)
 
 

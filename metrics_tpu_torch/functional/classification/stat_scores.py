@@ -6,6 +6,13 @@ contributions are computed elementwise and reduced with masked sums:
 ``ignore_index`` becomes a class-column mask and a negative ``ignore_index`` a
 sample mask, so every shape is static and no count is read on the host.
 Counts stay int32, as in the JAX package (torch's ``sum`` would widen them).
+
+Multi-class inputs reduced ``micro`` or ``macro`` over every position (no
+top-k above 1, ``mdmc_reduce`` None or ``global``) skip the one-hot where its
+histogram pays: every count is a function of the histogram ``M`` of
+``(target, pred)`` class pairs, one pass of the bincount
+(:func:`_stat_scores_from_ids`). The integers are those of the one-hot's
+products.
 """
 from __future__ import annotations
 
@@ -15,7 +22,15 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.ops import telemetry as _telemetry
-from metrics_tpu_torch.utils.checks import _input_format_classification
+from metrics_tpu_torch.utils.checks import (
+    ClassIds,
+    _canonical_form,
+    _class_count,
+    _class_id_form,
+    _takes_class_ids,
+    _validated_classification,
+)
+from metrics_tpu_torch.utils.data import _bincount
 from metrics_tpu_torch.utils.enums import AverageMethod, DataType, MDMCAverageMethod
 
 
@@ -66,6 +81,49 @@ def _stat_scores(
     return tuple(x.sum(dim=dim, dtype=torch.int32) for x in (tp_e, fp_e, tn_e, fn_e))
 
 
+_MAX_PAIR_BINS = 2**31 - 1  # the bincount's most bins
+
+
+def _pair_histogram_pays(n_cls: int, positions: int) -> bool:
+    """Whether the ``(C + 1)**2`` class-pair histogram of a batch of ``positions`` positions costs no more
+    than the one-hot form, whose sides hold ``positions * C`` entries each."""
+    return (n_cls + 1) ** 2 <= min(positions * n_cls, _MAX_PAIR_BINS)
+
+
+def _stat_scores_from_ids(
+    ids: ClassIds,
+    reduce: Optional[str],
+    ignored_class: Optional[int] = None,
+    sample_mask: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """tp/fp/tn/fn of ``micro`` or ``macro`` over every position, from class ids.
+
+    ``M[t, p]`` counts the positions of target class ``t`` and predicted class
+    ``p``, over ``C + 1`` classes: id ``C`` is a label outside ``[0, C)``, which
+    the one-hot leaves out of every class. For a class ``c < C``: tp = M[c, c],
+    fp = colsum - M[c, c], fn = rowsum - M[c, c], tn = total - rowsum - colsum
+    + M[c, c]. ``sample_mask`` sends left-out positions outside the bins;
+    ``ignored_class`` leaves that class out of the micro sums.
+    """
+    n_cls = ids.num_classes
+    pairs = torch.add(ids.preds, ids.target, alpha=n_cls + 1)  # t * (C + 1) + p
+    if sample_mask is not None:
+        pairs = torch.where(sample_mask.reshape(pairs.shape), pairs, -1)
+    hist = _bincount(pairs, (n_cls + 1) ** 2).reshape(n_cls + 1, n_cls + 1)
+    both = hist.diagonal()[:n_cls].clone()
+    in_target = hist.sum(dim=1, dtype=torch.int32)[:n_cls]
+    in_preds = hist.sum(dim=0, dtype=torch.int32)[:n_cls]
+    total = hist.sum(dtype=torch.int32)
+    counts = (both, in_preds - both, total - in_target - in_preds + both, in_target - both)
+    if reduce != "micro":
+        return counts
+    if ignored_class is not None:
+        kept = torch.ones(n_cls, dtype=torch.bool, device=hist.device)
+        kept[ignored_class] = False
+        counts = tuple(x * kept for x in counts)
+    return tuple(x.sum(dtype=torch.int32) for x in counts)
+
+
 def _stat_scores_update(
     preds,
     target,
@@ -78,7 +136,12 @@ def _stat_scores_update(
     ignore_index: Optional[int] = None,
     mode: Optional[DataType] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-    """Canonicalise inputs and compute tp/fp/tn/fn (reference `:110-193`)."""
+    """Canonicalise inputs and compute tp/fp/tn/fn (reference `:110-193`).
+
+    Multi-class inputs reduced over every position take the class ids
+    (:func:`_stat_scores_from_ids`) where their histogram pays
+    (:func:`_pair_histogram_pays`), any other input the one-hot.
+    """
     sample_mask = None
     if ignore_index is not None and ignore_index < 0:
         # negative ignore label: mask those target positions out entirely
@@ -90,41 +153,37 @@ def _stat_scores_update(
             sample_mask = sample_mask[:, 0]  # (N,) for flat targets
         target = target.masked_fill(ignored, 0)
 
-    preds, target, _ = _input_format_classification(
-        preds,
-        target,
-        threshold=threshold,
-        num_classes=num_classes,
-        multiclass=multiclass,
-        top_k=top_k,
-        ignore_index=ignore_index,
+    preds, target, case, stats = _validated_classification(
+        preds, target, threshold, top_k, num_classes, multiclass, ignore_index
     )
+    ids = None
+    if reduce in ("micro", "macro") and mdmc_reduce in (None, "global") and _takes_class_ids(
+        preds, target, case, top_k, multiclass
+    ):
+        num_classes, stats = _class_count(preds, target, num_classes, stats)
+        if _pair_histogram_pays(num_classes, target.numel()):
+            # a label outside [0, C) takes the spare id C: the one-hot leaves it out of every class
+            ids = _class_id_form(preds, target, num_classes, stats, outside=num_classes)
+    if ids is None:
+        preds, target, _ = _canonical_form(preds, target, case, threshold, top_k, num_classes, multiclass, stats)
 
-    if ignore_index is not None and ignore_index >= preds.shape[1]:
-        raise ValueError(f"The `ignore_index` {ignore_index} is not valid for inputs with {preds.shape[1]} classes")
-    if ignore_index is not None and preds.shape[1] == 1:
-        raise ValueError("You can not use `ignore_index` with binary data.")
+    if ignore_index is not None:
+        n_cls = preds.shape[1] if ids is None else ids.num_classes
+        if ignore_index >= n_cls:
+            raise ValueError(f"The `ignore_index` {ignore_index} is not valid for inputs with {n_cls} classes")
+        if n_cls == 1:
+            raise ValueError("You can not use `ignore_index` with binary data.")
 
-    with _telemetry.trace_range("stat-scores"):
-        if preds.ndim == 3:
-            if not mdmc_reduce:
-                raise ValueError(
-                    "When your inputs are multi-dimensional multi-class, you have to set the `mdmc_reduce` parameter"
-                )
-            if mdmc_reduce == "global":
-                # (N, C, X) -> (N*X, C); the position mask flattens alongside
-                n_cls = preds.shape[1]
-                preds = preds.movedim(1, 2).reshape(-1, n_cls)
-                target = target.movedim(1, 2).reshape(-1, n_cls)
-                if sample_mask is not None:
-                    sample_mask = sample_mask.reshape(-1)
-
-        class_mask = None
-        if ignore_index is not None and ignore_index >= 0 and reduce != "macro":
-            class_mask = torch.ones(preds.shape[1], dtype=torch.bool, device=preds.device)
-            class_mask[ignore_index] = False
-
-        tp, fp, tn, fn = _stat_scores(preds, target, reduce=reduce, class_mask=class_mask, sample_mask=sample_mask)
+    if ids is None:
+        tp, fp, tn, fn = _stat_scores_onehot(preds, target, reduce, mdmc_reduce, ignore_index, sample_mask)
+    else:
+        if ids.preds.ndim == 2 and not mdmc_reduce:
+            raise ValueError(
+                "When your inputs are multi-dimensional multi-class, you have to set the `mdmc_reduce` parameter"
+            )
+        with _telemetry.trace_range("stat-scores"):
+            ignored_class = ignore_index if ignore_index is not None and ignore_index >= 0 else None
+            tp, fp, tn, fn = _stat_scores_from_ids(ids, reduce, ignored_class, sample_mask)
 
     if ignore_index is not None and ignore_index >= 0 and reduce == "macro":
         # flag the ignored class with -1 so downstream reduces skip it (reference `:186-191`)
@@ -132,6 +191,37 @@ def _stat_scores_update(
             x[..., ignore_index] = -1
 
     return tp, fp, tn, fn
+
+
+@_telemetry.ranged("stat-scores")
+def _stat_scores_onehot(
+    preds: Tensor,
+    target: Tensor,
+    reduce: Optional[str],
+    mdmc_reduce: Optional[str],
+    ignore_index: Optional[int],
+    sample_mask: Optional[Tensor],
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """tp/fp/tn/fn from the one-hot form ``(N, C)`` / ``(N, C, X)`` of both sides."""
+    if preds.ndim == 3:
+        if not mdmc_reduce:
+            raise ValueError(
+                "When your inputs are multi-dimensional multi-class, you have to set the `mdmc_reduce` parameter"
+            )
+        if mdmc_reduce == "global":
+            # (N, C, X) -> (N*X, C); the position mask flattens alongside
+            n_cls = preds.shape[1]
+            preds = preds.movedim(1, 2).reshape(-1, n_cls)
+            target = target.movedim(1, 2).reshape(-1, n_cls)
+            if sample_mask is not None:
+                sample_mask = sample_mask.reshape(-1)
+
+    class_mask = None
+    if ignore_index is not None and ignore_index >= 0 and reduce != "macro":
+        class_mask = torch.ones(preds.shape[1], dtype=torch.bool, device=preds.device)
+        class_mask[ignore_index] = False
+
+    return _stat_scores(preds, target, reduce=reduce, class_mask=class_mask, sample_mask=sample_mask)
 
 
 def _stat_scores_compute(tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor) -> Tensor:
@@ -223,4 +313,12 @@ def stat_scores(
     return _stat_scores_compute(tp, fp, tn, fn)
 
 
-__all__ = ["stat_scores", "_stat_scores", "_stat_scores_update", "_stat_scores_compute", "_reduce_stat_scores"]
+__all__ = [
+    "stat_scores",
+    "_stat_scores",
+    "_stat_scores_from_ids",
+    "_stat_scores_onehot",
+    "_stat_scores_update",
+    "_stat_scores_compute",
+    "_reduce_stat_scores",
+]

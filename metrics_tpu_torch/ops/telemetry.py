@@ -242,9 +242,11 @@ RANGE_SITES = {
     "validate": "the classification input checks: the case, the shapes and the value checks",
     "host-read": "one blocking read of the card's values on the host (detail: what is read)",
     # classification functional and kernels
-    "canonicalize": "the one-hot or threshold of both sides, and the arg-max back to labels",
+    "canonicalize": "both sides' canonical form: the class ids of a multi-class input, or the one-hot, top-k mask or"
+                    " threshold (utils/checks.canon_stats() counts each form)",
     "counts": "a bincount by either route (utils/data._bincount)",
-    "stat-scores": "the tp/fp/tn/fn products and sums of the stat-scores family",
+    "stat-scores": "the stat-scores family's tp/fp/tn/fn: from the class-pair histogram (its bincount inside), or the"
+                   " one-hot's products and sums",
     "calibration-bins": "CalibrationError's per-bin counts and confidence sums",
     # curves and kernels
     "state-cat": "the buffered rows concatenated at compute",
@@ -752,6 +754,7 @@ def snapshot() -> Dict[str, Any]:
     ``cached``, ``deferred_*``, ``device_probes``, ``program_analyses``), the
     program ledger's summary (``programs``), the fault counters and
     ``failure_log``, the collective counters, the journal counters, the recorder counters, the
+    canonicalizations by form (``perf_canon_class_ids``, ``perf_canon_onehot``; the port's own), the
     monotonic step, a ``sync_health`` block, the sync phase statistics, the
     latency histograms and the SLO violations. Scrape this, or its
     :func:`prometheus_text` rendering.
@@ -768,10 +771,12 @@ def snapshot() -> Dict[str, Any]:
     """
     from metrics_tpu_torch.ops import engine as _engine
     from metrics_tpu_torch.parallel import sync as _psync
+    from metrics_tpu_torch.utils import checks as _checks
 
     _flush_env_warnings()
     out: Dict[str, Any] = {"snapshot_schema": 1}
     out.update(_engine.engine_stats())  # the engine's, fault, collective and journal counters
+    out.update(_checks.canon_stats())  # the port's own: canonicalizations by form
     out.update(telemetry_stats())
     out["monotonic_step"] = _step_provider()
     out["programs"] = _engine.program_summary()

@@ -6,7 +6,13 @@ JAX counterpart: `metrics_tpu/utils/checks.py` (validation modes `:69-240`,
 
 Inputs are classified into one of four :class:`DataType` cases and converted
 to canonical binary int32 tensors of shape ``(N, C)`` (or ``(N, C, X)`` for
-multi-dim multi-class) by thresholding, one-hot or top-k selection.
+multi-dim multi-class) by thresholding, one-hot or top-k selection
+(:func:`_input_format_classification`). Multi-class inputs whose consumer
+needs no more than each position's class have a second canonical form: after
+the same validation (:func:`_validated_classification`), the class id of each
+side (:func:`_class_id_form`, the arg-max of the one-hot), so that the counts
+come from one pair histogram and no one-hot is built. The consumer chooses the
+form. ``canon_stats()`` counts the updates of each form.
 
 Shape and dtype checks always run. Checks that read data values (label
 ranges, probability bounds) cost one device-to-host copy on the card, so they
@@ -23,7 +29,7 @@ eager update of the same shapes is still checked.
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +51,31 @@ _SEEN_KEYS_CAP = 4096
 # so "first"-mode memory is kept per metric instance
 _check_owner = None
 _cache_generation = 0  # bumped by set_validation_mode to invalidate per-instance memory
+# canonicalizations by form: class ids, or a one-hot (or top-k) mask of the classes
+_forms: Dict[str, int] = {"perf_canon_class_ids": 0, "perf_canon_onehot": 0}
+# float32 holds every integer up to 2**24 exactly: a range read tells whether labels lie in [0, C) only below it
+_EXACT_F32 = 2**24
+
+
+def canon_stats() -> Dict[str, int]:
+    """Canonicalizations since the last reset, by form: ``perf_canon_class_ids`` (the
+    class ids of :func:`_class_id_form`) and ``perf_canon_onehot`` (a one-hot
+    or top-k mask of the classes).
+
+    Example:
+        >>> from metrics_tpu_torch.utils.checks import canon_stats
+        >>> sorted(canon_stats())
+        ['perf_canon_class_ids', 'perf_canon_onehot']
+    """
+    return dict(_forms)
+
+
+def _reset_forms() -> None:
+    for key in _forms:
+        _forms[key] = 0
+
+
+_telemetry.register_reset("canonical-forms", _reset_forms)
 
 
 def _is_concrete(*tensors) -> bool:
@@ -149,6 +180,12 @@ class _ValueStats:
         if _is_concrete(p):
             vals[2:] = torch.stack([p.min().float(), p.max().float()]).cpu().numpy()
         return vals
+
+    def known(self) -> Optional[np.ndarray]:
+        """The four values where both sides were read from the data, else None. Reads nothing."""
+        if self._vals is None or self._vals is _BENIGN_STATS or not _is_concrete(self._preds, self._target):
+            return None
+        return self._vals
 
     @property
     def target_min(self) -> float:
@@ -372,23 +409,11 @@ def _classification_case(preds, target, threshold: float = 0.5) -> DataType:
     )
 
 
-def _input_format_classification(
-    preds,
-    target,
-    threshold: float = 0.5,
-    top_k: Optional[int] = None,
-    num_classes: Optional[int] = None,
-    multiclass: Optional[bool] = None,
-    ignore_index: Optional[int] = None,
-) -> Tuple[Tensor, Tensor, DataType]:
-    """Canonicalise ``(preds, target)`` to int32 binary tensors ``(N, C)`` / ``(N, C, X)``.
-
-    Same contract as reference ``_input_format_classification``
-    (`utilities/checks.py:313-454`): binary -> ``(N, 1)`` thresholded;
-    multi-class -> one-hot/top-k ``(N, C)``; multi-label -> thresholded
-    ``(N, C)`` (extra dims flattened); multi-dim multi-class -> ``(N, C, X)``.
-    The ``multiclass`` flag force-converts between views.
-    """
+def _validated_classification(
+    preds, target, threshold: float, top_k: Optional[int], num_classes: Optional[int],
+    multiclass: Optional[bool], ignore_index: Optional[int],
+) -> Tuple[Tensor, Tensor, DataType, _ValueStats]:
+    """The inputs as tensors, their excess dims squeezed, checked: ``(preds, target, case, stats)``."""
     preds = torch.as_tensor(preds)
     target = torch.as_tensor(target, device=preds.device)
     preds, target = _squeeze_excess_dims(preds, target)
@@ -406,7 +431,113 @@ def _input_format_classification(
         ignore_index=ignore_index,
         stats=stats,
     )
+    return preds, target, case, stats
+
+
+def _input_format_classification(
+    preds,
+    target,
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, DataType]:
+    """Canonicalise ``(preds, target)`` to int32 binary tensors ``(N, C)`` / ``(N, C, X)``.
+
+    Same contract as reference ``_input_format_classification``
+    (`utilities/checks.py:313-454`): binary -> ``(N, 1)`` thresholded;
+    multi-class -> one-hot/top-k ``(N, C)``; multi-label -> thresholded
+    ``(N, C)`` (extra dims flattened); multi-dim multi-class -> ``(N, C, X)``.
+    The ``multiclass`` flag force-converts between views.
+    """
+    preds, target, case, stats = _validated_classification(
+        preds, target, threshold, top_k, num_classes, multiclass, ignore_index
+    )
     return _canonical_form(preds, target, case, threshold, top_k, num_classes, multiclass, stats)
+
+
+class ClassIds(NamedTuple):
+    """Both sides of a multi-class input as the class ids of its one-hot form.
+
+    ``preds`` and ``target`` are int64, ``(N,)`` where the one-hot form is
+    ``(N, C)`` and ``(N, X)`` where it is ``(N, C, X)``: the one-hot's arg-max
+    along C. ``num_classes`` is the one-hot's width C. A label outside
+    ``[0, C)``, whose one-hot column is all zero, takes the id the caller
+    chose (``outside``).
+    """
+
+    preds: Tensor
+    target: Tensor
+    num_classes: int
+
+
+def _takes_class_ids(
+    preds: Tensor, target: Tensor, case: DataType, top_k: Optional[int] = None, multiclass: Optional[bool] = None
+) -> bool:
+    """Whether validated inputs have a class-id form (:func:`_class_id_form`) that stands for their one-hot:
+    a multi-class or multi-dim multi-class batch that is not empty, ``top_k`` None or 1, ``multiclass`` not
+    False. Reads nothing."""
+    return (
+        case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS)
+        and top_k in (None, 1)
+        and multiclass is not False
+        and not _check_for_empty(preds, target)
+    )
+
+
+def _class_count(
+    preds: Tensor, target: Tensor, num_classes: Optional[int], stats: _ValueStats
+) -> Tuple[int, _ValueStats]:
+    """The one-hot width C of multi-class inputs: the scores' channels, else ``num_classes`` or one above the
+    largest label (read on the host), at least 2; and the stats that hold the values read."""
+    if preds.is_floating_point():
+        return preds.shape[1], stats
+    if num_classes is None:
+        if not _is_concrete(preds, target):
+            raise ValueError(
+                "`num_classes` must be given explicitly for label inputs under a transform"
+                " (vmap, a CUDA graph capture): the class count defines the output shape."
+            )
+        # inference, not validation: needs the real values
+        stats = stats if stats.is_real else _ValueStats(preds, target, force=True)
+        num_classes = int(max(stats.preds_max, stats.target_max) + 1)
+    return max(2, num_classes), stats
+
+
+@_telemetry.ranged("canonicalize")
+def _class_id_form(
+    preds: Tensor,
+    target: Tensor,
+    n_cls: int,
+    stats: _ValueStats,
+    outside: int,
+) -> ClassIds:
+    """The class ids of validated inputs that :func:`_takes_class_ids`, of ``n_cls`` classes (:func:`_class_count`).
+
+    Float scores give their arg-max (``select_topk(preds, 1)``'s index, so ties and NaN
+    resolve alike); labels stay as they are. A side is mapped into ``[0, C)`` and
+    ``outside`` only where the range read of the validation does not already show it
+    there, so a validated update adds no pass over the labels.
+    """
+    _forms["perf_canon_class_ids"] += 1
+    n = target.shape[0]
+    scores = preds.is_floating_point()
+    if scores:
+        preds = preds.argmax(dim=1)
+    vals = stats.known() if n_cls <= _EXACT_F32 else None
+
+    def into_classes(x: Tensor, shown: bool) -> Tensor:
+        x = x.to(torch.int64)
+        return x if shown else torch.where((x >= 0) & (x < n_cls), x, outside)
+
+    preds = into_classes(preds, scores or (vals is not None and vals[2] >= 0 and vals[3] < n_cls))
+    target = into_classes(target, vals is not None and vals[0] >= 0 and vals[1] < n_cls)
+    # the one-hot form's layout: (N, C, X), its last dim squeezed where X is 1
+    preds, target = preds.reshape(n, -1), target.reshape(n, -1)
+    if preds.shape[1] == 1:
+        preds, target = preds[:, 0], target[:, 0]
+    return ClassIds(preds, target, n_cls)
 
 
 @_telemetry.ranged("canonicalize")
@@ -426,23 +557,17 @@ def _canonical_form(
         num_classes = num_classes if not multiclass else 2
 
     if case == DataType.MULTILABEL and top_k:
+        _forms["perf_canon_onehot"] += 1
         preds = select_topk(preds, top_k)
 
     if case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) or multiclass:
+        _forms["perf_canon_onehot"] += 1
         if preds.is_floating_point():
             num_classes = preds.shape[1]
             preds = select_topk(preds, top_k or 1)
         else:
-            if num_classes is None:
-                if not _is_concrete(preds, target):
-                    raise ValueError(
-                        "`num_classes` must be given explicitly for label inputs under a transform"
-                        " (vmap, a CUDA graph capture): the class count defines the output shape."
-                    )
-                # inference, not validation: needs the real values
-                real = stats if stats.is_real else _ValueStats(preds, target, force=True)
-                num_classes = int(max(real.preds_max, real.target_max) + 1)
-            preds = to_onehot(preds, max(2, num_classes))
+            num_classes, _ = _class_count(preds, target, num_classes, stats)
+            preds = to_onehot(preds, num_classes)
         target = to_onehot(target, max(2, int(num_classes) if num_classes else 2))
 
         if multiclass is False:
@@ -560,5 +685,6 @@ __all__ = [
     "_classification_case",
     "_input_format_classification",
     "_input_squeeze",
+    "canon_stats",
     "set_validation_mode",
 ]

@@ -216,7 +216,8 @@ def _agreement_suite(pkg, num_classes=C):
 
 def test_agreement_suite_matches_jax_and_groups_the_confusion_matrices(monkeypatch):
     """kappa, mcc and jaccard share one compute group: after the first update, which
-    updates every member to find the groups, one bincount serves all three."""
+    updates every member to find the groups, one bincount serves all three, and
+    specificity's class-pair histogram is the other."""
     from metrics_tpu_torch.utils import data
 
     calls = []
@@ -230,7 +231,7 @@ def test_agreement_suite_matches_jax_and_groups_the_confusion_matrices(monkeypat
         ts.update(torch.from_numpy(preds), torch.from_numpy(target))
         engine.flush_barrier([ts])  # an update deferred by the engine launches at its flush
         per_update.append(len(calls) - before)
-    assert per_update == [3] + [1] * (STEPS - 1)
+    assert per_update == [4] + [2] * (STEPS - 1)
     assert ts.compute_groups == js.compute_groups
     groups = sorted(sorted(g) for g in ts.compute_groups.values())
     assert groups == [["hamming"], ["jaccard", "kappa", "mcc"], ["specificity"]]

@@ -7,6 +7,8 @@ agree within atol=1e-6. Also: ``high_precision``, the state that
 ``JaccardIndex.compute`` must leave alone, and states carried across from
 the JAX package with ``load_reference_state``.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,16 @@ from metrics_tpu_torch.interop import load_reference_state
 from metrics_tpu_torch.utils import checks as torch_checks
 from metrics_tpu_torch.utils.compute import high_precision
 from tests.test_torch_classification import C, assert_same, make_inputs, run_both
+from tests.test_torch_statscores_family import (  # noqa: F401 - onehot_only is a fixture
+    ID_KINDS,
+    IDS_C,
+    VMAP_K,
+    _forms_after,
+    _same_as_reference,
+    _same_state,
+    make_id_inputs,
+    onehot_only,
+)
 
 
 @pytest.fixture(autouse=True)
@@ -179,6 +191,73 @@ def test_load_reference_state(cls_name, kwargs):
     tm = getattr(tmt, cls_name)(device="cpu", **kwargs)
     load_reference_state(tm, {k: np.asarray(v) for k, v in jm.metric_state.items()}, update_count=2)
     assert_same(jm.compute(), tm.compute())
+
+
+# ------------------------------------------- class ids against the one-hot
+CONFUSION_MATRIX = importlib.import_module("metrics_tpu_torch.functional.classification.confusion_matrix")
+
+
+@pytest.mark.parametrize("multilabel", [False, True])
+@pytest.mark.parametrize("kind", ID_KINDS + ["few_probs", "binary", "multilabel"])
+def test_class_ids_equal_the_onehot_and_the_reference(kind, multilabel, onehot_only):
+    """The confusion matrix of multi-class inputs from their class ids, with no one-hot: equal, bit for bit, to
+    the one-hot's arg-max route and to the JAX package, whatever the batch's size (``few_probs``: 4 positions
+    of 5 classes). Binary and multi-label inputs take neither form."""
+    if kind in ("binary", "multilabel"):
+        preds, target = make_inputs(kind, seed=605)
+    elif kind == "few_probs":
+        preds, target = make_id_inputs("probs", seed=605)
+        preds, target = preds[:4], target[:4]
+    else:
+        preds, target = make_id_inputs(kind, seed=605)
+    if kind == "outside":  # labels outside the classes pass only with the value checks off
+        jax_checks.set_validation_mode("off")
+        torch_checks.set_validation_mode("off")
+    # multilabel=True on a multi-class input keeps the labels' shape: its broadcast check raises as in JAX
+    num_classes = 2 if kind == "binary" else (C if kind == "multilabel" else IDS_C)
+    kwargs = dict(num_classes=num_classes, multilabel=multilabel)
+    ids, ids_forms = _forms_after(tF.confusion_matrix, torch.from_numpy(preds), torch.from_numpy(target), **kwargs)
+    onehot_only(CONFUSION_MATRIX)
+    onehot, onehot_forms = _forms_after(tF.confusion_matrix, torch.from_numpy(preds), torch.from_numpy(target),
+                                        **kwargs)
+    _same_state(ids, onehot)
+    _same_as_reference(jF.confusion_matrix, ids, (preds, target), **kwargs)
+    assert onehot_forms["perf_canon_class_ids"] == 0
+    if kind in ("binary", "multilabel"):
+        assert ids_forms == onehot_forms == {"perf_canon_class_ids": 0, "perf_canon_onehot": 0}
+    elif kind == "empty":
+        assert ids_forms == {"perf_canon_class_ids": 0, "perf_canon_onehot": 1}
+    else:
+        assert ids_forms == {"perf_canon_class_ids": 1, "perf_canon_onehot": 0}
+
+
+@pytest.mark.parametrize("cls_name,kind", [("JaccardIndex", "probs_hw"), ("ConfusionMatrix", "labels"),
+                                           ("MatthewsCorrCoef", "outside")])
+def test_class_ids_under_vmap_equal_the_onehot_and_the_reference(cls_name, kind, onehot_only):
+    """A batch of confusion matrices updated under ``torch.func.vmap`` (as the tenant planes stack them): the
+    class ids through the bincount's batched rule, against the one-hot route vmapped and JAX's ``jax.vmap``."""
+    import jax
+
+    batches = [[make_id_inputs(kind, seed=620 + 10 * s + r) for r in range(VMAP_K)] for s in range(2)]
+    cols = [[np.stack([b[i] for b in step]) for i in range(2)] for step in batches]
+
+    def run_port():
+        tm = getattr(tmt, cls_name)(num_classes=IDS_C, device="cpu")
+        st = tmt.stack_states([tm.init() for _ in range(VMAP_K)])
+        for p, t in cols:
+            st = torch.func.vmap(lambda s, a, b: tm.apply_update(s, a, b))(st, torch.from_numpy(p), torch.from_numpy(t))
+        return st.states["confmat"]
+
+    ids, ids_forms = _forms_after(run_port)
+    onehot_only(CONFUSION_MATRIX)
+    onehot = run_port()
+    jm = getattr(jmt, cls_name)(num_classes=IDS_C)
+    js = jax.tree.map(lambda x: jnp.stack([x] * VMAP_K), jm.init())
+    for p, t in cols:
+        js = jax.vmap(lambda s, a, b: jm.apply_update(s, a, b))(js, jnp.asarray(p), jnp.asarray(t))
+    assert ids_forms == {"perf_canon_class_ids": 2, "perf_canon_onehot": 0}
+    _same_state(ids, onehot)
+    assert_same(js.states["confmat"], ids)
 
 
 # ------------------------------------------------------------ high_precision

@@ -3,7 +3,9 @@ its plain PyTorch version on both of its paths (shared-memory and global), at
 the shared-memory threshold, with hot bins and on memory full of junk; the
 wrapper's checks and one launch per call; a small suite on the card
 against the same suite on the CPU; each metric of the confusion-matrix and
-stat-score families and each aggregator on the card against the CPU; and
+stat-score families and each aggregator on the card against the CPU; the
+segmentation suite's states from the class ids equal to the one-hot's at
+Cityscapes shape, one bincount launch a member's update; and
 Cohen's kappa at C=1000 with counts above 2048 under TF32 matmul settings;
 each curve metric (the exact curves, AUROC, AveragePrecision,
 CalibrationError, the binned family) on the card against the CPU, the
@@ -195,7 +197,7 @@ def test_suite_on_the_card_equals_the_cpu(dev):
         target = torch.randint(0, 10, (256,), generator=g, device=dev)
         gpu.update(probs, target)
         cpu.update(probs.cpu(), target.cpu())
-    assert histogram.KERNEL_LAUNCHES == before + 3
+    assert histogram.KERNEL_LAUNCHES == before + 9  # each member one bincount an update (its class pairs)
     got, want = gpu.compute(), cpu.compute()
     assert torch.equal(got["confmat"].cpu(), want["confmat"])
     for key in ("acc", "f1"):
@@ -243,9 +245,60 @@ def test_family_on_the_card_equals_the_cpu(dev, cls_name, kwargs):
     for preds, target in _batches(dev, 10):
         gpu.update(preds, target)
         cpu.update(preds.cpu(), target.cpu())
-    confmat_metric = cls_name in ("CohenKappa", "MatthewsCorrCoef", "JaccardIndex")
-    assert histogram.KERNEL_LAUNCHES - before == (3 if confmat_metric else 0)  # one bincount per update
+    # one bincount per update: the confusion matrix's pairs, or the stat scores' class pairs; Hamming one-hots
+    assert histogram.KERNEL_LAUNCHES - before == (0 if cls_name == "HammingDistance" else 3)
     _assert_equal_to_cpu(gpu, cpu)
+
+
+@pytest.mark.parametrize("mix", ["softmax-b2", "labels-b8"])
+def test_seg_states_from_class_ids_equal_the_onehot_on_the_card(dev, mix, monkeypatch):
+    """One batch of each segmentation mix at Cityscapes shape (2 float32 softmax maps of 19 classes, or 8 int64
+    label maps, 1024 x 2048): the JaccardIndex and Dice states from the class ids equal the one-hot path's bit
+    for bit, and each member's update is one bincount launch."""
+    import importlib
+
+    from metrics_tpu_torch.utils import checks
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    if mix == "softmax-b2":
+        preds = torch.softmax(torch.randn((2, 19, 1024, 2048), generator=g, device=dev), dim=1)
+        target = torch.randint(0, 19, (2, 1024, 2048), generator=g, device=dev)
+    else:
+        preds = torch.randint(0, 19, (8, 1024, 2048), generator=g, device=dev)
+        target = torch.where(torch.rand(preds.shape, generator=g, device=dev) < 0.9, preds,
+                             torch.randint(0, 19, preds.shape, generator=g, device=dev))
+
+    def update():
+        members = {"miou": mt.JaccardIndex(num_classes=19, device=dev),
+                   "dice": mt.Dice(num_classes=19, average="macro", mdmc_average="global", device=dev)}
+        launches = {}
+        for name, metric in members.items():
+            before = histogram.KERNEL_LAUNCHES
+            metric.update(preds, target)
+            launches[name] = histogram.KERNEL_LAUNCHES - before
+        torch.cuda.synchronize()
+        return members, launches
+
+    prev = checks._get_validation_mode()
+    checks.set_validation_mode("full")
+    try:
+        before = checks.canon_stats()
+        ids, ids_launches = update()
+        after = checks.canon_stats()
+        assert ids_launches == {"miou": 1, "dice": 1}
+        assert {k: after[k] - before[k] for k in after} == {"perf_canon_class_ids": 2, "perf_canon_onehot": 0}
+        for name in ("stat_scores", "confusion_matrix"):  # the one-hot path, as inputs the ids do not take go
+            module = importlib.import_module(f"metrics_tpu_torch.functional.classification.{name}")
+            monkeypatch.setattr(module, "_takes_class_ids", lambda *a, **k: False)
+        onehot, onehot_launches = update()
+        assert onehot_launches == {"miou": 1, "dice": 0}
+    finally:
+        checks.set_validation_mode(prev)
+    for name, metric in ids.items():
+        for state, value in metric.metric_state.items():
+            want = onehot[name].metric_state[state]
+            assert value.dtype == want.dtype == torch.int32 and torch.equal(value, want), (name, state)
+    assert int(ids["miou"].confmat.sum()) == target.numel()
 
 
 @pytest.mark.parametrize("nan_strategy", ["error", "warn", "ignore", 0.5], ids=str)
@@ -1111,14 +1164,15 @@ def test_engine_ways_on_the_card_equal_the_per_call_path(first_mode, way):
         before = histogram.KERNEL_LAUNCHES
         suite.update_many(*stacked)  # the step program
         engine.flush_barrier([suite])
-        assert histogram.KERNEL_LAUNCHES - before == len(rest) and launched == len(rest)
+        # one bincount a compute group a step: acc, f1 with precision, confmat
+        assert histogram.KERNEL_LAUNCHES - before == 3 * len(rest) and launched == 3 * len(rest)
     elif way == "deferred":
         for p, t in batches[1:]:
             suite.update(p, t)
         assert suite._defer_pending is not None
         assert histogram.KERNEL_LAUNCHES == before  # nothing launched yet
         engine.flush_barrier([suite])
-        assert histogram.KERNEL_LAUNCHES - before == len(batches) - 1
+        assert histogram.KERNEL_LAUNCHES - before == 3 * (len(batches) - 1)
     else:
         got = [suite(p, t) for p, t in batches]
         assert isinstance(got[1]["acc"], engine.LazyValue)
@@ -1126,7 +1180,7 @@ def test_engine_ways_on_the_card_equal_the_per_call_path(first_mode, way):
             for k in w:
                 value = g[k]._force() if isinstance(g[k], engine.LazyValue) else g[k]
                 assert value.device.type == "cuda" and torch.equal(value, w[k])
-        assert histogram.KERNEL_LAUNCHES - before == len(batches)
+        assert histogram.KERNEL_LAUNCHES - before == 4 * len(batches)  # a forward updates each member
     mine, theirs = _engine_states(suite), _engine_states(ref)
     assert mine.keys() == theirs.keys()
     for key, value in theirs.items():

@@ -7,6 +7,8 @@ the Hamming counts must match exactly and stay int32; values agree within
 atol=1e-6. Where the JAX package refuses a configuration, the port raises the
 same exception type.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -190,3 +192,173 @@ def test_hamming_states_stay_int32(kind):
     assert_same(jm.correct, tm.correct)
     assert_same(jm.total, tm.total)
     assert_same(jm.compute(), tm.compute())
+
+
+# ------------------------------------------- class ids against the one-hot
+# Multi-class updates reduced over every position take the class ids and one pair histogram; every other
+# update the one-hot. Each case runs an update both ways (the one-hot forced by replacing the module's
+# ``_takes_class_ids``) and against the JAX package: the states must be equal, bit for bit and int32.
+IDS_N, IDS_C, IDS_H, IDS_W = 24, 5, 3, 4
+STAT_SCORES = importlib.import_module("metrics_tpu_torch.functional.classification.stat_scores")
+
+
+def make_id_inputs(kind, seed):
+    """Multi-class inputs of the class-id path: scores or labels, flat or ``(H, W)`` maps, tied scores, labels
+    outside ``[0, C)``, an empty batch."""
+    rng = np.random.RandomState(seed)
+    n, c, hw = IDS_N, IDS_C, (IDS_H, IDS_W)
+    if kind == "probs":
+        return _softmax(rng.randn(n, c)), rng.randint(0, c, n)
+    if kind == "probs_hw":
+        return _softmax(rng.randn(n, c, *hw).swapaxes(1, -1)).swapaxes(1, -1).copy(), rng.randint(0, c, (n, *hw))
+    if kind == "labels":
+        return rng.randint(0, c, n), rng.randint(0, c, n)
+    if kind == "labels_hw":
+        return rng.randint(0, c, (n, *hw)), rng.randint(0, c, (n, *hw))
+    if kind == "ties":  # scores from {0, 0.5}: most rows tie, some rows are all zero
+        return (0.5 * rng.randint(0, 2, (n, c))).astype(np.float32), rng.randint(0, c, n)
+    if kind == "outside":  # labels at -2 and at C on both sides: their one-hot columns are all zero
+        preds, target = rng.randint(-2, c + 1, n), rng.randint(-2, c + 1, n)
+        return preds, target
+    if kind == "empty":
+        return np.zeros((0, c), np.float32), np.zeros((0,), np.int64)
+    raise ValueError(kind)
+
+
+ID_KINDS = ["probs", "probs_hw", "labels", "labels_hw", "ties", "outside", "empty"]
+
+
+@pytest.fixture
+def onehot_only(monkeypatch):
+    """Force a module's update onto the one-hot path, as the inputs that the class ids do not take go."""
+
+    def force(module):
+        monkeypatch.setattr(module, "_takes_class_ids", lambda *a, **k: False)
+
+    return force
+
+
+def _forms_after(fn, *args, **kwargs):
+    """``fn``'s result or exception type, and the canonicalizations by form it made."""
+    before = torch_checks.canon_stats()
+    try:
+        out = fn(*args, **kwargs)
+    except (ValueError, RuntimeError, TypeError) as err:
+        out = type(err)
+    after = torch_checks.canon_stats()
+    return out, {k: after[k] - before[k] for k in after}
+
+
+def _same_as_reference(jax_fn, got, arrays, **kwargs):
+    """The JAX package's result on the same arrays equals ``got``, or it raises the exception type ``got`` is."""
+    try:
+        expected = jax_fn(*[jnp.asarray(a) for a in arrays], **kwargs)
+    except (ValueError, RuntimeError, TypeError) as err:
+        assert got is type(err)
+        return
+    assert_same(expected, got)
+
+
+def _same_state(a, b):
+    if isinstance(a, type) or isinstance(b, type):
+        assert a is b
+        return
+    assert a.dtype == b.dtype == torch.int32 and a.shape == b.shape
+    assert torch.equal(a, b)
+
+
+# an empty batch with a negative ignore_index fails in both packages before either form (the mask's reshape)
+ID_CASES = [(k, i) for k in ID_KINDS for i in (None, 2, -1) if not (k == "empty" and i == -1)]
+
+
+@pytest.mark.parametrize("mdmc_reduce", [None, "global"])
+@pytest.mark.parametrize("reduce", ["micro", "macro"])
+@pytest.mark.parametrize("kind,ignore_index", ID_CASES)
+def test_class_ids_equal_the_onehot_and_the_reference(kind, reduce, mdmc_reduce, ignore_index, onehot_only):
+    preds, target = make_id_inputs(kind, seed=601)
+    if ignore_index == -1 and len(target):
+        target = target.copy()
+        target[::5] = -1
+    if kind == "outside":  # labels outside the classes pass only with the value checks off
+        jax_checks.set_validation_mode("off")
+        torch_checks.set_validation_mode("off")
+    # an empty batch implies no class, which num_classes would not match
+    num_classes = None if kind == "empty" else IDS_C
+    kwargs = dict(reduce=reduce, mdmc_reduce=mdmc_reduce, num_classes=num_classes, ignore_index=ignore_index)
+    ids, ids_forms = _forms_after(tF.stat_scores, torch.from_numpy(preds), torch.from_numpy(target), **kwargs)
+    onehot_only(STAT_SCORES)
+    onehot, onehot_forms = _forms_after(tF.stat_scores, torch.from_numpy(preds), torch.from_numpy(target), **kwargs)
+    _same_state(ids, onehot)
+    _same_as_reference(jF.stat_scores, ids, (preds, target), **kwargs)
+    assert onehot_forms["perf_canon_class_ids"] == 0
+    if kind == "empty":  # no position: the one-hot form, as before (macro refuses a missing num_classes first)
+        assert ids_forms == {"perf_canon_class_ids": 0, "perf_canon_onehot": int(reduce == "micro")}
+    else:
+        assert ids_forms == {"perf_canon_class_ids": 1, "perf_canon_onehot": 0}
+
+
+FALLBACKS = {
+    "top_k_2": (tF.stat_scores, jF.stat_scores, "probs", dict(reduce="macro", num_classes=IDS_C, top_k=2)),
+    "multiclass_false": (tF.stat_scores, jF.stat_scores, "two_probs", dict(reduce="micro", multiclass=False)),
+    "samples": (tF.stat_scores, jF.stat_scores, "probs", dict(reduce="samples", num_classes=IDS_C)),
+    "samplewise": (tF.stat_scores, jF.stat_scores, "probs_hw",
+                   dict(reduce="macro", num_classes=IDS_C, mdmc_reduce="samplewise")),
+    "hamming": (tF.hamming_distance, jF.hamming_distance, "probs", dict()),
+    # 4 positions of 5 classes: the (C + 1)**2 pair bins outnumber the one-hot's entries
+    "few_positions": (tF.stat_scores, jF.stat_scores, "few_probs", dict(reduce="macro", num_classes=IDS_C)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FALLBACKS))
+def test_what_the_class_ids_cannot_express_takes_the_onehot(name):
+    torch_fn, jax_fn, kind, kwargs = FALLBACKS[name]
+    if kind == "two_probs":
+        preds, target = _softmax(np.random.RandomState(603).randn(IDS_N, 2)), np.arange(IDS_N) % 2
+    elif kind == "few_probs":
+        preds, target = make_id_inputs("probs", seed=603)
+        preds, target = preds[:4], target[:4]
+    else:
+        preds, target = make_id_inputs(kind, seed=603)
+    _, forms = _forms_after(run_both, jax_fn, torch_fn, (preds, target), **kwargs)
+    assert forms == {"perf_canon_class_ids": 0, "perf_canon_onehot": 1}
+
+
+VMAP_K = 3
+
+
+@pytest.mark.parametrize("cls_name,kwargs,kind", [
+    ("Dice", dict(num_classes=IDS_C, average="macro", mdmc_average="global"), "probs_hw"),
+    ("StatScores", dict(reduce="micro", num_classes=IDS_C, ignore_index=1), "labels"),
+    ("Precision", dict(num_classes=IDS_C, average="macro", ignore_index=-1), "probs"),
+])
+def test_class_ids_under_vmap_equal_the_onehot_and_the_reference(cls_name, kwargs, kind, onehot_only):
+    """A batch of states updated under ``torch.func.vmap``: the pair histogram through the bincount's batched
+    rule, against the one-hot path vmapped the same way and JAX's ``jax.vmap``."""
+    import jax
+
+    batches = [[make_id_inputs(kind, seed=610 + 10 * s + r) for r in range(VMAP_K)] for s in range(2)]
+    if kwargs.get("ignore_index") == -1:
+        for step in batches:
+            for _, target in step:
+                target[::3] = -1
+    cols = [[np.stack([b[i] for b in step]) for i in range(2)] for step in batches]
+
+    def run_port():
+        tm = getattr(tmt, cls_name)(device="cpu", **kwargs)
+        st = tmt.stack_states([tm.init() for _ in range(VMAP_K)])
+        for p, t in cols:
+            st = torch.func.vmap(lambda s, a, b: tm.apply_update(s, a, b))(st, torch.from_numpy(p), torch.from_numpy(t))
+        return st.states
+
+    ids, ids_forms = _forms_after(run_port)
+    onehot_only(STAT_SCORES)
+    onehot = run_port()
+    jm = getattr(jmt, cls_name)(**kwargs)
+    js = jax.tree.map(lambda x: jnp.stack([x] * VMAP_K), jm.init())
+    for p, t in cols:
+        js = jax.vmap(lambda s, a, b: jm.apply_update(s, a, b))(js, jnp.asarray(p), jnp.asarray(t))
+    assert ids_forms == {"perf_canon_class_ids": 2, "perf_canon_onehot": 0}
+    assert sorted(ids) == sorted(onehot) == ["fn", "fp", "tn", "tp"]
+    for name in ids:
+        _same_state(ids[name], onehot[name])
+        assert_same(js.states[name], ids[name])

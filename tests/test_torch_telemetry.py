@@ -2,7 +2,8 @@
 
 ``LatencyHistogram`` gives equal bucket counts and quantiles for the same
 durations; ``prometheus_text(d)`` and ``trace_events(rows)`` are byte-identical
-for the same dict and rows; ``snapshot()`` has the JAX snapshot's keys.
+for the same dict and rows; ``snapshot()`` has the JAX snapshot's keys, and
+the port's own (:data:`PORT_KEYS`).
 Then the recorder's contracts on the port's own planes: the sync phases and
 suite calls emit their spans, a disarmed recorder emits nothing, budgets
 count violations and warn once, the ring bounds itself and says so, resets
@@ -28,6 +29,8 @@ DIST_ON = lambda: True  # noqa: E731
 # plane is ported, so the port's snapshot has exactly the JAX snapshot's keys.
 PENDING_KEYS: dict = {}
 PENDING_PREFIXES: dict = {}
+# Keys of the port's snapshot that the JAX package has not: its canonicalizations by form (utils/checks.py).
+PORT_KEYS = {"perf_canon_class_ids", "perf_canon_onehot"}
 
 
 @pytest.fixture(autouse=True)
@@ -151,7 +154,8 @@ def test_snapshot_keys_are_the_reference_keys_less_the_pending_planes():
     _suite_activity()
     mine, ref = telemetry.snapshot(), jtelemetry.snapshot()
     pending = {k for k in ref if k in PENDING_KEYS or k.startswith(tuple(PENDING_PREFIXES))}
-    assert set(mine) == set(ref) - pending
+    assert PORT_KEYS <= set(mine) and not PORT_KEYS & set(ref)
+    assert set(mine) - PORT_KEYS == set(ref) - pending
     assert set(mine["sync_health"]) == set(ref["sync_health"])
     assert set(mine["sync_health"]["inflight"]) == set(ref["sync_health"]["inflight"])
     assert set(mine["sync_phase_stats"]) == set(ref["sync_phase_stats"])
@@ -366,6 +370,7 @@ def test_ranges_nest_under_the_profiler_and_leave_the_ring_as_it_was():
 
     assert chain("suite-step", "update:JaccardIndex", "validate", "host-read:value-stats")
     assert chain("update:Dice", "canonicalize") and chain("update:JaccardIndex", "counts")
+    assert chain("update:Dice", "stat-scores", "counts")
     assert chain("compute:AUROC", "curve-sort") and chain("compute:AveragePrecision", "curve-ties")
     assert chain("update:CalibrationError", "calibration-bins", "counts")
 

@@ -193,7 +193,8 @@ def test_headline_suite_schedule_matches_jax():
 
 
 def test_update_many_launches_the_bincount_once_a_step(monkeypatch):
-    """The headline suite's ConfusionMatrix counts each step with one bincount, chunked or not."""
+    """Each compute group of the headline suite counts each step with one bincount, chunked or not:
+    ConfusionMatrix its pairs, Accuracy and F1/Precision their class pairs."""
     from metrics_tpu_torch.utils import data
 
     calls = []
@@ -204,7 +205,8 @@ def test_update_many_launches_the_bincount_once_a_step(monkeypatch):
     suite.update(*(torch.from_numpy(a[0]) for a in _multiclass(rng, 1, 32, 8)))
     for _ in range(2):
         suite.update_many(*(torch.from_numpy(a) for a in _multiclass(rng, 5, 32, 8)))
-    assert len(calls) == 1 + 5 + 5  # the first update, then each step of both chunks (the second the program's)
+    # the first update (each of the 4 members), then each step of both chunks (the second the program's)
+    assert len(calls) == 4 + 3 * 5 + 3 * 5
 
 
 def test_chunk_errors_are_the_reference_errors():
